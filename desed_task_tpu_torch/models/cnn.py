@@ -1,0 +1,144 @@
+"""Convolutional feature extractor (counterpart of desed_task_tpu/models/cnn.py).
+
+A stack of [conv -> BatchNorm -> GLU -> avg-pool] blocks on NHWC activations
+[B, T, F, C], the blocks of every DCASE 2021-2024 recipe, in two forms over
+the same parameters:
+
+  * fused (`fused_blocks=True`): each GLU + BatchNorm + 3x3/stride-1/pad-1
+    block is one `ops.fused_cnn.fused_glu_block` call (two CUDA kernels on
+    the card), as the JAX model selects its Pallas blocks (cnn.py:279-296);
+  * unfused: the plain reference chain, conv (per-tap products), BatchNorm
+    eps 1e-3, GLU, avg-pool with floor semantics.
+
+GLU(x) = Linear(x) * sigmoid(x) (the gate is the raw input, cnn.py:29-35);
+it is not torch.nn.GLU, which splits channels. The JAX module's other
+activations (relu, leakyrelu, context gating) and its "layer" normalization
+are not ported.
+
+Eval forward only: the training paths (batch statistics, dropout) are not
+ported in this package yet, and a module in training mode raises.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops.fused_cnn import conv2d_nhwc, fused_glu_block
+
+
+def require_eval(module: nn.Module) -> None:
+    if module.training:
+        raise NotImplementedError(
+            f"{type(module).__name__}: only the eval forward is ported; call .eval()"
+        )
+
+
+class Conv2d(nn.Module):
+    """Parameters of one convolution in torch layout: weight [Co, Ci, k, k]."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def hwio(self) -> torch.Tensor:
+        """The weight as [k, k, Ci, Co] (the JAX package's layout)."""
+        return self.weight.permute(2, 3, 1, 0).contiguous()
+
+
+class BatchNorm(nn.Module):
+    """Affine parameters and running statistics of one BatchNorm (eps 1e-3)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("running_mean", torch.zeros(ch))
+        self.register_buffer("running_var", torch.ones(ch))
+
+    def forward(self, x):
+        scale = self.weight * torch.rsqrt(self.running_var + 1e-3)
+        return (x - self.running_mean) * scale + self.bias
+
+
+class GLU(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.linear = nn.Linear(ch, ch)
+
+    def forward(self, x):
+        return self.linear(x) * torch.sigmoid(x)
+
+
+def avg_pool_floor(x, pt: int, pf: int):
+    """[B, T, F, C] -> [B, T//pt, F//pf, C] (torch AvgPool2d floor semantics)."""
+    B, T, F, C = x.shape
+    To, Fo = T // pt, F // pf
+    return x[:, : To * pt, : Fo * pf].reshape(B, To, pt, Fo, pf, C).mean(dim=(2, 4))
+
+
+class CNN(nn.Module):
+    """Input [B, T, F, n_in_channel] -> [B, T', F', nb_filters[-1]]."""
+
+    def __init__(
+        self,
+        n_in_channel: int = 1,
+        activation: str = "glu",
+        conv_dropout: float = 0.0,
+        kernel_size: Sequence[int] = (3, 3, 3),
+        padding: Sequence[int] = (1, 1, 1),
+        stride: Sequence[int] = (1, 1, 1),
+        nb_filters: Sequence[int] = (64, 64, 64),
+        pooling: Sequence[Sequence[int]] = ((1, 4), (1, 4), (1, 4)),
+        normalization: str = "batch",
+        fused_blocks: bool = True,
+    ):
+        super().__init__()
+        if activation.lower() != "glu" or normalization != "batch":
+            raise NotImplementedError(
+                f"activation {activation!r} / normalization {normalization!r}: "
+                "only glu + batch is ported")
+        self.conv_dropout = conv_dropout  # training only
+        self.kernel_size = list(kernel_size)
+        self.padding = list(padding)
+        self.stride = list(stride)
+        self.pooling = [tuple(p) for p in pooling]
+        self.fused_blocks = fused_blocks
+        in_ch = n_in_channel
+        for i, out_ch in enumerate(nb_filters):
+            self.add_module(f"conv{i}", Conv2d(in_ch, out_ch, self.kernel_size[i]))
+            self.add_module(f"batchnorm{i}", BatchNorm(out_ch))
+            self.add_module(f"glu{i}", GLU(out_ch))
+            in_ch = out_ch
+        self.n_blocks = len(nb_filters)
+
+    def out_freq(self, n_freq: int) -> int:
+        """F' after the stack for an input of n_freq bins."""
+        for i in range(self.n_blocks):
+            k, s, p = self.kernel_size[i], self.stride[i], self.padding[i]
+            n_freq = ((n_freq + 2 * p - k) // s + 1) // self.pooling[i][1]
+        return n_freq
+
+    def _is_fused(self, i: int) -> bool:
+        return (self.fused_blocks and self.kernel_size[i] == 3
+                and self.stride[i] == 1 and self.padding[i] == 1)
+
+    def forward(self, x):
+        require_eval(self)
+        for i in range(self.n_blocks):
+            conv = getattr(self, f"conv{i}")
+            bn = getattr(self, f"batchnorm{i}")
+            glu = getattr(self, f"glu{i}")
+            if self._is_fused(i):
+                x, _, _ = fused_glu_block(
+                    x.contiguous(), conv.hwio(), conv.bias, bn.weight, bn.bias,
+                    bn.running_mean, bn.running_var, glu.linear.weight.t().contiguous(),
+                    glu.linear.bias, pool=self.pooling[i], train=False,
+                )
+                continue
+            x = conv2d_nhwc(x, conv.hwio(), conv.bias, self.stride[i], self.padding[i])
+            x = avg_pool_floor(glu(bn(x)), *self.pooling[i])
+        return x

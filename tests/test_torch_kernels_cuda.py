@@ -1,0 +1,128 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda
+
+They cover the edges the 2024 shapes in chip_smoke.py do not: ragged tiles
+(rows, channels and batch not multiples of the tile), pools of 3, hidden
+sizes above 1024/3 gates, dropout bits, and bad inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from desed_task_tpu_torch.ops import fused_cnn, gru
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-4  # relative to max(1, max |plain|): fp32 sums in another order
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(a, b):
+    err = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    assert err <= TOL, err
+
+
+def _rand(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen) * scale
+
+
+GEOMS = [  # (B, T, F, Ci, Co, pool)
+    (3, 13, 16, 1, 8, (2, 2)),
+    (5, 9, 6, 24, 40, (3, 2)),
+    (2, 7, 5, 128, 128, (1, 2)),
+    (1, 1, 1, 3, 70, (1, 1)),
+    (2, 11, 4, 64, 200, (2, 4)),
+]
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_conv_bn_stats_kernel(dev, geom):
+    B, T, F, Ci, Co, _ = geom
+    g = torch.Generator().manual_seed(0)
+    x = _rand(g, B, T, F, Ci).to(dev)
+    w = _rand(g, 3, 3, Ci, Co, scale=1 / np.sqrt(9 * Ci)).to(dev)
+    b = _rand(g, Co, scale=0.1).to(dev)
+    for got, want in zip(fused_cnn.conv_bn_stats(x, w, b), fused_cnn.conv_bn_stats_plain(x, w, b)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("keep", [None, 1.0, 0.5, 0.9])
+def test_glu_drop_pool_kernel(dev, geom, keep):
+    B, T, F, _, Co, pool = geom
+    g = torch.Generator().manual_seed(1)
+    y = _rand(g, B, T, F, Co).to(dev)
+    sf = (1 + _rand(g, F * Co, scale=0.1)).to(dev)
+    bf = _rand(g, F * Co, scale=0.1).to(dev)
+    wg = _rand(g, Co, Co, scale=1 / np.sqrt(Co)).to(dev)
+    bg = _rand(g, Co, scale=0.1).to(dev)
+    bits = None
+    if keep is not None:
+        bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
+    kp = 1.0 if keep is None else keep
+    _close(fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp),
+           fused_cnn.glu_drop_pool_plain(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp))
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 5, 8), (9, 17, 192), (3, 4, 350)])
+def test_bigru_kernel(dev, B, T, H):
+    g = torch.Generator().manual_seed(2)
+    s = 1 / np.sqrt(H)
+    args = [_rand(g, B, T, 3 * H, scale=0.5), _rand(g, B, T, 3 * H, scale=0.5),
+            _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s),
+            _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s)]
+    args = [a.to(dev) for a in args]
+    for got, want in zip(gru.bigru(*args), gru.bigru_plain(*args)):
+        _close(got, want)
+
+
+def test_fused_glu_block_train_mode(dev):
+    B, T, F, Ci, Co = 4, 10, 8, 16, 32
+    g = torch.Generator().manual_seed(3)
+    args = [_rand(g, B, T, F, Ci), _rand(g, 3, 3, Ci, Co, scale=0.1), _rand(g, Co),
+            1 + _rand(g, Co, scale=0.1), _rand(g, Co, scale=0.1), _rand(g, Co, scale=0.1),
+            1 + _rand(g, Co, scale=0.1).abs(), _rand(g, Co, Co, scale=0.2), _rand(g, Co)]
+    bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8)
+    kw = dict(pool=(2, 2), train=True, dropout_rate=0.5)
+    want = fused_cnn.fused_glu_block(*args, bits=bits, **kw)  # CPU: plain versions
+    got = fused_cnn.fused_glu_block(*[a.to(dev) for a in args], bits=bits.to(dev), **kw)
+    for a, b in zip(got, want):
+        _close(a.cpu(), b)
+
+
+def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 4, 4, 2, device=dev)
+    w = torch.zeros(3, 3, 2, 8, device=dev)
+    with pytest.raises(TypeError):
+        fused_cnn.conv_bn_stats(x.double(), w.double(), torch.zeros(8, device=dev).double())
+    with pytest.raises(ValueError):
+        fused_cnn.conv_bn_stats(x, w[:, :, :1], torch.zeros(8, device=dev))
+    with pytest.raises(ValueError):
+        fused_cnn.conv_bn_stats(x.transpose(1, 2), w, torch.zeros(8, device=dev))
+
+
+def test_crnn_kernel_forward_matches_plain(dev):
+    from desed_task_tpu_torch.models.crnn import CRNN, init_weights
+
+    net = dict(nclass=5, n_RNN_cell=16, n_layers_RNN=2, kernel_size=[3, 3, 3],
+               padding=[1, 1, 1], stride=[1, 1, 1], nb_filters=[8, 16, 32],
+               pooling=[[2, 2], [2, 2], [1, 2]], n_mels=32)
+    g = torch.Generator().manual_seed(4)
+    fused = init_weights(CRNN(**net), g).to(dev).eval()
+    plain = CRNN(**net, fused_blocks=False, rnn_kernel=False).to(dev).eval()
+    plain.load_state_dict(fused.state_dict())
+    x = _rand(g, 3, 32, 40).to(dev)
+    with torch.no_grad():
+        for a, b in zip(fused(x), plain(x)):
+            _close(a, b)
