@@ -15,7 +15,21 @@ Phases (any failure exits non-zero; nothing is caught):
      launch counts of the run (7, 7 and 1 per batch), and the scores against
      the same forward built from the plain versions on the card;
   5. timings (CUDA events): the device forward per batch, each kernel beside
-     its bound, its plain version and the library call, where one exists.
+     its bound, its plain version and the library call, where one exists;
+  6. each backward kernel against its plain version at the shapes of the
+     2024 train step (B=60): conv_bn_stats_bwd and glu_drop_pool_bwd at all
+     seven block geometries (glu_drop_pool_bwd with and without dropout
+     bits), bigru_bwd at T=156, H=192;
+  7. training: the 2024 mean-teacher step (crnn_2024() student and teacher
+     at full width from a seed, mean_teacher_2024(), 60 ten-second clips with
+     768x496 embeddings): the launch counts of one step (14/14/2 forward,
+     7/7/1 backward), its metrics and every gradient against the same step
+     built from the plain versions with the same weights and generator seed,
+     bitwise-equal gradients on a rerun from the same state, finite losses
+     over a few more steps;
+  8. timings: ms per train step and clips/s, the plain step, and each
+     backward kernel beside its bound, its plain version and the cuDNN
+     backward (F.conv2d autograd, torch.nn.GRU).
 Then a `kernels` JSON line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last.
 
@@ -42,6 +56,12 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TOL_KERNEL = 1e-4  # max |kernel - plain| / max(1, max |plain|), fp32 sums
 TOL_SCORES = 1e-4  # max |kernel forward - plain forward| on sigmoid scores
+TRAIN_BATCH = 60  # mean_teacher_2024(): slots [12, 6, 6, 12, 24]
+# train step, kernels against plain versions: losses relative; each gradient
+# max |kernel - plain| / max(max |plain|, 1e-3) (the conv biases' exact
+# gradient is 0 under train-mode BatchNorm: both sides give fp32 noise)
+TOL_LOSS = 1e-4
+TOL_GRAD = 2e-3
 
 
 def card_line() -> str:
@@ -285,6 +305,223 @@ def serve(gen, report):
     return launches
 
 
+def check_bwd_kernels(geoms, gen, report):
+    """Phase 6: every backward kernel against its plain version at B=60;
+    returns timing rows (phase 8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from desed_task_tpu_torch.ops import fused_cnn, gru
+
+    dev = torch.device("cuda")
+    B = TRAIN_BATCH
+    rows = {"conv_bn_stats_bwd": [], "glu_drop_pool_bwd": [], "bigru_bwd": []}
+    for i, (T, Fq, ci, co, pool) in enumerate(geoms):
+        x = torch.randn(B, T, Fq, ci, generator=gen).to(dev)
+        w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev)
+        y = torch.randn(B, T, Fq, co, generator=gen).to(dev)
+        dy = (torch.randn(B, T, Fq, co, generator=gen) * 1e-3).to(dev)
+        ds = (torch.randn(Fq * co, generator=gen) * 1e-3).to(dev)
+        dq = (torch.randn(Fq * co, generator=gen) * 1e-4).to(dev)
+        need_dx = i > 0  # the train step needs no gradient of the features
+        errs, abs_errs = [], []
+        for nd in {True, need_dx}:
+            got = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, nd)
+            want = fused_cnn.conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, nd)
+            for a, b in zip(got, want):
+                if b is not None:
+                    errs.append(rel_err(a, b))
+                    abs_errs.append(float((a - b).abs().max()))
+        again = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)
+        require(all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])),
+                "conv_bn_stats_bwd is not bitwise repeatable")
+        print(f"conv_bn_stats_bwd  T={T:3d} F={Fq:3d} {ci:3d}->{co:3d}: max err "
+              f"{max(errs):.3e} (tol {TOL_KERNEL})", flush=True)
+        require(max(errs) <= TOL_KERNEL, "conv_bn_stats_bwd disagrees with its plain version")
+        M = B * T * Fq
+        n_bytes = 4 * (x.numel() + 2 * y.numel() + 2 * w.numel() + 2 * Fq * co + co
+                       + (x.numel() if need_dx else 0))
+        flops = 2 * M * 9 * ci * co * (2 if need_dx else 1) + 4 * M * co
+        x_nchw = x.permute(0, 3, 1, 2).requires_grad_(need_dx)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
+        bb = torch.zeros(co, device=dev, requires_grad=True)
+        out = F.conv2d(x_nchw, w_oihw, bb, padding=1)
+        g_out = dy.permute(0, 3, 1, 2)
+        lib_in = [w_oihw, bb] + ([x_nchw] if need_dx else [])
+        rows["conv_bn_stats_bwd"].append(dict(
+            geom=[T, Fq, ci, co], max_abs_err=max(abs_errs), rel_err=max(errs),
+            ms=time_ms(lambda: fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)),
+            plain_ms=time_ms(lambda: fused_cnn.conv_bn_stats_bwd_plain(
+                x, w, y, dy, ds, dq, need_dx), iters=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(out, lib_in, g_out,
+                                                           retain_graph=True)),
+            bound=bound_ms(n_bytes, flops)))
+        del out, x_nchw
+
+        scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev)
+        bg = (0.1 * torch.randn(co, generator=gen)).to(dev)
+        gz = (torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen) * 1e-3).to(dev)
+        bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen, dtype=torch.uint8).to(dev)
+        errs, abs_errs = [], []
+        for label, bt, keep in (("eval", None, 1.0), ("bits", bits, 0.5)):
+            got = fused_cnn.glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bt, gz, pool=pool,
+                                              keep_prob=keep)
+            want = fused_cnn.glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bt, gz,
+                                                     pool=pool, keep_prob=keep)
+            e = max(rel_err(a, b) for a, b in zip(got, want))
+            errs.append(e)
+            abs_errs.append(max(float((a - b).abs().max()) for a, b in zip(got, want)))
+            print(f"glu_drop_pool_bwd  T={T:3d} F={Fq:3d} Co={co:3d} pool={pool} {label}: "
+                  f"max err {e:.3e} (tol {TOL_KERNEL})", flush=True)
+            require(e <= TOL_KERNEL, "glu_drop_pool_bwd disagrees with its plain version")
+        again = fused_cnn.glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, gz, pool=pool,
+                                            keep_prob=0.5)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                "glu_drop_pool_bwd is not bitwise repeatable")
+        P = B * T * Fq
+        n_bytes = (4 * (2 * y.numel() + gz.numel() + 4 * Fq * co + 2 * co * co + 2 * co)
+                   + bits.numel())
+        flops = P * (6 * co * co + 20 * co)
+        rows["glu_drop_pool_bwd"].append(dict(
+            geom=[T, Fq, co, *pool], max_abs_err=max(abs_errs), rel_err=max(errs),
+            ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd(
+                y, scale_f, bias_f, wg, bg, bits, gz, pool=pool, keep_prob=0.5)),
+            plain_ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd_plain(
+                y, scale_f, bias_f, wg, bg, bits, gz, pool=pool, keep_prob=0.5), iters=3),
+            library_ms=None, bound=bound_ms(n_bytes, flops)))
+        del x, y, dy, bits, got, want, again
+
+    T, H, IN = geoms[-1][0], 192, 128
+    Hr = 1.0 / math.sqrt(H)
+    xg_f, xg_b = (torch.randn(B, T, 3 * H, generator=gen).to(dev) * 0.5 for _ in range(2))
+    wf, wb = ((torch.rand(3 * H, H, generator=gen) * 2 - 1).to(dev) * Hr for _ in range(2))
+    bf, bb = ((torch.rand(3 * H, generator=gen) * 2 - 1).to(dev) * Hr for _ in range(2))
+    args = (xg_f, xg_b, wf, bf, wb, bb)
+    f, r = gru.bigru(*args)
+    df, dr = (torch.randn(B, T, H, generator=gen).to(dev) * 1e-3 for _ in range(2))
+    got = gru.bigru_bwd(*args, f, r, df, dr)
+    want = gru.bigru_bwd_plain(*args, f, r, df, dr)
+    err = max(rel_err(a, b) for a, b in zip(got, want))
+    print(f"bigru_bwd          B={B} T={T} H={H}: max err {err:.3e} (tol {TOL_KERNEL})",
+          flush=True)
+    require(err <= TOL_KERNEL, "bigru_bwd disagrees with its plain version")
+    require(all(torch.equal(a, b) for a, b in zip(got, gru.bigru_bwd(*args, f, r, df, dr))),
+            "bigru_bwd is not bitwise repeatable")
+    lib = torch.nn.GRU(IN, H, batch_first=True, bidirectional=True).to(dev)
+    x_in = torch.randn(B, T, IN, generator=gen).to(dev).requires_grad_()
+    lib_out, _ = lib(x_in)
+    g_lib = torch.randn(lib_out.shape, generator=gen).to(dev)
+    lib_in = [x_in, *lib.parameters()]
+    n_bytes = 4 * (2 * xg_f.numel() + 4 * f.numel() + 2 * xg_f.numel()
+                   + 4 * (3 * H * H + 3 * H))
+    flops = 2 * T * B * (2 * 2 * 3 * H * H + 30 * H) + 2 * 2 * B * T * 3 * H * H
+    rows["bigru_bwd"].append(dict(
+        geom=[B, T, H], max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+        rel_err=err, ms=time_ms(lambda: gru.bigru_bwd(*args, f, r, df, dr)),
+        plain_ms=time_ms(lambda: gru.bigru_bwd_plain(*args, f, r, df, dr), iters=3),
+        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, lib_in, g_lib,
+                                                       retain_graph=True)),
+        bound=bound_ms(n_bytes, flops)))
+    report["bwd_kernel_rows"] = rows
+    return rows
+
+
+def train(gen, report):
+    """Phases 7 and 8a: the 2024 mean-teacher step on the card."""
+    import torch
+
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.recipes_config import crnn_2024, mean_teacher_2024
+    from desed_task_tpu_torch.training import create_state, make_optimizer, make_train_step
+
+    cfg = mean_teacher_2024()
+    require(cfg.batch_size == TRAIN_BATCH, "mean_teacher_2024() is not 60 clips")
+    n_class, t_lab = 27, 156
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    batch = {}
+    for s in cfg.slots:
+        batch[s.name] = {
+            "audio": torch.as_tensor(rng.standard_normal((s.size, 160000), np.float32) * 0.05,
+                                     device=dev),
+            "labels": torch.as_tensor((rng.random((s.size, n_class, t_lab)) > 0.95)
+                                      .astype(np.float32), device=dev),
+            "embeddings": torch.as_tensor(rng.standard_normal((s.size, 768, 496), np.float32),
+                                          device=dev),
+            "class_mask": torch.ones((s.size, n_class), dtype=torch.bool, device=dev),
+        }
+    init = {k: v.clone() for k, v in randomize(crnn_2024(), gen).state_dict().items()}
+    tx, sched = make_optimizer(lr=1e-3, rampup_steps=1000)
+    step = make_train_step(cfg, tx, sched)
+
+    def fresh(kernels: bool):
+        model = crnn_2024() if kernels else crnn_2024(fused_blocks=False, rnn_kernel=False)
+        model.load_state_dict(init)
+        return create_state(model, cfg, tx, device="cuda")
+
+    def run(state, seed=7):
+        metrics = step(state, batch, torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in metrics.items()},
+                [p.grad.clone() for p in state.student.parameters()])
+
+    state = fresh(True)
+    _build.reset_launches()
+    metrics, grads = run(state)
+    launches = dict(_build.LAUNCHES)
+    want = {"conv_bn_stats": 14, "glu_drop_pool": 14, "bigru": 2,
+            "conv_bn_stats_bwd": 7, "glu_drop_pool_bwd": 7, "bigru_bwd": 1}
+    print(f"train step: launches {launches}, expected {want}", flush=True)
+    require(launches == want, "the train step did not go through every kernel")
+    print("train step metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()),
+          flush=True)
+    require(all(math.isfinite(v) for v in metrics.values()), "non-finite train metrics")
+
+    plain = fresh(False)
+    p_metrics, p_grads = run(plain)
+    require(dict(_build.LAUNCHES) == launches, "the plain step launched a kernel")
+    loss_err = max(abs(metrics[k] - p_metrics[k]) / max(abs(p_metrics[k]), 1e-6)
+                   for k in metrics)
+    names = [n for n, _ in state.student.named_parameters()]
+    grad_errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+                 for n, a, b in zip(names, grads, p_grads)}
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"train step vs plain step: metrics max rel err {loss_err:.3e} (tol {TOL_LOSS}), "
+          f"gradients max err {grad_errs[worst]:.3e} at {worst} (tol {TOL_GRAD})", flush=True)
+    require(loss_err <= TOL_LOSS, "train metrics disagree with the plain step")
+    require(grad_errs[worst] <= TOL_GRAD, "gradients disagree with the plain step")
+    pb = {k: v.detach() for k, v in plain.student.named_buffers()}
+    bn_err = max(float((v - pb[k]).abs().max()) for k, v in state.student.named_buffers())
+    print(f"train step vs plain step: BatchNorm running stats max abs err {bn_err:.3e}",
+          flush=True)
+    require(bn_err <= TOL_LOSS, "BatchNorm running statistics disagree with the plain step")
+
+    _, grads2 = run(fresh(True))
+    same = all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    print(f"train step rerun from the same state: gradients bitwise equal: {same}", flush=True)
+    require(same, "the kernel step's gradients are not bitwise repeatable")
+
+    losses = [metrics["loss"]]
+    for i in range(3):
+        losses.append(run(state, seed=8 + i)[0]["loss"])
+    print(f"train step losses over {len(losses)} steps: {losses}", flush=True)
+    require(all(math.isfinite(v) for v in losses), "non-finite loss")
+
+    gen_t = torch.Generator(device="cuda").manual_seed(11)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, batch, gen_t), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    plain_ms = time_ms(lambda: step(plain, batch, gen_t), iters=3, warmup=1)
+    report["train"] = dict(launches=launches, metrics=metrics, plain_metrics=p_metrics,
+                           metric_rel_err=loss_err, grad_errs=grad_errs, bn_err=bn_err,
+                           bitwise_repeat=same, losses=losses, step_ms=step_ms,
+                           clips_per_s=TRAIN_BATCH / step_ms * 1e3, plain_step_ms=plain_ms,
+                           peak_bytes=peak)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -316,18 +553,27 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
     rows = check_kernels(geoms, gen, report)
-    launches = serve(gen, report)
+    serve_launches = serve(gen, report)
+    train_geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
+    rows.update(check_bwd_kernels(train_geoms, gen, report))
+    train_launches = train(gen, report)
 
     fw = report["forward"]
     print(f"[{card}] device forward, batch {BATCH}: {fw['forward_ms']:.3f} ms "
           f"(plain versions {fw['plain_forward_ms']:.3f} ms; front-end + scaler "
           f"{fw['frontend_ms']:.3f} ms, CRNN {fw['model_ms']:.3f} ms)", flush=True)
+    tr = report["train"]
+    print(f"[{card}] train step, {TRAIN_BATCH} clips, fp32: {tr['step_ms']:.3f} ms "
+          f"({tr['clips_per_s']:.1f} clips/s; plain versions {tr['plain_step_ms']:.3f} ms; "
+          f"peak memory {tr['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+    cnn_cu, gru_cu = "desed_task_tpu_torch/csrc/fused_cnn.cu", "desed_task_tpu_torch/csrc/gru.cu"
     sources = {
-        "conv_bn_stats": ("desed_task_tpu_torch/csrc/fused_cnn.cu",
-                          "desed_task_tpu/ops/pallas_cnn.py:147"),
-        "glu_drop_pool": ("desed_task_tpu_torch/csrc/fused_cnn.cu",
-                          "desed_task_tpu/ops/pallas_cnn.py:269"),
-        "bigru": ("desed_task_tpu_torch/csrc/gru.cu", "desed_task_tpu/ops/pallas_gru.py:38"),
+        "conv_bn_stats": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:147"),
+        "glu_drop_pool": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:269"),
+        "bigru": (gru_cu, "desed_task_tpu/ops/pallas_gru.py:38"),
+        "conv_bn_stats_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:186"),
+        "glu_drop_pool_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:295"),
+        "bigru_bwd": (gru_cu, "desed_task_tpu/ops/pallas_gru.py:58"),
     }
     kernels = []
     for name, rs in rows.items():
@@ -336,15 +582,18 @@ def main() -> int:
         by_ops = sum(r["bound"][0] for r in rs if r["bound"][1] == "operations")
         entry = dict(
             name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-            launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in rs),
+            launches=train_launches[name], max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
             bound_ms=b_ms, bound_by="operations" if by_ops >= b_ms / 2 else "bytes",
             library_ms=None if None in lib else sum(lib),
+            launches_by_path={"serving": serve_launches.get(name, 0),
+                              "train_step": train_launches[name]},
         )
         kernels.append(entry)
         lib_s = "n/a" if entry["library_ms"] is None else f"{entry['library_ms']:.3f} ms"
-        print(f"[{card}] {name}: {entry['ms']:.3f} ms per forward "
-              f"({len(rs)} call(s) at B={BATCH}), bound {b_ms:.3f} ms "
+        per = (f"per forward ({len(rs)} call(s) at B={BATCH})" if name in serve_launches
+               else f"per train step ({len(rs)} call(s) at B={TRAIN_BATCH})")
+        print(f"[{card}] {name}: {entry['ms']:.3f} ms {per}, bound {b_ms:.3f} ms "
               f"({entry['bound_by']}), plain {entry['plain_ms']:.3f} ms, "
               f"library {lib_s}", flush=True)
     report["kernels"] = kernels

@@ -15,8 +15,14 @@ it is not torch.nn.GLU, which splits channels. The JAX module's other
 activations (relu, leakyrelu, context gating) and its "layer" normalization
 are not ported.
 
-Eval forward only: the training paths (batch statistics, dropout) are not
-ported in this package yet, and a module in training mode raises.
+Train mode (flax BatchNorm and PackedDropout semantics, cnn.py:316-342):
+BatchNorm normalizes with the biased batch statistics and updates its
+running buffers in place (ra = 0.01 ra + 0.99 batch, under no_grad); conv
+dropout keeps where a uniform byte < round(keep * 256), the bytes drawn as
+uint8 [B, T, F*Co] from the caller's generator. Both forms draw the same
+bytes in the same order, so they drop the same elements from generators in
+the same state. The fused form's gradients come from the backward kernels
+(`ops.fused_cnn`); the unfused chain is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -26,14 +32,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.dropout import packed_keep_mask
 from ..ops.fused_cnn import conv2d_nhwc, fused_glu_block
 
-
-def require_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only the eval forward is ported; call .eval()"
-        )
+BN_MOMENTUM = 0.01  # flax convention (torch momentum 0.99), cnn.py:319
+BN_EPS = 1e-3
 
 
 class Conv2d(nn.Module):
@@ -59,9 +62,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
-    def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + 1e-3)
-        return (x - self.running_mean) * scale + self.bias
+    def forward(self, x, train: bool = False):
+        """Normalize over all axes but the last; in train mode with the
+        biased batch statistics, updating the running buffers."""
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight * torch.rsqrt(var + BN_EPS)
+        return (x - mean) * scale + self.bias
 
 
 class GLU(nn.Module):
@@ -126,19 +140,35 @@ class CNN(nn.Module):
         return (self.fused_blocks and self.kernel_size[i] == 3
                 and self.stride[i] == 1 and self.padding[i] == 1)
 
-    def forward(self, x):
-        require_eval(self)
+    def forward(self, x, train: bool | None = None, generator: torch.Generator | None = None):
+        """x [B, T, F, C]; `train` defaults to self.training. Conv dropout in
+        train mode draws from `generator` (on x's device)."""
+        train = self.training if train is None else train
+        rate = self.conv_dropout if train else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError("CNN: train-mode conv dropout needs a torch.Generator")
         for i in range(self.n_blocks):
             conv = getattr(self, f"conv{i}")
             bn = getattr(self, f"batchnorm{i}")
             glu = getattr(self, f"glu{i}")
             if self._is_fused(i):
-                x, _, _ = fused_glu_block(
+                x, new_mean, new_var = fused_glu_block(
                     x.contiguous(), conv.hwio(), conv.bias, bn.weight, bn.bias,
-                    bn.running_mean, bn.running_var, glu.linear.weight.t().contiguous(),
-                    glu.linear.bias, pool=self.pooling[i], train=False,
+                    bn.running_mean, bn.running_var, glu.linear.weight.t(),
+                    glu.linear.bias, pool=self.pooling[i], train=train,
+                    dropout_rate=rate, generator=generator, eps=BN_EPS,
+                    momentum=BN_MOMENTUM,
                 )
+                if train:
+                    with torch.no_grad():
+                        bn.running_mean.copy_(new_mean)
+                        bn.running_var.copy_(new_var)
                 continue
             x = conv2d_nhwc(x, conv.hwio(), conv.bias, self.stride[i], self.padding[i])
-            x = avg_pool_floor(glu(bn(x)), *self.pooling[i])
+            x = glu(bn(x, train))
+            if rate > 0.0:  # the fused block's bytes: uint8 [B, T, F*Co]
+                B, T, F, Co = x.shape
+                keep = packed_keep_mask((B, T, F * Co), 1.0 - rate, generator, x.device)
+                x = torch.where(keep.view(x.shape), x * (1.0 / (1.0 - rate)), torch.zeros_like(x))
+            x = avg_pool_floor(x, *self.pooling[i])
         return x

@@ -1,18 +1,18 @@
-"""CRNN sound-event-detection model, eval forward
-(counterpart of desed_task_tpu/models/crnn.py).
+"""CRNN sound-event-detection model (counterpart of desed_task_tpu/models/crnn.py).
 
-log-mel [B, n_mels, T] -> NHWC -> CNN -> (f, c) flatten -> optional fusion of
-pretrained embeddings (global / frame / interpolate / pool1d aggregation,
-then `cat_tf`) -> BiGRU -> sigmoid strong head [B, C, T'] and the
-attention-pooled weak head [B, C] (softmax over CLASSES, clipped at 1e-7,
-padded frames and invalid classes masked at -1e30).
+log-mel [B, n_mels, T] -> (train: SpecAugment) -> NHWC -> CNN -> (f, c)
+flatten -> optional fusion of pretrained embeddings (global / frame /
+interpolate / pool1d aggregation, then train-mode dropstep and dropout, then
+`cat_tf`) -> BiGRU -> (train: dropout) -> sigmoid strong head [B, C, T'] and
+the attention-pooled weak head [B, C] (softmax over CLASSES, clipped at
+1e-7, padded frames and invalid classes masked at -1e30).
 
 The constructor takes the JAX model's configuration keys, so the recipe
-dicts in `recipes_config` build either model. Keys that only matter in
-training (dropout, SpecAugment, dropstep) are kept but unused: only the
-eval forward is ported, and a module in training mode raises. Unlike the
-lazily shaped flax module, this one needs the number of mel bins
-(`n_mels`) to size the layers after the CNN.
+dicts in `recipes_config` build either model. Train mode follows
+crnn.py:114-215, drawing every mask from the `generator` passed to
+`forward`; without embeddings, dropout runs only inside the dropstep branch
+(crnn.py:193-202), as there. Unlike the lazily shaped flax module, this one
+needs the number of mel bins (`n_mels`) to size the layers after the CNN.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .cnn import CNN, BatchNorm, Conv2d, require_eval
+from ..ops.augment import specaugment, time_mask
+from ..ops.dropout import dropout
+from .cnn import CNN, BatchNorm, Conv2d
 from .rnn import BidirectionalGRU
 
 
@@ -96,6 +98,11 @@ class CRNN(nn.Module):
         if cnn_integration:
             raise NotImplementedError("cnn_integration is not ported yet")
         self.attention = attention
+        self.dropout = dropout
+        self.freeze_bn = freeze_bn
+        self.specaugm = (specaugm_t_l, specaugm_t_p, specaugm_f_l, specaugm_f_p)
+        self.specaugm_shared = specaugm_shared
+        self.dropstep = (dropstep_recurrent, dropstep_recurrent_len)
         self.use_embeddings = use_embeddings
         self.aggregation_type = aggregation_type
         self.nclass = list(nclass) if isinstance(nclass, (list, tuple)) else [nclass]
@@ -177,17 +184,31 @@ class CRNN(nn.Module):
             weak = weak.masked_fill(~classes_mask, 0.0)
         return strong.transpose(1, 2), weak
 
-    def forward(self, x, pad_mask=None, embeddings=None, classes_mask=None):
-        """x [B, n_mels, T] -> (strong [B, C, T'], weak [B, C])."""
-        require_eval(self)
+    def forward(self, x, pad_mask=None, embeddings=None, classes_mask=None,
+                generator: torch.Generator | None = None):
+        """x [B, n_mels, T] -> (strong [B, C, T'], weak [B, C]). In train
+        mode (self.training) the random parts draw from `generator`, a
+        torch.Generator on x's device."""
+        train = self.training
+        t_l, t_p, f_l, f_p = self.specaugm
+        if train and (t_p > 0 or f_p > 0):
+            x = specaugment(generator, x, t_l, t_p, f_l, f_p, shared=self.specaugm_shared)
         x = x.transpose(-1, -2)[..., None].contiguous()  # [B, T, n_mels, 1]
-        x = self.cnn(x).float()
+        x = self.cnn(x, train=train and not self.freeze_bn, generator=generator).float()
         bs, frames, freq, chan = x.shape
         x = x.reshape(bs, frames, freq * chan)  # f-major (f, c) flatten
+        p_step, len_step = self.dropstep
+        dropstep = train and p_step > 0
         if self.use_embeddings:
             emb = self._aggregate_embeddings(embeddings, frames)
-            x = self.cat_tf(torch.cat([x, emb], dim=-1))
-        x = self.rnn(x)
+            if dropstep:
+                x = time_mask(generator, x, len_step, p_step, axis=1)
+                emb = time_mask(generator, emb, len_step, p_step, axis=1)
+            x = self.cat_tf(dropout(torch.cat([x, emb], dim=-1), self.dropout, generator, train))
+        elif dropstep:
+            x = time_mask(generator, x, len_step, p_step, axis=1)
+            x = dropout(x, self.dropout, generator, train)
+        x = dropout(self.rnn(x, train=train, generator=generator), self.dropout, generator, train)
         strongs, weaks = [], []
         offset = 0
         for sfx, c in zip(self._suffixes, self.nclass):
@@ -204,13 +225,16 @@ class CRNN(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator | None) -> nn.Module:
     """Random weights from `generator` (torch's global generator if None),
     with the JAX package's init schemes:
-    lecun-normal (truncated at 2 std) conv and dense kernels with zero biases,
-    torch's uniform(+-1/sqrt(H)) GRU weights, unit norm scales."""
+    flax lecun_normal conv and dense kernels (a normal truncated at +-2
+    std, std = 1/sqrt(fan_in)/0.8796 so that the result has variance
+    1/fan_in) with zero biases, torch's uniform(+-1/sqrt(H)) GRU weights,
+    unit norm scales."""
 
     def lecun_(p: torch.Tensor, fan_in: int):
         std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-        v = torch.randn(p.shape, generator=generator) * std
-        p.copy_(v.clamp(-2 * std, 2 * std))
+        v = torch.empty(p.shape)
+        torch.nn.init.trunc_normal_(v, std=std, a=-2 * std, b=2 * std, generator=generator)
+        p.copy_(v)
 
     with torch.no_grad():
         for m in model.modules():

@@ -4,10 +4,11 @@ Parameters carry torch.nn.GRU's names and layout (weight_ih_l{k} [3H, in],
 weight_hh_l{k} [3H, H], bias_ih_l{k}, bias_hh_l{k}, and `_reverse` for the
 backward direction), so reference checkpoints load as they are. The input
 projection of all steps is one GEMM outside the recurrence; the recurrence
-of both directions is one `ops.gru.bigru` call (a CUDA kernel on the card),
-or its plain version with `kernel=False`. Layer l > 0 consumes the
-concatenated output of layer l-1. Eval forward only (inter-layer dropout is
-a training path).
+of both directions is one `ops.gru.bigru` call (a CUDA kernel on the card,
+differentiated by `ops.gru.BiGRU` through the backward kernel), or its plain
+version with `kernel=False` (differentiated by autograd). Layer l > 0
+consumes the concatenated output of layer l-1; in train mode every layer's
+output but the last goes through dropout (rnn.py:176-177).
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.gru import bigru, bigru_plain
-from .cnn import require_eval
+from ..ops.dropout import dropout
+from ..ops.gru import BiGRU, bigru, bigru_plain
 
 
 class BidirectionalGRU(nn.Module):
@@ -27,7 +28,7 @@ class BidirectionalGRU(nn.Module):
         super().__init__()
         self.hidden = hidden
         self.num_layers = num_layers
-        self.dropout = dropout  # training only
+        self.dropout = dropout  # between layers, train mode only
         self.kernel = kernel
         for layer in range(num_layers):
             in_dim = input_size if layer == 0 else 2 * hidden
@@ -41,9 +42,17 @@ class BidirectionalGRU(nn.Module):
                 self.register_parameter(
                     f"bias_hh_l{layer}{sfx}", nn.Parameter(torch.zeros(3 * hidden)))
 
-    def forward(self, x):
-        require_eval(self)
-        run = bigru if self.kernel else bigru_plain
+    def forward(self, x, train: bool | None = None, generator: torch.Generator | None = None):
+        """`train` defaults to self.training; inter-layer dropout draws from
+        `generator`."""
+        train = self.training if train is None else train
+        if not self.kernel:
+            run = bigru_plain
+        elif torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            run = BiGRU.apply
+        else:
+            run = bigru
         for layer in range(self.num_layers):
             p = {n: getattr(self, f"{n}_l{layer}") for n in
                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
@@ -53,4 +62,6 @@ class BidirectionalGRU(nn.Module):
             fwd, bwd = run(xg_f, xg_b, p["weight_hh"], p["bias_hh"],
                            r["weight_hh"], r["bias_hh"])
             x = torch.cat([fwd, bwd], dim=-1)
+            if layer < self.num_layers - 1:
+                x = dropout(x, self.dropout, generator, train)
         return x

@@ -61,6 +61,33 @@ def test_entry_point_without_cpu_raises_when_no_cuda(monkeypatch):
     assert pipe.device.type == "cpu"
 
 
+def test_train_entry_point_without_cpu_raises_when_no_cuda(monkeypatch):
+    from desed_task_tpu_torch.models.crnn import CRNN
+    from desed_task_tpu_torch.recipes_config import mean_teacher_2024
+    from desed_task_tpu_torch.training import create_state, make_optimizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = dict(nclass=3, n_RNN_cell=4, n_layers_RNN=1, kernel_size=[3], padding=[1],
+               stride=[1], nb_filters=[4], pooling=[[1, 4]], n_mels=8)
+    cfg = mean_teacher_2024()
+    tx, _ = make_optimizer(1e-3, 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_state(CRNN(**net), cfg, tx)
+    state = create_state(CRNN(**net), cfg, tx, device="cpu")
+    assert next(state.student.parameters()).device.type == "cpu"
+
+
+def test_train_step_refuses_unported_options():
+    from desed_task_tpu_torch.recipes_config import mean_teacher_2021
+    from desed_task_tpu_torch.training import make_optimizer, make_train_step
+
+    cfg = mean_teacher_2021()
+    tx, sched = make_optimizer(1e-3, 10)
+    for kw in (dict(accumulate=2), dict(axis_name="data"), dict(embedder=object())):
+        with pytest.raises(NotImplementedError):
+            make_train_step(cfg, tx, sched, **kw)
+
+
 def test_kernel_build_keys_on_source_hash(tmp_path, monkeypatch):
     """A changed source gets a new library name (so it is rebuilt), and a
     missing nvcc is an error, not a fallback."""

@@ -6,7 +6,9 @@ These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere:
 
 They cover the edges the 2024 shapes in chip_smoke.py do not: ragged tiles
 (rows, channels and batch not multiples of the tile), pools of 3, hidden
-sizes above 1024/3 gates, dropout bits, and bad inputs.
+sizes above 1024/3 gates, dropout bits, and bad inputs; for the backward
+kernels also B=1 and B=60, Ci=1, pool remainders in T and F, bitwise
+repeatability and the autograd path of the fused block.
 """
 
 import numpy as np
@@ -126,3 +128,96 @@ def test_crnn_kernel_forward_matches_plain(dev):
     with torch.no_grad():
         for a, b in zip(fused(x), plain(x)):
             _close(a, b)
+
+
+BWD_GEOMS = [  # (B, T, F, Ci, Co, pool): B=1 / B=60, Ci=1, T and F pool remainders
+    (1, 13, 16, 1, 8, (2, 2)),
+    (60, 11, 6, 24, 40, (3, 4)),
+    (3, 7, 5, 128, 128, (1, 2)),
+    (2, 17, 3, 64, 16, (2, 1)),
+    (1, 1, 1, 3, 70, (1, 1)),
+]
+
+
+def _glu_args(g, B, T, F, Co, pool):
+    pt, pf = pool
+    return [_rand(g, B, T, F, Co), 1 + _rand(g, F * Co, scale=0.1), _rand(g, F * Co, scale=0.1),
+            _rand(g, Co, Co, scale=1 / np.sqrt(Co)), _rand(g, Co, scale=0.1)], \
+        _rand(g, B, T // pt, F // pf, Co)
+
+
+@pytest.mark.parametrize("geom", BWD_GEOMS)
+def test_conv_bn_stats_bwd_kernel(dev, geom):
+    B, T, F, Ci, Co, _ = geom
+    g = torch.Generator().manual_seed(5)
+    x = _rand(g, B, T, F, Ci).to(dev)
+    w = _rand(g, 3, 3, Ci, Co, scale=1 / np.sqrt(9 * Ci)).to(dev)
+    y = _rand(g, B, T, F, Co).to(dev)
+    dy = _rand(g, B, T, F, Co).to(dev)
+    ds, dq = _rand(g, F * Co).to(dev), _rand(g, F * Co, scale=0.1).to(dev)
+    for need_dx in (True, False):
+        got = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)
+        want = fused_cnn.conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx)
+        assert (got[0] is None) == (not need_dx)
+        for a, b in zip(got, want):
+            if b is not None:
+                _close(a, b)
+    again = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+
+
+@pytest.mark.parametrize("geom", BWD_GEOMS)
+@pytest.mark.parametrize("keep", [None, 0.5])
+def test_glu_drop_pool_bwd_kernel(dev, geom, keep):
+    B, T, F, _, Co, pool = geom
+    g = torch.Generator().manual_seed(6)
+    args, gz = _glu_args(g, B, T, F, Co, pool)
+    args, gz = [a.to(dev) for a in args], gz.to(dev)
+    bits = None
+    if keep is not None:
+        bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
+    kp = 1.0 if keep is None else keep
+    got = fused_cnn.glu_drop_pool_bwd(*args, bits, gz, pool=pool, keep_prob=kp)
+    want = fused_cnn.glu_drop_pool_bwd_plain(*args, bits, gz, pool=pool, keep_prob=kp)
+    for a, b in zip(got, want):
+        _close(a, b)
+    again = fused_cnn.glu_drop_pool_bwd(*args, bits, gz, pool=pool, keep_prob=kp)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 5, 8), (60, 17, 192), (9, 4, 350)])
+def test_bigru_bwd_kernel(dev, B, T, H):
+    g = torch.Generator().manual_seed(7)
+    s = 1 / np.sqrt(H)
+    args = [_rand(g, B, T, 3 * H, scale=0.5), _rand(g, B, T, 3 * H, scale=0.5),
+            _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s),
+            _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s)]
+    args = [a.to(dev) for a in args]
+    fwd, bwd = gru.bigru(*args)
+    dfwd, dbwd = _rand(g, B, T, H).to(dev), _rand(g, B, T, H).to(dev)
+    got = gru.bigru_bwd(*args, fwd, bwd, dfwd, dbwd)
+    want = gru.bigru_bwd_plain(*args, fwd, bwd, dfwd, dbwd)
+    for a, b in zip(got, want):
+        _close(a, b)
+    again = gru.bigru_bwd(*args, fwd, bwd, dfwd, dbwd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_glu_block_gradients(dev):
+    """The autograd path on the card against the plain versions on the CPU."""
+    B, T, F, Ci, Co = 4, 11, 8, 16, 32
+    g = torch.Generator().manual_seed(8)
+    args = [_rand(g, B, T, F, Ci), _rand(g, 3, 3, Ci, Co, scale=0.1), _rand(g, Co),
+            1 + _rand(g, Co, scale=0.1), _rand(g, Co, scale=0.1), _rand(g, Co, scale=0.1),
+            1 + _rand(g, Co, scale=0.1).abs(), _rand(g, Co, Co, scale=0.2), _rand(g, Co)]
+    bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8)
+    gz = _rand(g, B, T // 2, F // 2, Co)
+    grads = []
+    for device in ("cpu", dev):
+        leaves = [a.to(device).requires_grad_(i not in (5, 6)) for i, a in enumerate(args)]
+        z, _, _ = fused_cnn.fused_glu_block(*leaves, bits=bits.to(device), pool=(2, 2),
+                                            train=True, dropout_rate=0.5)
+        grads.append(torch.autograd.grad((z * gz.to(device)).sum(),
+                                         [a for a in leaves if a.requires_grad]))
+    for a, b in zip(grads[1], grads[0]):
+        _close(a.cpu(), b)
