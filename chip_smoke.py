@@ -29,7 +29,15 @@ Phases (any failure exits non-zero; nothing is caught):
      over a few more steps;
   8. timings: ms per train step and clips/s, the plain step, and each
      backward kernel beside its bound, its plain version and the cuDNN
-     backward (F.conv2d autograd, torch.nn.GRU).
+     backward (F.conv2d autograd, torch.nn.GRU);
+  9. front-end: the fused log-mel entry point `fused_log_mel` on 64 ten-
+     second clips (one launch), then at B=64 and B=60, fp32 and bf16: the
+     kernel against its plain version and against the GEMM front-end
+     (`log_mel_spectrogram`, same compute dtype), bitwise-equal reruns, one
+     launch per call; the serving scores from `fused_log_mel` features
+     against `pipe.forward`; timings of the kernel, its plain version and
+     the GEMM front-end (the yardstick: no single PyTorch call computes
+     this function).
 Then a `kernels` JSON line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last.
 
@@ -53,6 +61,7 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 64
 N_CLIPS = 2 * BATCH + 2  # two full batches and a partial one
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TOL_KERNEL = 1e-4  # max |kernel - plain| / max(1, max |plain|), fp32 sums
 TOL_SCORES = 1e-4  # max |kernel forward - plain forward| on sigmoid scores
@@ -62,6 +71,13 @@ TRAIN_BATCH = 60  # mean_teacher_2024(): slots [12, 6, 6, 12, 24]
 # gradient is 0 under train-mode BatchNorm: both sides give fp32 noise)
 TOL_LOSS = 1e-4
 TOL_GRAD = 2e-3
+# fused log-mel in bf16 (dB, absolute): against its plain version a
+# magnitude can round one bf16 step (2^-7 relative) the other way; against
+# the GEMM front-end, which keeps magnitudes and filterbank in fp32, each is
+# rounded by at most 2^-8. A mel band is a positive weighted sum, so it
+# moves by at most 2^-7 + 2^-16 relative: 0.0683 dB.
+TOL_MEL_BF16_DB = 0.07
+TOL_MEL_FP32_DB = 1e-3  # fused against the GEMM front-end, fp32 (dB)
 
 
 def card_line() -> str:
@@ -88,8 +104,9 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS
+             ) -> tuple[float, str]:
+    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -302,7 +319,7 @@ def serve(gen, report):
             model_ms=time_ms(lambda: model(feats, embeddings=emb)),
         )
     report["forward"] = times
-    return launches
+    return launches, pipe
 
 
 def check_bwd_kernels(geoms, gen, report):
@@ -522,6 +539,84 @@ def train(gen, report):
     return launches
 
 
+def frontend(gen, pipe, report):
+    """Phase 9: the fused log-mel entry point, its kernel against its plain
+    version and against the GEMM front-end, and its timings."""
+    import torch
+
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.fused_mel import fused_log_mel, fused_log_mel_plain
+    from desed_task_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
+    from desed_task_tpu_torch.ops.median import classwise_median_filter
+    from desed_task_tpu_torch.ops.scaler import apply_scaler
+
+    clips = {B: (torch.randn(B, 160000, generator=gen) * 0.1).to("cuda")
+             for B in (BATCH, TRAIN_BATCH)}
+    _build.reset_launches()
+    out = fused_log_mel(clips[BATCH], MelConfig())
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"front-end: fused_log_mel on {BATCH} clips: launches {launches}", flush=True)
+    require(launches == {"fused_log_mel": 1}, "the front-end did not go through its kernel")
+    require(tuple(out.shape) == (BATCH, 128, 626) and bool(torch.isfinite(out).all()),
+            "fused_log_mel: bad shape or non-finite values")
+
+    rows = []
+    for B, audio in clips.items():
+        for dtype in ("float32", "bfloat16"):
+            cfg = MelConfig(compute_dtype=dtype)
+            _build.reset_launches()
+            got = fused_log_mel(audio, cfg)
+            again = fused_log_mel(audio, cfg)
+            require(dict(_build.LAUNCHES) == {"fused_log_mel": 2},
+                    "fused_log_mel did not launch once per call")
+            plain = fused_log_mel_plain(audio, cfg)
+            gemm = log_mel_spectrogram(audio, cfg)
+            require(dict(_build.LAUNCHES) == {"fused_log_mel": 2},
+                    "a plain front-end launched a kernel")
+            err, abs_err = rel_err(got, plain), float((got - plain).abs().max())
+            gemm_db = float((got - gemm).abs().max())
+            same = torch.equal(got, again)
+            if dtype == "float32":
+                tol_plain, tol_gemm, ok = TOL_KERNEL, TOL_MEL_FP32_DB, err <= TOL_KERNEL
+            else:
+                tol_plain, tol_gemm, ok = TOL_MEL_BF16_DB, TOL_MEL_BF16_DB, abs_err <= TOL_MEL_BF16_DB
+            print(f"fused_log_mel  B={B} {dtype}: against plain max err {err:.3e} relative, "
+                  f"{abs_err:.3e} dB (tol {tol_plain}); against the GEMM front-end "
+                  f"{gemm_db:.3e} dB (tol {tol_gemm}); rerun bitwise equal: {same}", flush=True)
+            require(ok, "fused_log_mel disagrees with its plain version")
+            require(gemm_db <= tol_gemm, "fused_log_mel disagrees with the GEMM front-end")
+            require(same, "fused_log_mel is not bitwise repeatable")
+            T, nf, nm = got.shape[2], cfg.n_freqs, cfg.n_mels
+            flops = 2 * B * T * cfg.n_fft * 2 * nf + 2 * B * T * nf * nm + 4 * B * T * nf
+            esize = 2 if dtype == "bfloat16" else 4
+            n_bytes = 4 * audio.numel() + esize * (cfg.n_fft * 2 * nf + nf * nm) + 4 * got.numel()
+            peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+            rows.append(dict(
+                B=B, dtype=dtype, max_abs_err=abs_err, rel_err=err, gemm_db=gemm_db,
+                ms=time_ms(lambda: fused_log_mel(audio, cfg)),
+                plain_ms=time_ms(lambda: fused_log_mel_plain(audio, cfg), iters=3),
+                yardstick_ms=time_ms(lambda: log_mel_spectrogram(audio, cfg)),
+                bound=bound_ms(n_bytes, flops, peak), gflop=flops / 1e9))
+            del got, again, plain, gemm
+
+    # the serving scores from fused features against pipe.forward
+    audio = clips[BATCH]
+    emb = torch.as_tensor(np.random.default_rng(2).standard_normal((BATCH, 768, 496),
+                                                                   np.float32), device="cuda")
+    with torch.inference_mode():
+        strong, weak, _ = pipe.forward(audio, emb)
+        x = apply_scaler(fused_log_mel(audio, pipe.mel_cfg), pipe.scaler_cfg, pipe.scaler_state)
+        f_strong, f_weak = pipe.model(x, embeddings=emb)
+        f_strong = classwise_median_filter(f_strong, pipe.median, class_axis=-2, time_axis=-1)
+    s_err = max(float((strong - f_strong).abs().max()), float((weak - f_weak).abs().max()))
+    print(f"front-end: serving scores from fused_log_mel features against pipe.forward: "
+          f"max err {s_err:.3e} (tol {TOL_SCORES})", flush=True)
+    require(s_err <= TOL_SCORES, "scores from the fused front-end disagree")
+    report["frontend"] = dict(launches=launches, rows=rows, score_err=s_err)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -553,10 +648,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
     rows = check_kernels(geoms, gen, report)
-    serve_launches = serve(gen, report)
+    serve_launches, pipe = serve(gen, report)
     train_geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
     rows.update(check_bwd_kernels(train_geoms, gen, report))
     train_launches = train(gen, report)
+    fe_launches, fe_rows = frontend(gen, pipe, report)
+    # the kernels line's row 7 is the entry point's call: B=64, fp32
+    rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
 
     fw = report["forward"]
     print(f"[{card}] device forward, batch {BATCH}: {fw['forward_ms']:.3f} ms "
@@ -566,6 +664,12 @@ def main() -> int:
     print(f"[{card}] train step, {TRAIN_BATCH} clips, fp32: {tr['step_ms']:.3f} ms "
           f"({tr['clips_per_s']:.1f} clips/s; plain versions {tr['plain_step_ms']:.3f} ms; "
           f"peak memory {tr['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+    for r in fe_rows:
+        b_ms, by = r["bound"]
+        print(f"[{card}] fused_log_mel B={r['B']} {r['dtype']}: {r['ms']:.3f} ms per call "
+              f"({r['gflop']:.1f} GFLOP), bound {b_ms:.3f} ms ({by}), plain "
+              f"{r['plain_ms']:.3f} ms, GEMM front-end (yardstick) {r['yardstick_ms']:.3f} ms",
+              flush=True)
     cnn_cu, gru_cu = "desed_task_tpu_torch/csrc/fused_cnn.cu", "desed_task_tpu_torch/csrc/gru.cu"
     sources = {
         "conv_bn_stats": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:147"),
@@ -574,25 +678,37 @@ def main() -> int:
         "conv_bn_stats_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:186"),
         "glu_drop_pool_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:295"),
         "bigru_bwd": (gru_cu, "desed_task_tpu/ops/pallas_gru.py:58"),
+        "fused_log_mel": ("desed_task_tpu_torch/csrc/fused_mel.cu",
+                          "desed_task_tpu/ops/pallas_mel.py:96"),
     }
     kernels = []
     for name, rs in rows.items():
-        lib = [r["library_ms"] for r in rs]
+        lib = [r.get("library_ms") for r in rs]
         b_ms = sum(r["bound"][0] for r in rs)
         by_ops = sum(r["bound"][0] for r in rs if r["bound"][1] == "operations")
+        by_path = {"serving": serve_launches.get(name, 0),
+                   "train_step": train_launches.get(name, 0),
+                   "frontend": fe_launches.get(name, 0)}
         entry = dict(
             name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-            launches=train_launches[name], max_abs_err=max(r["max_abs_err"] for r in rs),
+            launches=by_path["frontend" if name in fe_launches else "train_step"],
+            max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
             bound_ms=b_ms, bound_by="operations" if by_ops >= b_ms / 2 else "bytes",
-            library_ms=None if None in lib else sum(lib),
-            launches_by_path={"serving": serve_launches.get(name, 0),
-                              "train_step": train_launches[name]},
+            library_ms=None if None in lib else sum(lib), launches_by_path=by_path,
         )
+        if name == "fused_log_mel":
+            entry["yardstick_ms"] = rs[0]["yardstick_ms"]
+            entry["yardstick"] = ("log_mel_spectrogram, the GEMM front-end (several "
+                                  "calls: no single PyTorch call computes this function)")
         kernels.append(entry)
         lib_s = "n/a" if entry["library_ms"] is None else f"{entry['library_ms']:.3f} ms"
-        per = (f"per forward ({len(rs)} call(s) at B={BATCH})" if name in serve_launches
-               else f"per train step ({len(rs)} call(s) at B={TRAIN_BATCH})")
+        if name in fe_launches:
+            per = f"per call ({len(rs)} call at B={BATCH}, fp32)"
+        elif name in serve_launches:
+            per = f"per forward ({len(rs)} call(s) at B={BATCH})"
+        else:
+            per = f"per train step ({len(rs)} call(s) at B={TRAIN_BATCH})"
         print(f"[{card}] {name}: {entry['ms']:.3f} ms {per}, bound {b_ms:.3f} ms "
               f"({entry['bound_by']}), plain {entry['plain_ms']:.3f} ms, "
               f"library {lib_s}", flush=True)

@@ -124,13 +124,18 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on one card."""
+def require_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous `dtype` CUDA tensor on one card."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+
+
+def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on one card."""
+    require_cuda(name, torch.float32, *tensors)

@@ -1,4 +1,6 @@
-"""Port front-end and scaler against the JAX package on the same audio (CPU, fp32)."""
+"""Port front-end and scaler against the JAX package on the same audio (CPU)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,6 +38,86 @@ def test_filterbank_and_basis_match_jax():
     frames_j = np.asarray(jfe.frame_signal(jnp.asarray(_audio(1)), jc))
     frames_t = tfe.frame_signal(torch.from_numpy(_audio(1)), tc).numpy()
     np.testing.assert_array_equal(frames_t, frames_j)
+
+
+def test_mel_config_fields_match_jax():
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(tfe.MelConfig) == fields(jfe.MelConfig)
+
+
+def _pair(audio, kw, backend):
+    """(port, JAX) spectrogram and log-mel of the same audio."""
+    jc, tc = jfe.MelConfig(**kw), tfe.MelConfig(**kw)
+    x = torch.from_numpy(audio)
+    return ((tfe.spectrogram(x, tc, backend).numpy(),
+             np.asarray(jfe.spectrogram(jnp.asarray(audio), jc, backend))),
+            (tfe.log_mel_spectrogram(x, tc, backend).numpy(),
+             np.asarray(jfe.log_mel_spectrogram(jnp.asarray(audio), jc, backend))))
+
+
+@pytest.mark.parametrize("power", [1.0, 2.0])
+@pytest.mark.parametrize("window", ["hamming", "hann"])
+@pytest.mark.parametrize("backend", ["fft", "chunked"])
+def test_fft_and_chunked_backends_match_jax(backend, window, power):
+    audio = _audio(5, n=15999)  # a length that is not a multiple of the hop
+    (ts, js), (tl, jl) = _pair(audio, dict(window=window, power=power), backend)
+    assert ts.shape == js.shape and tl.shape == jl.shape
+    # fp32 sums in another order: spectra measured within 5.2e-7 of their
+    # max, log-mel within 1.1e-5 dB
+    np.testing.assert_allclose(ts, js, rtol=0, atol=1e-5 * np.abs(js).max())
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("backend", ["matmul", "chunked"])
+def test_bf16_backends_match_jax(backend):
+    audio = _audio(6, n=15999)
+    (ts, js), (tl, jl) = _pair(audio, dict(compute_dtype="bfloat16"), backend)
+    # both round the DFT inputs to bf16 and sum exact products in fp32:
+    # only the order differs (measured 7.6e-6 dB)
+    np.testing.assert_allclose(ts, js, rtol=0, atol=1e-5 * np.abs(js).max())
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=2e-4)
+    # and bf16 is a different result from fp32
+    assert np.abs(tl - tfe.log_mel_spectrogram(torch.from_numpy(audio),
+                                               tfe.MelConfig()).numpy()).max() > 1e-3
+
+
+@pytest.mark.parametrize("mel_scale,mel_norm", [("slaney", "slaney"), ("slaney", None),
+                                                ("htk", "slaney")])
+def test_slaney_filterbank_matches_jax(mel_scale, mel_norm):
+    kw = dict(mel_scale=mel_scale, mel_norm=mel_norm, n_mels=64)
+    np.testing.assert_array_equal(tfe.mel_filterbank(tfe.MelConfig(**kw)),
+                                  jfe.mel_filterbank(jfe.MelConfig(**kw)))
+    _, (tl, jl) = _pair(_audio(8), kw, None)
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=2e-4)
+
+
+def test_backend_choice_and_refusals():
+    audio = torch.from_numpy(_audio(9, b=1, n=8000))
+    cfg = tfe.MelConfig(backend="fft")
+    assert torch.equal(tfe.spectrogram(audio, cfg), tfe.spectrogram(audio, cfg, "fft"))
+    with pytest.raises(ValueError, match="unknown backend"):
+        tfe.spectrogram(audio, cfg, "dct")
+    with pytest.raises(ValueError, match="hop"):
+        tfe.spectrogram(audio, tfe.MelConfig(hop_length=300), "chunked")
+    with pytest.raises(ValueError, match="win_length"):
+        tfe.spectrogram(audio, tfe.MelConfig(win_length=1024), "chunked")
+
+
+def test_default_config_is_the_fp32_gemm_path():
+    """MelConfig() stays matmul / fp32 / htk: the serving and train features
+    are the frames times the fp32 [cos | -sin] basis, bit for bit."""
+    audio = torch.from_numpy(_audio(10))
+    cfg = tfe.MelConfig()
+    assert (cfg.backend, cfg.compute_dtype, cfg.mel_scale, cfg.mel_norm) == (
+        "matmul", "float32", "htk", None)
+    cos_b, sin_b = tfe._dft_basis(cfg)
+    basis = torch.as_tensor(np.concatenate([cos_b, sin_b], 1), dtype=torch.float32)
+    reim = torch.matmul(tfe.frame_signal(audio, cfg), basis)
+    re, im = reim[..., : cfg.n_freqs], reim[..., cfg.n_freqs :]
+    want = torch.sqrt(torch.clamp(re * re + im * im, min=0.0)).transpose(-1, -2)
+    assert torch.equal(tfe.spectrogram(audio, cfg), want)
 
 
 @pytest.mark.parametrize("normtype", ["minmax", "mean", "standard"])

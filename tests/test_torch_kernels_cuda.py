@@ -8,14 +8,17 @@ They cover the edges the 2024 shapes in chip_smoke.py do not: ragged tiles
 (rows, channels and batch not multiples of the tile), pools of 3, hidden
 sizes above 1024/3 gates, dropout bits, and bad inputs; for the backward
 kernels also B=1 and B=60, Ci=1, pool remainders in T and F, bitwise
-repeatability and the autograd path of the fused block.
+repeatability and the autograd path of the fused block; for the fused
+log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
+hops that do not divide n_fft, both compute dtypes and bitwise reruns.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from desed_task_tpu_torch.ops import fused_cnn, gru
+from desed_task_tpu_torch.ops import fused_cnn, fused_mel, gru
+from desed_task_tpu_torch.ops.frontend import MelConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +224,63 @@ def test_fused_glu_block_gradients(dev):
                                          [a for a in leaves if a.requires_grad]))
     for a, b in zip(grads[1], grads[0]):
         _close(a.cpu(), b)
+
+
+MEL_CASES = [  # (B, N, n_fft, hop, n_mels)
+    (1, 16000, 2048, 256, 128),
+    (3, 160000, 2048, 256, 128),
+    (3, 16000, 1024, 256, 64),
+    (1, 160000, 1024, 256, 128),
+    (3, 16000, 2048, 300, 128),  # hop does not divide n_fft, nor is it a multiple of 4
+    (2, 16000, 1024, 200, 64),  # hop does not divide n_fft
+    (2, 20000, 512, 128, 42),  # 257 frequencies: a ragged last tile; 42 mels
+    (1, 16000, 2048, 256, 160),  # over 128 mels: bf16 on the CUDA cores too
+]
+# bf16: one bf16 step of a magnitude (2^-7 relative) at most, 0.068 dB
+TOL_MEL_BF16_DB = 0.07
+
+
+@pytest.mark.parametrize("case", MEL_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_log_mel_kernel(dev, case, dtype):
+    B, N, n_fft, hop, n_mels = case
+    cfg = MelConfig(n_fft=n_fft, win_length=n_fft, hop_length=hop, n_mels=n_mels,
+                    compute_dtype=dtype)
+    g = torch.Generator().manual_seed(9)
+    audio = _rand(g, B, N, scale=0.1).to(dev)
+    got = fused_mel.fused_log_mel(audio, cfg)
+    want = fused_mel.fused_log_mel_plain(audio, cfg)
+    assert got.shape == want.shape == (B, n_mels, cfg.num_frames(N))
+    if dtype == "float32":
+        _close(got, want)
+    else:
+        assert float((got - want).abs().max()) <= TOL_MEL_BF16_DB
+    assert torch.equal(got, fused_mel.fused_log_mel(audio, cfg))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_log_mel_kernel_band_limited(dev, dtype):
+    """f_min > 0 and f_max below Nyquist: the kernels run only the frequencies
+    from the first to the last with a nonzero filterbank row."""
+    cfg = MelConfig(n_fft=1024, win_length=1024, f_min=300.0, f_max=5000.0, n_mels=64,
+                    compute_dtype=dtype)
+    g = torch.Generator().manual_seed(10)
+    audio = _rand(g, 3, 16000, scale=0.1).to(dev)
+    got = fused_mel.fused_log_mel(audio, cfg)
+    want = fused_mel.fused_log_mel_plain(audio, cfg)
+    if dtype == "float32":
+        _close(got, want)
+    else:
+        assert float((got - want).abs().max()) <= TOL_MEL_BF16_DB
+
+
+def test_fused_log_mel_raises_on_inputs_the_kernel_does_not_take(dev):
+    audio = torch.zeros(2, 8000, device=dev)
+    with pytest.raises(TypeError):
+        fused_mel.fused_log_mel(audio.double(), MelConfig())
+    with pytest.raises(ValueError):
+        fused_mel.fused_log_mel(torch.zeros(8000, 2, device=dev).t(), MelConfig())
+    with pytest.raises(ValueError):
+        fused_mel.fused_log_mel(audio, MelConfig(power=2.0))
+    with pytest.raises(ValueError):
+        fused_mel.fused_log_mel(audio, MelConfig(center=False))
