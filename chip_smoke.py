@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught):
   3. each kernel against its plain PyTorch version at the shapes of the 2024
      serving path (B=64): conv_bn_stats and glu_drop_pool at all seven conv
      block geometries (glu_drop_pool with and without dropout bits), bigru
-     at T=156, H=192;
+     at T=156, H=192 (its plan must be "cluster"; bitwise-equal rerun);
   4. serving: ~130 ten-second wavs through InferencePipeline(crnn_2024())
      with seeded random weights and random 768x496 frame embeddings, the
      launch counts of the run (7, 7 and 1 per batch), and the scores against
@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught):
   6. each backward kernel against its plain version at the shapes of the
      2024 train step (B=60): conv_bn_stats_bwd and glu_drop_pool_bwd at all
      seven block geometries (glu_drop_pool_bwd with and without dropout
-     bits), bigru_bwd at T=156, H=192;
+     bits), bigru_bwd at T=156, H=192 (plan "cluster", bitwise-equal
+     rerun); then the BiGRU's stream path once, forward and backward at
+     H=512, against the plain versions;
   7. training: the 2024 mean-teacher step (crnn_2024() student and teacher
      at full width from a seed, mean_teacher_2024(), 60 ten-second clips with
      768x496 embeddings): the launch counts of one step (14/14/2 forward,
@@ -38,8 +40,9 @@ Phases (any failure exits non-zero; nothing is caught):
      against `pipe.forward`; timings of the kernel, its plain version and
      the GEMM front-end (the yardstick: no single PyTorch call computes
      this function).
-Then a `kernels` JSON line, the nvidia-smi line, and the result line
-{"ok": true, "device": {...}} last.
+Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
+batch rows BT and us per recurrence step), the nvidia-smi line, and the
+result line {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside this file. Details go to chiprun_out/chip_smoke.json.
@@ -213,6 +216,8 @@ def check_kernels(geoms, gen, report):
         del x, y, yp, z, zp, bits
 
     T, H, IN = geoms[-1][0], 192, 128
+    plan = gru_plan(BATCH, T, H)
+    require(plan["plan"] == "cluster", "the 2024 serving shape does not take the cluster kernels")
     Hr = 1.0 / math.sqrt(H)
     xg_f, xg_b = (torch.randn(BATCH, T, 3 * H, generator=gen).to(dev) * 0.5 for _ in range(2))
     wf, wb = ((torch.rand(3 * H, H, generator=gen) * 2 - 1).to(dev) * Hr for _ in range(2))
@@ -220,15 +225,20 @@ def check_kernels(geoms, gen, report):
     f, r = gru.bigru(xg_f, xg_b, wf, bf, wb, bb)
     fp, rp = gru.bigru_plain(xg_f, xg_b, wf, bf, wb, bb)
     err = max(rel_err(f, fp), rel_err(r, rp))
-    print(f"bigru          B={BATCH} T={T} H={H}: max err {err:.3e} (tol {TOL_KERNEL})", flush=True)
+    f2, r2 = gru.bigru(xg_f, xg_b, wf, bf, wb, bb)
+    same = torch.equal(f, f2) and torch.equal(r, r2)
+    print(f"bigru          B={BATCH} T={T} H={H} {plan}: max err {err:.3e} (tol {TOL_KERNEL}); "
+          f"rerun bitwise equal: {same}", flush=True)
     require(err <= TOL_KERNEL, "bigru disagrees with its plain version")
+    require(same, "bigru is not bitwise repeatable")
     lib = torch.nn.GRU(IN, H, batch_first=True, bidirectional=True).to(dev)
     x_in = torch.randn(BATCH, T, IN, generator=gen).to(dev)
     gru_bytes = 4 * (2 * xg_f.numel() + 2 * (3 * H * H + 3 * H) + 2 * f.numel())
     gru_flops = 2 * T * BATCH * (2 * 3 * H * H + 12 * H)
     with torch.no_grad():
         rows["bigru"].append(dict(
-            geom=[BATCH, T, H], max_abs_err=float(max((f - fp).abs().max(), (r - rp).abs().max())),
+            geom=[BATCH, T, H], steps=T, **plan,
+            max_abs_err=float(max((f - fp).abs().max(), (r - rp).abs().max())),
             rel_err=err, ms=time_ms(lambda: gru.bigru(xg_f, xg_b, wf, bf, wb, bb)),
             plain_ms=time_ms(lambda: gru.bigru_plain(xg_f, xg_b, wf, bf, wb, bb), iters=3),
             library_ms=time_ms(lambda: lib(x_in)), bound=bound_ms(gru_bytes, gru_flops)))
@@ -411,18 +421,20 @@ def check_bwd_kernels(geoms, gen, report):
         del x, y, dy, bits, got, want, again
 
     T, H, IN = geoms[-1][0], 192, 128
+    plan = gru_plan(B, T, H)
+    require(plan["plan"] == "cluster", "the 2024 train shape does not take the cluster kernels")
     Hr = 1.0 / math.sqrt(H)
     xg_f, xg_b = (torch.randn(B, T, 3 * H, generator=gen).to(dev) * 0.5 for _ in range(2))
     wf, wb = ((torch.rand(3 * H, H, generator=gen) * 2 - 1).to(dev) * Hr for _ in range(2))
     bf, bb = ((torch.rand(3 * H, generator=gen) * 2 - 1).to(dev) * Hr for _ in range(2))
     args = (xg_f, xg_b, wf, bf, wb, bb)
     f, r = gru.bigru(*args)
-    df, dr = (torch.randn(B, T, H, generator=gen).to(dev) * 1e-3 for _ in range(2))
+    df, dr = (torch.randn(B, T, H, generator=gen).to(dev) for _ in range(2))
     got = gru.bigru_bwd(*args, f, r, df, dr)
     want = gru.bigru_bwd_plain(*args, f, r, df, dr)
     err = max(rel_err(a, b) for a, b in zip(got, want))
-    print(f"bigru_bwd          B={B} T={T} H={H}: max err {err:.3e} (tol {TOL_KERNEL})",
-          flush=True)
+    print(f"bigru_bwd          B={B} T={T} H={H} {plan}: max err {err:.3e} "
+          f"(tol {TOL_KERNEL})", flush=True)
     require(err <= TOL_KERNEL, "bigru_bwd disagrees with its plain version")
     require(all(torch.equal(a, b) for a, b in zip(got, gru.bigru_bwd(*args, f, r, df, dr))),
             "bigru_bwd is not bitwise repeatable")
@@ -435,14 +447,53 @@ def check_bwd_kernels(geoms, gen, report):
                    + 4 * (3 * H * H + 3 * H))
     flops = 2 * T * B * (2 * 2 * 3 * H * H + 30 * H) + 2 * 2 * B * T * 3 * H * H
     rows["bigru_bwd"].append(dict(
-        geom=[B, T, H], max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+        geom=[B, T, H], steps=T, **plan,
+        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
         rel_err=err, ms=time_ms(lambda: gru.bigru_bwd(*args, f, r, df, dr)),
         plain_ms=time_ms(lambda: gru.bigru_bwd_plain(*args, f, r, df, dr), iters=3),
         library_ms=time_ms(lambda: torch.autograd.grad(lib_out, lib_in, g_lib,
                                                        retain_graph=True)),
         bound=bound_ms(n_bytes, flops)))
     report["bwd_kernel_rows"] = rows
+    report["gru_stream"] = check_gru_stream(gen)
     return rows
+
+
+def gru_plan(B: int, T: int, H: int) -> dict:
+    """The BiGRU kernels' plan at a shape: "cluster" (with its cluster size
+    and batch rows) or "stream"."""
+    from desed_task_tpu_torch.ops import gru
+
+    plan, lay = gru.bigru_config(B, T, H)
+    return dict(plan=plan, C=lay.C if lay else None, BT=gru.CLUSTER_ROWS if lay else None)
+
+
+def check_gru_stream(gen) -> dict:
+    """The BiGRU's stream kernels (hidden sizes whose W_hh slices do not fit
+    a cluster), forward and backward, against the plain versions at H=512."""
+    import torch
+
+    from desed_task_tpu_torch.ops import gru
+
+    B, T, H = 8, 32, 512
+    require(gru_plan(B, T, H)["plan"] == "stream", "H=512 does not take the stream kernels")
+    dev = torch.device("cuda")
+    Hr = 1.0 / math.sqrt(H)
+    args = [(torch.randn(B, T, 3 * H, generator=gen) * 0.5).to(dev) for _ in range(2)]
+    args[2:2] = [((torch.rand(3 * H, H, generator=gen) * 2 - 1) * Hr).to(dev),
+                 ((torch.rand(3 * H, generator=gen) * 2 - 1) * Hr).to(dev)]
+    args += [((torch.rand(3 * H, H, generator=gen) * 2 - 1) * Hr).to(dev),
+             ((torch.rand(3 * H, generator=gen) * 2 - 1) * Hr).to(dev)]
+    f, r = gru.bigru(*args)
+    err_f = max(rel_err(a, b) for a, b in zip((f, r), gru.bigru_plain(*args)))
+    df, dr = (torch.randn(B, T, H, generator=gen).to(dev) for _ in range(2))
+    err_b = max(rel_err(a, b) for a, b in zip(gru.bigru_bwd(*args, f, r, df, dr),
+                                              gru.bigru_bwd_plain(*args, f, r, df, dr)))
+    print(f"bigru stream   B={B} T={T} H={H}: forward max err {err_f:.3e}, backward "
+          f"{err_b:.3e} (tol {TOL_KERNEL})", flush=True)
+    require(max(err_f, err_b) <= TOL_KERNEL,
+            "the BiGRU stream kernels disagree with the plain versions")
+    return dict(geom=[B, T, H], fwd_err=err_f, bwd_err=err_b)
 
 
 def train(gen, report):
@@ -697,6 +748,10 @@ def main() -> int:
             bound_ms=b_ms, bound_by="operations" if by_ops >= b_ms / 2 else "bytes",
             library_ms=None if None in lib else sum(lib), launches_by_path=by_path,
         )
+        if name in ("bigru", "bigru_bwd"):
+            r0 = rs[0]
+            entry.update(plan=r0["plan"], C=r0["C"], BT=r0["BT"],
+                         us_per_step=r0["ms"] / r0["steps"] * 1e3)
         if name == "fused_log_mel":
             entry["yardstick_ms"] = rs[0]["yardstick_ms"]
             entry["yardstick"] = ("log_mel_spectrogram, the GEMM front-end (several "
@@ -709,9 +764,11 @@ def main() -> int:
             per = f"per forward ({len(rs)} call(s) at B={BATCH})"
         else:
             per = f"per train step ({len(rs)} call(s) at B={TRAIN_BATCH})"
+        gru_s = (f", {entry['plan']} C={entry['C']} BT={entry['BT']}, "
+                 f"{entry['us_per_step']:.2f} us/step" if "plan" in entry else "")
         print(f"[{card}] {name}: {entry['ms']:.3f} ms {per}, bound {b_ms:.3f} ms "
               f"({entry['bound_by']}), plain {entry['plain_ms']:.3f} ms, "
-              f"library {lib_s}", flush=True)
+              f"library {lib_s}{gru_s}", flush=True)
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

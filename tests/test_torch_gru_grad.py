@@ -1,7 +1,8 @@
 """Gradients of the port's BiGRU (plain backward on the CPU) against the JAX
 Pallas recurrence's custom VJP in interpret mode, at a batch that is not a
-multiple of the card kernel's 8-row tile; and gradcheck of the autograd
-Function in float64.
+multiple of the card kernels' 8-row tile and at a hidden size that is not a
+multiple of the cluster size (ragged unit slices); and gradcheck of the
+autograd Function in float64.
 
 Tolerance: fp32 BPTT over 9 steps, summed in another order: 1e-5 of each
 gradient's largest entry.
@@ -33,8 +34,8 @@ def _args(B, T, H, seed, dtype=np.float32):
     return (f(B, T, 3 * H), f(B, T, 3 * H), f(3 * H, H), f(3 * H), f(3 * H, H), f(3 * H))
 
 
-def test_bigru_gradients_match_pallas_vjp():
-    B, T, H = 10, 9, 8
+@pytest.mark.parametrize("B,T,H", [(10, 9, 8), (10, 9, 12)])
+def test_bigru_gradients_match_pallas_vjp(B, T, H):
     args = _args(B, T, H, seed=0)
     r = np.random.default_rng(1)
     dfwd = r.standard_normal((B, T, H)).astype(np.float32)

@@ -5,9 +5,10 @@ These need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
 They cover the edges the 2024 shapes in chip_smoke.py do not: ragged tiles
-(rows, channels and batch not multiples of the tile), pools of 3, hidden
-sizes above 1024/3 gates, dropout bits, and bad inputs; for the backward
-kernels also B=1 and B=60, Ci=1, pool remainders in T and F, bitwise
+(rows, channels and batch not multiples of the tile), pools of 3, dropout
+bits, and bad inputs; for the BiGRU the 2024 shapes, H=128, ragged unit
+slices (H=100), B=1, the stream path (H=350, 512) and bitwise reruns; for
+the backward kernels also B=1 and B=60, Ci=1, pool remainders in T and F, bitwise
 repeatability and the autograd path of the fused block; for the fused
 log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
 hops that do not divide n_fft, both compute dtypes and bitwise reruns.
@@ -80,16 +81,48 @@ def test_glu_drop_pool_kernel(dev, geom, keep):
            fused_cnn.glu_drop_pool_plain(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp))
 
 
-@pytest.mark.parametrize("B,T,H", [(1, 5, 8), (9, 17, 192), (3, 4, 350)])
-def test_bigru_kernel(dev, B, T, H):
-    g = torch.Generator().manual_seed(2)
+# (B, T, H): the 2024 serving and train batches, the 2023 width, ragged unit
+# slices (H=100), B=1, tiny H, and the stream path (H=350, 512)
+GRU_SHAPES = [(1, 5, 8), (9, 17, 192), (3, 4, 350), (64, 156, 192), (60, 156, 192),
+              (4, 20, 128), (5, 11, 100), (1, 9, 192), (2, 6, 512)]
+
+
+def _gru_args(g, B, T, H, dev):
     s = 1 / np.sqrt(H)
     args = [_rand(g, B, T, 3 * H, scale=0.5), _rand(g, B, T, 3 * H, scale=0.5),
             _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s),
             _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s)]
-    args = [a.to(dev) for a in args]
-    for got, want in zip(gru.bigru(*args), gru.bigru_plain(*args)):
-        _close(got, want)
+    return [a.to(dev) for a in args]
+
+
+@pytest.mark.parametrize("B,T,H", GRU_SHAPES)
+def test_bigru_kernel(dev, B, T, H):
+    g = torch.Generator().manual_seed(2)
+    args = _gru_args(g, B, T, H, dev)
+    got = gru.bigru(*args)
+    for a, b in zip(got, gru.bigru_plain(*args)):
+        _close(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got, gru.bigru(*args)))
+
+
+def test_bigru_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
+    g = torch.Generator().manual_seed(12)
+    for H in (192, 512):  # cluster and stream
+        args = _gru_args(g, 2, 3, H, dev)
+        with pytest.raises(TypeError):
+            gru.bigru(*[a.double() for a in args])
+        with pytest.raises(ValueError):
+            gru.bigru(args[0], args[1][:, :, :-3], *args[2:])
+        with pytest.raises(ValueError):
+            gru.bigru(*args[:2], args[2][:, :-1], *args[3:])
+        with pytest.raises((ValueError, RuntimeError)):
+            gru.bigru(*args[:2], args[2].cpu(), *args[3:])
+        fwd, bwd = gru.bigru(*args)
+        with pytest.raises(ValueError):
+            gru.bigru_bwd(*args, fwd, bwd, fwd[:, :-1], bwd)
+        with pytest.raises(TypeError):
+            gru.bigru_bwd(*[a.double() for a in args], fwd.double(), bwd.double(),
+                          fwd.double(), bwd.double())
 
 
 def test_fused_glu_block_train_mode(dev):
@@ -188,14 +221,10 @@ def test_glu_drop_pool_bwd_kernel(dev, geom, keep):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("B,T,H", [(1, 5, 8), (60, 17, 192), (9, 4, 350)])
+@pytest.mark.parametrize("B,T,H", [(1, 5, 8), (60, 17, 192), (9, 4, 350)] + GRU_SHAPES[3:])
 def test_bigru_bwd_kernel(dev, B, T, H):
     g = torch.Generator().manual_seed(7)
-    s = 1 / np.sqrt(H)
-    args = [_rand(g, B, T, 3 * H, scale=0.5), _rand(g, B, T, 3 * H, scale=0.5),
-            _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s),
-            _rand(g, 3 * H, H, scale=s), _rand(g, 3 * H, scale=s)]
-    args = [a.to(dev) for a in args]
+    args = _gru_args(g, B, T, H, dev)
     fwd, bwd = gru.bigru(*args)
     dfwd, dbwd = _rand(g, B, T, H).to(dev), _rand(g, B, T, H).to(dev)
     got = gru.bigru_bwd(*args, fwd, bwd, dfwd, dbwd)
