@@ -19,9 +19,11 @@ Phases (any failure exits non-zero; nothing is caught):
   6. each backward kernel against its plain version at the shapes of the
      2024 train step (B=60): conv_bn_stats_bwd and glu_drop_pool_bwd at all
      seven block geometries (glu_drop_pool_bwd with and without dropout
-     bits), bigru_bwd at T=156, H=192 (plan "cluster", bitwise-equal
-     rerun); then the BiGRU's stream path once, forward and backward at
-     H=512, against the plain versions;
+     bits), unit-scale cotangents, bitwise-equal reruns, each block's ms,
+     bound, plain ms and (row 3) cuDNN's conv backward printed; bigru_bwd at
+     T=156, H=192 (plan "cluster", bitwise-equal rerun); then the BiGRU's
+     stream path once, forward and backward at H=512, against the plain
+     versions;
   7. training: the 2024 mean-teacher step (crnn_2024() student and teacher
      at full width from a seed, mean_teacher_2024(), 60 ten-second clips with
      768x496 embeddings): the launch counts of one step (14/14/2 forward,
@@ -347,9 +349,11 @@ def check_bwd_kernels(geoms, gen, report):
         x = torch.randn(B, T, Fq, ci, generator=gen).to(dev)
         w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev)
         y = torch.randn(B, T, Fq, co, generator=gen).to(dev)
-        dy = (torch.randn(B, T, Fq, co, generator=gen) * 1e-3).to(dev)
-        ds = (torch.randn(Fq * co, generator=gen) * 1e-3).to(dev)
-        dq = (torch.randn(Fq * co, generator=gen) * 1e-4).to(dev)
+        # unit-scale cotangents, so that TOL_KERNEL of max(1, max |plain|) is
+        # small against every output it guards
+        dy = torch.randn(B, T, Fq, co, generator=gen).to(dev)
+        ds = torch.randn(Fq * co, generator=gen).to(dev)
+        dq = torch.randn(Fq * co, generator=gen).to(dev)
         need_dx = i > 0  # the train step needs no gradient of the features
         errs, abs_errs = [], []
         for nd in {True, need_dx}:
@@ -384,12 +388,16 @@ def check_bwd_kernels(geoms, gen, report):
                                                            retain_graph=True)),
             bound=bound_ms(n_bytes, flops)))
         del out, x_nchw
+        r = rows["conv_bn_stats_bwd"][-1]
+        print(f"conv_bn_stats_bwd  block {i}: {r['ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+              f"({r['bound'][1]}), plain {r['plain_ms']:.3f} ms, cuDNN conv backward "
+              f"{r['library_ms']:.3f} ms", flush=True)
 
         scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
         bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
         wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev)
         bg = (0.1 * torch.randn(co, generator=gen)).to(dev)
-        gz = (torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen) * 1e-3).to(dev)
+        gz = torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen).to(dev)
         bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen, dtype=torch.uint8).to(dev)
         errs, abs_errs = [], []
         for label, bt, keep in (("eval", None, 1.0), ("bits", bits, 0.5)):
@@ -418,6 +426,9 @@ def check_bwd_kernels(geoms, gen, report):
             plain_ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd_plain(
                 y, scale_f, bias_f, wg, bg, bits, gz, pool=pool, keep_prob=0.5), iters=3),
             library_ms=None, bound=bound_ms(n_bytes, flops)))
+        r = rows["glu_drop_pool_bwd"][-1]
+        print(f"glu_drop_pool_bwd  block {i}: {r['ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+              f"({r['bound'][1]}), plain {r['plain_ms']:.3f} ms", flush=True)
         del x, y, dy, bits, got, want, again
 
     T, H, IN = geoms[-1][0], 192, 128

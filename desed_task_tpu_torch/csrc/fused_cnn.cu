@@ -48,36 +48,52 @@
 //   glu_drop_pool_bwd <- _epilogue_bwd_kernel   (pallas_cnn.py:295, :637)
 //
 // conv_bn_stats_bwd
-//   What bounds it: dx and dW are each about as many FMAs as the forward
-//   conv, ~200 GFLOP per 2024 train step at B=60 (~3 ms at the fp32 peak)
-//   against ~2 GB of x, y, dy and dx: operations.
+//   What bounds it: dx and dW are each as many FMAs as the forward conv,
+//   ~210 GFLOP per 2024 train step at B=60 (~3.1 ms at the fp32 peak of 67
+//   TFLOP/s) against ~1.8 GB of x, y, dy and dx (~0.55 ms): operations,
+//   except the first block (Ci = 1: 9 taps x 16 channels a row), which is
+//   bound by the bytes of y and dy.
 //   Design: dy_eff = dy + ds[lane] + 2 y dq[lane] (the BatchNorm statistics'
-//   cotangents, pallas_cnn.py:207) is formed while staging, never stored.
-//   dx is the forward's implicit GEMM over dy_eff with the flipped,
-//   transposed weight w[::-1, ::-1]^T (pallas_cnn.py:439). dW is a
-//   [9*Ci, M] x [M, Co] product with M = B*T*F up to 4.8 M rows: the rows
-//   are cut into chunks (about 528 blocks in all), each block writes its
-//   chunk's partial dW tile (and dbias), and a second pass adds the chunks
-//   in a fixed order. No atomics: two runs give bitwise-equal gradients.
-//   On the TPU the sequential grid carried dW in scratch (:195-198, :247).
+//   cotangents, pallas_cnn.py:207) is written once by an elementwise pass
+//   (12 bytes an element); each GEMM would otherwise form it from four loads
+//   for every tap and depth tile. Both GEMMs work on row tiles of whole
+//   frames of one clip and copy a tile with its one-row halo into shared
+//   memory with cp.async, zeros where the SAME padding lies, so the 9 taps
+//   are 9 fixed offsets into the staged tile. dx (the transposed conv:
+//   dy_eff with w flipped and transposed, pallas_cnn.py:439) stages DX_BC
+//   channels of the halo and the matching weight slice per stage, 8 x 8
+//   outputs a thread. dW (a [9*Ci, M] x [M, Co] product, M = B*T*F up to
+//   4.8 M rows) stages the x halo of all Ci channels and the tile's dy_eff
+//   rows; 8 x 4 or 8 x 8 outputs a thread, in row groups where [9*Ci, Co]
+//   is small; blocks split the rows into chunks (about four blocks per SM
+//   in all) and write one partial each, added in chunk order by a second
+//   pass (no atomics: reruns give bitwise-equal gradients). The first block
+//   (Ci = 1) skips both: one pass reads y and dy, forms dy_eff in registers
+//   and keeps 9 x 4 + 4 sums a thread. ops/fused_cnn.py `conv_bwd_plan`
+//   picks tiles, chunks and shared memory from the shape alone (two blocks
+//   an SM). On the TPU the sequential grid carried dW in scratch
+//   (pallas_cnn.py:195-198, :247).
 //
 // glu_drop_pool_bwd
 //   What bounds it: three [Co] x [Co, Co] products per position (the GLU
-//   recomputed, dlin Wg^T, and ybn^T dlin for dWg), ~50 GFLOP per train
-//   step at B=60 (~0.75 ms at the fp32 peak), against ~1.5 GB of y, dy and
-//   bits (~0.45 ms): operations.
-//   Design: one pass over y. Persistent blocks each walk a contiguous run of
-//   frames (b, t) = F*Co lanes, recomputing BN(y), the GLU and the sigmoid
-//   in shared memory; the incoming gradient is unpooled (rows and columns
-//   past the pooled extent get 0, their dy is then the statistics' share
-//   alone) and masked by the saved bits with the thresholds of
-//   pallas_cnn.py:616. The two per-position products (the GLU and
-//   dlin Wg^T) give each thread 4 channels: float4 rows of Wg and of a
-//   transposed copy of it in shared memory, 4 FMAs per broadcast value.
-//   Per-lane sums of dybn*y, dybn and dlin live in shared memory (one owner
-//   thread per lane); dWg in registers (an 8x8 tile per thread at Co=128).
-//   Block partials are added in a fixed order by two small passes.
-//   Co <= 128.
+//   recomputed, dlin Wg^T, and ybn^T dlin for dWg), ~53 GFLOP per train
+//   step at B=60 (~0.8 ms at the fp32 peak), against ~1.8 GB of y, dy, g
+//   and bits (~0.55 ms): operations, the first block bytes.
+//   Design: one pass over y. Persistent blocks of 512 threads (16 warps, one
+//   block per SM, Wg and Wg^T in shared memory) walk tiles of P positions
+//   (P x Co = 8192: 64 positions at Co = 128, 512 at Co = 16), recomputing
+//   BN(y), the GLU and the sigmoid; the incoming gradient is unpooled (rows
+//   and columns past the pooled extent get 0, their dy is then the
+//   statistics' share alone) and masked by the saved bits with the
+//   thresholds of pallas_cnn.py:616. A thread's loads of y, g and the bits
+//   (16-byte and 4-byte vectors where Co % 4 == 0) are all issued before the
+//   first is used. The three products are register-tiled
+//   GEMMs over the staged tile (4 positions x 4 channels a thread; dWg 4 x 4
+//   or 4 x 8 entries a thread, in registers for the whole run). Lane sums of
+//   dybn * y, dybn and dlin are read from shared memory only, one owner
+//   thread per lane (f, c) adding the tile's positions of its lane in order.
+//   Block partials are added in a fixed order by two small passes
+//   (`glu_bwd_plan`). Co <= 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,38 +119,22 @@ __device__ __forceinline__ void decode_tap(int k, int K, int C, int& dt, int& df
 }
 
 // One im2col element of row r (coordinates t, f) at tap (dt, df, c), zero
-// outside the SAME padding; with EFF the staged value is
-// dy_eff = dy + ds[lane] + 2 * ye * dq[lane], lane = (f + df) * C + c.
-template <bool EFF>
-__device__ __forceinline__ float im2col_at(const float* __restrict__ x,
-                                           const float* __restrict__ ye,
-                                           const float* __restrict__ ds,
-                                           const float* __restrict__ dq, long long m,
-                                           int t, int f, int dt, int df, int c, int T,
-                                           int F, int C) {
+// outside the SAME padding.
+__device__ __forceinline__ float im2col_at(const float* __restrict__ x, long long m, int t,
+                                          int f, int dt, int df, int c, int T, int F, int C) {
   const int tt = t + dt;
   const int ff = f + df;
   if (tt < 0 || tt >= T || ff < 0 || ff >= F) return 0.f;
-  const long long idx = (m + (long long)dt * F + df) * C + c;
-  if constexpr (EFF) {
-    const int lane = ff * C + c;
-    return x[idx] + ds[lane] + 2.f * ye[idx] * dq[lane];
-  } else {
-    return x[idx];
-  }
+  return x[(m + (long long)dt * F + df) * C + c];
 }
 
-// EFF (the backward's dx): the input is dy and each staged element is
-// dy_eff (im2col_at); no bias. Each BK-deep slice's (dt, df, c) come from a
-// small table that 16 threads fill for the next slice, and the next slice's
-// global loads are issued into registers before the current slice's
-// products, so they overlap.
-template <bool EFF, int BM, int BN, int BK, int TM, int TN>
+// Each BK-deep slice's (dt, df, c) come from a small table that 16 threads
+// fill for the next slice, and the next slice's global loads are issued
+// into registers before the current slice's products, so they overlap.
+template <int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 conv3x3_bias_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias, float* __restrict__ y,
-                    const float* __restrict__ ye, const float* __restrict__ ds,
-                    const float* __restrict__ dq,
                     int B, int T, int F, int Ci, int Co) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int AE = BM * BK / NT;  // A-tile elements per thread
@@ -200,8 +200,7 @@ conv3x3_bias_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < AE; ++j) {
         const int r = r_a + j * RS;
-        a_reg[j] = im2col_at<EFF>(x, ye, ds, dq, m0 + r, row_t[r], row_f[r], dt, df, c, T,
-                                  F, Ci);
+        a_reg[j] = im2col_at(x, m0 + r, row_t[r], row_f[r], dt, df, c, T, F, Ci);
       }
 #pragma unroll
       for (int j = 0; j < BE; ++j) {
@@ -235,35 +234,29 @@ conv3x3_bias_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int co = n0 + tx * TN + j;
-      if (co < Co) y[m * Co + co] = EFF ? acc[i][j] : acc[i][j] + bias[co];
+      if (co < Co) y[m * Co + co] = acc[i][j] + bias[co];
     }
   }
 }
 
-template <bool EFF, int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN>
 cudaError_t launch_conv(const float* x, const float* w, const float* bias, float* y,
-                        const float* ye, const float* ds, const float* dq,
                         int B, int T, int F, int Ci, int Co, cudaStream_t s) {
   const long long M = (long long)B * T * F;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Co + BN - 1) / BN));
-  conv3x3_bias_kernel<EFF, BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, s>>>(
-      x, w, bias, y, ye, ds, dq, B, T, F, Ci, Co);
+  conv3x3_bias_kernel<BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, s>>>(
+      x, w, bias, y, B, T, F, Ci, Co);
   return cudaGetLastError();
 }
 
 // Output-channel count Co picks the tile: small Co keeps a 128-wide tile
 // from running mostly empty.
-template <bool EFF>
 cudaError_t launch_conv_any(const float* x, const float* w, const float* bias, float* y,
-                            const float* ye, const float* ds, const float* dq,
                             int B, int T, int F, int Ci, int Co, cudaStream_t s) {
-  if (Co >= 128)
-    return launch_conv<EFF, 128, 128, 16, 8, 8>(x, w, bias, y, ye, ds, dq, B, T, F, Ci, Co, s);
-  if (Co >= 64)
-    return launch_conv<EFF, 128, 64, 16, 8, 4>(x, w, bias, y, ye, ds, dq, B, T, F, Ci, Co, s);
-  if (Co >= 32)
-    return launch_conv<EFF, 128, 32, 16, 4, 4>(x, w, bias, y, ye, ds, dq, B, T, F, Ci, Co, s);
-  return launch_conv<EFF, 128, 16, 16, 4, 2>(x, w, bias, y, ye, ds, dq, B, T, F, Ci, Co, s);
+  if (Co >= 128) return launch_conv<128, 128, 16, 8, 8>(x, w, bias, y, B, T, F, Ci, Co, s);
+  if (Co >= 64) return launch_conv<128, 64, 16, 8, 4>(x, w, bias, y, B, T, F, Ci, Co, s);
+  if (Co >= 32) return launch_conv<128, 32, 16, 4, 4>(x, w, bias, y, B, T, F, Ci, Co, s);
+  return launch_conv<128, 16, 16, 4, 2>(x, w, bias, y, B, T, F, Ci, Co, s);
 }
 
 // Pass 1: part[c][l] = sum of y[r][l] over the rows r of chunk c, in order.
@@ -419,47 +412,324 @@ __global__ void __launch_bounds__(256) glu_drop_pool_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// conv_bn_stats_bwd: dW and dbias partials. Block (kt, ct, chunk) computes
-// the [BKO x BNO] tile of dW[k][co] = sum_m im2col(x)[m][k] * dy_eff[m][co]
-// over the rows m of its chunk, 16 rows per stage; blocks with kt == 0 also
-// sum dy_eff per channel (dbias). 256 threads, each a TM x TN register
-// tile. A thread stages one fixed depth column k (and one channel co), so
-// its (dt, df, c) are decoded once; the next stage's loads are issued into
-// registers before the current stage's products.
+// Asynchronous copies into shared memory (cp.async). A copy whose source lies
+// outside the tensor writes zeros: src-size 0 reads nothing.
 // ---------------------------------------------------------------------------
-template <int BKO, int BNO>
-__global__ void __launch_bounds__(256) conv3x3_dw_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ dy, const float* __restrict__ ds,
-    const float* __restrict__ dq, float* __restrict__ part_w,
-    float* __restrict__ part_b, int B, int T, int F, int Ci, int Co,
-    long long rows_per_chunk) {
-  constexpr int BR = 16;
-  constexpr int TM = BKO / 16;
-  constexpr int TN = BNO / 16;
-  constexpr int AE = BR * BKO / 256;  // staged elements per thread
-  constexpr int BE = BR * BNO / 256;
-  __shared__ __align__(16) float As[BR][BKO + 4];
-  __shared__ __align__(16) float Bs[BR][BNO + 4];
-  __shared__ int row_t[2][BR];
-  __shared__ int row_f[2][BR];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+template <int VEC>
+__device__ __forceinline__ void cp_async_vec(float* dst, const float* src, bool ok) {
+  if constexpr (VEC == 4) {
+    cp_async16(dst, src, ok);
+  } else {
+    cp_async4(dst, src, ok);
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  const long long M = (long long)B * T * F;
+// ---------------------------------------------------------------------------
+// conv_bn_stats_bwd. A row tile is TT frames x FF frequencies of one clip b
+// from (t0, f0); tiles are numbered f-tile fastest, then t-tile, then b
+// (tests/test_torch_fused_cnn_plan.py walks the same numbering). Its halo
+// adds one frame and one frequency on each side: (TT + 2) x (FF + 2) positions,
+// pos = (jt + 1) * (FF + 2) + jf + 1, zero outside the clip (the SAME
+// padding), so the 9 taps of a row are 9 fixed position offsets and no row
+// needs a test.
+// ---------------------------------------------------------------------------
+struct RowTile {
+  int b, t0, f0;
+};
+
+__device__ __forceinline__ RowTile row_tile(long long i, int T, int F, int TT, int FF) {
+  const int nf = (F + FF - 1) / FF;
+  const int nt = (T + TT - 1) / TT;
+  RowTile r;
+  r.f0 = (int)(i % nf) * FF;
+  i /= nf;
+  r.t0 = (int)(i % nt) * TT;
+  r.b = (int)(i / nt);
+  return r;
+}
+
+// Halo of tile rt, channels [c0, c0 + CS) of a [B, T, F, C] tensor, into
+// dst[c][pos] (channel-major: a warp's 32 rows read 32 banks), 4-byte copies.
+__device__ __forceinline__ void stage_halo_cm(float* dst, const float* __restrict__ src,
+                                              RowTile rt, int TT, int FF, int T, int F,
+                                              int C, int c0, int CS, int tid, int nthreads) {
+  const int W = FF + 2;
+  const int NP = (TT + 2) * W;
+  for (int i = tid; i < NP * CS; i += nthreads) {
+    const int pos = i / CS;
+    const int q = i - pos * CS;
+    const int jt = pos / W;
+    const int t = rt.t0 + jt - 1, f = rt.f0 + pos - jt * W - 1, c = c0 + q;
+    const bool ok = t >= 0 && t < T && f >= 0 && f < F && c < C;
+    cp_async4(dst + q * NP + pos, ok ? src + (((long long)rt.b * T + t) * F + f) * C + c : src,
+              ok);
+  }
+}
+
+// Halo of tile rt, all C channels, into dst[pos][C] (position-major: a row's
+// channels are contiguous), VEC-float copies (VEC = 4 needs C % 4 == 0).
+template <int VEC>
+__device__ __forceinline__ void stage_halo_pm(float* dst, const float* __restrict__ src,
+                                              RowTile rt, int TT, int FF, int T, int F,
+                                              int C, int tid, int nthreads) {
+  const int W = FF + 2;
+  const int per = C / VEC;
+  const int n = (TT + 2) * W * per;
+  for (int i = tid; i < n; i += nthreads) {
+    const int pos = i / per;
+    const int c = (i - pos * per) * VEC;
+    const int jt = pos / W;
+    const int t = rt.t0 + jt - 1, f = rt.f0 + pos - jt * W - 1;
+    const bool ok = t >= 0 && t < T && f >= 0 && f < F;
+    cp_async_vec<VEC>(dst + pos * C + c,
+                      ok ? src + (((long long)rt.b * T + t) * F + f) * C + c : src, ok);
+  }
+}
+
+// dy_eff = dy + ds[lane] + 2 y dq[lane], lane = f * Co + c = e % L
+// (pallas_cnn.py:207), written once for the two GEMMs that read it.
+__global__ void dy_eff_kernel(const float* __restrict__ y, const float* __restrict__ dy,
+                              const float* __restrict__ ds, const float* __restrict__ dq,
+                              float* __restrict__ dye, long long n, int L) {
+  const long long stride = (long long)gridDim.x * blockDim.x * 4;
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4; e < n;
+       e += stride) {
+    const int l = (int)(e % L);
+    if (L % 4 == 0) {  // four elements of one frame
+      const float4 a = *reinterpret_cast<const float4*>(dy + e);
+      const float4 b = *reinterpret_cast<const float4*>(y + e);
+      const float4 s = *reinterpret_cast<const float4*>(ds + l);
+      const float4 q = *reinterpret_cast<const float4*>(dq + l);
+      float4 o;
+      o.x = a.x + s.x + 2.f * b.x * q.x;
+      o.y = a.y + s.y + 2.f * b.y * q.y;
+      o.z = a.z + s.z + 2.f * b.z * q.z;
+      o.w = a.w + s.w + 2.f * b.w * q.w;
+      *reinterpret_cast<float4*>(dye + e) = o;
+    } else {
+      for (long long k = e; k < e + 4 && k < n; ++k) {
+        const int lk = (int)(k % L);
+        dye[k] = dy[k] + ds[lk] + 2.f * y[k] * dq[lk];
+      }
+    }
+  }
+}
+
+// dx = SAME conv3x3 of dy_eff (Co channels in) with wt [9][Co][Ci] (w
+// flipped and transposed): an implicit GEMM of M rows x BN output channels
+// per block, depth 9 * Co. Each stage copies DX_BC channels of the tile's
+// halo (once, for all 9 taps) and the matching [9][DX_BC][BN] slice of wt,
+// the next stage in flight while one is multiplied. 256 threads, 8 x 8
+// outputs each: columns tx*4 + {0..3} and BN/2 + tx*4 + {0..3}; rows
+// ty + NY i, or with SEG (FF % 8 == 0, BN >= 64) the 8 neighbouring
+// frequencies ty*8 + i of one frame: then
+// the 10 halo values that a channel's three taps of one frame offset dt
+// need are read once for the three, 10 shared loads for 192 FMAs instead of
+// 24. (At BN < 64 a warp spans more than 4 segments, 8 floats apart, and
+// their reads would meet in the same banks.)
+constexpr int DX_BC = 8;
+
+template <int BN, int VEC, bool SEG>
+__global__ void __launch_bounds__(256, 2) conv_dx_kernel(
+    const float* __restrict__ dye, const float* __restrict__ wt, float* __restrict__ dx,
+    int B, int T, int F, int Co, int Ci, int TT, int FF) {
+  constexpr int BC = DX_BC, NX = BN / 8, NY = 256 / NX;
+  extern __shared__ __align__(16) float smem[];
+  const int W = FF + 2;
+  const int NP = (TT + 2) * W;
+  const int NPA = (NP + 3) & ~3;  // keeps the weight slices 16-byte aligned
+  // halo of stage buffer b at smem + b * NPA * BC, its weight slice after both
+  float* const wsl0 = smem + 2 * NPA * BC;
+  const int tid = threadIdx.x, tx = tid % NX, ty = tid / NX;
+  const RowTile rt = row_tile(blockIdx.x, T, F, TT, FF);
+  const int n0 = blockIdx.y * BN;
+
+  int pos[8];  // halo position of each row (SEG: of the segment's first row)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = SEG ? ty * 8 : ty + NY * i;
+    const int jt = r / FF;
+    pos[i] = (jt < TT ? jt : 0) * W + (jt < TT ? r - jt * FF : 0) + W + 1;  // past the tile: any
+  }
+
+  auto stage = [&](int sl, int buf) {
+    const int c0 = sl * BC;
+    stage_halo_cm(smem + buf * NPA * BC, dye, rt, TT, FF, T, F, Co, c0, BC, tid, 256);
+    constexpr int per = BN / VEC;
+    for (int i = tid; i < 9 * BC * per; i += 256) {
+      const int row = i / per;  // tap * BC + channel
+      const int n = (i - row * per) * VEC;
+      const int tap = row / BC;
+      const int c = c0 + row - tap * BC;
+      const bool ok = c < Co && n0 + n < Ci;
+      cp_async_vec<VEC>(wsl0 + buf * 9 * BC * BN + row * BN + n,
+                        ok ? wt + ((long long)tap * Co + c) * Ci + n0 + n : wt, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int n_sl = (Co + BC - 1) / BC;
+  stage(0, 0);
+  for (int sl = 0; sl < n_sl; ++sl) {
+    const int buf = sl & 1;
+    if (sl + 1 < n_sl) {
+      stage(sl + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (SEG) {
+#pragma unroll 1
+      for (int dt = 0; dt < 3; ++dt) {
+        const float* H = smem + buf * NPA * BC + pos[0] + (dt - 1) * W - 1;
+#pragma unroll
+        for (int c = 0; c < BC; ++c) {
+          float v[10];
+#pragma unroll
+          for (int q = 0; q < 10; ++q) v[q] = H[c * NP + q];
+#pragma unroll
+          for (int df = 0; df < 3; ++df) {
+            const float* wr = wsl0 + ((buf * 9 + dt * 3 + df) * BC + c) * BN + tx * 4;
+            const float4 b0 = *reinterpret_cast<const float4*>(wr);
+            const float4 b1 = *reinterpret_cast<const float4*>(wr + BN / 2);
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(v[i + df], b[j], acc[i][j]);
+          }
+        }
+      }
+    } else {
+      // taps not unrolled: unrolled, the 72 x 8 halo addresses outgrow the
+      // registers and spill
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const float* H = smem + buf * NPA * BC + (tap / 3 - 1) * W + tap % 3 - 1;
+        const float* Ws = wsl0 + (buf * 9 + tap) * BC * BN + tx * 4;
+#pragma unroll
+        for (int c = 0; c < BC; ++c) {
+          float a[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = H[c * NP + pos[i]];
+          const float* wr = Ws + c * BN;
+          const float4 b0 = *reinterpret_cast<const float4*>(wr);
+          const float4 b1 = *reinterpret_cast<const float4*>(wr + BN / 2);
+          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = SEG ? ty * 8 + i : ty + NY * i;
+    const int jt = r / FF;
+    const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
+    if (jt >= TT || t >= T || f >= F) continue;
+    float* out = dx + (((long long)rt.b * T + t) * F + f) * Ci;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tx * 4 + (j / 4) * (BN / 2) + j % 4;
+      if (n < Ci) out[n] = acc[i][j];
+    }
+  }
+}
+
+// dW and dbias partials: block (kt, ct, chunk) computes the [BKO x BNO] tile
+// of dW[k][co] = sum over rows m of x[m + tap offset][ci] * dy_eff[m][co],
+// k = tap * Ci + ci, over the row tiles of its chunk, in order. Per tile:
+// the x halo (all Ci channels, position-major) and the tile's dy_eff rows,
+// in a ring of DW_STAGES buffers (cp.async, 16-byte copies where Ci and Co
+// allow): the next tile is in flight while one is multiplied, one barrier
+// a tile (a third stage measured no faster on the H100).
+// 256 threads as RG = 256 / (NTY * NTX) row groups of NTY x NTX threads,
+// TM x TN outputs a thread (8 x 4 or 8 x 8: four 16-byte shared loads or
+// fewer per 32 or 64 FMAs); group g takes rows g, g + RG, ... of each tile,
+// so a small [K, Co] (the early blocks) still keeps every thread busy with a
+// full register tile. A thread's TM depth indices are fixed, so their
+// (tap, ci) offsets into the halo are computed once; the rows' offsets come
+// from a table. At the end the groups' tiles are added in group order.
+constexpr int DW_MAX_ROWS = 256;
+constexpr int DW_STAGES = 2;
+
+template <int TN, int NTY, int NTX, int VEC>
+__global__ void __launch_bounds__(256, 2) conv_dw_kernel(
+    const float* __restrict__ x, const float* __restrict__ dye, float* __restrict__ part_w,
+    float* __restrict__ part_b, int B, int T, int F, int Ci, int Co, int TT, int FF,
+    int n_tiles, int tiles_per_chunk) {
+  constexpr int TM = 8, BKO = NTY * TM, BNO = NTX * TN, NG = NTY * NTX, RG = 256 / NG;
+  static_assert(256 % NG == 0 && 256 % BNO == 0, "thread tiles");
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int rowoff[DW_MAX_ROWS];  // halo offset of row r from row (0, 0)
+  __shared__ float bred[256];
+  const int W = FF + 2;
+  const int NP = (TT + 2) * W;
+  const int R = TT * FF;
+  const int XS = (NP * Ci + 3) & ~3;
+  // stage buffer b: the x halo at smem + b * XS, the dy_eff rows at ds0 + b * R * BNO
+  float* const ds0 = smem + DW_STAGES * XS;
   const int K = 9 * Ci;
-  const int k0 = blockIdx.x * BKO;
-  const int n0 = blockIdx.y * BNO;
-  const long long chunk = blockIdx.z;
-  const long long r_begin = chunk * rows_per_chunk;
-  const long long r_end = min(M, r_begin + rows_per_chunk);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const bool do_bias = blockIdx.x == 0 && tid < BNO;
-  const int kk_a = tid % BKO, r_a = tid / BKO;  // A: rows r_a + j * (256 / BKO)
-  const int n_b = tid % BNO, r_b = tid / BNO;   // B: rows r_b + j * (256 / BNO)
-  const int co_b = n0 + n_b;
-  int dt, df, c;
-  decode_tap(k0 + kk_a, K, Ci, dt, df, c);
+  const int k0 = blockIdx.x * BKO, n0 = blockIdx.y * BNO;
+  const int tid = threadIdx.x, grp = tid / NG, tx = tid % NTX, ty = (tid % NG) / NTX;
+  const bool kt0 = blockIdx.x == 0;  // these blocks also sum dbias
+  const int tile0 = blockIdx.z * tiles_per_chunk;
+  const int tile1 = min(n_tiles, tile0 + tiles_per_chunk);
+
+  for (int r = tid; r < R; r += 256) rowoff[r] = ((r / FF) * W + r % FF) * Ci;
+  int aoff[TM];  // offset of depth index k in the halo, from the row's position
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int k = k0 + ty * TM + i;
+    const int tap = k / Ci;
+    aoff[i] = k < K ? ((tap / 3 - 1) * W + tap % 3 - 1) * Ci + k - tap * Ci : 0;
+  }
+  int co[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) co[j] = TN == 8 ? tx * 4 + (j / 4) * (BNO / 2) + j % 4 : tx * 4 + j;
+
+  auto stage = [&](int tile, int buf) {
+    const RowTile rt = row_tile(tile, T, F, TT, FF);
+    stage_halo_pm<VEC>(smem + buf * XS, x, rt, TT, FF, T, F, Ci, tid, 256);
+    constexpr int per = BNO / VEC;
+    for (int i = tid; i < R * per; i += 256) {
+      const int r = i / per;
+      const int n = (i - r * per) * VEC;
+      const int jt = r / FF;
+      const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
+      const bool ok = t < T && f < F && n0 + n < Co;
+      cp_async_vec<VEC>(ds0 + buf * R * BNO + r * BNO + n,
+                        ok ? dye + (((long long)rt.b * T + t) * F + f) * Co + n0 + n : dye, ok);
+    }
+    cp_async_commit();
+  };
 
   float acc[TM][TN];
 #pragma unroll
@@ -467,117 +737,184 @@ __global__ void __launch_bounds__(256) conv3x3_dw_kernel(
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   float bsum = 0.f;
-  float a_reg[AE], b_reg[BE];
 
-  auto rows_of = [&](int buf, long long m0) {
-    if (tid < BR) {
-      const long long m = m0 + tid;
-      if (m < r_end) {
-        row_f[buf][tid] = (int)(m % F);
-        row_t[buf][tid] = (int)((m / F) % T);
-      } else {
-        row_f[buf][tid] = 0;
-        row_t[buf][tid] = -4;  // every tap outside [0, T), and no dy_eff
-      }
+  // one commit group per tile, empty past the chunk's last tile, so that
+  // waiting for all but DW_STAGES - 2 groups means the current tile landed
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (tile0 + s < tile1) {
+      stage(tile0 + s, s);
+    } else {
+      cp_async_commit();
     }
-  };
-  rows_of(0, r_begin);
-  __syncthreads();
-
-  const long long n_stages = r_end > r_begin ? (r_end - r_begin + BR - 1) / BR : 0;
-  for (long long st = 0; st <= n_stages; ++st) {
-    const int buf = (int)(st & 1);
-    // st == 0 only loads stage 0; afterwards stage st - 1 is staged and
-    // multiplied while stage st is loaded.
-    if (st > 0) {
-#pragma unroll
-      for (int j = 0; j < AE; ++j) As[r_a + j * (256 / BKO)][kk_a] = a_reg[j];
-#pragma unroll
-      for (int j = 0; j < BE; ++j) Bs[r_b + j * (256 / BNO)][n_b] = b_reg[j];
-      if (st < n_stages) rows_of(buf, r_begin + st * BR);
-      __syncthreads();
+  }
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int buf = (tile - tile0) % DW_STAGES;
+    cp_async_wait<DW_STAGES - 2>();
+    __syncthreads();  // the tile landed for all; the previous buffer is free
+    if (tile + DW_STAGES - 1 < tile1) {
+      stage(tile + DW_STAGES - 1, (buf + DW_STAGES - 1) % DW_STAGES);
+    } else {
+      cp_async_commit();
     }
-    if (st < n_stages) {
-      const long long m0 = r_begin + st * BR;
+    const float* X = smem + buf * XS + (W + 1) * Ci;  // the position of row (0, 0)
+    const float* D = ds0 + buf * R * BNO;
+    for (int r = grp; r < R; r += RG) {
+      const float* xr = X + rowoff[r];
+      const float* dr = D + r * BNO;
+      float a[TM], b[TN];
+      if constexpr (VEC == 4) {
 #pragma unroll
-      for (int j = 0; j < AE; ++j) {
-        const int r = r_a + j * (256 / BKO);
-        a_reg[j] = im2col_at<false>(x, nullptr, nullptr, nullptr, m0 + r, row_t[buf][r],
-                                    row_f[buf][r], dt, df, c, T, F, Ci);
-      }
-#pragma unroll
-      for (int j = 0; j < BE; ++j) {
-        const int r = r_b + j * (256 / BNO);
-        float v = 0.f;
-        if (co_b < Co && row_t[buf][r] >= 0) {
-          const long long idx = (m0 + r) * Co + co_b;
-          const int lane = row_f[buf][r] * Co + co_b;
-          v = dy[idx] + ds[lane] + 2.f * y[idx] * dq[lane];
+        for (int g = 0; g < TM / 4; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(xr + aoff[4 * g]);
+          a[4 * g] = v.x;
+          a[4 * g + 1] = v.y;
+          a[4 * g + 2] = v.z;
+          a[4 * g + 3] = v.w;
         }
-        b_reg[j] = v;
+#pragma unroll
+        for (int g = 0; g < TN / 4; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(dr + co[4 * g]);
+          b[4 * g] = v.x;
+          b[4 * g + 1] = v.y;
+          b[4 * g + 2] = v.z;
+          b[4 * g + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = xr[aoff[i]];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = dr[co[j]];
       }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    if (st > 0) {
+    if (kt0)  // thread t sums channel t % BNO over rows t / BNO, + 256 / BNO, ...
+      for (int r = tid / BNO; r < R; r += 256 / BNO) bsum += D[r * BNO + tid % BNO];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every stage read
+
+  const long long chunk = blockIdx.z;
+  if constexpr (RG > 1) {  // the stage buffers are free: [RG][BKO][BNO]
 #pragma unroll
-      for (int r = 0; r < BR; ++r) {
-        float a[TM], b[TN];
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[r][ty * TM + i];
+      for (int j = 0; j < TN; ++j) smem[(grp * BKO + ty * TM + i) * BNO + co[j]] = acc[i][j];
+    __syncthreads();
+    for (int e = tid; e < BKO * BNO; e += 256) {
+      const int k = k0 + e / BNO, n = n0 + e % BNO;
+      float s = 0.f;
+      for (int q = 0; q < RG; ++q) s += smem[q * BKO * BNO + e];
+      if (k < K && n < Co) part_w[(chunk * K + k) * Co + n] = s;
+    }
+  } else {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[r][tx * TN + j];
+    for (int i = 0; i < TM; ++i) {
+      const int k = k0 + ty * TM + i;
+      if (k >= K) continue;
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + co[j];
+        if (n < Co) part_w[(chunk * K + k) * Co + n] = acc[i][j];
       }
-      if (do_bias) {
-#pragma unroll
-        for (int r = 0; r < BR; ++r) bsum += Bs[r][tid];
-      }
-      __syncthreads();
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int k = k0 + ty * TM + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tx * TN + j;
-      if (co < Co) part_w[(chunk * K + k) * Co + co] = acc[i][j];
+  if (kt0) {
+    bred[tid] = bsum;
+    __syncthreads();
+    if (tid < BNO && n0 + tid < Co) {
+      float s = 0.f;
+      for (int q = 0; q < 256 / BNO; ++q) s += bred[q * BNO + tid];
+      part_b[chunk * Co + n0 + tid] = s;
     }
   }
-  if (do_bias && n0 + tid < Co) part_b[chunk * Co + n0 + tid] = bsum;
 }
 
-template <int BKO, int BNO>
-cudaError_t launch_dw(const float* x, const float* y, const float* dy, const float* ds,
-                      const float* dq, float* part_w, float* part_b, int B, int T, int F,
-                      int Ci, int Co, int n_chunks, cudaStream_t s) {
-  const long long M = (long long)B * T * F;
-  long long rpc = (M + n_chunks - 1) / n_chunks;
-  rpc = (rpc + 15) / 16 * 16;
-  dim3 grid((9 * Ci + BKO - 1) / BKO, (Co + BNO - 1) / BNO, n_chunks);
-  conv3x3_dw_kernel<BKO, BNO><<<grid, 256, 0, s>>>(x, y, dy, ds, dq, part_w, part_b,
-                                                   B, T, F, Ci, Co, rpc);
-  return cudaGetLastError();
-}
+// dW and dbias partials for Ci = 1 (the first block: 9 taps of one input
+// channel), bound by the bytes of y and dy, which it reads once: dy_eff is
+// formed as they are read, a thread keeps 9 taps x 4 channels of dW and 4 of
+// dbias in registers over rows rs, rs + RS, ... of its block's range, and the
+// block adds its RS row slots in order.
+constexpr int C1_VALS = 40;  // 9 * 4 + 4 sums a thread
 
-// dW tile sides: the depth K = 9*Ci and the channels Co pick 16, 32, 64 or
-// 128 (128 only where the tile stays mostly full: K >= 512, Co > 64).
-int dw_tile_k(int K) { return K <= 16 ? 16 : (K <= 32 ? 32 : (K < 512 ? 64 : 128)); }
-int dw_tile_n(int Co) { return Co <= 16 ? 16 : (Co <= 32 ? 32 : (Co <= 64 ? 64 : 128)); }
-
-template <int BKO>
-cudaError_t launch_dw_n(const float* x, const float* y, const float* dy, const float* ds,
-                        const float* dq, float* part_w, float* part_b, int B, int T, int F,
-                        int Ci, int Co, int n_chunks, cudaStream_t s) {
-  switch (dw_tile_n(Co)) {
-    case 16: return launch_dw<BKO, 16>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, s);
-    case 32: return launch_dw<BKO, 32>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, s);
-    case 64: return launch_dw<BKO, 64>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, s);
-    default: return launch_dw<BKO, 128>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, s);
+__global__ void __launch_bounds__(256) conv_dw_c1_kernel(
+    const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ dy,
+    const float* __restrict__ ds, const float* __restrict__ dq, float* __restrict__ part_w,
+    float* __restrict__ part_b, int B, int T, int F, int Co, int rows_per_block) {
+  __shared__ float red[256 * C1_VALS];
+  const int G = (Co + 3) / 4;  // channel groups of 4
+  const int RS = 256 / G;      // row slots
+  const int tid = threadIdx.x, g = tid % G, rs = tid / G;
+  const int M = B * T * F;     // rows fit in an int (the plan checks)
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(M, r0 + rows_per_block);
+  float acc[9][4], bacc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bacc[j] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) acc[tap][j] = 0.f;
+  }
+  if (rs < RS) {
+    // unrolled so that several rows' loads are in flight at once: the loop
+    // is otherwise bound by the latency of device memory
+#pragma unroll 4
+    for (int m = r0 + rs; m < r1; m += RS) {
+      const int f = m % F, t = m / F % T;
+      const long long mc = (long long)m * Co;
+      float xv[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dt = tap / 3 - 1, df = tap % 3 - 1;
+        const bool ok = t + dt >= 0 && t + dt < T && f + df >= 0 && f + df < F;
+        xv[tap] = ok ? x[m + dt * F + df] : 0.f;
+      }
+      float e[4];
+      if (Co % 4 == 0) {
+        const float4 a = *reinterpret_cast<const float4*>(dy + mc + 4 * g);
+        const float4 b = *reinterpret_cast<const float4*>(y + mc + 4 * g);
+        const float4 s = *reinterpret_cast<const float4*>(ds + f * Co + 4 * g);
+        const float4 q = *reinterpret_cast<const float4*>(dq + f * Co + 4 * g);
+        e[0] = a.x + s.x + 2.f * b.x * q.x;
+        e[1] = a.y + s.y + 2.f * b.y * q.y;
+        e[2] = a.z + s.z + 2.f * b.z * q.z;
+        e[3] = a.w + s.w + 2.f * b.w * q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * g + j;
+          e[j] = c < Co ? dy[mc + c] + ds[f * Co + c] + 2.f * y[mc + c] * dq[f * Co + c] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bacc[j] += e[j];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) acc[tap][j] = fmaf(xv[tap], e[j], acc[tap][j]);
+      }
+    }
+  }
+  float* mine = red + tid * C1_VALS;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    mine[36 + j] = bacc[j];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) mine[tap * 4 + j] = acc[tap][j];
+  }
+  __syncthreads();
+  for (int e = tid; e < 10 * Co; e += 256) {
+    const int tap = e / Co;  // 9: dbias
+    const int c = e - tap * Co;
+    const int v = (tap < 9 ? tap * 4 : 36) + c % 4;
+    float s = 0.f;
+    for (int r = 0; r < RS; ++r) s += red[(r * G + c / 4) * C1_VALS + v];
+    if (tap < 9) {
+      part_w[((long long)blockIdx.x * 9 + tap) * Co + c] = s;
+    } else {
+      part_b[(long long)blockIdx.x * Co + c] = s;
+    }
   }
 }
 
@@ -598,193 +935,369 @@ __global__ void dw_final_kernel(const float* __restrict__ part_w,
   }
 }
 
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int BN, int VEC>
+cudaError_t launch_dx(const float* dye, const float* wt, float* dx, int B, int T, int F,
+                      int Co, int Ci, int TT, int FF, int smem, cudaStream_t s) {
+  auto kernel = BN >= 64 && FF % 8 == 0 ? conv_dx_kernel<BN, VEC, true>
+                                         : conv_dx_kernel<BN, VEC, false>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
+  dim3 grid((unsigned)tiles, (unsigned)((Ci + BN - 1) / BN));
+  kernel<<<grid, 256, smem, s>>>(dye, wt, dx, B, T, F, Co, Ci, TT, FF);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch_dx_bn(int BN, const float* dye, const float* wt, float* dx, int B, int T,
+                         int F, int Co, int Ci, int TT, int FF, int smem, cudaStream_t s) {
+  switch (BN) {
+    case 8: return launch_dx<8, VEC>(dye, wt, dx, B, T, F, Co, Ci, TT, FF, smem, s);
+    case 16: return launch_dx<16, VEC>(dye, wt, dx, B, T, F, Co, Ci, TT, FF, smem, s);
+    case 32: return launch_dx<32, VEC>(dye, wt, dx, B, T, F, Co, Ci, TT, FF, smem, s);
+    case 64: return launch_dx<64, VEC>(dye, wt, dx, B, T, F, Co, Ci, TT, FF, smem, s);
+    case 128: return launch_dx<128, VEC>(dye, wt, dx, B, T, F, Co, Ci, TT, FF, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int TN, int NTY, int NTX, int VEC>
+cudaError_t launch_dw(const float* x, const float* dye, float* part_w, float* part_b, int B,
+                      int T, int F, int Ci, int Co, int TT, int FF, int n_tiles, int tpc,
+                      int chunks, int smem, cudaStream_t s) {
+  auto kernel = conv_dw_kernel<TN, NTY, NTX, VEC>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((9 * Ci + 8 * NTY - 1) / (8 * NTY), (Co + NTX * TN - 1) / (NTX * TN), chunks);
+  kernel<<<grid, 256, smem, s>>>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc);
+  return cudaGetLastError();
+}
+
+// The dW tile [BKO x BNO] picks the thread grid: NTY = BKO / 8 depth rows of
+// threads; BNO of 16 or 32 channels in 4-wide, 64 or 128 in 8-wide thread tiles.
+template <int NTY, int VEC>
+cudaError_t launch_dw_n(int BNO, const float* x, const float* dye, float* part_w,
+                        float* part_b, int B, int T, int F, int Ci, int Co, int TT, int FF,
+                        int n_tiles, int tpc, int chunks, int smem, cudaStream_t s) {
+  switch (BNO) {
+    case 16: return launch_dw<4, NTY, 4, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 32: return launch_dw<4, NTY, 8, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 64: return launch_dw<8, NTY, 8, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 128: return launch_dw<8, NTY, 16, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int VEC>
+cudaError_t launch_dw_any(int BKO, int BNO, const float* x, const float* dye, float* part_w,
+                          float* part_b, int B, int T, int F, int Ci, int Co, int TT, int FF,
+                          int n_tiles, int tpc, int chunks, int smem, cudaStream_t s) {
+  switch (BKO) {
+    case 16: return launch_dw_n<2, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 32: return launch_dw_n<4, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 64: return launch_dw_n<8, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 128: return launch_dw_n<16, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// glu_drop_pool_bwd. Persistent blocks of 256 threads; block i walks a
-// contiguous run of frames (b, t), each frame the F positions x Co channels
-// of y[b, t]. Per frame: (1) ybn and the unpooled, dropout-masked incoming
-// gradient gu, per lane; (2) lin = ybn Wg + bg and dlin = gu * sigmoid(ybn);
-// (3) dybn = dlin Wg^T + gu lin s (1 - s), dy = dybn * scale, and per-lane
-// sums of dybn * y, dybn and dlin; (4) dWg += ybn^T dlin, each thread an
-// NI x NI register tile of dWg (rows ty + 16 i, columns tx + 16 j). Steps 2
-// and 3 give each thread 4 channels of one position: a float4 row of Wg
-// (step 2) or of Wg^T (step 3) feeds 4 FMAs per broadcast BN(y) or dlin
-// value. Each lane's sums have one owner thread, and the block's partials
-// go to global memory at the end.
-// smem: Wg [Co][C4] | Wg^T [Co][C4] | ybn | gu | lin | dlin [F][C4+1] |
-// lane sums [3][F][C4+1], C4 = Co rounded up to 4 (zero columns); the odd
-// row stride C4+1 keeps the per-position reads of step 2 and 3 apart in the
-// banks when one warp spans several positions.
+// glu_drop_pool_bwd. 512 threads; block i walks tiles i*tpb .. of P
+// positions (rows m of y, P * CP <= 8192), CP = Co padded to 4 (or 8) with
+// zero weights. Per tile:
+//   A  BN(y) into yt[c][p] and the unpooled, dropout-masked gradient gu (in
+//      registers), each product thread 4 positions x 4 channels;
+//   B  lin = ybn Wg + bg (float4 of yt and of a Wg row per depth step),
+//      dlin = gu s into dt[c][p], and gu lin s (1 - s) kept in registers;
+//   E1 the lane sums of dlin, one owner thread per lane (f, c), adding the
+//      tile's positions of its lane in order;
+//   C  dWg += ybn^T dlin over the tile's positions: a thread owns 4 x CT
+//      entries (rows wk + nk i, columns wc + nc j), PG groups of threads
+//      split the positions (small Co);
+//   D  dybn = dlin Wg^T + gu lin s (1 - s) (float4 of dt and of a Wg^T row),
+//      dy = dybn * scale; dybn replaces ybn in yt, dybn * y dlin in dt;
+//   E2 the lane sums of dybn * y and dybn, as E1.
+// Partials: lanes and dWg per block (the PG groups' dWg added in group
+// order first); two small passes add the blocks' in block order.
+// smem: Wg [Co][CP] | Wg^T [Co][CP] | yt [CP][P+4] | dt [CP][P+4] | lanes [3][F*Co].
 // ---------------------------------------------------------------------------
-template <int NI>
-__global__ void __launch_bounds__(256) glu_drop_pool_bwd_kernel(
+
+// p[c .. c+3], zeros past Co: one 16-byte load where Co % 4 == 0 (p then
+// lies on 16 bytes), else four guarded ones.
+__device__ __forceinline__ float4 ld4(const float* __restrict__ p, int c, int Co) {
+  if ((Co & 3) == 0) {
+    return c < Co ? __ldg(reinterpret_cast<const float4*>(p + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  return make_float4(c < Co ? p[c] : 0.f, c + 1 < Co ? p[c + 1] : 0.f,
+                     c + 2 < Co ? p[c + 2] : 0.f, c + 3 < Co ? p[c + 3] : 0.f);
+}
+
+// bytes p[c .. c+3] (zeros past Co) packed little-endian into one word
+__device__ __forceinline__ uint32_t ld_bytes4(const uint8_t* __restrict__ p, int c, int Co) {
+  if ((Co & 3) == 0) return c < Co ? __ldg(reinterpret_cast<const uint32_t*>(p + c)) : 0u;
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v |= (c + j < Co ? (uint32_t)p[c + j] : 0u) << (8 * j);
+  return v;
+}
+
+// p[c .. c+3] = o, nothing past Co
+__device__ __forceinline__ void st4(float* __restrict__ p, int c, int Co, const float* o) {
+  if ((Co & 3) == 0) {
+    if (c < Co) *reinterpret_cast<float4*>(p + c) = make_float4(o[0], o[1], o[2], o[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j < Co) p[c + j] = o[j];
+}
+
+constexpr int GLU_THREADS = 512;
+
+template <int CT>
+__global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
     const float* __restrict__ y, const float* __restrict__ scale_f,
     const float* __restrict__ bias_f, const float* __restrict__ wg,
     const float* __restrict__ bg, const uint8_t* __restrict__ bits,
     const float* __restrict__ g, float* __restrict__ dy, float* __restrict__ part_l,
     float* __restrict__ part_w, int B, int T, int F, int Co, int pt, int pf,
-    int keep_thresh, float inv_keep) {
+    int keep_thresh, float inv_keep, int CP, int P, int PG, int n_tiles,
+    int tiles_per_block) {
   extern __shared__ __align__(16) float smem[];
   const int L = F * Co;
-  const int C4 = (Co + 3) & ~3;
-  const int G = C4 / 4;  // channel groups of 4
-  const int YS = C4 + 1;
-  const int FY = F * YS;
+  const int PS = P + 4;
   float* wg_s = smem;             // [k][c]
-  float* wgT_s = wg_s + Co * C4;  // [c][k]
-  float* ybn_s = wgT_s + Co * C4;
-  float* gu_s = ybn_s + FY;
-  float* lin_s = gu_s + FY;
-  float* dlin_s = lin_s + FY;
-  float* acc_s = dlin_s + FY;  // [3][F][YS]
+  float* wgT_s = wg_s + Co * CP;  // [c][k]
+  float* yt = wgT_s + Co * CP;    // [c][p]: BN(y), then dybn
+  float* dt = yt + CP * PS;       // [c][p]: dlin
+  float* lane_s = dt + CP * PS;   // [3][L]
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long long n_frames = (long long)B * T;
-  const long long per = (n_frames + gridDim.x - 1) / gridDim.x;
-  const long long fr0 = blockIdx.x * per;
-  const long long fr1 = min(n_frames, fr0 + per);
+  const int CG = CP / 4;
+  const bool prod = tid < CG * (P / 4);
+  // product thread (cg, pg): channels cg*4.., positions pg*4... Where the
+  // shape allows, a warp holds 8 channel groups x 4 position groups, so its
+  // float4 reads of a Wg row and of a yt column span 128 and 64 bytes (one
+  // shared-memory wavefront each, not four and one)
+  const bool w8 = CG % 8 == 0 && (P / 4) % 4 == 0;
+  const int cg = w8 ? (tid / 32) % (CG / 8) * 8 + tid % 8 : tid % CG;
+  const int pg = w8 ? (tid / 32) / (CG / 8) * 4 + (tid % 32) / 8 : tid / CG;
+  const int nk = CP / 4, nc = CP / CT, NW = nk * nc;
+  const bool wthr = tid < NW * PG;
+  const int wc = tid % nc, wk = (tid / nc) % nk, wp = tid / NW;
+  const int pr = P / PG;  // positions of a dWg group
+  const int Ptot = B * T * F;  // positions fit in an int (the wrapper checks)
   const int To = T / pt, Fo = F / pf;
   const float inv_w = 1.f / (float)(pt * pf);
 
-  for (int i = tid; i < Co * C4; i += 256) {
-    const int row = i / C4;
-    const int col = i - row * C4;
-    wg_s[i] = col < Co ? wg[row * Co + col] : 0.f;
-    wgT_s[i] = col < Co ? wg[col * Co + row] : 0.f;
+  for (int i = tid; i < Co * CP; i += GLU_THREADS) {
+    const int r = i / CP;
+    const int c = i - r * CP;
+    wg_s[i] = c < Co ? wg[r * Co + c] : 0.f;
+    wgT_s[i] = c < Co ? wg[c * Co + r] : 0.f;
   }
-  for (int i = tid; i < 3 * FY; i += 256) acc_s[i] = 0.f;
-  float accw[NI][NI];
+  for (int i = tid; i < 3 * L; i += GLU_THREADS) lane_s[i] = 0.f;
+  float accw[4][CT];
 #pragma unroll
-  for (int i = 0; i < NI; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NI; ++j) accw[i][j] = 0.f;
+    for (int j = 0; j < CT; ++j) accw[i][j] = 0.f;
 
-  for (long long fr = fr0; fr < fr1; ++fr) {
-    const int t = (int)(fr % T);
-    const long long b = fr / T;
-    const float* yf = y + fr * L;
-    __syncthreads();  // Wg staged / the previous frame's step 4 is done
-    for (int l = tid; l < L; l += 256) {
-      const int f = l / Co;
-      const int c = l - f * Co;
-      ybn_s[f * YS + c] = fmaf(yf[l], scale_f[l], bias_f[l]);
-      float gv = 0.f;
-      if (t < To * pt && f < Fo * pf) {
-        gv = g[((b * To + t / pt) * Fo + f / pf) * Co + c] * inv_w;
+  const bool has_g = To > 0 && Fo > 0;  // else g is empty and every gradient is 0
+  const int tile0 = blockIdx.x * tiles_per_block;
+  const int tile1 = min(n_tiles, tile0 + tiles_per_block);
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int m0 = tile * P;
+    const int f_first = m0 % F;
+    float gu[4][4], t2[4][4];
+    __syncthreads();  // weights staged / the previous tile's lane pass done
+    if (prod) {  // A: the loads from device memory issued before the first use
+      float4 yq[4], gq[4];
+      uint32_t kb[4];
+      int fl[4];
+      bool ok[4], pooled[4];
+      int m = m0 + pg * 4;  // the position, and its (b, t, f), stepped along
+      int f = m % F, t = (m / F) % T, b = m / F / T;
+#pragma unroll
+      for (int i = 0; i < 4; ++i, ++m) {
+        if (i > 0 && ++f == F) {
+          f = 0;
+          if (++t == T) {
+            t = 0;
+            ++b;
+          }
+        }
+        ok[i] = m < Ptot;
+        const int mm = ok[i] ? m : 0;
+        pooled[i] = ok[i] && t < To * pt && f < Fo * pf;
+        const long long gi = pooled[i] ? ((long long)(b * To + t / pt) * Fo + f / pf) * Co : 0;
+        fl[i] = f * Co;
+        yq[i] = ld4(y + (long long)mm * Co, cg * 4, Co);
+        gq[i] = has_g ? ld4(g + gi, cg * 4, Co) : make_float4(0.f, 0.f, 0.f, 0.f);
+        kb[i] = bits != nullptr ? ld_bytes4(bits + (long long)mm * Co, cg * 4, Co) : 0u;
       }
-      if (bits != nullptr) gv = (int)bits[fr * L + l] < keep_thresh ? gv * inv_keep : 0.f;
-      gu_s[f * YS + c] = gv;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 sc = ld4(scale_f + fl[i], cg * 4, Co);  // small, cached
+        const float4 bi = ld4(bias_f + fl[i], cg * 4, Co);
+        const float yv[4] = {yq[i].x, yq[i].y, yq[i].z, yq[i].w};
+        const float sv[4] = {sc.x, sc.y, sc.z, sc.w};
+        const float bv[4] = {bi.x, bi.y, bi.z, bi.w};
+        const float gv[4] = {gq[i].x, gq[i].y, gq[i].z, gq[i].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // padded channels load zeros: v = 0, gu = 0
+          float gj = pooled[i] ? gv[j] * inv_w : 0.f;
+          if (bits != nullptr) gj = (int)((kb[i] >> (8 * j)) & 255u) < keep_thresh ? gj * inv_keep : 0.f;
+          yt[(cg * 4 + j) * PS + pg * 4 + i] = ok[i] ? fmaf(yv[j], sv[j], bv[j]) : 0.f;
+          gu[i][j] = gj;
+        }
+      }
     }
     __syncthreads();
-    for (int it = tid; it < F * G; it += 256) {
-      const int f = it / G;
-      const int c0 = 4 * (it - f * G);
-      const float* yr = ybn_s + f * YS;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (prod) {  // B
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
       for (int k = 0; k < Co; ++k) {
-        const float v = yr[k];
-        const float4 w4 = *reinterpret_cast<const float4*>(wg_s + k * C4 + c0);
-        a.x = fmaf(v, w4.x, a.x);
-        a.y = fmaf(v, w4.y, a.y);
-        a.z = fmaf(v, w4.z, a.z);
-        a.w = fmaf(v, w4.w, a.w);
+        const float4 a = *reinterpret_cast<const float4*>(yt + k * PS + pg * 4);
+        const float4 w = *reinterpret_cast<const float4*>(wg_s + k * CP + cg * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
       }
-      const float lin[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = c0 + j;
-        if (c >= Co) break;
-        const int o = f * YS + c;
-        lin_s[o] = lin[j] + bg[c];
-        dlin_s[o] = gu_s[o] * sigmoidf(ybn_s[o]);
+        const int c = cg * 4 + j;
+        const float bgc = c < Co ? bg[c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float s = sigmoidf(yt[c * PS + pg * 4 + i]);
+          const float lin = acc[i][j] + bgc;
+          dt[c * PS + pg * 4 + i] = gu[i][j] * s;
+          t2[i][j] = gu[i][j] * lin * s * (1.f - s);
+        }
       }
     }
     __syncthreads();
-    for (int it = tid; it < F * G; it += 256) {
-      const int f = it / G;
-      const int k0 = 4 * (it - f * G);
-      const float* dr = dlin_s + f * YS;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-      for (int c = 0; c < Co; ++c) {
-        const float v = dr[c];
-        const float4 w4 = *reinterpret_cast<const float4*>(wgT_s + c * C4 + k0);
-        a.x = fmaf(v, w4.x, a.x);
-        a.y = fmaf(v, w4.y, a.y);
-        a.z = fmaf(v, w4.z, a.z);
-        a.w = fmaf(v, w4.w, a.w);
-      }
-      const float dglu[4] = {a.x, a.y, a.z, a.w};
+    // E1: the lane sums of dlin, one owner thread per lane (f, c), the
+    // tile's positions of its lane in order
+    for (int l = tid; l < L; l += GLU_THREADS) {
+      const int f = l / Co;
+      const int c = l - f * Co;
+      float s3 = 0.f;
+      for (int p = (f - f_first + F) % F; p < P && m0 + p < Ptot; p += F) s3 += dt[c * PS + p];
+      lane_s[2 * L + l] += s3;
+    }
+    if (wthr) {  // C
+      for (int p = wp * pr; p < wp * pr + pr; p += 4) {
+        float4 a[4], d[CT];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + j;
-        if (k >= Co) break;
-        const int o = f * YS + k;
-        const int lane = f * Co + k;
-        const float s = sigmoidf(ybn_s[o]);
-        const float dybn = dglu[j] + gu_s[o] * lin_s[o] * s * (1.f - s);
-        dy[fr * L + lane] = dybn * scale_f[lane];
-        acc_s[o] += dybn * yf[lane];
-        acc_s[FY + o] += dybn;
-        acc_s[2 * FY + o] += dlin_s[o];
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(yt + (wk + nk * i) * PS + p);
+#pragma unroll
+        for (int j = 0; j < CT; ++j) d[j] = *reinterpret_cast<const float4*>(dt + (wc + nc * j) * PS + p);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) {
+            float s = accw[i][j];
+            s = fmaf(a[i].x, d[j].x, s);
+            s = fmaf(a[i].y, d[j].y, s);
+            s = fmaf(a[i].z, d[j].z, s);
+            accw[i][j] = fmaf(a[i].w, d[j].w, s);
+          }
       }
     }
-    for (int f = 0; f < F; ++f) {
-      const float* yr = ybn_s + f * YS;
-      const float* dr = dlin_s + f * YS;
-      float a[NI], d[NI];
+    float acc2[4][4];
+    float4 yq[4];
 #pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int k = ty + 16 * i;
-        a[i] = k < Co ? yr[k] : 0.f;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc2[i][j] = 0.f;
+    if (prod) {  // D
+#pragma unroll 4
+      for (int c = 0; c < Co; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(dt + c * PS + pg * 4);
+        const float4 w = *reinterpret_cast<const float4*>(wgT_s + c * CP + cg * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(av[i], wv[j], acc2[i][j]);
       }
+      // y again (from L2), for the lane sums of dybn * y; loaded after the
+      // product, whose registers it would otherwise crowd into spills
 #pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int c = tx + 16 * j;
-        d[j] = c < Co ? dr[c] : 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + pg * 4 + i;
+        yq[i] = ld4(y + (long long)(m < Ptot ? m : 0) * Co, cg * 4, Co);
       }
+    }
+    __syncthreads();  // yt and dt are read no more
+    if (prod) {  // dybn into yt, dybn * y into dt, dy = dybn * scale out
 #pragma unroll
-      for (int i = 0; i < NI; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int p = pg * 4 + i;
+        const int m = m0 + p;
+        const int f = m % F;
+        const float yv[4] = {yq[i].x, yq[i].y, yq[i].z, yq[i].w};
+        float o[4];
 #pragma unroll
-        for (int j = 0; j < NI; ++j) accw[i][j] = fmaf(a[i], d[j], accw[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const int k = cg * 4 + j;
+          const float dybn = acc2[i][j] + t2[i][j];
+          o[j] = dybn * (k < Co ? scale_f[f * Co + k] : 0.f);
+          yt[k * PS + p] = dybn;
+          dt[k * PS + p] = dybn * yv[j];
+        }
+        if (m < Ptot) st4(dy + (long long)m * Co, cg * 4, Co, o);
+      }
+    }
+    __syncthreads();
+    for (int l = tid; l < L; l += GLU_THREADS) {  // E2: the lane sums of dybn * y and dybn
+      const int f = l / Co;
+      const int c = l - f * Co;
+      float s1 = 0.f, s2 = 0.f;
+      for (int p = (f - f_first + F) % F; p < P && m0 + p < Ptot; p += F) {
+        s1 += dt[c * PS + p];
+        s2 += yt[c * PS + p];
+      }
+      lane_s[l] += s1;
+      lane_s[L + l] += s2;
     }
   }
   __syncthreads();
   float* pl = part_l + (long long)blockIdx.x * 3 * L;
-  for (int i = tid; i < 3 * L; i += 256) {
-    const int a = i / L;
-    const int l = i - a * L;
-    const int f = l / Co;
-    pl[i] = acc_s[a * FY + f * YS + (l - f * Co)];
-  }
-  float* pw = part_w + (long long)blockIdx.x * Co * Co;
+  for (int i = tid; i < 3 * L; i += GLU_THREADS) pl[i] = lane_s[i];
+  // the PG position groups' dWg, added in group order into the block's
+  // partial (yt and dt, free now, hold PG * Co * Co <= 8192 floats)
+  const int CC = Co * Co;
+  if (wthr) {
 #pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int k = ty + 16 * i;
+    for (int i = 0; i < 4; ++i) {
+      const int k = wk + nk * i;
 #pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const int c = tx + 16 * j;
-      if (k < Co && c < Co) pw[k * Co + c] = accw[i][j];
+      for (int j = 0; j < CT; ++j) {
+        const int c = wc + nc * j;
+        if (k < Co && c < Co) yt[wp * CC + k * Co + c] = accw[i][j];
+      }
     }
   }
+  __syncthreads();
+  for (int e = tid; e < CC; e += GLU_THREADS) {
+    float a = 0.f;
+    for (int q = 0; q < PG; ++q) a += yt[q * CC + e];
+    part_w[(long long)blockIdx.x * CC + e] = a;
+  }
 }
-
-size_t glu_bwd_smem(int F, int Co) {
-  const size_t c4 = (size_t)((Co + 3) & ~3);
-  return sizeof(float) * (2 * (size_t)Co * c4 + 7 * (size_t)F * (c4 + 1));
-}
-
-template <int NI>
-cudaError_t glu_bwd_occupancy(size_t smem, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(glu_drop_pool_bwd_kernel<NI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, glu_drop_pool_bwd_kernel<NI>,
-                                                       256, smem);
-}
-
-int glu_ni(int Co) { return Co <= 16 ? 1 : (Co <= 32 ? 2 : (Co <= 64 ? 4 : 8)); }
 
 // Lane sums of the blocks' partials, in block order; the dlin lane sums are
 // left in part_l[0][2] for glu_bwd_final_w.
@@ -804,15 +1317,15 @@ __global__ void glu_bwd_final_lanes(float* __restrict__ part_l, float* __restric
   part_l[2 * L + l] = c;
 }
 
-// dWg[e] over blocks in order; dbg[c] over the F lanes of channel c in order.
+// dWg[e] over the partials in order; dbg[c] over the F lanes of channel c in order.
 __global__ void glu_bwd_final_w(const float* __restrict__ part_l,
                                 const float* __restrict__ part_w, float* __restrict__ dwg,
-                                float* __restrict__ dbg, int F, int Co, int n_blocks) {
+                                float* __restrict__ dbg, int F, int Co, int n_parts) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int CC = Co * Co;
   if (e < CC) {
     float a = 0.f;
-    for (int i = 0; i < n_blocks; ++i) a += part_w[(long long)i * CC + e];
+    for (int i = 0; i < n_parts; ++i) a += part_w[(long long)i * CC + e];
     dwg[e] = a;
   }
   if (e < Co) {
@@ -833,8 +1346,7 @@ int conv_bn_stats(const float* x, const float* w, const float* bias, float* y,
                   float* part_s, float* part_q, float* s, float* q,
                   int B, int T, int F, int Ci, int Co, int n_chunks,
                   cudaStream_t stream) {
-  cudaError_t err = launch_conv_any<false>(x, w, bias, y, nullptr, nullptr, nullptr,
-                                           B, T, F, Ci, Co, stream);
+  cudaError_t err = launch_conv_any(x, w, bias, y, B, T, F, Ci, Co, stream);
   if (err != cudaSuccess) return (int)err;
   const long long R = (long long)B * T;
   const int L = F * Co;
@@ -885,101 +1397,75 @@ int glu_drop_pool(const float* y, const float* scale_f, const float* bias_f,
 
 extern "C" {
 
-// Number of row chunks of conv_bn_stats_bwd's dW pass (the wrapper sizes the
-// partial buffers [n_chunks, 9*Ci, Co] and [n_chunks, Co] with it): about
-// 528 blocks in all, at least 64 rows per chunk. It depends on the shapes
-// only, so the summation order is the same on every run.
-int conv_bn_stats_bwd_chunks(int B, int T, int F, int Ci, int Co) {
-  const long long M = (long long)B * T * F;
-  const int tiles = ((9 * Ci + dw_tile_k(9 * Ci) - 1) / dw_tile_k(9 * Ci)) *
-                    ((Co + dw_tile_n(Co) - 1) / dw_tile_n(Co));
-  long long n = 528 / tiles;
-  const long long max_n = (M + 63) / 64;
-  if (n > max_n) n = max_n;
-  return n < 1 ? 1 : (int)n;
-}
-
 // Backward of conv_bn_stats. x [B,T,F,Ci], y/dy [B,T,F,Co], ds/dq [F*Co];
 // wt [3,3,Co,Ci] = w flipped in (dt, df) and transposed in (Ci, Co);
-// dx [B,T,F,Ci] (skipped when dx or wt is NULL); dw [3,3,Ci,Co]; db [Co].
+// dye [B,T,F,Co] scratch for dy_eff (NULL on the Ci = 1 path without dx);
+// dx [B,T,F,Ci] (skipped when NULL); part_w [chunks, 9*Ci, Co], part_b
+// [chunks, Co] scratch; dw [3,3,Ci,Co]; db [Co]. plan: the ints of
+// ops/fused_cnn.py ConvBwdPlan, in its field order.
 int conv_bn_stats_bwd(const float* x, const float* wt, const float* y, const float* dy,
-                      const float* ds, const float* dq, float* dx, float* part_w,
+                      const float* ds, const float* dq, float* dye, float* dx, float* part_w,
                       float* part_b, float* dw, float* db, int B, int T, int F, int Ci,
-                      int Co, int n_chunks, cudaStream_t stream) {
-  cudaError_t err;
-  if (dx != nullptr && wt != nullptr) {
-    // dx = SAME conv3x3 of dy_eff (Co channels in, Ci out) with wt
-    err = launch_conv_any<true>(dy, wt, nullptr, dx, y, ds, dq, B, T, F, Co, Ci, stream);
+                      int Co, const int* plan, cudaStream_t stream) {
+  const int stream_dw = plan[0], vec = plan[1];
+  const int dx_bn = plan[2], dx_tt = plan[3], dx_ff = plan[4], dx_smem = plan[5];
+  const int dw_bko = plan[6], dw_bno = plan[7], dw_tt = plan[8], dw_ff = plan[9];
+  const int dw_tiles = plan[10], dw_tpc = plan[11], chunks = plan[12], dw_smem = plan[13];
+  const int rows_per_block = plan[14];
+  const long long M = (long long)B * T * F;
+  cudaError_t err = cudaSuccess;
+  if (dye != nullptr) {
+    const long long n = M * Co;
+    long long blocks = (n / 4 + 255) / 256;
+    if (blocks > 4096) blocks = 4096;
+    if (blocks < 1) blocks = 1;
+    dy_eff_kernel<<<(unsigned)blocks, 256, 0, stream>>>(y, dy, ds, dq, dye, n, F * Co);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (dx != nullptr) {
+    err = vec ? launch_dx_bn<4>(dx_bn, dye, wt, dx, B, T, F, Co, Ci, dx_tt, dx_ff, dx_smem, stream)
+              : launch_dx_bn<1>(dx_bn, dye, wt, dx, B, T, F, Co, Ci, dx_tt, dx_ff, dx_smem, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  switch (dw_tile_k(9 * Ci)) {
-    case 16: err = launch_dw_n<16>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, stream); break;
-    case 32: err = launch_dw_n<32>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, stream); break;
-    case 64: err = launch_dw_n<64>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, stream); break;
-    default: err = launch_dw_n<128>(x, y, dy, ds, dq, part_w, part_b, B, T, F, Ci, Co, n_chunks, stream); break;
+  if (stream_dw) {
+    conv_dw_c1_kernel<<<chunks, 256, 0, stream>>>(x, y, dy, ds, dq, part_w, part_b, B, T, F,
+                                                  Co, rows_per_block);
+    err = cudaGetLastError();
+  } else {
+    err = vec ? launch_dw_any<4>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
+                                 dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream)
+              : launch_dw_any<1>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
+                                 dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream);
   }
   if (err != cudaSuccess) return (int)err;
   const int KC = 9 * Ci * Co;
-  dw_final_kernel<<<(KC + 255) / 256, 256, 0, stream>>>(part_w, part_b, dw, db, KC, Co, n_chunks);
+  dw_final_kernel<<<(KC + 255) / 256, 256, 0, stream>>>(part_w, part_b, dw, db, KC, Co, chunks);
   return (int)cudaGetLastError();
-}
-
-// Number of persistent blocks of glu_drop_pool_bwd (the wrapper sizes the
-// partial buffers with it), or 0 when Co > 128 or a frame's F*Co lanes do
-// not fit in shared memory.
-int glu_drop_pool_bwd_blocks(int n_frames, int F, int Co) {
-  if (Co > 128 || Co < 1) return 0;
-  const size_t smem = glu_bwd_smem(F, Co);
-  if (smem > 227 * 1024) return 0;
-  int per_sm = 0, dev = 0, n_sm = 0;
-  cudaError_t err;
-  switch (glu_ni(Co)) {
-    case 1: err = glu_bwd_occupancy<1>(smem, &per_sm); break;
-    case 2: err = glu_bwd_occupancy<2>(smem, &per_sm); break;
-    case 4: err = glu_bwd_occupancy<4>(smem, &per_sm); break;
-    default: err = glu_bwd_occupancy<8>(smem, &per_sm); break;
-  }
-  if (err != cudaSuccess || per_sm < 1) return 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  long long n = (long long)per_sm * n_sm;
-  if (n > n_frames) n = n_frames;
-  return n < 1 ? 1 : (int)n;
 }
 
 // Backward of glu_drop_pool. g [B, T//pt, F//pf, Co]; dy like y;
 // part_l [n_blocks, 3, F*Co], part_w [n_blocks, Co*Co] scratch;
-// dscale_f, dbias_f [F*Co]; dwg [Co, Co]; dbg [Co].
+// dscale_f, dbias_f [F*Co]; dwg [Co, Co]; dbg [Co]. plan: the ints of
+// ops/fused_cnn.py GluBwdPlan, in its field order.
 int glu_drop_pool_bwd(const float* y, const float* scale_f, const float* bias_f,
                       const float* wg, const float* bg, const uint8_t* bits, const float* g,
                       float* dy, float* part_l, float* part_w, float* dscale_f,
                       float* dbias_f, float* dwg, float* dbg, int B, int T, int F, int Co,
-                      int pt, int pf, int keep_thresh, int n_blocks, float inv_keep,
+                      int pt, int pf, int keep_thresh, float inv_keep, const int* plan,
                       cudaStream_t stream) {
-  const size_t smem = glu_bwd_smem(F, Co);
-  int per_sm = 0;
-  cudaError_t err;
-#define GLU_BWD_CASE(NI)                                                                   \
-  err = glu_bwd_occupancy<NI>(smem, &per_sm);                                              \
-  if (err != cudaSuccess) return (int)err;                                                 \
-  glu_drop_pool_bwd_kernel<NI><<<n_blocks, 256, smem, stream>>>(                           \
-      y, scale_f, bias_f, wg, bg, bits, g, dy, part_l, part_w, B, T, F, Co, pt, pf,        \
-      keep_thresh, inv_keep);                                                              \
-  break;
-  switch (glu_ni(Co)) {
-    case 1: GLU_BWD_CASE(1)
-    case 2: GLU_BWD_CASE(2)
-    case 4: GLU_BWD_CASE(4)
-    default: GLU_BWD_CASE(8)
-  }
-#undef GLU_BWD_CASE
-  err = cudaGetLastError();
+  const int CP = plan[0], CT = plan[1], P = plan[2], PG = plan[3];
+  const int n_tiles = plan[4], tpb = plan[5], n_blocks = plan[6], smem = plan[7];
+  auto kernel = CT == 8 ? glu_bwd_kernel<8> : glu_bwd_kernel<4>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
+  kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(y, scale_f, bias_f, wg, bg, bits, g, dy,
+                                                  part_l, part_w, B, T, F, Co, pt, pf,
+                                                  keep_thresh, inv_keep, CP, P, PG, n_tiles, tpb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int L = F * Co;
   glu_bwd_final_lanes<<<(L + 255) / 256, 256, 0, stream>>>(part_l, dscale_f, dbias_f, L,
                                                            n_blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   glu_bwd_final_w<<<(Co * Co + 255) / 256, 256, 0, stream>>>(part_l, part_w, dwg, dbg, F, Co,
                                                              n_blocks);
   return (int)cudaGetLastError();

@@ -33,6 +33,9 @@ Layouts follow the JAX package: x [B, T, F, Ci] (NHWC), w [3, 3, Ci, Co]
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass, fields
+
 import torch
 
 from . import _build
@@ -200,10 +203,192 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
     return z
 
 
+# --------------------------------------------------------------------------
+# the backward kernels' plans: pure functions of the shape (csrc/fused_cnn.cu
+# takes them as they are), so the tiles, the split over rows and the order
+# in which partial sums are added are the same on every run
+# --------------------------------------------------------------------------
+
+SM_COUNT = 132  # H100 SXM; the plans size their grids for it
+SMEM_LIMIT = 232448  # shared memory one block may use (227 KB)
+SMEM_HALF = 110 * 1024  # two blocks an SM (228 KB), static shared memory beside
+DX_BC = 8  # dy_eff channels per stage of the dx GEMM (csrc DX_BC)
+DW_BLOCKS = 4 * SM_COUNT  # blocks of the dW pass, all tiles and chunks
+DW_MAX_ROWS = 256  # rows of one dW stage (csrc DW_MAX_ROWS)
+DW_STAGES = 2  # the dW kernel's ring of stages (csrc DW_STAGES)
+GLU_THREADS = 512  # glu_drop_pool_bwd's block
+
+
+@dataclass(frozen=True)
+class ConvBwdPlan:
+    """conv_bn_stats_bwd's kernels at one shape. dx: tiles of dx_tt frames x
+    dx_ff frequencies (dx_bn output channels, 16384 / dx_bn rows at most),
+    DX_BC channels of dy_eff per stage. dW: [dw_bko x dw_bno] tiles of
+    [9*Ci, Co] (`dw_threads`: 8 x 4 or 8 x 8 a thread, row groups) over row
+    tiles of dw_tt x dw_ff, dw_tiles in all, dw_tpc per chunk, `chunks`
+    chunks; or (stream, Ci = 1) `chunks` blocks of rows_per_block rows. The
+    partials are added in chunk order."""
+
+    stream: int
+    vec: int
+    dx_bn: int
+    dx_tt: int
+    dx_ff: int
+    dx_smem: int
+    dw_bko: int
+    dw_bno: int
+    dw_tt: int
+    dw_ff: int
+    dw_tiles: int
+    dw_tpc: int
+    chunks: int
+    dw_smem: int
+    rows_per_block: int
+
+    def ints(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in fields(self)]
+
+
+def _c_ints(plan):
+    """The plan's fields as a C int array, for the kernels' entry points."""
+    ints = plan.ints()
+    return ctypes.cast((ctypes.c_int * len(ints))(*ints), ctypes.c_void_p)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _shrink(tt: int, ff: int, smem, limit: int) -> tuple[int, int]:
+    """Halve the frames, then the frequencies, of a tile until it fits."""
+    while smem(tt, ff) > limit and (tt > 1 or ff > 1):
+        if tt > 1:
+            tt = _cdiv(tt, 2)
+        else:
+            ff = _cdiv(ff, 2)
+    if smem(tt, ff) > limit:
+        raise ValueError("conv_bn_stats_bwd: one tile does not fit in shared memory")
+    return tt, ff
+
+
+def _pow2_tile(n: int, lo: int, hi: int) -> int:
+    t = lo
+    while t < min(n, hi):
+        t *= 2
+    return t
+
+
+def dx_smem(tt: int, ff: int, bn: int) -> int:
+    npa = _cdiv((tt + 2) * (ff + 2), 4) * 4
+    return 4 * 2 * (npa * DX_BC + 9 * DX_BC * bn)
+
+
+def dw_threads(bko: int, bno: int) -> tuple[int, int, int, int, int]:
+    """(tm, tn, nty, ntx, rg) of the dW kernel: tm x tn outputs a thread,
+    nty x ntx threads a row group, rg = 256 / (nty * ntx) row groups."""
+    tn = 4 if bno <= 32 else 8
+    nty, ntx = bko // 8, bno // tn
+    return 8, tn, nty, ntx, 256 // (nty * ntx)
+
+
+def dw_smem(tt: int, ff: int, ci: int, bko: int, bno: int) -> int:
+    """The ring of stages (x halo, dy_eff rows), or the row groups' tiles
+    added at the end, whichever is larger."""
+    xs = _cdiv((tt + 2) * (ff + 2) * ci, 4) * 4
+    _, _, _, _, rg = dw_threads(bko, bno)
+    return 4 * max(DW_STAGES * (xs + tt * ff * bno), rg * bko * bno if rg > 1 else 0)
+
+
+def conv_bwd_plan(B: int, T: int, F: int, Ci: int, Co: int) -> ConvBwdPlan:
+    M, K = B * T * F, 9 * Ci
+    vec = int(Ci % 4 == 0 and Co % 4 == 0)
+    bn = _pow2_tile(Ci, 8, 128)
+    ff = min(F, 16384 // bn)
+    tt, ff = _shrink(min(T, 16384 // bn // ff), ff, lambda a, b: dx_smem(a, b, bn), SMEM_HALF)
+    dxp = (bn, tt, ff, dx_smem(tt, ff, bn))
+    if Ci == 1 and Co <= 128:  # the streaming dW kernel: blocks of rows, no tiles
+        if M >= 2**31:
+            raise ValueError("conv_bn_stats_bwd: the Ci=1 kernel counts rows in 32-bit ints")
+        blocks = max(1, min(DW_BLOCKS, _cdiv(M, 256)))
+        rpb = _cdiv(M, blocks)
+        return ConvBwdPlan(1, vec, *dxp, 0, 0, 0, 0, 0, 0, _cdiv(M, rpb), 0, rpb)
+    # dW tiles: 16, 32, 64 or 128 a side. Each depth tile reads all rows
+    # again (from L2), so the depth tile trades the depth computed past K
+    # against the number of tiles. Stages of 128 rows (8 a row group at
+    # least) where shared memory allows, to spread each stage's fixed costs
+    bko = min((16, 32, 64, 128), key=lambda t: (_cdiv(K, t) * (t + 32), t))
+    bno = _pow2_tile(Co, 16, 128)
+    rg = dw_threads(bko, bno)[4]
+    wff = min(F, 64)
+    rows = min(DW_MAX_ROWS, max(128, 8 * rg))
+    wtt, wff = _shrink(min(T, max(1, rows // wff)), wff,
+                       lambda a, b: dw_smem(a, b, Ci, bko, bno), SMEM_HALF)
+    tiles = B * _cdiv(T, wtt) * _cdiv(F, wff)
+    per_chunk = _cdiv(K, bko) * _cdiv(Co, bno)
+    chunks = max(1, min(tiles, DW_BLOCKS // per_chunk))
+    tpc = _cdiv(tiles, chunks)
+    return ConvBwdPlan(0, vec, *dxp, bko, bno, wtt, wff, tiles, tpc, _cdiv(tiles, tpc),
+                       dw_smem(wtt, wff, Ci, bko, bno), 0)
+
+
+@dataclass(frozen=True)
+class GluBwdPlan:
+    """glu_drop_pool_bwd's kernel at one shape: channels padded to cp (zero
+    weights), dWg thread tiles of 4 x ct, tiles of p positions (p x cp <=
+    16 x GLU_THREADS), pg groups of threads splitting a tile's positions
+    for dWg, n_tiles tiles, tpb per block, n_blocks blocks; smem bytes."""
+
+    cp: int
+    ct: int
+    p: int
+    pg: int
+    n_tiles: int
+    tpb: int
+    n_blocks: int
+    smem: int
+
+    def ints(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in fields(self)]
+
+
+def glu_smem(F: int, Co: int, cp: int, p: int) -> int:
+    """Wg, Wg^T, the tile's two [cp, p + 4] buffers and the lane sums."""
+    return 4 * (2 * Co * cp + 2 * cp * (p + 4) + 3 * F * Co)
+
+
+def glu_bwd_plan(B: int, T: int, F: int, Co: int) -> GluBwdPlan:
+    if not 1 <= Co <= 128:
+        raise ValueError(f"glu_drop_pool_bwd: Co={Co}: the kernel takes 1 <= Co <= 128")
+    if B * T * F + 16 * GLU_THREADS >= 2**31:
+        raise ValueError("glu_drop_pool_bwd: the kernel counts positions in 32-bit ints")
+    cp = _cdiv(Co, 4) * 4
+    if (cp // 4) ** 2 > GLU_THREADS:  # 4 x 8 dWg tiles: one a thread at most
+        cp = _cdiv(Co, 8) * 8
+    ct = 4 if (cp // 4) ** 2 <= GLU_THREADS else 8
+    pg = max(1, GLU_THREADS // ((cp // 4) * (cp // ct)))
+    step = 4 * pg
+    p = max(step, 16 * GLU_THREADS // cp // step * step)
+    while glu_smem(F, Co, cp, p) > SMEM_LIMIT and p > step:
+        p = max(step, p // 2 // step * step)
+    if glu_smem(F, Co, cp, p) > SMEM_LIMIT:
+        raise ValueError(f"glu_drop_pool_bwd: F={F}, Co={Co} do not fit the kernel "
+                         "(the lane sums of F*Co lanes in shared memory)")
+    n_tiles = max(1, _cdiv(B * T * F, p))
+    tpb = _cdiv(n_tiles, min(SM_COUNT, n_tiles))
+    return GluBwdPlan(cp, ct, p, pg, n_tiles, tpb, _cdiv(n_tiles, tpb),
+                      glu_smem(F, Co, cp, p))
+
+
+def _aligned(t):
+    """t itself when its data starts on 16 bytes (the kernels read float4s),
+    else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx: bool = True):
     """Backward of conv_bn_stats (see `conv_bn_stats_bwd_plain`); dx is
     skipped when `need_dx` is false. Deterministic: per-chunk partial sums
-    of dW and dbias, added in a fixed order."""
+    of dW and dbias, added in a fixed order (`conv_bwd_plan`)."""
     if x.device.type == "cpu":
         return conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx)
     _build.require_cuda_f32("conv_bn_stats_bwd", x, w, y, dy, ds, dq)
@@ -214,21 +399,22 @@ def conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx: bool = True):
             or dq.numel() != F * Co):
         raise ValueError(f"conv_bn_stats_bwd: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"y {tuple(y.shape)}, dy {tuple(dy.shape)}")
-    n_chunks = _build.function("fused_cnn", "conv_bn_stats_bwd_chunks",
-                               [_build.I] * 5)(B, T, F, Ci, Co)
+    plan = conv_bwd_plan(B, T, F, Ci, Co)
+    x, y, dy, ds, dq = (_aligned(t) for t in (x, y, dy, ds, dq))
     dev = x.device
     wt = w.flip(0, 1).transpose(2, 3).contiguous() if need_dx else None
     dx = torch.empty_like(x) if need_dx else None
-    part_w = torch.empty((n_chunks, 9 * Ci, Co), device=dev, dtype=torch.float32)
-    part_b = torch.empty((n_chunks, Co), device=dev, dtype=torch.float32)
+    dye = torch.empty_like(y) if need_dx or not plan.stream else None
+    part_w = torch.empty((plan.chunks, 9 * Ci, Co), device=dev, dtype=torch.float32)
+    part_b = torch.empty((plan.chunks, Co), device=dev, dtype=torch.float32)
     dw = torch.empty((3, 3, Ci, Co), device=dev, dtype=torch.float32)
     dbias = torch.empty((Co,), device=dev, dtype=torch.float32)
     fn = _build.function("fused_cnn", "conv_bn_stats_bwd",
-                         [_build.P] * 11 + [_build.I] * 6 + [_build.P])
+                         [_build.P] * 12 + [_build.I] * 5 + [_build.P] * 2)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = fn(x.data_ptr(), ptr(wt), y.data_ptr(), dy.data_ptr(), ds.data_ptr(),
-             dq.data_ptr(), ptr(dx), part_w.data_ptr(), part_b.data_ptr(),
-             dw.data_ptr(), dbias.data_ptr(), B, T, F, Ci, Co, n_chunks,
+             dq.data_ptr(), ptr(dye), ptr(dx), part_w.data_ptr(), part_b.data_ptr(),
+             dw.data_ptr(), dbias.data_ptr(), B, T, F, Ci, Co, _c_ints(plan),
              _build.stream_ptr(x))
     _build.check(err, "conv_bn_stats_bwd")
     _build.count_launch("conv_bn_stats_bwd")
@@ -238,7 +424,8 @@ def conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx: bool = True):
 def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.0):
     """Backward of glu_drop_pool (see `glu_drop_pool_bwd_plain`), one pass
     over y recomputing BN(y), the GLU product and the sigmoid. Needs
-    Co <= 128. Deterministic: per-block partial sums in a fixed order."""
+    Co <= 128. Deterministic: per-block partial sums in a fixed order
+    (`glu_bwd_plan`)."""
     if y.device.type == "cpu":
         return glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits, g,
                                        pool=pool, keep_prob=keep_prob)
@@ -252,27 +439,25 @@ def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.
     if bits is not None and (bits.dtype != torch.uint8 or bits.numel() != y.numel()
                              or not bits.is_contiguous() or bits.device != y.device):
         raise ValueError("glu_drop_pool_bwd: bits must be contiguous uint8 like y")
-    n_blocks = _build.function("fused_cnn", "glu_drop_pool_bwd_blocks",
-                               [_build.I] * 3)(B * T, F, Co)
-    if n_blocks <= 0:
-        raise ValueError(f"glu_drop_pool_bwd: F={F}, Co={Co} do not fit the kernel "
-                         "(Co <= 128 and one frame of F*Co lanes in shared memory)")
+    plan = glu_bwd_plan(B, T, F, Co)
+    y, scale_f, bias_f, g = (_aligned(t) for t in (y, scale_f, bias_f, g))
+    bits = None if bits is None else _aligned(bits)
     dev = y.device
     L = F * Co
     dy = torch.empty_like(y)
-    part_l = torch.empty((n_blocks, 3, L), device=dev, dtype=torch.float32)
-    part_w = torch.empty((n_blocks, Co * Co), device=dev, dtype=torch.float32)
+    part_l = torch.empty((plan.n_blocks, 3, L), device=dev, dtype=torch.float32)
+    part_w = torch.empty((plan.n_blocks, Co * Co), device=dev, dtype=torch.float32)
     dscale_f = torch.empty((L,), device=dev, dtype=torch.float32)
     dbias_f = torch.empty((L,), device=dev, dtype=torch.float32)
     dwg = torch.empty((Co, Co), device=dev, dtype=torch.float32)
     dbg = torch.empty((Co,), device=dev, dtype=torch.float32)
     fn = _build.function("fused_cnn", "glu_drop_pool_bwd",
-                         [_build.P] * 14 + [_build.I] * 8 + [_build.Fl, _build.P])
+                         [_build.P] * 14 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P])
     err = fn(y.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), wg.data_ptr(),
              bg.data_ptr(), None if bits is None else bits.data_ptr(), g.data_ptr(),
              dy.data_ptr(), part_l.data_ptr(), part_w.data_ptr(), dscale_f.data_ptr(),
              dbias_f.data_ptr(), dwg.data_ptr(), dbg.data_ptr(), B, T, F, Co, pt, pf,
-             keep_threshold(keep_prob), n_blocks, 1.0 / keep_prob, _build.stream_ptr(y))
+             keep_threshold(keep_prob), 1.0 / keep_prob, _c_ints(plan), _build.stream_ptr(y))
     _build.check(err, "glu_drop_pool_bwd")
     _build.count_launch("glu_drop_pool_bwd")
     return dy, dscale_f, dbias_f, dwg, dbg

@@ -19,14 +19,39 @@ def _audio(seed=0, b=2, n=16000):
     return (r.standard_normal((b, n)) * 0.1).astype(np.float32)
 
 
+def _log_mel_f64(audio, cfg):
+    """The GEMM front-end's log-mel in float64 numpy, from the same fp32-rounded
+    DFT basis and filterbank: only the arithmetic's rounding differs."""
+    basis, fb = (c.double().numpy() for c in tfe._constants(cfg, torch.device("cpu"),
+                                                             torch.float32))
+    reim = tfe.frame_signal(torch.from_numpy(audio).double(), cfg).numpy() @ basis
+    re, im = reim[..., : cfg.n_freqs], reim[..., cfg.n_freqs :]
+    mel = np.swapaxes(np.sqrt(re * re + im * im) @ fb, -1, -2)
+    db = 20.0 * np.log10(np.maximum(mel, cfg.amin))
+    return np.clip(db, cfg.db_clamp_min, cfg.db_clamp_max)
+
+
+# Each side's log-mel against float64, in dB. An fp32 GEMM of depth K rounds
+# a sum to about sqrt(K) u of the sum of its terms' magnitudes (u = 2^-24):
+# 2.7e-6 relative at the DFT's depth 2048, and a mel band (a positive sum)
+# keeps that, so 20 log10(1 + 2.7e-6) = 2.4e-5 dB. Measured alone: the port
+# 1.0e-5 dB at 1 to 8 threads, JAX 2.1e-5 dB. The bound leaves 4x over that
+# and fails anything coarser than fp32 (one TF32 rounding, 2^-11, is 4e-3 dB).
+TOL_F64_DB = 1e-4
+
+
 @pytest.mark.parametrize("kw", [{}, {"n_fft": 1024, "win_length": 1024, "n_mels": 64}])
 def test_log_mel_matches_jax(kw):
     audio = _audio()
+    want = _log_mel_f64(audio, tfe.MelConfig(**kw))
     j = np.asarray(jfe.log_mel_spectrogram(jnp.asarray(audio), jfe.MelConfig(**kw)))
     t = tfe.log_mel_spectrogram(torch.from_numpy(audio), tfe.MelConfig(**kw)).numpy()
-    assert t.shape == j.shape
-    # dB of fp32 DFT/mel GEMMs summed in another order (measured 2.2e-5 dB)
-    np.testing.assert_allclose(t, j, rtol=0, atol=2e-4)
+    assert t.shape == j.shape == want.shape
+    err_t, err_j = float(np.abs(t - want).max()), float(np.abs(j - want).max())
+    assert err_t <= TOL_F64_DB, f"the port is {err_t:.3e} dB from float64"
+    assert err_j <= TOL_F64_DB, f"JAX is {err_j:.3e} dB from float64"
+    # so the two sides are within both bounds of each other
+    np.testing.assert_allclose(t, j, rtol=0, atol=2 * TOL_F64_DB)
 
 
 def test_filterbank_and_basis_match_jax():

@@ -1,0 +1,180 @@
+"""The conv block's backward kernels' plans (ops/fused_cnn.py conv_bwd_plan,
+glu_bwd_plan), on the CPU.
+
+A plan is a pure function of the shape. Walked through the index maps that
+csrc/fused_cnn.cu applies to it, every row, depth index and channel must be
+covered exactly once, shared memory must fit the card, and the order in
+which partial sums are added must follow from the shape alone.
+"""
+
+import numpy as np
+import pytest
+
+from desed_task_tpu_torch.ops import fused_cnn as fc
+
+SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
+
+
+def _geoms_2024(B):
+    """(B, T, F, Ci, Co, pool) of the seven crnn_2024() blocks, 10-s clips."""
+    T, F, ci, out = 626, 128, 1, []
+    for co, pool in zip([16, 32, 64, 128, 128, 128, 128],
+                        [(2, 2), (2, 2)] + [(1, 2)] * 5):
+        out.append((B, T, F, ci, co, pool))
+        T, F, ci = T // pool[0], F // pool[1], co
+    return out
+
+
+# tests/test_torch_kernels_cuda.py BWD_GEOMS beside the 2024 blocks: B=1 /
+# B=60, Ci=1, Ci=3, Co=70, F=1, pool remainders, ragged row tiles, scalar
+# copies, ragged depth and channel tiles
+BWD_GEOMS = [(1, 13, 16, 1, 8, (2, 2)), (60, 11, 6, 24, 40, (3, 4)),
+             (3, 7, 5, 128, 128, (1, 2)), (2, 17, 3, 64, 16, (2, 1)),
+             (1, 1, 1, 3, 70, (1, 1)), (3, 37, 70, 16, 32, (2, 2)),
+             (2, 19, 9, 128, 128, (2, 2)), (2, 23, 3, 12, 20, (1, 1)),
+             (1, 5, 130, 1, 24, (1, 2)), (2, 9, 7, 5, 6, (1, 1)),
+             (2, 13, 8, 64, 96, (1, 2))]
+GEOMS = _geoms_2024(60) + _geoms_2024(64) + BWD_GEOMS
+IDS = [f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}" for g in GEOMS]
+
+
+def _once(counts, what):
+    assert counts.min() == 1 and counts.max() == 1, f"{what}: not covered exactly once"
+
+
+def _tile_rows(B, T, F, tt, ff, tiles):
+    """Row index m of each (tile, row of the tile) that lies in the tensor
+    (csrc `row_tile`: f-tiles fastest, then t-tiles, then b), -1 elsewhere."""
+    i = np.arange(tiles)[:, None]
+    nf, nt = -(-F // ff), -(-T // tt)
+    b, t0, f0 = i // nf // nt, (i // nf) % nt * tt, i % nf * ff
+    r = np.arange(tt * ff)[None, :]
+    t, f = t0 + r // ff, f0 + r % ff
+    ok = (t < T) & (f < F) & (b < B)
+    return np.where(ok, (b * T + t) * F + f, -1)
+
+
+def _rows_once(B, T, F, tt, ff, tiles):
+    assert tiles == B * -(-T // tt) * -(-F // ff)
+    m = _tile_rows(B, T, F, tt, ff, tiles)
+    _once(np.bincount(m[m >= 0], minlength=B * T * F), "rows")
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=IDS)
+def test_conv_bwd_plan_covers_dx(geom):
+    B, T, F, Ci, Co, _ = geom
+    p = fc.conv_bwd_plan(B, T, F, Ci, Co)
+    assert p.dx_smem == fc.dx_smem(p.dx_tt, p.dx_ff, p.dx_bn) <= fc.SMEM_HALF
+    # 256 threads as NX column groups x NY row slots, 8 x 8 outputs each:
+    # rows ty + NY i, or (segments, FF % 8 == 0 and dx_bn >= 64) ty * 8 + i
+    nx = p.dx_bn // 8
+    ny = 256 // nx
+    if p.dx_ff % 8 == 0 and p.dx_bn >= 64:
+        rows = (np.arange(ny)[:, None] * 8 + np.arange(8)[None, :]).ravel()
+    else:
+        rows = (np.arange(ny)[:, None] + ny * np.arange(8)[None, :]).ravel()
+    assert p.dx_tt * p.dx_ff <= rows.size and np.array_equal(np.sort(rows), np.arange(rows.size))
+    _rows_once(B, T, F, p.dx_tt, p.dx_ff, B * -(-T // p.dx_tt) * -(-F // p.dx_ff))
+    n0 = np.arange(-(-Ci // p.dx_bn))[:, None, None] * p.dx_bn
+    j = np.arange(8)[None, None, :]
+    cols = n0 + np.arange(nx)[None, :, None] * 4 + (j // 4) * (p.dx_bn // 2) + j % 4
+    _once(np.bincount(cols[cols < Ci].ravel(), minlength=Ci), "dx channels")
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=IDS)
+def test_conv_bwd_plan_covers_dw(geom):
+    B, T, F, Ci, Co, _ = geom
+    p = fc.conv_bwd_plan(B, T, F, Ci, Co)
+    M, K = B * T * F, 9 * Ci
+    assert p.stream == int(Ci == 1 and Co <= 128)
+    if p.stream:  # blocks of rows_per_block rows; 256 threads as RS row slots x G groups
+        starts = np.arange(p.chunks) * p.rows_per_block
+        assert starts[-1] < M <= starts[-1] + p.rows_per_block
+        g = -(-Co // 4)
+        assert 256 // g >= 1 and 4 * g >= Co
+        return
+    R = p.dw_tt * p.dw_ff
+    assert p.dw_smem == fc.dw_smem(p.dw_tt, p.dw_ff, Ci, p.dw_bko, p.dw_bno) <= fc.SMEM_HALF
+    tm, tn, nty, ntx, rg = fc.dw_threads(p.dw_bko, p.dw_bno)
+    assert (tm, nty * tm, ntx * tn) == (8, p.dw_bko, p.dw_bno) and nty * ntx * rg == 256
+    # a stage holds whole frames, up to max(128, 8 rg) rows (one frame at
+    # least, 256 rows at most); row group g takes rows g, g + rg, ...
+    rows = min(fc.DW_MAX_ROWS, max(128, 8 * rg))
+    assert R <= min(fc.DW_MAX_ROWS, max(rows, p.dw_ff))
+    r = np.arange(rg)[:, None] + rg * np.arange(-(-R // rg))[None, :]
+    _once(np.bincount(r[r < R], minlength=R), "stage rows")
+    # depth and channel tiles: nty x ntx threads a row group, tm x tn outputs each
+    k = (np.arange(-(-K // p.dw_bko))[:, None] * p.dw_bko
+         + (np.arange(nty)[:, None] * tm + np.arange(tm)[None, :]).ravel()[None, :])
+    _once(np.bincount(k[k < K], minlength=K), "depth")
+    j = np.arange(tn)
+    co = (np.arange(ntx)[:, None] * 4 + (j // 4) * (p.dw_bno // 2) + j % 4)
+    co = (np.arange(-(-Co // p.dw_bno))[:, None] * p.dw_bno + co.ravel()[None, :]).ravel()
+    _once(np.bincount(co[co < Co], minlength=Co), "dW channels")
+    # chunks of dw_tpc row tiles, in order, cover every tile once
+    tiles = np.concatenate([np.arange(c * p.dw_tpc, min(p.dw_tiles, (c + 1) * p.dw_tpc))
+                            for c in range(p.chunks)])
+    assert np.array_equal(tiles, np.arange(p.dw_tiles))
+    _rows_once(B, T, F, p.dw_tt, p.dw_ff, p.dw_tiles)
+    # about four blocks per SM in all, each with work
+    blocks = -(-K // p.dw_bko) * -(-Co // p.dw_bno) * p.chunks
+    assert blocks <= fc.DW_BLOCKS or p.chunks == 1
+    assert (p.chunks - 1) * p.dw_tpc < p.dw_tiles
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=IDS)
+def test_glu_bwd_plan_covers_positions(geom):
+    B, T, F, _, Co, _ = geom
+    p = fc.glu_bwd_plan(B, T, F, Co)
+    assert p.smem == fc.glu_smem(F, Co, p.cp, p.p) <= SMEM_LIMIT
+    assert Co <= p.cp and p.cp % 4 == 0 and p.p % (4 * p.pg) == 0
+    assert p.p * p.cp <= 16 * fc.GLU_THREADS
+    # tiles of p positions, tpb per block, cover every position once
+    pos = (np.arange(p.n_tiles)[:, None] * p.p + np.arange(p.p)[None, :]).ravel()
+    _once(np.bincount(pos[pos < B * T * F], minlength=B * T * F), "positions")
+    blocks = [range(b * p.tpb, min(p.n_tiles, (b + 1) * p.tpb)) for b in range(p.n_blocks)]
+    assert [t for r in blocks for t in r] == list(range(p.n_tiles)) and all(blocks)
+    # product threads: cp/4 channel groups x p/4 position groups, 4 x 4 each,
+    # as csrc maps thread tid (warps of 8 x 4 groups where the shape allows)
+    n_cg = p.cp // 4
+    tid = np.arange(n_cg * (p.p // 4))
+    assert tid.size <= fc.GLU_THREADS
+    if n_cg % 8 == 0 and (p.p // 4) % 4 == 0:
+        cg = (tid // 32) % (n_cg // 8) * 8 + tid % 8
+        pg = (tid // 32) // (n_cg // 8) * 4 + (tid % 32) // 8
+    else:
+        cg, pg = tid % n_cg, tid // n_cg
+    owner = ((pg * 4)[..., None, None] + np.arange(4)[:, None]) * p.cp \
+        + (cg * 4)[..., None, None] + np.arange(4)[None, :]
+    _once(np.bincount(owner.ravel(), minlength=p.p * p.cp), "(position, channel)")
+    # dWg threads: 4 x ct entries of [cp, cp] each, pg groups of p / pg positions
+    nk, nc = p.cp // 4, p.cp // p.ct
+    assert nk * nc * p.pg <= fc.GLU_THREADS
+    # the block adds its position groups' dWg in the tile buffers, yt and dt
+    assert p.pg * Co * Co <= 2 * p.cp * (p.p + 4)
+    wk, wc = np.meshgrid(np.arange(nk), np.arange(nc), indexing="ij")
+    ent = ((wk[..., None, None] + nk * np.arange(4)[:, None]) * p.cp
+           + wc[..., None, None] + nc * np.arange(p.ct)[None, :])
+    _once(np.bincount(ent.ravel(), minlength=p.cp * p.cp), "dWg entries")
+
+
+@pytest.mark.parametrize("geom", _geoms_2024(60), ids=IDS[:7])
+def test_plans_depend_on_the_shape_alone(geom):
+    """Equal shapes give equal plans, hence the same tiles, chunks and order
+    of partial sums; the 2024 train shapes keep two dx / dW blocks and at
+    least 12 warps of glu_drop_pool_bwd resident per SM."""
+    B, T, F, Ci, Co, _ = geom
+    a, b = fc.conv_bwd_plan(B, T, F, Ci, Co), fc.conv_bwd_plan(*geom[:5])
+    assert a == b and a.ints() == b.ints() and all(isinstance(v, int) for v in a.ints())
+    g1, g2 = fc.glu_bwd_plan(B, T, F, Co), fc.glu_bwd_plan(B, T, F, Co)
+    assert g1 == g2 and all(isinstance(v, int) for v in g1.ints())
+    assert 2 * max(a.dx_smem, a.dw_smem) <= SMEM_LIMIT * 1.0 + 1024
+    assert fc.GLU_THREADS // 32 >= 12 and g1.n_blocks <= fc.SM_COUNT
+
+
+def test_glu_bwd_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        fc.glu_bwd_plan(2, 4, 4, 129)
+    with pytest.raises(ValueError):
+        fc.glu_bwd_plan(2, 4, 512, 128)  # F*Co lane sums past shared memory
+

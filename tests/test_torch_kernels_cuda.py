@@ -172,6 +172,23 @@ BWD_GEOMS = [  # (B, T, F, Ci, Co, pool): B=1 / B=60, Ci=1, T and F pool remaind
     (3, 7, 5, 128, 128, (1, 2)),
     (2, 17, 3, 64, 16, (2, 1)),
     (1, 1, 1, 3, 70, (1, 1)),
+    # the seven crnn_2024() blocks at B=2 (chip_smoke.py runs them at B=60)
+    (2, 626, 128, 1, 16, (2, 2)),
+    (2, 313, 64, 16, 32, (2, 2)),
+    (2, 156, 32, 32, 64, (1, 2)),
+    (2, 156, 16, 64, 128, (1, 2)),
+    (2, 156, 8, 128, 128, (1, 2)),
+    (2, 156, 4, 128, 128, (1, 2)),
+    (2, 156, 2, 128, 128, (1, 2)),
+    # ragged row tiles (T and F not multiples of the dx and dW tiles), the
+    # streaming Ci=1 path with idle threads (Co=24), scalar copies (Ci, Co % 4)
+    (3, 37, 70, 16, 32, (2, 2)),
+    (2, 19, 9, 128, 128, (2, 2)),
+    (2, 23, 3, 12, 20, (1, 1)),
+    (1, 5, 130, 1, 24, (1, 2)),
+    (2, 9, 7, 5, 6, (1, 1)),
+    # ragged depth (576 of 640) and channel (96 of 128) tiles of dW
+    (2, 13, 8, 64, 96, (1, 2)),
 ]
 
 
