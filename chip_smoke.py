@@ -8,8 +8,10 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build every CUDA kernel of the port from desed_task_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version at the shapes of the 2024
      serving path (B=64): conv_bn_stats and glu_drop_pool at all seven conv
-     block geometries (glu_drop_pool with and without dropout bits), bigru
-     at T=156, H=192 (its plan must be "cluster"; bitwise-equal rerun);
+     block geometries and at a 256-channel block (WIDE_GEOM; glu_drop_pool
+     with and without dropout bits; y, s, q and z bitwise equal on a rerun),
+     bigru at T=156, H=192 (its plan must be "cluster"; bitwise-equal
+     rerun);
   4. serving: ~130 ten-second wavs through InferencePipeline(crnn_2024())
      with seeded random weights and random 768x496 frame embeddings, the
      launch counts of the run (7, 7 and 1 per batch), and the scores against
@@ -83,6 +85,9 @@ TOL_GRAD = 2e-3
 # moves by at most 2^-7 + 2^-16 relative: 0.0683 dB.
 TOL_MEL_BF16_DB = 0.07
 TOL_MEL_FP32_DB = 1e-3  # fused against the GEMM front-end, fp32 (dB)
+# (T, F, Ci, Co, pool) of a block wider than the GLU backward kernel takes:
+# the forward kernels' second channel tile (phase 3; not in the sums)
+WIDE_GEOM = (156, 8, 128, 256, (1, 2))
 
 
 def card_line() -> str:
@@ -167,7 +172,9 @@ def check_kernels(geoms, gen, report):
 
     dev = torch.device("cuda")
     rows = {"conv_bn_stats": [], "glu_drop_pool": [], "bigru": []}
-    for T, Fq, ci, co, pool in geoms:
+    wide = {"conv_bn_stats": [], "glu_drop_pool": []}
+    for gi, (T, Fq, ci, co, pool) in enumerate(list(geoms) + [WIDE_GEOM]):
+        out = rows if gi < len(geoms) else wide
         B = BATCH
         x = torch.randn(B, T, Fq, ci, generator=gen).to(dev)
         w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev)
@@ -175,15 +182,18 @@ def check_kernels(geoms, gen, report):
         y, s, q = fused_cnn.conv_bn_stats(x, w, b)
         yp, sp, qp = fused_cnn.conv_bn_stats_plain(x, w, b)
         err = max(rel_err(y, yp), rel_err(s, sp), rel_err(q, qp))
+        again = fused_cnn.conv_bn_stats(x, w, b)
+        same = all(torch.equal(u, v) for u, v in zip((y, s, q), again))
         print(f"conv_bn_stats  T={T:3d} F={Fq:3d} {ci:3d}->{co:3d}: "
-              f"max err {err:.3e} (tol {TOL_KERNEL})", flush=True)
+              f"max err {err:.3e} (tol {TOL_KERNEL}); rerun bitwise equal: {same}", flush=True)
         require(err <= TOL_KERNEL, "conv_bn_stats disagrees with its plain version")
+        require(same, "conv_bn_stats is not bitwise repeatable")
         M = B * T * Fq
         conv_bytes = 4 * (x.numel() + w.numel() + co + M * co + 2 * Fq * co)
         conv_flops = 2 * 9 * ci * co * M + co * M + 3 * M * co
         x_nchw = x.permute(0, 3, 1, 2)  # channels-last view of the same input
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        rows["conv_bn_stats"].append(dict(
+        out["conv_bn_stats"].append(dict(
             geom=[T, Fq, ci, co], max_abs_err=float((y - yp).abs().max()), rel_err=err,
             ms=time_ms(lambda: fused_cnn.conv_bn_stats(x, w, b)),
             plain_ms=time_ms(lambda: fused_cnn.conv_bn_stats_plain(x, w, b)),
@@ -203,19 +213,23 @@ def check_kernels(geoms, gen, report):
                                                pool=pool, keep_prob=keep)
             errs.append(rel_err(z, zp))
             abs_errs.append(float((z - zp).abs().max()))
+            same = torch.equal(z, fused_cnn.glu_drop_pool(y, scale_f, bias_f, wg, bg, bb,
+                                                          pool=pool, keep_prob=keep))
             print(f"glu_drop_pool  T={T:3d} F={Fq:3d} Co={co:3d} pool={pool} {label}: "
-                  f"max err {errs[-1]:.3e} (tol {TOL_KERNEL})", flush=True)
+                  f"max err {errs[-1]:.3e} (tol {TOL_KERNEL}); rerun bitwise equal: {same}",
+                  flush=True)
             require(errs[-1] <= TOL_KERNEL, "glu_drop_pool disagrees with its plain version")
+            require(same, "glu_drop_pool is not bitwise repeatable")
         P = B * T * Fq
         glu_bytes = 4 * (y.numel() + 2 * Fq * co + co * co + co + z.numel())
         glu_flops = P * (2 * co * co + 8 * co)
-        rows["glu_drop_pool"].append(dict(
+        out["glu_drop_pool"].append(dict(
             geom=[T, Fq, co, *pool], max_abs_err=max(abs_errs), rel_err=max(errs),
             ms=time_ms(lambda: fused_cnn.glu_drop_pool(y, scale_f, bias_f, wg, bg, None, pool=pool)),
             plain_ms=time_ms(lambda: fused_cnn.glu_drop_pool_plain(
                 y, scale_f, bias_f, wg, bg, None, pool=pool)),
             library_ms=None, bound=bound_ms(glu_bytes, glu_flops)))
-        del x, y, yp, z, zp, bits
+        del x, y, yp, z, zp, bits, again
 
     T, H, IN = geoms[-1][0], 192, 128
     plan = gru_plan(BATCH, T, H)
@@ -245,6 +259,11 @@ def check_kernels(geoms, gen, report):
             plain_ms=time_ms(lambda: gru.bigru_plain(xg_f, xg_b, wf, bf, wb, bb), iters=3),
             library_ms=time_ms(lambda: lib(x_in)), bound=bound_ms(gru_bytes, gru_flops)))
     report["kernel_rows"] = rows
+    report["wide_kernel_rows"] = wide
+    for name, (r,) in wide.items():
+        print(f"{name} at the {WIDE_GEOM[3]}-channel block (B={BATCH}): {r['ms']:.3f} ms, "
+              f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} ms",
+              flush=True)
     return rows
 
 

@@ -13,35 +13,46 @@
 //   What bounds it: about 110 GFLOP of fp32 FMA per 2024 forward at B=64
 //   (67 TFLOP/s fp32 peak outside the tensor cores -> ~1.6 ms), against
 //   ~0.9 GB of activations (~0.3 ms at 3.35 TB/s): operations.
-//   Design: an implicit GEMM, rows m = (b*T + t)*F + f, columns = Co,
-//   depth k = (dt*3 + df)*Ci + ci, so w [3,3,Ci,Co] is the [K, Co] operand
-//   as it lies in memory. Tiles of BM x BN outputs per block, BK-deep slices
-//   of the im2col'd input staged in shared memory with the zero padding
-//   applied at load time, a TM x TN register tile per thread, fp32
-//   accumulation, bias added in fp32 before the statistics (pallas_cnn.py
-//   :173-178). A slice's (dt, df, ci) per depth index come from a small
-//   table that 16 threads fill (no integer division per staged element),
-//   and the next slice is loaded into registers while the current one is
-//   multiplied. The per-lane sum and sum of squares of y over all rows are a
-//   deterministic two-pass reduction (no atomics): pass 1 gives per-chunk
-//   partial sums, pass 2 adds the chunks in a fixed order. On the TPU the
-//   sequential grid carried them in scratch (pallas_cnn.py:155, :180).
+//   Design: the halo-tiled implicit GEMM of conv_bn_stats_bwd's dx, which
+//   is the same operation (a SAME 3x3 conv; w [3,3,Ci,Co] is already
+//   [9][Ci][Co]): one kernel body, `conv3x3_kernel`, with a template
+//   epilogue. A block takes a row tile of TT frames x FF frequencies of one
+//   clip and BN output channels (the grid's second axis covers any Co).
+//   Each stage copies DX_BC input channels of the tile's halo (zeros where
+//   the SAME padding lies, so the nine taps are fixed offsets) and the
+//   matching [9][DX_BC][BN] weight slice with cp.async, the next stage in
+//   flight; 8 x 8 outputs a thread, a channel's 10 halo values read once for
+//   three taps where FF % 8 == 0 and BN >= 64. The STATS epilogue adds the
+//   bias in fp32 (pallas_cnn.py:173-178), puts the tile's y in shared
+//   memory, writes it out in 16-byte pieces and adds each lane's frames in
+//   frame order into one partial per (clip, frame tile); a small pass adds
+//   each lane's partials in a fixed order (no atomics: bitwise reruns). y is
+//   not read back from device memory. The first block (Ci = 1: 9 taps of
+//   one channel) is bound by the bytes of y and has its own streaming
+//   kernel, a thread a frequency and 4 channels over a run of frames. On
+//   the TPU the sequential grid carried the statistics in scratch
+//   (pallas_cnn.py:155, :180). ops/fused_cnn.py `conv_fwd_plan` picks the
+//   tiles from the shape.
 //
 // glu_drop_pool
 //   What bounds it: the GLU is a [Co] x [Co, Co] product at every position,
 //   about 18 GFLOP per forward at B=64 (~0.3 ms at fp32 peak) against ~0.9 GB
 //   of y read once (~0.27 ms): both about even.
-//   Design: persistent blocks (as many as fit on the card) keep Wg^T in
-//   shared memory and walk over tiles of pooled outputs. A tile first
-//   locates each of its rows (pooled output, window element) in y once,
-//   then stages BN(y) for the pt*pf input positions of each pooled output,
-//   then each thread produces 4 channels of one pooled output: the GLU
-//   product reads float4s of the BN(y) row (shared by the warp) and of four
-//   Wg^T rows, 16 FMAs per 5 shared-memory reads; then
-//   GLU = (ybn . Wg + bg) * sigmoid(ybn), dropout from the given uint8 bits
-//   (keep if bits < thresh, scale by 1/keep, pallas_cnn.py:573), and the
-//   T- and F-average pool. Rows past T//pt and columns past F//pf are never
-//   produced (torch floor pooling).
+//   Design: persistent blocks of 256 threads walk tiles of P positions
+//   ordered by pooled output, then window element, so that a thread's 4
+//   positions are whole windows where pt*pf divides 4 and the average pool
+//   is taken in its registers (other pools add the window in shared
+//   memory). BN(y) of a tile goes into a channel-major tile yt[c][p]
+//   (16-byte loads, all issued before the first is used); lin = ybn Wg + bg
+//   is a register tile of 4 positions x 4 channels a thread from float4
+//   reads of yt and of a Wg row, warps of 8 channel groups x 4 position
+//   groups where the shape allows. Wg is staged in slices of depth (once,
+//   where it fits whole) and the grid's second axis takes channel tiles of
+//   up to 128, so any Co fits. GLU = lin * sigmoid(ybn), dropout from the
+//   given uint8 bits read 4 at a time (keep if bits < thresh, scale by
+//   1/keep, pallas_cnn.py:573). Rows past T//pt and columns past F//pf are
+//   never produced (torch floor pooling). ops/fused_cnn.py `glu_fwd_plan`
+//   gives the tile, the grid and the shared memory.
 //
 // The backward passes (the training step's kernels):
 //   conv_bn_stats_bwd <- _conv_stats_bwd_kernel (pallas_cnn.py:186, :443)
@@ -100,316 +111,7 @@
 
 namespace {
 
-// Depth index k = tap * C + c of the implicit GEMMs, tap = (dt+1)*3 + (df+1):
-// the (dt, df, c) of one k. dt is NO_TAP past the depth K, so that every
-// row reads 0 there.
-constexpr int NO_TAP = -(1 << 28);
-
-__device__ __forceinline__ void decode_tap(int k, int K, int C, int& dt, int& df, int& c) {
-  if (k < K) {
-    const int tap = k / C;
-    c = k - tap * C;
-    dt = tap / 3 - 1;
-    df = tap % 3 - 1;
-  } else {
-    dt = NO_TAP;
-    df = 0;
-    c = 0;
-  }
-}
-
-// One im2col element of row r (coordinates t, f) at tap (dt, df, c), zero
-// outside the SAME padding.
-__device__ __forceinline__ float im2col_at(const float* __restrict__ x, long long m, int t,
-                                          int f, int dt, int df, int c, int T, int F, int C) {
-  const int tt = t + dt;
-  const int ff = f + df;
-  if (tt < 0 || tt >= T || ff < 0 || ff >= F) return 0.f;
-  return x[(m + (long long)dt * F + df) * C + c];
-}
-
-// Each BK-deep slice's (dt, df, c) come from a small table that 16 threads
-// fill for the next slice, and the next slice's global loads are issued
-// into registers before the current slice's products, so they overlap.
-template <int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-conv3x3_bias_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ y,
-                    int B, int T, int F, int Ci, int Co) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int AE = BM * BK / NT;  // A-tile elements per thread
-  constexpr int BE = BK * BN / NT;  // B-tile elements per thread
-  constexpr int RS = NT / BK;       // row stride between a thread's A elements
-  static_assert(NT % BK == 0 && (BM * BK) % NT == 0 && (BK * BN) % NT == 0, "tile shape");
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ int row_t[BM];
-  __shared__ int row_f[BM];
-  __shared__ int tap[2][3][BK];
-
-  const long long M = (long long)B * T * F;
-  const int K = 9 * Ci;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int kk_a = tid % BK;  // this thread's A-tile depth column
-  const int r_a = tid / BK;   // and its first row
-
-  for (int r = tid; r < BM; r += NT) {
-    const long long m = m0 + r;
-    if (m < M) {
-      row_f[r] = (int)(m % F);
-      row_t[r] = (int)((m / F) % T);
-    } else {
-      row_f[r] = 0;
-      row_t[r] = -4;  // every tap falls outside [0, T): the row loads zeros
-    }
-  }
-  if (tid < BK) decode_tap(tid, K, Ci, tap[0][0][tid], tap[0][1][tid], tap[0][2][tid]);
-  __syncthreads();
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  float a_reg[AE], b_reg[BE];
-  const int n_slices = (K + BK - 1) / BK;
-  for (int sl = 0; sl <= n_slices; ++sl) {
-    // sl == 0 only loads slice 0; afterwards slice sl - 1 is staged and
-    // multiplied while slice sl is loaded.
-    if (sl > 0) {
-#pragma unroll
-      for (int j = 0; j < AE; ++j) As[kk_a][r_a + j * RS] = a_reg[j];
-#pragma unroll
-      for (int j = 0; j < BE; ++j) {
-        const int i = tid + j * NT;
-        Bs[i / BN][i % BN] = b_reg[j];
-      }
-      if (tid < BK && sl < n_slices)
-        decode_tap(sl * BK + tid, K, Ci, tap[sl & 1][0][tid], tap[sl & 1][1][tid],
-                   tap[sl & 1][2][tid]);
-      __syncthreads();
-    }
-    if (sl < n_slices) {
-      const int k0 = sl * BK;
-      const int dt = tap[sl & 1][0][kk_a], df = tap[sl & 1][1][kk_a], c = tap[sl & 1][2][kk_a];
-#pragma unroll
-      for (int j = 0; j < AE; ++j) {
-        const int r = r_a + j * RS;
-        a_reg[j] = im2col_at(x, m0 + r, row_t[r], row_f[r], dt, df, c, T, F, Ci);
-      }
-#pragma unroll
-      for (int j = 0; j < BE; ++j) {
-        const int i = tid + j * NT;
-        const int k = k0 + i / BN;
-        const int co = n0 + i % BN;
-        b_reg[j] = (k < K && co < Co) ? w[(long long)k * Co + co] : 0.f;
-      }
-    }
-    if (sl > 0) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tx * TN + j;
-      if (co < Co) y[m * Co + co] = acc[i][j] + bias[co];
-    }
-  }
-}
-
-template <int BM, int BN, int BK, int TM, int TN>
-cudaError_t launch_conv(const float* x, const float* w, const float* bias, float* y,
-                        int B, int T, int F, int Ci, int Co, cudaStream_t s) {
-  const long long M = (long long)B * T * F;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Co + BN - 1) / BN));
-  conv3x3_bias_kernel<BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, s>>>(
-      x, w, bias, y, B, T, F, Ci, Co);
-  return cudaGetLastError();
-}
-
-// Output-channel count Co picks the tile: small Co keeps a 128-wide tile
-// from running mostly empty.
-cudaError_t launch_conv_any(const float* x, const float* w, const float* bias, float* y,
-                            int B, int T, int F, int Ci, int Co, cudaStream_t s) {
-  if (Co >= 128) return launch_conv<128, 128, 16, 8, 8>(x, w, bias, y, B, T, F, Ci, Co, s);
-  if (Co >= 64) return launch_conv<128, 64, 16, 8, 4>(x, w, bias, y, B, T, F, Ci, Co, s);
-  if (Co >= 32) return launch_conv<128, 32, 16, 4, 4>(x, w, bias, y, B, T, F, Ci, Co, s);
-  return launch_conv<128, 16, 16, 4, 2>(x, w, bias, y, B, T, F, Ci, Co, s);
-}
-
-// Pass 1: part[c][l] = sum of y[r][l] over the rows r of chunk c, in order.
-__global__ void lane_stats_partial_kernel(const float* __restrict__ y,
-                                          float* __restrict__ part_s,
-                                          float* __restrict__ part_q,
-                                          long long R, int L, int rows_per_chunk) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  if (l >= L) return;
-  const long long r0 = (long long)c * rows_per_chunk;
-  const long long r1 = min(R, r0 + rows_per_chunk);
-  float s = 0.f, q = 0.f;
-  for (long long r = r0; r < r1; ++r) {
-    const float v = y[r * L + l];
-    s += v;
-    q = fmaf(v, v, q);
-  }
-  part_s[(long long)c * L + l] = s;
-  part_q[(long long)c * L + l] = q;
-}
-
-// Pass 2: s[l] = sum over chunks of part[c][l], chunks in order.
-__global__ void lane_stats_final_kernel(const float* __restrict__ part_s,
-                                        const float* __restrict__ part_q,
-                                        float* __restrict__ s, float* __restrict__ q,
-                                        int L, int n_chunks) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  float a = 0.f, b = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    a += part_s[(long long)c * L + l];
-    b += part_q[(long long)c * L + l];
-  }
-  s[l] = a;
-  q[l] = b;
-}
-
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
-// smem: WgT [Co][S] | BN(y) rows [NQ*W][S] | row offsets | lane offsets.
-// Rows are padded to S floats (S/4 odd) so that float4 reads of 8
-// neighbouring rows fall in distinct banks; the padding holds zeros.
-__global__ void __launch_bounds__(256) glu_drop_pool_kernel(
-    const float* __restrict__ y, const float* __restrict__ scale_f,
-    const float* __restrict__ bias_f, const float* __restrict__ wg,
-    const float* __restrict__ bg, const uint8_t* __restrict__ bits,
-    float* __restrict__ z, int B, int T, int F, int Co, int pt, int pf,
-    int keep_thresh, float inv_keep, int NQ, int S) {
-  extern __shared__ __align__(16) float smem[];
-  const int W = pt * pf;
-  const int NR = NQ * W;
-  float* wgT_s = smem;
-  float* ybn_s = smem + Co * S;
-  long long* rowoff_s = reinterpret_cast<long long*>(ybn_s + NR * S);
-  int* laneoff_s = reinterpret_cast<int*>(rowoff_s + NR);
-  const int Tout = T / pt;
-  const int Fout = F / pf;
-  const long long Q = (long long)B * Tout * Fout;
-  const long long n_tiles = (Q + NQ - 1) / NQ;
-  const int K4 = (Co + 3) & ~3;  // depth of the GLU product, padded to float4
-  const int CG = (Co + 3) / 4;   // threads per pooled output, 4 channels each
-  const float inv_w = 1.f / (float)W;
-
-  for (int i = threadIdx.x; i < Co * S; i += blockDim.x) {
-    const int c = i / S;
-    const int k = i - c * S;
-    wgT_s[i] = k < Co ? wg[k * Co + c] : 0.f;
-  }
-  for (int i = threadIdx.x; i < NR * S; i += blockDim.x) ybn_s[i] = 0.f;
-
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long q0 = tile * NQ;
-    __syncthreads();  // staging done / previous tile no longer read
-    // each row r = (pooled output qq, window element wi): where it lies in y
-    for (int r = threadIdx.x; r < NR; r += blockDim.x) {
-      const int qq = r / W;
-      const int wi = r - qq * W;
-      const long long q = q0 + qq;
-      long long off = -1;
-      int lane = 0;
-      if (q < Q) {
-        const int fo = (int)(q % Fout);
-        const long long bt = q / Fout;
-        const int to = (int)(bt % Tout);
-        const long long b = bt / Tout;
-        const int t = to * pt + wi / pf;
-        const int f = fo * pf + wi % pf;
-        off = ((b * T + t) * F + f) * (long long)Co;
-        lane = f * Co;
-      }
-      rowoff_s[r] = off;
-      laneoff_s[r] = lane;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < NR * Co; i += blockDim.x) {
-      const int r = i / Co;
-      const int c = i - r * Co;
-      const long long off = rowoff_s[r];
-      float v = 0.f;
-      if (off >= 0) {
-        const int lane = laneoff_s[r] + c;
-        v = fmaf(y[off + c], scale_f[lane], bias_f[lane]);
-      }
-      ybn_s[r * S + c] = v;
-    }
-    __syncthreads();
-    // thread (qq, cl) produces channels cl + j*CG, j < 4, of pooled output qq
-    for (int i = threadIdx.x; i < NQ * CG; i += blockDim.x) {
-      const int qq = i / CG;
-      const int cl = i - qq * CG;
-      if (rowoff_s[qq * W] < 0) continue;  // past the last pooled output
-      int cj[4];
-      const float* wrow[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        cj[j] = cl + j * CG;
-        wrow[j] = wgT_s + (cj[j] < Co ? cj[j] : Co - 1) * S;
-      }
-      float pooled[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int wi = 0; wi < W; ++wi) {
-        const int r = qq * W + wi;
-        const float* yr = ybn_s + r * S;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < K4; k += 4) {
-          const float4 yv = *reinterpret_cast<const float4*>(yr + k);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 wv = *reinterpret_cast<const float4*>(wrow[j] + k);
-            acc[j] = fmaf(yv.x, wv.x, acc[j]);
-            acc[j] = fmaf(yv.y, wv.y, acc[j]);
-            acc[j] = fmaf(yv.z, wv.z, acc[j]);
-            acc[j] = fmaf(yv.w, wv.w, acc[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (cj[j] >= Co) continue;
-          float g = (acc[j] + bg[cj[j]]) * sigmoidf(yr[cj[j]]);
-          if (bits != nullptr) {
-            g = (int)bits[rowoff_s[r] + cj[j]] < keep_thresh ? g * inv_keep : 0.f;
-          }
-          pooled[j] += g;
-        }
-      }
-      const long long q = q0 + qq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (cj[j] < Co) z[q * Co + cj[j]] = pooled[j] * inv_w;
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Asynchronous copies into shared memory (cp.async). A copy whose source lies
@@ -439,8 +141,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// p[c .. c+3], zeros past Co: one 16-byte load where Co % 4 == 0 (p then
+// lies on 16 bytes), else four guarded ones.
+__device__ __forceinline__ float4 ld4(const float* __restrict__ p, int c, int Co) {
+  if ((Co & 3) == 0) {
+    return c < Co ? __ldg(reinterpret_cast<const float4*>(p + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  return make_float4(c < Co ? p[c] : 0.f, c + 1 < Co ? p[c + 1] : 0.f,
+                     c + 2 < Co ? p[c + 2] : 0.f, c + 3 < Co ? p[c + 3] : 0.f);
+}
+
+// bytes p[c .. c+3] (zeros past Co) packed little-endian into one word
+__device__ __forceinline__ uint32_t ld_bytes4(const uint8_t* __restrict__ p, int c, int Co) {
+  if ((Co & 3) == 0) return c < Co ? __ldg(reinterpret_cast<const uint32_t*>(p + c)) : 0u;
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v |= (c + j < Co ? (uint32_t)p[c + j] : 0u) << (8 * j);
+  return v;
+}
+
+// p[c .. c+3] = o, nothing past Co
+__device__ __forceinline__ void st4(float* __restrict__ p, int c, int Co, const float* o) {
+  if ((Co & 3) == 0) {
+    if (c < Co) *reinterpret_cast<float4*>(p + c) = make_float4(o[0], o[1], o[2], o[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j < Co) p[c + j] = o[j];
+}
+
 // ---------------------------------------------------------------------------
-// conv_bn_stats_bwd. A row tile is TT frames x FF frequencies of one clip b
+// The conv kernels' row tiles (conv_bn_stats and conv_bn_stats_bwd). A row
+// tile is TT frames x FF frequencies of one clip b
 // from (t0, f0); tiles are numbered f-tile fastest, then t-tile, then b
 // (tests/test_torch_fused_cnn_plan.py walks the same numbering). Its halo
 // adds one frame and one frequency on each side: (TT + 2) x (FF + 2) positions,
@@ -530,24 +263,31 @@ __global__ void dy_eff_kernel(const float* __restrict__ y, const float* __restri
   }
 }
 
-// dx = SAME conv3x3 of dy_eff (Co channels in) with wt [9][Co][Ci] (w
-// flipped and transposed): an implicit GEMM of M rows x BN output channels
-// per block, depth 9 * Co. Each stage copies DX_BC channels of the tile's
-// halo (once, for all 9 taps) and the matching [9][DX_BC][BN] slice of wt,
-// the next stage in flight while one is multiplied. 256 threads, 8 x 8
-// outputs each: columns tx*4 + {0..3} and BN/2 + tx*4 + {0..3}; rows
-// ty + NY i, or with SEG (FF % 8 == 0, BN >= 64) the 8 neighbouring
-// frequencies ty*8 + i of one frame: then
+// out = SAME conv3x3 of `in` [B, T, F, Cin] with wk [9][Cin][Cout]: an
+// implicit GEMM of M rows x BN output channels per block, depth 9 * Cin.
+// It is conv_bn_stats' conv (wk = w) and conv_bn_stats_bwd's dx (in =
+// dy_eff, wk = w flipped and transposed). Each stage copies DX_BC channels
+// of the tile's halo (once, for all 9 taps) and the matching
+// [9][DX_BC][BN] slice of wk, the next stage in flight while one is
+// multiplied. 256 threads, 8 x 8 outputs each: columns tx*4 + {0..3} and
+// BN/2 + tx*4 + {0..3}; rows ty + NY i, or with SEG (FF % 8 == 0, BN >= 64)
+// the 8 neighbouring frequencies ty*8 + i of one frame: then
 // the 10 halo values that a channel's three taps of one frame offset dt
 // need are read once for the three, 10 shared loads for 192 FMAs instead of
 // 24. (At BN < 64 a warp spans more than 4 segments, 8 floats apart, and
 // their reads would meet in the same banks.)
+// Epilogue: without STATS the outputs go straight from registers to `out`
+// (dx). With STATS (conv_bn_stats) the bias is added, the tile's y is put
+// in shared memory as [TT * FF][BN] (the stage buffers are free by then),
+// written to `out` in VEC-float pieces, and each lane (f, c) of the tile
+// adds its frames in order into part_s / part_q row (b * nt + t-tile).
 constexpr int DX_BC = 8;
 
-template <int BN, int VEC, bool SEG>
-__global__ void __launch_bounds__(256, 2) conv_dx_kernel(
-    const float* __restrict__ dye, const float* __restrict__ wt, float* __restrict__ dx,
-    int B, int T, int F, int Co, int Ci, int TT, int FF) {
+template <int BN, int VEC, bool SEG, bool STATS>
+__global__ void __launch_bounds__(256, 2) conv3x3_kernel(
+    const float* __restrict__ in, const float* __restrict__ wk, float* __restrict__ out,
+    const float* __restrict__ bias, float* __restrict__ part_s, float* __restrict__ part_q,
+    int B, int T, int F, int Cin, int Cout, int TT, int FF) {
   constexpr int BC = DX_BC, NX = BN / 8, NY = 256 / NX;
   extern __shared__ __align__(16) float smem[];
   const int W = FF + 2;
@@ -569,16 +309,16 @@ __global__ void __launch_bounds__(256, 2) conv_dx_kernel(
 
   auto stage = [&](int sl, int buf) {
     const int c0 = sl * BC;
-    stage_halo_cm(smem + buf * NPA * BC, dye, rt, TT, FF, T, F, Co, c0, BC, tid, 256);
+    stage_halo_cm(smem + buf * NPA * BC, in, rt, TT, FF, T, F, Cin, c0, BC, tid, 256);
     constexpr int per = BN / VEC;
     for (int i = tid; i < 9 * BC * per; i += 256) {
       const int row = i / per;  // tap * BC + channel
       const int n = (i - row * per) * VEC;
       const int tap = row / BC;
       const int c = c0 + row - tap * BC;
-      const bool ok = c < Co && n0 + n < Ci;
+      const bool ok = c < Cin && n0 + n < Cout;
       cp_async_vec<VEC>(wsl0 + buf * 9 * BC * BN + row * BN + n,
-                        ok ? wt + ((long long)tap * Co + c) * Ci + n0 + n : wt, ok);
+                        ok ? wk + ((long long)tap * Cin + c) * Cout + n0 + n : wk, ok);
     }
     cp_async_commit();
   };
@@ -589,7 +329,7 @@ __global__ void __launch_bounds__(256, 2) conv_dx_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const int n_sl = (Co + BC - 1) / BC;
+  const int n_sl = (Cin + BC - 1) / BC;
   stage(0, 0);
   for (int sl = 0; sl < n_sl; ++sl) {
     const int buf = sl & 1;
@@ -648,18 +388,166 @@ __global__ void __launch_bounds__(256, 2) conv_dx_kernel(
     __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = SEG ? ty * 8 + i : ty + NY * i;
-    const int jt = r / FF;
-    const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
-    if (jt >= TT || t >= T || f >= F) continue;
-    float* out = dx + (((long long)rt.b * T + t) * F + f) * Ci;
+  if constexpr (STATS) {
+    const int R = TT * FF;
+    float* const ys = smem;  // [R][BN]
+    float bv[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + tx * 4 + (j / 4) * (BN / 2) + j % 4;
-      if (n < Ci) out[n] = acc[i][j];
+      bv[j] = n < Cout ? bias[n] : 0.f;
     }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = SEG ? ty * 8 + i : ty + NY * i;
+      if (r >= R) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(ys + r * BN + h * (BN / 2) + tx * 4) =
+            make_float4(acc[i][4 * h] + bv[4 * h], acc[i][4 * h + 1] + bv[4 * h + 1],
+                        acc[i][4 * h + 2] + bv[4 * h + 2], acc[i][4 * h + 3] + bv[4 * h + 3]);
+    }
+    __syncthreads();
+    constexpr int per = BN / VEC;
+    for (int e = tid; e < R * per; e += 256) {
+      const int r = e / per;
+      const int n = (e - r * per) * VEC;
+      const int jt = r / FF;
+      const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
+      if (t >= T || f >= F || n0 + n >= Cout) continue;
+      float* o = out + (((long long)rt.b * T + t) * F + f) * Cout + n0 + n;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(ys + r * BN + n);
+      } else {
+        *o = ys[r * BN + n];
+      }
+    }
+    // the lane sums of the tile's frames, in frame order
+    const int L = F * Cout;
+    const long long prow = blockIdx.x / ((F + FF - 1) / FF);  // b * nt + t-tile
+    const int frames = min(TT, T - rt.t0);
+    for (int l = tid; l < FF * BN; l += 256) {
+      const int fl = l / BN, c = l - fl * BN;
+      const int f = rt.f0 + fl, n = n0 + c;
+      if (f >= F || n >= Cout) continue;
+      float s = 0.f, q = 0.f;
+      for (int jt = 0; jt < frames; ++jt) {
+        const float v = ys[(jt * FF + fl) * BN + c];
+        s += v;
+        q = fmaf(v, v, q);
+      }
+      part_s[prow * L + f * Cout + n] = s;
+      part_q[prow * L + f * Cout + n] = q;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = SEG ? ty * 8 + i : ty + NY * i;
+      const int jt = r / FF;
+      const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
+      if (jt >= TT || t >= T || f >= F) continue;
+      float* o = out + (((long long)rt.b * T + t) * F + f) * Cout;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + tx * 4 + (j / 4) * (BN / 2) + j % 4;
+        if (n < Cout) o[n] = acc[i][j];
+      }
+    }
+  }
+}
+
+// conv_bn_stats for Ci = 1 (the first block: 9 taps of one input channel),
+// bound by the bytes of y, which it writes once. Thread (f, g) of block
+// (x, part) makes channels 4g .. 4g+3 at frequency f of frames
+// (b, t) = rows part * rows_per_part ..., in order, from 9 x values and its
+// 9 x 4 weights in registers, and adds y and y^2 of its lanes over them
+// into part_s / part_q row `part`.
+__global__ void __launch_bounds__(256, 4) conv_c1_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+    float* __restrict__ y, float* __restrict__ part_s, float* __restrict__ part_q, int B, int T,
+    int F, int Co, int rows_per_part) {
+  const int G = (Co + 3) / 4;
+  const int lg = blockIdx.x * 256 + threadIdx.x;
+  if (lg >= F * G) return;
+  const int f = lg / G, c0 = (lg - f * G) * 4;
+  const int R = B * T;  // rows fit in an int (the plan checks)
+  const int r0 = blockIdx.y * rows_per_part;
+  const int r1 = min(R, r0 + rows_per_part);
+  float wv[9][4], bv[4], s[4], q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool ok = c0 + j < Co;
+    bv[j] = ok ? bias[c0 + j] : 0.f;
+    s[j] = q[j] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) wv[tap][j] = ok ? w[tap * Co + c0 + j] : 0.f;
+  }
+  // unrolled so that several frames' loads are in flight at once
+#pragma unroll 4
+  for (int r = r0; r < r1; ++r) {
+    const int t = r % T;
+    const long long m = (long long)r * F + f;
+    float xv[9];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dt = tap / 3 - 1, df = tap % 3 - 1;
+      const bool ok = t + dt >= 0 && t + dt < T && f + df >= 0 && f + df < F;
+      xv[tap] = ok ? x[m + dt * F + df] : 0.f;
+    }
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float a = 0.f;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) a = fmaf(xv[tap], wv[tap][j], a);
+      o[j] = a + bv[j];
+      s[j] += o[j];
+      q[j] = fmaf(o[j], o[j], q[j]);
+    }
+    st4(y + m * Co, c0, Co, o);
+  }
+  const long long base = (long long)blockIdx.y * F * Co + f * Co + c0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (c0 + j < Co) {
+      part_s[base + j] = s[j];
+      part_q[base + j] = q[j];
+    }
+  }
+}
+
+// s[l], q[l]: lane l's n partial rows added in row order, as 32 runs of
+// consecutive rows (one warp each, 32 lanes a block) added in run order.
+constexpr int STATS_RUNS = 32;
+
+__global__ void __launch_bounds__(32 * STATS_RUNS) lane_stats_final_kernel(
+    const float* __restrict__ part_s, const float* __restrict__ part_q, float* __restrict__ s,
+    float* __restrict__ q, int L, int n) {
+  __shared__ float red[2][STATS_RUNS][32];
+  const int lane = threadIdx.x % 32, g = threadIdx.x / 32;
+  const int l = blockIdx.x * 32 + lane;
+  const int per = (n + STATS_RUNS - 1) / STATS_RUNS;
+  const int r1 = min(n, (g + 1) * per);
+  float a = 0.f, b = 0.f;
+  if (l < L) {
+#pragma unroll 4
+    for (int r = g * per; r < r1; ++r) {
+      a += part_s[(long long)r * L + l];
+      b += part_q[(long long)r * L + l];
+    }
+  }
+  red[0][g][lane] = a;
+  red[1][g][lane] = b;
+  __syncthreads();
+  if (g == 0 && l < L) {
+    float u = 0.f, v = 0.f;
+#pragma unroll
+    for (int k = 0; k < STATS_RUNS; ++k) {
+      u += red[0][k][lane];
+      v += red[1][k][lane];
+    }
+    s[l] = u;
+    q[l] = v;
   }
 }
 
@@ -943,14 +831,56 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
 template <int BN, int VEC>
 cudaError_t launch_dx(const float* dye, const float* wt, float* dx, int B, int T, int F,
                       int Co, int Ci, int TT, int FF, int smem, cudaStream_t s) {
-  auto kernel = BN >= 64 && FF % 8 == 0 ? conv_dx_kernel<BN, VEC, true>
-                                         : conv_dx_kernel<BN, VEC, false>;
+  auto kernel = BN >= 64 && FF % 8 == 0 ? conv3x3_kernel<BN, VEC, true, false>
+                                         : conv3x3_kernel<BN, VEC, false, false>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
   dim3 grid((unsigned)tiles, (unsigned)((Ci + BN - 1) / BN));
-  kernel<<<grid, 256, smem, s>>>(dye, wt, dx, B, T, F, Co, Ci, TT, FF);
+  kernel<<<grid, 256, smem, s>>>(dye, wt, dx, nullptr, nullptr, nullptr, B, T, F, Co, Ci, TT,
+                                 FF);
   return cudaGetLastError();
+}
+
+// The shared-memory attribute of a kernel, set once per kernel and size:
+// `done` is the kernel's own static, the largest size set so far.
+template <typename Kernel>
+cudaError_t ensure_smem(Kernel kernel, int bytes, int& done) {
+  if (bytes <= done) return cudaSuccess;
+  const cudaError_t err = set_smem(kernel, bytes);
+  if (err == cudaSuccess) done = bytes;
+  return err;
+}
+
+// conv_bn_stats' conv: conv3x3_kernel with the STATS epilogue
+template <int BN, int VEC, bool SEG>
+cudaError_t launch_fwd(const float* x, const float* w, const float* bias, float* y,
+                       float* part_s, float* part_q, int B, int T, int F, int Ci, int Co,
+                       int TT, int FF, int smem, cudaStream_t s) {
+  static int smem_set = 0;
+  auto kernel = conv3x3_kernel<BN, VEC, SEG, true>;
+  cudaError_t err = ensure_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
+  dim3 grid((unsigned)tiles, (unsigned)((Co + BN - 1) / BN));
+  kernel<<<grid, 256, smem, s>>>(x, w, y, bias, part_s, part_q, B, T, F, Ci, Co, TT, FF);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch_fwd_bn(int BN, bool seg, const float* x, const float* w, const float* bias,
+                          float* y, float* part_s, float* part_q, int B, int T, int F, int Ci,
+                          int Co, int TT, int FF, int smem, cudaStream_t s) {
+#define FWD_ARGS x, w, bias, y, part_s, part_q, B, T, F, Ci, Co, TT, FF, smem, s
+  switch (BN) {  // SEG only where BN >= 64 (the plan's rule)
+    case 8: return launch_fwd<8, VEC, false>(FWD_ARGS);
+    case 16: return launch_fwd<16, VEC, false>(FWD_ARGS);
+    case 32: return launch_fwd<32, VEC, false>(FWD_ARGS);
+    case 64: return seg ? launch_fwd<64, VEC, true>(FWD_ARGS) : launch_fwd<64, VEC, false>(FWD_ARGS);
+    case 128: return seg ? launch_fwd<128, VEC, true>(FWD_ARGS) : launch_fwd<128, VEC, false>(FWD_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FWD_ARGS
 }
 
 template <int VEC>
@@ -1026,36 +956,6 @@ cudaError_t launch_dw_any(int BKO, int BNO, const float* x, const float* dye, fl
 // order first); two small passes add the blocks' in block order.
 // smem: Wg [Co][CP] | Wg^T [Co][CP] | yt [CP][P+4] | dt [CP][P+4] | lanes [3][F*Co].
 // ---------------------------------------------------------------------------
-
-// p[c .. c+3], zeros past Co: one 16-byte load where Co % 4 == 0 (p then
-// lies on 16 bytes), else four guarded ones.
-__device__ __forceinline__ float4 ld4(const float* __restrict__ p, int c, int Co) {
-  if ((Co & 3) == 0) {
-    return c < Co ? __ldg(reinterpret_cast<const float4*>(p + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  return make_float4(c < Co ? p[c] : 0.f, c + 1 < Co ? p[c + 1] : 0.f,
-                     c + 2 < Co ? p[c + 2] : 0.f, c + 3 < Co ? p[c + 3] : 0.f);
-}
-
-// bytes p[c .. c+3] (zeros past Co) packed little-endian into one word
-__device__ __forceinline__ uint32_t ld_bytes4(const uint8_t* __restrict__ p, int c, int Co) {
-  if ((Co & 3) == 0) return c < Co ? __ldg(reinterpret_cast<const uint32_t*>(p + c)) : 0u;
-  uint32_t v = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v |= (c + j < Co ? (uint32_t)p[c + j] : 0u) << (8 * j);
-  return v;
-}
-
-// p[c .. c+3] = o, nothing past Co
-__device__ __forceinline__ void st4(float* __restrict__ p, int c, int Co, const float* o) {
-  if ((Co & 3) == 0) {
-    if (c < Co) *reinterpret_cast<float4*>(p + c) = make_float4(o[0], o[1], o[2], o[3]);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (c + j < Co) p[c + j] = o[j];
-}
 
 constexpr int GLU_THREADS = 512;
 
@@ -1336,61 +1236,282 @@ __global__ void glu_bwd_final_w(const float* __restrict__ part_l,
   }
 }
 
+// ---------------------------------------------------------------------------
+// glu_drop_pool. 256 threads; a tile is NQ pooled outputs (q0 = tile * NQ ..),
+// its P positions ordered by pooled output, then window element:
+// p = qq * W + wi, wi = dt * pf + df (positions past NQ * W idle). Block
+// (x, y) takes output channels [n0, n0 + CT), n0 = y * CT, of tiles x,
+// x + gridDim.x, ... Per tile:
+//   A  BN(y) of all CP channels into yt[c][p], 4 positions x 4 channels an
+//      item, the item's loads issued before the first is used;
+//   B  lin = ybn Wg + bg over Wg slices of KS rows (staged once where
+//      KS >= Co), a 4 x 4 register tile a thread: positions pg*4 + i,
+//      channels n0 + cg*4 + j; (CT / 4) x (P / 4) = 256 threads;
+//   C  GLU, dropout, and the pool: where W divides 4 the thread's positions
+//      are 4 / W whole windows, added in registers; else the GLU values go
+//      into yt and a window's W values are added there, in order.
+// Each tile first writes, per pooled output, the row of y of its window's
+// first element and that element's frequency into two small tables, so a
+// position's row is a table read and an offset (positions count in 32-bit
+// ints: the plan checks B*T*F < 2^31); where W divides 4 the offsets of a
+// thread's 4 positions are the same on every tile and are computed once.
+// smem: Wg slice [KS][CT] | yt [CP][P + 4], CP = max(Co padded to 4, CT) |
+// rowq [NQ] | fq [NQ].
+// ---------------------------------------------------------------------------
+constexpr int GLU_FWD_THREADS = 256;
+
+// WR: the window pt * pf where it divides 4 (the pool in registers), else 0.
+template <int WR>
+__global__ void __launch_bounds__(GLU_FWD_THREADS, 3) glu_fwd_kernel(
+    const float* __restrict__ y, const float* __restrict__ scale_f,
+    const float* __restrict__ bias_f, const float* __restrict__ wg,
+    const float* __restrict__ bg, const uint8_t* __restrict__ bits, float* __restrict__ z,
+    int B, int T, int F, int Co, int pt, int pf, int keep_thresh, float inv_keep, int CT,
+    int P, int NQ, int KS, int n_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  const int PS = P + 4;
+  const int CP = max((Co + 3) & ~3, CT);  // yt's rows: the depth, or a tile of outputs
+  float* const wg_s = smem;          // [KS][CT]: Wg rows k0 .., columns n0 ..
+  float* const yt = smem + KS * CT;  // [CP][PS]
+  int* const rowq = reinterpret_cast<int*>(yt + CP * PS);  // [NQ], -1 past the last
+  int* const fq = rowq + NQ;                                // [NQ]
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.y * CT;
+  const int W = WR > 0 ? WR : pt * pf, To = T / pt, Fo = F / pf;
+  const int Q = B * To * Fo;
+  const int CG = CT / 4, NCP = CP / 4;
+  // product thread (cg, pg); where the shape allows a warp holds 8 channel
+  // groups x 4 position groups: its float4 reads of a Wg row and of a yt
+  // row span 128 and 64 bytes, one shared-memory wavefront each
+  const bool w8 = CG % 8 == 0 && (P / 4) % 4 == 0;
+  const int cg = w8 ? (tid / 32) % (CG / 8) * 8 + tid % 8 : tid % CG;
+  const int pg = w8 ? (tid / 32) / (CG / 8) * 4 + (tid % 32) / 8 : tid / CG;
+  const int c0 = n0 + cg * 4;  // this thread's output channels c0 .. c0 + 3
+  const bool whole = KS >= Co;
+  const float inv_w = 1.f / (float)W;
+  // WR > 0: position 4 s + i of a tile is window element i % WR
+  int woff[4], wf[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int wi = WR > 0 ? i % WR : 0;
+    woff[i] = wi / pf * F + wi % pf;
+    wf[i] = wi % pf;
+  }
+  // row of y of tile position 4 s + i (its frequency in f), or -1
+  auto row_of = [&](int s4, int i, int& f) -> int {
+    const int p = 4 * s4 + i;
+    const int qq = p / W;
+    const int base = qq < NQ ? rowq[qq] : -1;
+    if (base < 0) return -1;
+    if constexpr (WR > 0) {
+      f = fq[qq] + wf[i];
+      return base + woff[i];
+    } else {
+      const int wi = p - qq * W;
+      f = fq[qq] + wi % pf;
+      return base + wi / pf * F + wi % pf;
+    }
+  };
+
+  auto stage_w = [&](int k0) {
+    for (int i = tid; i < KS * CG; i += GLU_FWD_THREADS) {
+      const int k = i / CG, c = (i - k * CG) * 4;
+      *reinterpret_cast<float4*>(wg_s + k * CT + c) =
+          k0 + k < Co ? ld4(wg + (long long)(k0 + k) * Co, n0 + c, Co)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  if (whole) stage_w(0);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int q0 = tile * NQ;
+    __syncthreads();  // Wg staged / the previous tile's yt and tables read
+    for (int qq = tid; qq < NQ; qq += GLU_FWD_THREADS) {
+      const int q = q0 + qq;
+      int base = -1, f0 = 0;
+      if (q < Q) {
+        const int fo = q % Fo, bt = q / Fo;
+        f0 = fo * pf;
+        base = ((bt / To) * T + (bt % To) * pt) * F + f0;
+      }
+      rowq[qq] = base;
+      fq[qq] = f0;
+    }
+    __syncthreads();
+    // A: channel groups fastest, so that neighbouring threads read one row
+    for (int it = tid; it < NCP * (P / 4); it += GLU_FWD_THREADS) {
+      const int sc = it % NCP, sp = it / NCP;
+      int m[4], fm[4];
+      float4 yq[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        fm[i] = 0;
+        m[i] = row_of(sp, i, fm[i]);
+        yq[i] = m[i] >= 0 ? ld4(y + (long long)m[i] * Co, sc * 4, Co)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float v[4][4];  // [channel][position]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lane = fm[i] * Co;
+        const float4 s4 = ld4(scale_f + lane, sc * 4, Co);  // small, cached
+        const float4 b4 = ld4(bias_f + lane, sc * 4, Co);
+        const bool ok = m[i] >= 0;
+        v[0][i] = ok ? fmaf(yq[i].x, s4.x, b4.x) : 0.f;
+        v[1][i] = ok ? fmaf(yq[i].y, s4.y, b4.y) : 0.f;
+        v[2][i] = ok ? fmaf(yq[i].z, s4.z, b4.z) : 0.f;
+        v[3][i] = ok ? fmaf(yq[i].w, s4.w, b4.w) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(yt + (sc * 4 + j) * PS + sp * 4) =
+            make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+    }
+    // the thread's dropout bits, in flight during the product
+    uint32_t kb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int f;
+      const int mo = bits != nullptr ? row_of(pg, i, f) : -1;
+      kb[i] = mo >= 0 ? ld_bytes4(bits + (long long)mo * Co, c0, Co) : 0u;
+    }
+    // B
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < Co; k0 += KS) {
+      if (!whole) {
+        __syncthreads();  // the previous slice read
+        stage_w(k0);
+      }
+      __syncthreads();  // yt (and the slice) staged
+      const int kn = min(KS, Co - k0);
+#pragma unroll 4
+      for (int k = 0; k < kn; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(yt + (k0 + k) * PS + pg * 4);
+        const float4 w = *reinterpret_cast<const float4*>(wg_s + k * CT + cg * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      }
+    }
+    // C: GLU and dropout in place of acc
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + j;
+      const float bgc = c < Co ? bg[c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ybn = c < Co ? yt[c * PS + pg * 4 + i] : 0.f;
+        float g = (acc[i][j] + bgc) * sigmoidf(ybn);
+        if (bits != nullptr) g = (int)((kb[i] >> (8 * j)) & 255u) < keep_thresh ? g * inv_keep : 0.f;
+        acc[i][j] = g;
+      }
+    }
+    if constexpr (WR > 0) {  // whole windows in registers
+#pragma unroll
+      for (int w0 = 0; w0 < 4; w0 += WR) {
+        const int qq = (pg * 4 + w0) / WR;
+        const int q = q0 + qq;
+        if (qq >= NQ || q >= Q) continue;
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < WR; ++e) s += acc[w0 + e][j];
+          o[j] = s * inv_w;
+        }
+        st4(z + (long long)q * Co, c0, Co, o);
+      }
+    } else {  // windows across threads: through yt, [CT][PS] at its start
+      __syncthreads();  // every product read of yt done
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(yt + (cg * 4 + j) * PS + pg * 4) =
+            make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+      __syncthreads();
+      for (int e = tid; e < NQ * CT; e += GLU_FWD_THREADS) {
+        const int qq = e / CT, c = e - qq * CT;
+        const int q = q0 + qq;
+        if (q >= Q || n0 + c >= Co) continue;
+        float s = 0.f;
+        for (int wi = 0; wi < W; ++wi) s += yt[c * PS + qq * W + wi];
+        z[(long long)q * Co + n0 + c] = s * inv_w;
+      }
+    }
+  }
+}
+
+template <int WR>
+cudaError_t launch_glu_fwd(const float* y, const float* scale_f, const float* bias_f,
+                           const float* wg, const float* bg, const uint8_t* bits, float* z,
+                           int B, int T, int F, int Co, int pt, int pf, int keep_thresh,
+                           float inv_keep, const int* plan, cudaStream_t stream) {
+  static int smem_set = 0;
+  const int CT = plan[0], P = plan[1], NQ = plan[2], KS = plan[3];
+  const int n_tiles = plan[4], grid_x = plan[5], grid_y = plan[6], smem = plan[7];
+  cudaError_t err = ensure_smem(glu_fwd_kernel<WR>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  glu_fwd_kernel<WR><<<dim3(grid_x, grid_y), GLU_FWD_THREADS, smem, stream>>>(
+      y, scale_f, bias_f, wg, bg, bits, z, B, T, F, Co, pt, pf, keep_thresh, inv_keep, CT, P,
+      NQ, KS, n_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // y = conv3x3_same(x, w) + bias; s, q = per-lane sum / sum of squares of y
-// over the B*T rows. part_s/part_q: scratch [n_chunks, F*Co].
+// over the B*T rows. part_s/part_q: scratch [n_parts, F*Co]. plan: the ints
+// of ops/fused_cnn.py ConvFwdPlan, in its field order.
 int conv_bn_stats(const float* x, const float* w, const float* bias, float* y,
-                  float* part_s, float* part_q, float* s, float* q,
-                  int B, int T, int F, int Ci, int Co, int n_chunks,
-                  cudaStream_t stream) {
-  cudaError_t err = launch_conv_any(x, w, bias, y, B, T, F, Ci, Co, stream);
+                  float* part_s, float* part_q, float* s, float* q, int B, int T, int F,
+                  int Ci, int Co, const int* plan, cudaStream_t stream) {
+  const int stream_c1 = plan[0], vec = plan[1], bn = plan[2], tt = plan[3], ff = plan[4];
+  const int seg = plan[5], smem = plan[6], n_parts = plan[7], rows_per_part = plan[8];
+  cudaError_t err;
+  if (stream_c1) {
+    const int G = (Co + 3) / 4;
+    dim3 grid((unsigned)((F * G + 255) / 256), (unsigned)n_parts);
+    conv_c1_kernel<<<grid, 256, 0, stream>>>(x, w, bias, y, part_s, part_q, B, T, F, Co,
+                                             rows_per_part);
+    err = cudaGetLastError();
+  } else {
+    err = vec ? launch_fwd_bn<4>(bn, seg, x, w, bias, y, part_s, part_q, B, T, F, Ci, Co, tt, ff,
+                                 smem, stream)
+              : launch_fwd_bn<1>(bn, seg, x, w, bias, y, part_s, part_q, B, T, F, Ci, Co, tt, ff,
+                                 smem, stream);
+  }
   if (err != cudaSuccess) return (int)err;
-  const long long R = (long long)B * T;
   const int L = F * Co;
-  const int rows_per_chunk = (int)((R + n_chunks - 1) / n_chunks);
-  dim3 g1((L + 255) / 256, n_chunks);
-  lane_stats_partial_kernel<<<g1, 256, 0, stream>>>(y, part_s, part_q, R, L, rows_per_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  lane_stats_final_kernel<<<(L + 255) / 256, 256, 0, stream>>>(part_s, part_q, s, q, L, n_chunks);
+  lane_stats_final_kernel<<<(L + 31) / 32, 32 * STATS_RUNS, 0, stream>>>(part_s, part_q, s, q,
+                                                                        L, n_parts);
   return (int)cudaGetLastError();
 }
 
 // z [B, T//pt, F//pf, Co] = pool(drop(GLU(y * scale_f + bias_f))).
 // bits: uint8 [B, T, F*Co] or NULL; keep_thresh 256 keeps every element.
+// plan: the ints of ops/fused_cnn.py GluFwdPlan, in its field order (no
+// launch where it has no tile).
 int glu_drop_pool(const float* y, const float* scale_f, const float* bias_f,
                   const float* wg, const float* bg, const uint8_t* bits, float* z,
                   int B, int T, int F, int Co, int pt, int pf,
-                  int keep_thresh, float inv_keep, cudaStream_t stream) {
-  const int W = pt * pf;
-  int NQ = 4096 / (W * Co);
-  if (NQ < 1) NQ = 1;
-  const int K4 = (Co + 3) & ~3;
-  const int S = (K4 / 4) % 2 == 0 ? K4 + 4 : K4 + 8;
-  const int NR = NQ * W;
-  const size_t smem = sizeof(float) * ((size_t)Co * S + (size_t)NR * S) +
-                      (size_t)NR * (sizeof(long long) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      glu_drop_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, glu_drop_pool_kernel, 256, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) per_sm = 1;
-  const long long Q = (long long)B * (T / pt) * (F / pf);
-  const long long n_tiles = (Q + NQ - 1) / NQ;
-  if (n_tiles == 0) return (int)cudaGetLastError();
-  long long grid = (long long)per_sm * n_sm;
-  if (grid > n_tiles) grid = n_tiles;
-  glu_drop_pool_kernel<<<(unsigned)grid, 256, smem, stream>>>(
-      y, scale_f, bias_f, wg, bg, bits, z, B, T, F, Co, pt, pf, keep_thresh,
-      inv_keep, NQ, S);
-  return (int)cudaGetLastError();
+                  int keep_thresh, float inv_keep, const int* plan, cudaStream_t stream) {
+  if (plan[4] == 0) return (int)cudaSuccess;
+#define GLU_ARGS y, scale_f, bias_f, wg, bg, bits, z, B, T, F, Co, pt, pf, keep_thresh, inv_keep, plan, stream
+  switch (pt * pf) {
+    case 1: return (int)launch_glu_fwd<1>(GLU_ARGS);
+    case 2: return (int)launch_glu_fwd<2>(GLU_ARGS);
+    case 4: return (int)launch_glu_fwd<4>(GLU_ARGS);
+    default: return (int)launch_glu_fwd<0>(GLU_ARGS);
+  }
+#undef GLU_ARGS
 }
 
 }  // extern "C"

@@ -6,7 +6,11 @@ the same parameters:
 
   * fused (`fused_blocks=True`): each GLU + BatchNorm + 3x3/stride-1/pad-1
     block is one `ops.fused_cnn.fused_glu_block` call (two CUDA kernels on
-    the card), as the JAX model selects its Pallas blocks (cnn.py:279-296);
+    the card), as the JAX model selects its Pallas blocks (cnn.py:279-296).
+    The forward kernels take any width; a block whose gradients are needed
+    and whose width the GLU backward kernel does not take
+    (`ops.fused_cnn.glu_bwd_fits`, Co > 128) runs the unfused chain, a
+    route decided from the shape before any launch;
   * unfused: the plain reference chain, conv (per-tap products), BatchNorm
     eps 1e-3, GLU, avg-pool with floor semantics.
 
@@ -33,7 +37,7 @@ import torch
 from torch import nn
 
 from ..ops.dropout import packed_keep_mask
-from ..ops.fused_cnn import conv2d_nhwc, fused_glu_block
+from ..ops.fused_cnn import conv2d_nhwc, fused_glu_block, glu_bwd_fits
 
 BN_MOMENTUM = 0.01  # flax convention (torch momentum 0.99), cnn.py:319
 BN_EPS = 1e-3
@@ -136,9 +140,14 @@ class CNN(nn.Module):
             n_freq = ((n_freq + 2 * p - k) // s + 1) // self.pooling[i][1]
         return n_freq
 
-    def _is_fused(self, i: int) -> bool:
-        return (self.fused_blocks and self.kernel_size[i] == 3
-                and self.stride[i] == 1 and self.padding[i] == 1)
+    def _is_fused(self, i: int, n_freq: int, backward: bool) -> bool:
+        """Block i on n_freq frequencies takes the fused kernels: a 3x3,
+        stride-1, pad-1 conv, and, where its gradients are needed
+        (`backward`), a width the GLU backward kernel takes."""
+        co = getattr(self, f"conv{i}").weight.shape[0]
+        return bool(self.fused_blocks and self.kernel_size[i] == 3
+                    and self.stride[i] == 1 and self.padding[i] == 1
+                    and (not backward or glu_bwd_fits(n_freq, co)))
 
     def forward(self, x, train: bool | None = None, generator: torch.Generator | None = None):
         """x [B, T, F, C]; `train` defaults to self.training. Conv dropout in
@@ -151,7 +160,9 @@ class CNN(nn.Module):
             conv = getattr(self, f"conv{i}")
             bn = getattr(self, f"batchnorm{i}")
             glu = getattr(self, f"glu{i}")
-            if self._is_fused(i):
+            backward = torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for m in (conv, bn, glu) for p in m.parameters()))
+            if self._is_fused(i, x.shape[2], backward):
                 x, new_mean, new_var = fused_glu_block(
                     x.contiguous(), conv.hwio(), conv.bias, bn.weight, bn.bias,
                     bn.running_mean, bn.running_var, glu.linear.weight.t(),

@@ -20,9 +20,11 @@ and their backward passes (csrc/fused_cnn.cu as well):
                       _epilogue_bwd_kernel (pallas_cnn.py:295, :637).
 
 The source notes in csrc/fused_cnn.cu give each kernel's bound on the H100
-and its design. Each wrapper takes its plain PyTorch version (`*_plain`,
-beside it) only for CPU tensors; for CUDA tensors it launches the kernel or
-raises. Two `torch.autograd.Function`s tie each forward to its backward.
+and its design; `conv_fwd_plan`, `glu_fwd_plan`, `conv_bwd_plan` and
+`glu_bwd_plan` pick their tiles from the shape alone. Each wrapper takes its
+plain PyTorch version (`*_plain`, beside it) only for CPU tensors; for CUDA
+tensors it launches the kernel or raises. Two `torch.autograd.Function`s tie
+each forward to its backward.
 `fused_glu_block` keeps the contract of pallas_cnn.py:678-747, with the
 BatchNorm scale and bias math in torch, so autograd carries the gradients
 of the batch mean and variance back into conv_bn_stats_bwd as ds and dq.
@@ -140,14 +142,14 @@ def glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_p
 # kernel wrappers
 # --------------------------------------------------------------------------
 
-_STATS_BLOCKS = 512  # target number of blocks in the stats partial pass
-
 
 def conv_bn_stats(x, w, bias):
     """conv3x3 SAME + bias and the per-lane BN statistics.
 
     x [B, T, F, Ci], w [3, 3, Ci, Co], bias [Co] (float32) ->
     (y [B, T, F, Co], s [F*Co], q [F*Co]), s/q summed over all B*T rows.
+    Deterministic: per-tile lane partials added in a fixed order
+    (`conv_fwd_plan`).
     """
     if x.device.type == "cpu":
         return conv_bn_stats_plain(x, w, bias)
@@ -156,17 +158,18 @@ def conv_bn_stats(x, w, bias):
     Co = w.shape[-1]
     if tuple(w.shape) != (3, 3, Ci, Co) or tuple(bias.shape) != (Co,):
         raise ValueError(f"conv_bn_stats: w {tuple(w.shape)}, bias {tuple(bias.shape)}")
+    plan = conv_fwd_plan(B, T, F, Ci, Co)
+    w = _aligned(w)
     L = F * Co
-    n_chunks = max(1, min(B * T, _STATS_BLOCKS // -(-L // 256)))
     y = torch.empty((B, T, F, Co), device=x.device, dtype=torch.float32)
-    part = torch.empty((2, n_chunks, L), device=x.device, dtype=torch.float32)
+    part = torch.empty((2, plan.n_parts, L), device=x.device, dtype=torch.float32)
     s = torch.empty((L,), device=x.device, dtype=torch.float32)
     q = torch.empty((L,), device=x.device, dtype=torch.float32)
     fn = _build.function("fused_cnn", "conv_bn_stats",
-                         [_build.P] * 8 + [_build.I] * 6 + [_build.P])
+                         [_build.P] * 8 + [_build.I] * 5 + [_build.P] * 2)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
              part[0].data_ptr(), part[1].data_ptr(), s.data_ptr(), q.data_ptr(),
-             B, T, F, Ci, Co, n_chunks, _build.stream_ptr(x))
+             B, T, F, Ci, Co, _c_ints(plan), _build.stream_ptr(x))
     _build.check(err, "conv_bn_stats")
     _build.count_launch("conv_bn_stats")
     return y, s, q
@@ -176,7 +179,8 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
     """BN-apply + GLU + optional dropout + T/F avg-pool.
 
     y [B, T, F, Co]; scale_f, bias_f [F*Co] float32; wg [Co, Co]; bg [Co];
-    bits uint8 [B, T, F*Co] or None. Returns z [B, T//pt, F//pf, Co].
+    bits uint8 [B, T, F*Co] or None. Returns z [B, T//pt, F//pf, Co]. Any
+    Co: the kernel takes channel tiles and Wg in slices (`glu_fwd_plan`).
     """
     if y.device.type == "cpu":
         return glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bits,
@@ -191,22 +195,25 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
             raise ValueError("glu_drop_pool: bits must be contiguous uint8 like y")
         if bits.device != y.device:
             raise ValueError("glu_drop_pool: bits must be on y's device")
+    plan = glu_fwd_plan(B, T, F, Co, (pt, pf))
+    y, scale_f, bias_f, wg = (_aligned(t) for t in (y, scale_f, bias_f, wg))
+    bits = None if bits is None else _aligned(bits)
     z = torch.empty((B, T // pt, F // pf, Co), device=y.device, dtype=torch.float32)
     fn = _build.function("fused_cnn", "glu_drop_pool",
-                         [_build.P] * 7 + [_build.I] * 7 + [_build.Fl, _build.P])
+                         [_build.P] * 7 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P])
     err = fn(y.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), wg.data_ptr(),
              bg.data_ptr(), None if bits is None else bits.data_ptr(), z.data_ptr(),
              B, T, F, Co, pt, pf, keep_threshold(keep_prob), 1.0 / keep_prob,
-             _build.stream_ptr(y))
+             _c_ints(plan), _build.stream_ptr(y))
     _build.check(err, "glu_drop_pool")
     _build.count_launch("glu_drop_pool")
     return z
 
 
 # --------------------------------------------------------------------------
-# the backward kernels' plans: pure functions of the shape (csrc/fused_cnn.cu
-# takes them as they are), so the tiles, the split over rows and the order
-# in which partial sums are added are the same on every run
+# the kernels' plans: pure functions of the shape (csrc/fused_cnn.cu takes
+# them as they are), so the tiles, the split over rows and the order in
+# which partial sums are added are the same on every run
 # --------------------------------------------------------------------------
 
 SM_COUNT = 132  # H100 SXM; the plans size their grids for it
@@ -332,6 +339,56 @@ def conv_bwd_plan(B: int, T: int, F: int, Ci: int, Co: int) -> ConvBwdPlan:
 
 
 @dataclass(frozen=True)
+class ConvFwdPlan:
+    """conv_bn_stats' kernels at one shape. Ci > 1: conv3x3_kernel with the
+    STATS epilogue on tiles of tt frames x ff frequencies (bn output
+    channels, seg: three taps a halo read), DX_BC input channels a stage,
+    smem bytes; one lane partial per (clip, frame tile), n_parts = B *
+    ceil(T / tt). Ci = 1 (stream): n_parts runs of rows_per_part frames
+    (b, t). Each lane's partials are added in row order, as STATS_RUNS runs
+    of consecutive rows added in run order."""
+
+    stream: int
+    vec: int
+    bn: int
+    tt: int
+    ff: int
+    seg: int
+    smem: int
+    n_parts: int
+    rows_per_part: int
+
+    def ints(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in fields(self)]
+
+
+C1_BLOCKS = 8 * SM_COUNT  # blocks of the Ci = 1 streaming conv
+STATS_RUNS = 32  # runs of partial rows in the lane sums' final pass (csrc STATS_RUNS)
+
+
+def fwd_smem(tt: int, ff: int, bn: int) -> int:
+    """The stages of conv3x3_kernel, or the tile's y [tt * ff][bn] that its
+    STATS epilogue puts in the same memory, whichever is larger."""
+    return max(dx_smem(tt, ff, bn), 4 * tt * ff * bn)
+
+
+def conv_fwd_plan(B: int, T: int, F: int, Ci: int, Co: int) -> ConvFwdPlan:
+    vec = int(Co % 4 == 0)
+    if Ci == 1:  # the streaming kernel: a thread a frequency and 4 channels
+        if B * T * F >= 2**31:
+            raise ValueError("conv_bn_stats: the Ci=1 kernel counts rows in 32-bit ints")
+        lane_blocks = _cdiv(F * _cdiv(Co, 4), 256)
+        parts = max(1, min(B * T, C1_BLOCKS // lane_blocks))
+        rpp = _cdiv(B * T, parts)
+        return ConvFwdPlan(1, vec, 0, 0, 0, 0, 0, _cdiv(B * T, rpp), rpp)
+    bn = _pow2_tile(Co, 8, 128)
+    ff = min(F, 16384 // bn)
+    tt, ff = _shrink(min(T, 16384 // bn // ff), ff, lambda a, b: fwd_smem(a, b, bn), SMEM_HALF)
+    seg = int(ff % 8 == 0 and bn >= 64)
+    return ConvFwdPlan(0, vec, bn, tt, ff, seg, fwd_smem(tt, ff, bn), B * _cdiv(T, tt), 0)
+
+
+@dataclass(frozen=True)
 class GluBwdPlan:
     """glu_drop_pool_bwd's kernel at one shape: channels padded to cp (zero
     weights), dWg thread tiles of 4 x ct, tiles of p positions (p x cp <=
@@ -356,27 +413,101 @@ def glu_smem(F: int, Co: int, cp: int, p: int) -> int:
     return 4 * (2 * Co * cp + 2 * cp * (p + 4) + 3 * F * Co)
 
 
+def _glu_bwd_threads(Co: int) -> tuple[int, int, int]:
+    """(cp, ct, pg) of glu_drop_pool_bwd for 1 <= Co <= 128."""
+    cp = _cdiv(Co, 4) * 4
+    if (cp // 4) ** 2 > GLU_THREADS:  # 4 x 8 dWg tiles: one a thread at most
+        cp = _cdiv(Co, 8) * 8
+    ct = 4 if (cp // 4) ** 2 <= GLU_THREADS else 8
+    return cp, ct, max(1, GLU_THREADS // ((cp // 4) * (cp // ct)))
+
+
+def glu_bwd_fits(F: int, Co: int) -> bool:
+    """Whether glu_drop_pool_bwd takes blocks of F frequencies and Co
+    channels: Wg and Wg^T and the F*Co lane sums in one block's shared
+    memory, beside a tile of the least positions. `models.cnn.CNN` sends a
+    block that needs its gradients and fails this to the unfused chain."""
+    if not 1 <= Co <= 128:
+        return False
+    cp, _, pg = _glu_bwd_threads(Co)
+    return glu_smem(F, Co, cp, 4 * pg) <= SMEM_LIMIT
+
+
 def glu_bwd_plan(B: int, T: int, F: int, Co: int) -> GluBwdPlan:
     if not 1 <= Co <= 128:
         raise ValueError(f"glu_drop_pool_bwd: Co={Co}: the kernel takes 1 <= Co <= 128")
     if B * T * F + 16 * GLU_THREADS >= 2**31:
         raise ValueError("glu_drop_pool_bwd: the kernel counts positions in 32-bit ints")
-    cp = _cdiv(Co, 4) * 4
-    if (cp // 4) ** 2 > GLU_THREADS:  # 4 x 8 dWg tiles: one a thread at most
-        cp = _cdiv(Co, 8) * 8
-    ct = 4 if (cp // 4) ** 2 <= GLU_THREADS else 8
-    pg = max(1, GLU_THREADS // ((cp // 4) * (cp // ct)))
+    if not glu_bwd_fits(F, Co):
+        raise ValueError(f"glu_drop_pool_bwd: F={F}, Co={Co} do not fit the kernel "
+                         "(the lane sums of F*Co lanes in shared memory)")
+    cp, ct, pg = _glu_bwd_threads(Co)
     step = 4 * pg
     p = max(step, 16 * GLU_THREADS // cp // step * step)
     while glu_smem(F, Co, cp, p) > SMEM_LIMIT and p > step:
         p = max(step, p // 2 // step * step)
-    if glu_smem(F, Co, cp, p) > SMEM_LIMIT:
-        raise ValueError(f"glu_drop_pool_bwd: F={F}, Co={Co} do not fit the kernel "
-                         "(the lane sums of F*Co lanes in shared memory)")
     n_tiles = max(1, _cdiv(B * T * F, p))
     tpb = _cdiv(n_tiles, min(SM_COUNT, n_tiles))
     return GluBwdPlan(cp, ct, p, pg, n_tiles, tpb, _cdiv(n_tiles, tpb),
                       glu_smem(F, Co, cp, p))
+
+
+GLU_FWD_THREADS = 256  # glu_drop_pool's block (csrc GLU_FWD_THREADS)
+GLU_FWD_PER_SM = 3  # its blocks an SM at most (csrc __launch_bounds__)
+SMEM_SM = 228 * 1024  # shared memory of one SM, 1 KB of it reserved per block
+
+
+@dataclass(frozen=True)
+class GluFwdPlan:
+    """glu_drop_pool's kernel at one shape: channel tiles of ct (a power of
+    two, at most 128; grid_y of them), tiles of p positions = nq pooled
+    outputs of pt*pf positions each (ordered by pooled output, then window
+    element), ct/4 x p/4 = 256 threads of 4 x 4; Wg in slices of ks rows
+    (ks >= Co: staged once); n_tiles tiles over grid_x persistent blocks;
+    smem bytes (with two int tables of nq, the rows of the tile's windows)."""
+
+    ct: int
+    p: int
+    nq: int
+    ks: int
+    n_tiles: int
+    grid_x: int
+    grid_y: int
+    smem: int
+
+    def ints(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in fields(self)]
+
+
+def glu_fwd_smem(Co: int, ct: int, p: int, ks: int, nq: int) -> int:
+    """The Wg slice [ks][ct], the tile yt [max(Co padded to 4, ct)][p + 4]
+    and the tile's window tables [2][nq]."""
+    return 4 * (ks * ct + max(_cdiv(Co, 4) * 4, ct) * (p + 4) + 2 * nq)
+
+
+def glu_fwd_plan(B: int, T: int, F: int, Co: int, pool) -> GluFwdPlan:
+    pt, pf = pool
+    cg = 1
+    while cg < min(_cdiv(Co, 4), 32):
+        cg *= 2
+    ct, p = 4 * cg, 4 * (GLU_FWD_THREADS // cg)
+    if pt * pf > p:
+        raise ValueError(f"glu_drop_pool: a pool window of {pt * pf} positions outgrows "
+                         f"the kernel's tile of {p}")
+    if B * T * F + p >= 2**31:
+        raise ValueError("glu_drop_pool: the kernel counts positions in 32-bit ints")
+    nq = p // (pt * pf)
+    ks = Co
+    if glu_fwd_smem(Co, ct, p, ks, nq) > SMEM_HALF:
+        ks = (SMEM_HALF - glu_fwd_smem(Co, ct, p, 0, nq)) // (4 * ct) // 4 * 4
+        if ks < 4:
+            raise ValueError(f"glu_drop_pool: Co={Co}: one tile does not fit in shared memory")
+    smem = glu_fwd_smem(Co, ct, p, ks, nq)
+    n_tiles = _cdiv(B * (T // pt) * (F // pf), nq)
+    grid_y = _cdiv(Co, ct)
+    per_sm = max(1, min(GLU_FWD_PER_SM, SMEM_SM // (smem + 1024)))
+    grid_x = min(n_tiles, max(1, SM_COUNT * per_sm // grid_y))
+    return GluFwdPlan(ct, p, nq, ks, n_tiles, grid_x, grid_y, smem)
 
 
 def _aligned(t):

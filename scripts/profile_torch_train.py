@@ -14,6 +14,10 @@ a seed, mean_teacher_2024(): 60 ten-second clips in slots [12, 6, 6, 12, 24],
   * a torch.profiler trace of 3 steps: device time by kernel and the
     device's idle share over the traced window (wall time between the first
     and last device activity, minus the summed kernel time);
+  * the host calls that wait on the card (synchronisations, device-to-host
+    copies, scalar reads, allocations) over 3 traced steps, by the
+    package's innermost frame on their call stack (torch.profiler,
+    with_stack);
   * where the host's time goes: cProfile over 3 steps (synchronised), the
     functions with the most time of their own.
 The full tables go to chiprun_out/profile_torch_train.txt.
@@ -109,6 +113,36 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]:
         print(f"  {us / 3e3:9.3f} ms/step  {us / busy_us:6.1%}  {name[:100]}")
+
+    # where the host waits for the card: host-side calls that block (syncs,
+    # device-to-host copies, scalar reads, allocations), by the package's
+    # innermost frame above them (with_stack records Python frames as events)
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy", "cudaMemcpyAsync", "cudaMalloc", "cudaFree",
+             "aten::item", "aten::_local_scalar_dense")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        for _ in range(3):
+            step(state, batch, gen)
+    torch.cuda.synchronize()
+    by_site: dict[tuple[str, str], list] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or e.name not in waits:
+            continue
+        # the Python tracer's frames are the event's ancestors, "file(line): fn"
+        site, up = "(outside desed_task_tpu_torch)", e.cpu_parent
+        while up is not None:
+            if "desed_task_tpu_torch" in up.name:
+                site = up.name[up.name.index("desed_task_tpu_torch"):]
+                break
+            up = up.cpu_parent
+        acc = by_site.setdefault((e.name, site), [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.time_range.elapsed_us()
+    print(f"[{card}] host calls that wait on the card, over 3 steps (ms per step, calls per "
+          "step, innermost frame of the package):")
+    for (name, site), (n, us) in sorted(by_site.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"  {us / 3e3:8.3f} ms/step {n / 3:6.1f} calls/step  {name}  {site}")
 
     import cProfile
     import io

@@ -1,5 +1,5 @@
-"""The conv block's backward kernels' plans (ops/fused_cnn.py conv_bwd_plan,
-glu_bwd_plan), on the CPU.
+"""The conv block's kernels' plans (ops/fused_cnn.py conv_fwd_plan,
+glu_fwd_plan, conv_bwd_plan, glu_bwd_plan), on the CPU.
 
 A plan is a pure function of the shape. Walked through the index maps that
 csrc/fused_cnn.cu applies to it, every row, depth index and channel must be
@@ -36,6 +36,13 @@ BWD_GEOMS = [(1, 13, 16, 1, 8, (2, 2)), (60, 11, 6, 24, 40, (3, 4)),
              (2, 13, 8, 64, 96, (1, 2))]
 GEOMS = _geoms_2024(60) + _geoms_2024(64) + BWD_GEOMS
 IDS = [f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}" for g in GEOMS]
+# the forward kernels also take blocks wider than 128 channels, and pools
+# whose window does not divide 4 (tests/test_torch_kernels_cuda.py GEOMS)
+WIDE = [(64, 156, 8, 128, 256, (1, 2)), (60, 156, 8, 128, 256, (1, 2)),
+        (2, 8, 8, 1, 256, (2, 2)), (2, 8, 4, 256, 256, (1, 2)), (5, 9, 6, 24, 40, (3, 2)),
+        (2, 11, 4, 64, 200, (2, 4)), (3, 13, 16, 1, 8, (2, 2))]
+FWD_GEOMS = GEOMS + WIDE
+FWD_IDS = IDS + [f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}-pool{g[5][0]}x{g[5][1]}" for g in WIDE]
 
 
 def _once(counts, what):
@@ -178,3 +185,132 @@ def test_glu_bwd_plan_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         fc.glu_bwd_plan(2, 4, 512, 128)  # F*Co lane sums past shared memory
 
+
+
+@pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
+def test_conv_fwd_plan_covers_outputs_and_lanes(geom):
+    B, T, F, Ci, Co, _ = geom
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co)
+    L, R = F * Co, B * T
+    assert p.stream == int(Ci == 1) and p.vec == int(Co % 4 == 0)
+    if p.stream:
+        # blocks (lane block, part): thread (f, g) makes channels 4g .. 4g+3 of
+        # its frequency over rows part * rows_per_part ..., the run in order
+        starts = np.arange(p.n_parts) * p.rows_per_part
+        rows = np.concatenate([np.arange(a, min(R, a + p.rows_per_part)) for a in starts])
+        assert np.array_equal(rows, np.arange(R)) and starts[-1] < R
+        g = -(-Co // 4)
+        lg = np.arange(-(-F * g // 256) * 256)
+        lg = lg[lg < F * g]
+        lanes = (lg // g * Co + lg % g * 4)[:, None] + np.arange(4)[None, :]
+        lanes = lanes[(lg % g * 4)[:, None] + np.arange(4)[None, :] < Co]
+        _once(np.bincount(lanes, minlength=L), "lanes")
+        assert p.n_parts * -(-F * g // 256) <= fc.C1_BLOCKS or p.n_parts == 1
+    else:
+        assert p.smem == fc.fwd_smem(p.tt, p.ff, p.bn) <= fc.SMEM_HALF
+        assert p.seg == int(p.ff % 8 == 0 and p.bn >= 64)
+        # conv3x3_kernel's rows and channels, as the dx walker reads them
+        nx = p.bn // 8
+        ny = 256 // nx
+        if p.seg:
+            rows = (np.arange(ny)[:, None] * 8 + np.arange(8)[None, :]).ravel()
+        else:
+            rows = (np.arange(ny)[:, None] + ny * np.arange(8)[None, :]).ravel()
+        assert p.tt * p.ff <= rows.size and np.array_equal(np.sort(rows), np.arange(rows.size))
+        nt, nf = -(-T // p.tt), -(-F // p.ff)
+        tiles = B * nt * nf
+        _rows_once(B, T, F, p.tt, p.ff, tiles)
+        n0 = np.arange(-(-Co // p.bn))[:, None, None] * p.bn
+        j = np.arange(8)[None, None, :]
+        cols = n0 + np.arange(nx)[None, :, None] * 4 + (j // 4) * (p.bn // 2) + j % 4
+        _once(np.bincount(cols[cols < Co].ravel(), minlength=Co), "output channels")
+        # the STATS epilogue: tile i writes partial row i // nf for the lanes
+        # of its frequencies; each (partial row, lane) once, and each partial
+        # row holds the frames of one (clip, frame tile)
+        assert p.n_parts == B * nt
+        i = np.arange(tiles)
+        prow, f0 = i // nf, i % nf * p.ff
+        f = f0[:, None] + np.arange(p.ff)[None, :]
+        ok = f < F
+        writes = (prow[:, None, None] * L + (f * Co)[:, :, None]
+                  + np.arange(Co)[None, None, :])[ok]
+        _once(np.bincount(writes.ravel(), minlength=p.n_parts * L), "lane partials")
+        b, t = np.arange(R) // T, np.arange(R) % T
+        frames = np.minimum(p.tt, T - np.arange(p.n_parts) % nt * p.tt)
+        assert np.array_equal(np.bincount(b * nt + t // p.tt, minlength=p.n_parts), frames)
+    # the final pass: runs of consecutive partial rows, added in run order
+    per = -(-p.n_parts // fc.STATS_RUNS)
+    runs = np.concatenate([np.arange(g * per, min(p.n_parts, (g + 1) * per))
+                           for g in range(fc.STATS_RUNS)])
+    assert np.array_equal(runs, np.arange(p.n_parts))
+
+
+@pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
+def test_glu_fwd_plan_covers_pooled_outputs(geom):
+    B, T, F, _, Co, pool = geom
+    p = fc.glu_fwd_plan(B, T, F, Co, pool)
+    pt, pf = pool
+    W, To, Fo = pt * pf, T // pt, F // pf
+    Q = B * To * Fo
+    cg = p.ct // 4
+    assert p.ct in (4, 8, 16, 32, 64, 128) and cg * (p.p // 4) == fc.GLU_FWD_THREADS
+    assert p.smem == fc.glu_fwd_smem(Co, p.ct, p.p, p.ks, p.nq) <= fc.SMEM_HALF
+    assert p.ks >= Co or (p.ks % 4 == 0 and p.ks >= 4)
+    assert p.nq == p.p // W and p.n_tiles == -(-Q // p.nq) and 1 <= p.grid_x <= p.n_tiles
+    assert p.grid_y == -(-Co // p.ct)
+    # tile k, position p: pooled output k * nq + p // W, window element p % W
+    k = np.arange(p.n_tiles)[:, None]
+    pos = np.arange(p.p)[None, :]
+    qq, wi = pos // W, pos % W
+    q = k * p.nq + qq
+    valid = (qq < p.nq) & (q < Q)
+    _once(np.bincount((q * W + wi)[valid], minlength=Q * W), "(pooled output, window element)")
+    # the positions' rows of y: distinct, inside the pooled extent
+    b, to, fo = q // (To * Fo), q // Fo % To, q % Fo
+    t, f = to * pt + wi // pf, fo * pf + wi % pf
+    assert (t[valid] < To * pt).all() and (f[valid] < Fo * pf).all()
+    m = ((b * T + t) * F + f)[valid]
+    assert np.unique(m).size == m.size
+    # product threads as csrc maps them; a thread's 4 positions pg*4 + i
+    tid = np.arange(fc.GLU_FWD_THREADS)
+    if cg % 8 == 0 and (p.p // 4) % 4 == 0:
+        c, g = (tid // 32) % (cg // 8) * 8 + tid % 8, (tid // 32) // (cg // 8) * 4 + (tid % 32) // 8
+    else:
+        c, g = tid % cg, tid // cg
+    owner = ((g * 4)[:, None, None] + np.arange(4)[:, None]) * p.ct \
+        + (c * 4)[:, None, None] + np.arange(4)[None, :]
+    _once(np.bincount(owner.ravel(), minlength=p.p * p.ct), "(position, channel)")
+    chans = (np.arange(p.grid_y)[:, None] * p.ct + np.arange(p.ct)[None, :]).ravel()
+    _once(np.bincount(chans[chans < Co], minlength=Co), "output channels")
+    if 4 % W == 0:  # every window whole in one thread, the pool in registers
+        first, last = (np.arange(p.nq) * W) // 4, (np.arange(p.nq) * W + W - 1) // 4
+        assert np.array_equal(first, last)
+
+
+@pytest.mark.parametrize("geom", _geoms_2024(60) + _geoms_2024(64) + WIDE[:2],
+                         ids=IDS[:14] + FWD_IDS[len(GEOMS):len(GEOMS) + 2])
+def test_fwd_plans_depend_on_the_shape_alone(geom):
+    """Equal shapes give equal plans; the 2024 shapes at B = 60 and 64 and the
+    Co = 256 block keep two blocks of each forward kernel on an SM."""
+    B, T, F, Ci, Co, pool = geom
+    a, b = fc.conv_fwd_plan(B, T, F, Ci, Co), fc.conv_fwd_plan(B, T, F, Ci, Co)
+    assert a == b and all(isinstance(v, int) for v in a.ints())
+    g1, g2 = fc.glu_fwd_plan(B, T, F, Co, pool), fc.glu_fwd_plan(B, T, F, Co, pool)
+    assert g1 == g2 and all(isinstance(v, int) for v in g1.ints())
+    assert 2 * (a.smem + 1024) <= fc.SMEM_SM and 2 * (g1.smem + 1024) <= fc.SMEM_SM
+    if Co <= 128:
+        assert g1.ks >= Co  # Wg staged once
+
+
+def test_glu_bwd_fits_matches_the_plan():
+    """The CNN's routing predicate says yes exactly where glu_bwd_plan gives a
+    plan: every 2024 block, not Co > 128, not F*Co lane sums past shared memory."""
+    for B, T, F, _, Co, _ in GEOMS + WIDE:
+        fits = fc.glu_bwd_fits(F, Co)
+        assert fits == (Co <= 128)
+        if fits:
+            fc.glu_bwd_plan(B, T, F, Co)
+        else:
+            with pytest.raises(ValueError):
+                fc.glu_bwd_plan(B, T, F, Co)
+    assert not fc.glu_bwd_fits(512, 128) and fc.glu_bwd_fits(128, 16)

@@ -9,7 +9,9 @@ They cover the edges the 2024 shapes in chip_smoke.py do not: ragged tiles
 bits, and bad inputs; for the BiGRU the 2024 shapes, H=128, ragged unit
 slices (H=100), B=1, the stream path (H=350, 512) and bitwise reruns; for
 the backward kernels also B=1 and B=60, Ci=1, pool remainders in T and F, bitwise
-repeatability and the autograd path of the fused block; for the fused
+repeatability and the autograd path of the fused block; for the forward
+kernels Co > 128 and bitwise reruns, and a CNN with a 256-channel block
+in eval and train mode; for the fused
 log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
 hops that do not divide n_fft, both compute dtypes and bitwise reruns.
 """
@@ -49,6 +51,9 @@ GEOMS = [  # (B, T, F, Ci, Co, pool)
     (2, 7, 5, 128, 128, (1, 2)),
     (1, 1, 1, 3, 70, (1, 1)),
     (2, 11, 4, 64, 200, (2, 4)),
+    # wider than 128 channels (two channel tiles), Ci=1 with Co > 128
+    (2, 9, 8, 256, 256, (1, 2)),
+    (4, 12, 10, 1, 130, (1, 1)),
 ]
 
 
@@ -59,8 +64,10 @@ def test_conv_bn_stats_kernel(dev, geom):
     x = _rand(g, B, T, F, Ci).to(dev)
     w = _rand(g, 3, 3, Ci, Co, scale=1 / np.sqrt(9 * Ci)).to(dev)
     b = _rand(g, Co, scale=0.1).to(dev)
-    for got, want in zip(fused_cnn.conv_bn_stats(x, w, b), fused_cnn.conv_bn_stats_plain(x, w, b)):
-        _close(got, want)
+    got = fused_cnn.conv_bn_stats(x, w, b)
+    for a, want in zip(got, fused_cnn.conv_bn_stats_plain(x, w, b)):
+        _close(a, want)
+    assert all(torch.equal(a, c) for a, c in zip(got, fused_cnn.conv_bn_stats(x, w, b)))
 
 
 @pytest.mark.parametrize("geom", GEOMS)
@@ -77,8 +84,10 @@ def test_glu_drop_pool_kernel(dev, geom, keep):
     if keep is not None:
         bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
     kp = 1.0 if keep is None else keep
-    _close(fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp),
-           fused_cnn.glu_drop_pool_plain(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp))
+    z = fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp)
+    _close(z, fused_cnn.glu_drop_pool_plain(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp))
+    assert torch.equal(z, fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool,
+                                                  keep_prob=kp))
 
 
 # (B, T, H): the 2024 serving and train batches, the 2023 width, ragged unit
@@ -164,6 +173,54 @@ def test_crnn_kernel_forward_matches_plain(dev):
     with torch.no_grad():
         for a, b in zip(fused(x), plain(x)):
             _close(a, b)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_wide_cnn_runs_on_the_card(dev, train):
+    """A 2-block CNN with a 256-channel block: in eval mode both blocks take
+    the fused kernels; in train mode with a backward the 256-channel block
+    takes the unfused chain (the GLU backward kernel takes Co <= 128), and
+    outputs, running statistics and gradients match the unfused CNN."""
+    from desed_task_tpu_torch.models.cnn import CNN
+    from desed_task_tpu_torch.ops import _build
+
+    net = dict(n_in_channel=1, activation="glu", conv_dropout=0.5 if train else 0.0,
+               kernel_size=(3, 3), padding=(1, 1), stride=(1, 1), nb_filters=(16, 256),
+               pooling=((2, 2), (1, 2)))
+    g = torch.Generator().manual_seed(11)
+    fused, plain = CNN(**net).to(dev), CNN(**net, fused_blocks=False).to(dev)
+    with torch.no_grad():
+        for p in fused.parameters():
+            p.copy_(_rand(g, *p.shape, scale=0.2))
+        fused.batchnorm0.weight.add_(1.0)
+        fused.batchnorm1.weight.add_(1.0)
+    plain.load_state_dict(fused.state_dict())
+    x = _rand(g, 3, 20, 16, 1).to(dev)
+    outs = []
+    for m in (fused, plain):
+        _build.reset_launches()
+        if train:
+            z = m(x, train=True, generator=torch.Generator(device=dev).manual_seed(5))
+            z.square().sum().backward()
+        else:
+            with torch.no_grad():
+                z = m(x, train=False)
+        torch.cuda.synchronize()
+        outs.append((z.detach(), dict(_build.LAUNCHES)))
+    want = ({"conv_bn_stats": 1, "glu_drop_pool": 1, "conv_bn_stats_bwd": 1,
+             "glu_drop_pool_bwd": 1} if train else {"conv_bn_stats": 2, "glu_drop_pool": 2})
+    assert outs[0][1] == want and outs[1][1] == {}
+    _close(outs[0][0], outs[1][0])
+    for (name, a), b in zip(fused.state_dict().items(), plain.state_dict().values()):
+        _close(a, b)
+    if train:
+        # the conv biases' exact gradient is 0 under train-mode BatchNorm (both
+        # sides give fp32 noise), so each gradient is held relative to its own
+        # largest entry or 1e-3 of the model's largest, whichever is larger
+        floor = 1e-3 * max(float(p.grad.abs().max()) for p in plain.parameters())
+        for (name, a), b in zip(fused.named_parameters(), plain.parameters()):
+            err = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), floor)
+            assert err <= 2e-3, (name, err)
 
 
 BWD_GEOMS = [  # (B, T, F, Ci, Co, pool): B=1 / B=60, Ci=1, T and F pool remainders
