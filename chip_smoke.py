@@ -12,12 +12,28 @@ Phases (any failure exits non-zero; nothing is caught):
      with and without dropout bits; y, s, q and z bitwise equal on a rerun),
      bigru at T=156, H=192 (its plan must be "cluster"; bitwise-equal
      rerun);
+  3b. the bf16 modes of conv_bn_stats and glu_drop_pool (eval and with
+     bits) at the seven block geometries (B=64) against their plain
+     versions in bf16: y and z within one bf16 step (2^-7 |plain|, above a
+     floor of 1e-5 max |plain| for fp32 sums that cancel), at most 1 % of
+     their elements differing, s and q within TOL_KERNEL, bitwise reruns;
+     ms, bound (bf16 bytes, products at the tensor cores' peak), plain ms
+     and F.conv2d in bf16 beside the fp32 rows;
   4. serving: ~130 ten-second wavs through InferencePipeline(crnn_2024())
      with seeded random weights and random 768x496 frame embeddings, the
      launch counts of the run (7, 7 and 1 per batch), and the scores against
      the same forward built from the plain versions on the card;
+  4b. bf16 serving: the same wavs through InferencePipeline(crnn_2024(
+     compute_dtype=torch.bfloat16), mel_cfg=MelConfig(compute_dtype=
+     "bfloat16")), launches conv_bn_stats.bf16 7, glu_drop_pool.bf16 7 and
+     bigru 1 per batch, finite scores; on 8 clips, from the same bf16
+     features, the conv stack's output (mean |diff|) and the scores (max
+     |diff|) nearer the same bf16 CRNN through the plain versions on the
+     CPU than the card's fp32 forward (BF16_NEARER says why no finer
+     share);
   5. timings (CUDA events): the device forward per batch, each kernel beside
      its bound, its plain version and the library call, where one exists;
+  5b. the bf16 device forward per batch and its stages beside the fp32 ones;
   6. each backward kernel against its plain version at the shapes of the
      2024 train step (B=60): conv_bn_stats_bwd and glu_drop_pool_bwd at all
      seven block geometries (glu_drop_pool_bwd with and without dropout
@@ -25,7 +41,9 @@ Phases (any failure exits non-zero; nothing is caught):
      bound, plain ms and (row 3) cuDNN's conv backward printed; bigru_bwd at
      T=156, H=192 (plan "cluster", bitwise-equal rerun); then the BiGRU's
      stream path once, forward and backward at H=512, against the plain
-     versions;
+     versions; then glu_drop_pool_bwd at the 256-channel block (WIDE_GEOM,
+     B=60, the wide kernel; not in the sums), unit-scale cotangents, bitwise
+     rerun;
   7. training: the 2024 mean-teacher step (crnn_2024() student and teacher
      at full width from a seed, mean_teacher_2024(), 60 ten-second clips with
      768x496 embeddings): the launch counts of one step (14/14/2 forward,
@@ -45,8 +63,9 @@ Phases (any failure exits non-zero; nothing is caught):
      the GEMM front-end (the yardstick: no single PyTorch call computes
      this function).
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
-batch rows BT and us per recurrence step), the nvidia-smi line, and the
-result line {"ok": true, "device": {...}} last.
+batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
+entries of their own, launches from the bf16 serving run), the nvidia-smi
+line, and the result line {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside this file. Details go to chiprun_out/chip_smoke.json.
@@ -85,9 +104,28 @@ TOL_GRAD = 2e-3
 # moves by at most 2^-7 + 2^-16 relative: 0.0683 dB.
 TOL_MEL_BF16_DB = 0.07
 TOL_MEL_FP32_DB = 1e-3  # fused against the GEMM front-end, fp32 (dB)
-# (T, F, Ci, Co, pool) of a block wider than the GLU backward kernel takes:
-# the forward kernels' second channel tile (phase 3; not in the sums)
+# (T, F, Ci, Co, pool) of a block wider than 128 channels: the forward
+# kernels' second channel tile (phase 3) and the GLU backward's wide kernel
+# (phase 6); not in the sums
 WIDE_GEOM = (156, 8, 128, 256, (1, 2))
+# bf16 kernels against their plain versions (y, z): one bf16 step, 2^-7 of
+# |plain|, above a floor for fp32 sums that cancel (1e-5 of max |plain|);
+# at most 1 % of the elements differ
+BF16_STEP, BF16_FLOOR, BF16_FRAC = 2.0 ** -7, 1e-5, 0.01
+# bf16 serving against the same bf16 CRNN through the plain versions on the
+# CPU, from the same features: the conv stack's output (mean |diff|) and
+# the scores (max |diff|) nearer the CPU's bf16 forward than the fp32
+# forward. Not nearer by a finer share: a rounding to bf16 that flips
+# because an fp32 sum ran in another order (as the kernels' do, phase 3b)
+# carries through the next blocks' products, so the order alone leaves the
+# two bf16 forwards about as far apart as a share of 0.4 to 0.5 of the
+# bf16-vs-fp32 gap (on the CPU, fp32 conv sums moved by 6e-7 relative left
+# 67 % of the conv stack's output bitwise equal and its mean |diff| at 0.40
+# of that gap; inputs moved by 1e-7 moved the scores by 0.40 of it). The
+# rounding points themselves are held per kernel in phase 3b and against
+# JAX in tests/test_torch_crnn_bf16.py.
+BF16_NEARER = 1.0
+N_CPU_CLIPS = 8
 
 
 def card_line() -> str:
@@ -127,6 +165,17 @@ def require(ok: bool, what: str) -> None:
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def bf16_check(a, b) -> tuple[bool, float, float]:
+    """(within one bf16 step above the floor, max |a - b| / the elementwise
+    limit, share of elements that differ) of bf16 a against plain b."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    lim = BF16_STEP * b.abs() + BF16_FLOOR * float(b.abs().max())
+    worst = float((d / lim).max())
+    frac = float((a != b).float().mean())
+    return worst <= 1.0 and frac <= BF16_FRAC, worst, frac
 
 
 def block_geometries(model, mel_cfg, n_samples: int):
@@ -267,6 +316,94 @@ def check_kernels(geoms, gen, report):
     return rows
 
 
+def check_kernels_bf16(geoms, gen, report, rows32):
+    """Phase 3b: the bf16 modes of rows 1 and 2 against their plain
+    versions at B=64; returns timing rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from desed_task_tpu_torch.ops import fused_cnn
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rows = {"conv_bn_stats.bf16": [], "glu_drop_pool.bf16": []}
+    B = BATCH
+    for i, (T, Fq, ci, co, pool) in enumerate(geoms):
+        x = torch.randn(B, T, Fq, ci, generator=gen).to(dev, bf)
+        w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev, bf)
+        b = (torch.randn(co, generator=gen) * 0.1).to(dev, bf)
+        y, s, q = fused_cnn.conv_bn_stats(x, w, b)
+        yp, sp, qp = fused_cnn.conv_bn_stats_plain(x, w, b)
+        ok, worst, frac = bf16_check(y, yp)
+        # s and q against the plain version's, and against the sums of the
+        # kernel's own rounded y (fp32 sums in another order, nothing else)
+        err = max(rel_err(s, sp), rel_err(q, qp))
+        yl = y.float().reshape(B * T, Fq * co)
+        own = max(rel_err(s, yl.sum(0)), rel_err(q, (yl * yl).sum(0)))
+        del yl
+        same = all(torch.equal(u, v) for u, v in zip((y, s, q), fused_cnn.conv_bn_stats(x, w, b)))
+        print(f"conv_bn_stats.bf16  T={T:3d} F={Fq:3d} {ci:3d}->{co:3d}: y {worst:.3f} of the "
+              f"limit, {frac:.2e} differ; s, q max err {err:.3e} against the plain version, "
+              f"{own:.3e} against the sums of the kernel's y (tol {TOL_KERNEL}); rerun bitwise "
+              f"equal: {same}", flush=True)
+        require(ok, "conv_bn_stats bf16 disagrees with its plain version")
+        require(max(err, own) <= TOL_KERNEL, "conv_bn_stats bf16 statistics disagree")
+        require(same, "conv_bn_stats bf16 is not bitwise repeatable")
+        M = B * T * Fq
+        n_bytes = 2 * (x.numel() + w.numel() + co + M * co) + 4 * 2 * Fq * co
+        flops = 2 * 9 * ci * co * M
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+        rows["conv_bn_stats.bf16"].append(dict(
+            geom=[T, Fq, ci, co], max_abs_err=float((y.float() - yp.float()).abs().max()),
+            limit_share=worst, differ=frac, stats_err=err,
+            ms=time_ms(lambda: fused_cnn.conv_bn_stats(x, w, b)),
+            plain_ms=time_ms(lambda: fused_cnn.conv_bn_stats_plain(x, w, b), iters=3),
+            library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, b, padding=1)),
+            bound=bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)))
+
+        scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev, bf)
+        bg = (0.1 * torch.randn(co, generator=gen)).to(dev, bf)
+        bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen, dtype=torch.uint8).to(dev)
+        worsts, fracs, abs_errs = [], [], []
+        for label, bb, keep in (("eval", None, 1.0), ("bits", bits, 0.5)):
+            z = fused_cnn.glu_drop_pool(y, scale_f, bias_f, wg, bg, bb, pool=pool, keep_prob=keep)
+            zp = fused_cnn.glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bb, pool=pool,
+                                               keep_prob=keep)
+            ok, worst, frac = bf16_check(z, zp)
+            worsts.append(worst)
+            fracs.append(frac)
+            abs_errs.append(float((z.float() - zp.float()).abs().max()))
+            same = torch.equal(z, fused_cnn.glu_drop_pool(y, scale_f, bias_f, wg, bg, bb,
+                                                          pool=pool, keep_prob=keep))
+            print(f"glu_drop_pool.bf16  T={T:3d} F={Fq:3d} Co={co:3d} pool={pool} {label}: z "
+                  f"{worst:.3f} of the limit, {frac:.2e} differ; rerun bitwise equal: {same}",
+                  flush=True)
+            require(ok, "glu_drop_pool bf16 disagrees with its plain version")
+            require(same, "glu_drop_pool bf16 is not bitwise repeatable")
+        P = B * T * Fq
+        n_bytes = 2 * (y.numel() + co * co + co + z.numel()) + 4 * 2 * Fq * co
+        rows["glu_drop_pool.bf16"].append(dict(
+            geom=[T, Fq, co, *pool], max_abs_err=max(abs_errs), limit_share=max(worsts),
+            differ=max(fracs),
+            ms=time_ms(lambda: fused_cnn.glu_drop_pool(y, scale_f, bias_f, wg, bg, None,
+                                                       pool=pool)),
+            plain_ms=time_ms(lambda: fused_cnn.glu_drop_pool_plain(
+                y, scale_f, bias_f, wg, bg, None, pool=pool), iters=3),
+            library_ms=None, bound=bound_ms(n_bytes, P * (2 * co * co + 8 * co),
+                                            PEAK_BF16_FLOPS)))
+        for name, n32 in (("conv_bn_stats.bf16", "conv_bn_stats"),
+                          ("glu_drop_pool.bf16", "glu_drop_pool")):
+            r = rows[name][-1]
+            lib = f", F.conv2d bf16 {r['library_ms']:.3f} ms" if r["library_ms"] else ""
+            print(f"{name}  block {i}: {r['ms']:.3f} ms (fp32 {rows32[n32][i]['ms']:.3f}), bound "
+                  f"{r['bound'][0]:.3f} ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} ms{lib}",
+                  flush=True)
+        del x, y, yp, z, zp, bits
+    report["bf16_kernel_rows"] = rows
+    return rows
+
+
 def serve(gen, report):
     """Phase 4: the serving path end to end, kernels against plain versions."""
     import torch
@@ -316,6 +453,7 @@ def serve(gen, report):
         require(launches == want, "the serving run did not go through every kernel")
         scores_p, weak_p, _ = pipe_plain.run(wavs, embeddings_lookup=lookup)
         require(dict(_build.LAUNCHES) == launches, "the plain forward launched a kernel")
+        bf16 = serve_bf16(model, pipe, enc, thresholds, wavs, lookup, report)
 
     require(len(scores) == N_CLIPS and len(weak) == N_CLIPS, "clips missing from the run")
     s_err = max(float(np.abs(scores[k] - scores_p[k]).max()) for k in scores)
@@ -350,7 +488,101 @@ def serve(gen, report):
             model_ms=time_ms(lambda: model(feats, embeddings=emb)),
         )
     report["forward"] = times
-    return launches, pipe
+    # phase 5b: the bf16 device forward per batch, and its stages
+    pipe16 = bf16["pipe"]
+    with torch.inference_mode():
+        feats16 = apply_scaler(log_mel_spectrogram(audio, pipe16.mel_cfg), pipe16.scaler_cfg)
+        report["forward_bf16"] = dict(
+            forward_ms=time_ms(lambda: pipe16.forward(audio, emb)),
+            frontend_ms=time_ms(lambda: apply_scaler(log_mel_spectrogram(audio, pipe16.mel_cfg),
+                                                     pipe16.scaler_cfg)),
+            model_ms=time_ms(lambda: pipe16.model(feats16, embeddings=emb)),
+        )
+    return launches, pipe, bf16["launches"]
+
+
+def serve_bf16(model32, pipe32, enc, thresholds, wavs, lookup, report):
+    """Phase 4b: the bf16 serving configuration of scripts/bench_infer.py
+    (bf16_fast) through the same entry point, against the same bf16 forward
+    through the plain versions on the CPU."""
+    import torch
+
+    from desed_task_tpu_torch.inference.pipeline import InferencePipeline
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig
+    from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024
+
+    mel16 = MelConfig(compute_dtype="bfloat16")
+    state = {k: v.detach().cpu() for k, v in model32.state_dict().items()}
+    kw = dict(mel_cfg=mel16, median_filter=MEDIAN_2024, thresholds=thresholds,
+              batch_size=BATCH)
+    pipe = InferencePipeline(crnn_2024(compute_dtype=torch.bfloat16), state, enc, **kw,
+                             device="cuda")
+    n_batches = -(-len(wavs) // BATCH)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    scores, weak, _ = pipe.run(wavs, embeddings_lookup=lookup)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = {"conv_bn_stats.bf16": 7 * n_batches, "glu_drop_pool.bf16": 7 * n_batches,
+            "bigru": n_batches}
+    print(f"serving bf16: {len(wavs)} clips in {n_batches} batches of {BATCH}, {run_s:.3f} s "
+          f"wall; launches {launches}, expected {want}", flush=True)
+    require(launches == want, "the bf16 serving run did not go through every bf16 kernel")
+    require(len(scores) == len(wavs) and all(
+        bool(np.isfinite(scores[k]).all() and np.isfinite(weak[k]).all()) for k in scores),
+        "bf16 serving: clips missing or non-finite scores")
+
+    # 8 clips: the bf16 features of the card's front-end into the bf16 CRNN
+    # on the card and through the plain versions on the CPU; the fp32
+    # forward of the same audio on the card
+    from desed_task_tpu_torch.ops.frontend import log_mel_spectrogram
+    from desed_task_tpu_torch.ops.median import classwise_median_filter
+    from desed_task_tpu_torch.ops.scaler import apply_scaler
+
+    chunk = [str(w) for w in wavs[:N_CPU_CLIPS]]
+    audio = torch.as_tensor(pipe._load_batch(chunk), device="cuda")
+    emb = torch.as_tensor(lookup([Path(c).stem for c in chunk]), device="cuda")
+    cpu_model = crnn_2024(compute_dtype=torch.bfloat16)
+    cpu_model.load_state_dict(state)
+    cpu_model.eval()
+    with torch.inference_mode():
+        feats = apply_scaler(log_mel_spectrogram(audio, mel16), pipe.scaler_cfg)
+        x = feats.transpose(-1, -2)[..., None].contiguous()
+        z_card = pipe.model.cnn(x, train=False).float().cpu()
+        z_fp32 = pipe32.model.cnn(x, train=False).float().cpu()
+        out_card = pipe.model(feats, embeddings=emb)
+        _build.reset_launches()
+        z_cpu = cpu_model.cnn(x.cpu(), train=False).float()
+        out_cpu = cpu_model(feats.cpu(), embeddings=emb.cpu())
+        require(dict(_build.LAUNCHES) == {}, "the CPU forward launched a kernel")
+        s32, w32, _ = pipe32.forward(audio, emb)
+    med = lambda s: classwise_median_filter(s, pipe.median, class_axis=-2, time_axis=-1)
+    card = (med(out_card[0]).float().cpu(), out_card[1].float().cpu())
+    cpu = (med(out_cpu[0]).float(), out_cpu[1].float())
+    fp32 = (s32.float().cpu(), w32.float().cpu())
+    same = float((z_card == z_cpu).float().mean())
+    zgap_cpu = float((z_card - z_cpu).abs().mean())
+    zgap_fp32 = float((z_card - z_fp32).abs().mean())
+    gap_cpu = max(float((card[j] - cpu[j]).abs().max()) for j in range(2))
+    gap_fp32 = max(float((card[j] - fp32[j]).abs().max()) for j in range(2))
+    z_share, s_share = zgap_cpu / max(zgap_fp32, 1e-30), gap_cpu / max(gap_fp32, 1e-30)
+    print(f"serving bf16 on {N_CPU_CLIPS} clips, from the same bf16 features, against the plain "
+          f"bf16 CRNN on the CPU: the conv stack's output bitwise equal on {same:.4%} of its "
+          f"elements, mean |diff| {zgap_cpu:.3e} against {zgap_fp32:.3e} from the fp32 conv "
+          f"stack on the card (share {z_share:.3f}); scores max |diff| {gap_cpu:.3e} against "
+          f"{gap_fp32:.3e} from the fp32 forward (share {s_share:.3f}); limit: shares below "
+          f"{BF16_NEARER:.1f}", flush=True)
+    require(zgap_fp32 > 0 and z_share < BF16_NEARER,
+            "bf16 serving: the conv stack's output is no nearer the plain bf16 CRNN than fp32")
+    require(gap_fp32 > 0 and s_share < BF16_NEARER,
+            "bf16 serving scores are no nearer the plain bf16 forward than the fp32 one")
+    report["serving_bf16"] = dict(clips=len(wavs), batches=n_batches, wall_s=run_s,
+                                  launches=launches, features_equal=same,
+                                  features_gap_cpu=zgap_cpu, features_gap_fp32=zgap_fp32,
+                                  gap_cpu=gap_cpu, gap_fp32=gap_fp32)
+    return dict(pipe=pipe, launches=launches)
 
 
 def check_bwd_kernels(geoms, gen, report):
@@ -486,7 +718,48 @@ def check_bwd_kernels(geoms, gen, report):
         bound=bound_ms(n_bytes, flops)))
     report["bwd_kernel_rows"] = rows
     report["gru_stream"] = check_gru_stream(gen)
+    report["wide_bwd_row"] = check_wide_glu_bwd(gen)
     return rows
+
+
+def check_wide_glu_bwd(gen) -> dict:
+    """glu_drop_pool_bwd at the 256-channel block (B=60): the wide kernel
+    (Wg in slices, dWg in passes) against its plain version, unit-scale
+    cotangents, bitwise rerun; its time beside its bound (not in the sums)."""
+    import torch
+
+    from desed_task_tpu_torch.ops import fused_cnn
+
+    dev, B = torch.device("cuda"), TRAIN_BATCH
+    T, Fq, _, co, pool = WIDE_GEOM
+    plan = fused_cnn.glu_bwd_plan(B, T, Fq, co)
+    require(plan.passes > 1, "the 256-channel block does not take the wide kernel")
+    y = torch.randn(B, T, Fq, co, generator=gen).to(dev)
+    scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+    bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+    wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev)
+    bg = (0.1 * torch.randn(co, generator=gen)).to(dev)
+    gz = torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen).to(dev)
+    bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen, dtype=torch.uint8).to(dev)
+    args = (y, scale_f, bias_f, wg, bg, bits, gz)
+    got = fused_cnn.glu_drop_pool_bwd(*args, pool=pool, keep_prob=0.5)
+    want = fused_cnn.glu_drop_pool_bwd_plain(*args, pool=pool, keep_prob=0.5)
+    err = max(rel_err(a, b) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(
+        got, fused_cnn.glu_drop_pool_bwd(*args, pool=pool, keep_prob=0.5)))
+    P = B * T * Fq
+    n_bytes = (4 * (2 * y.numel() + gz.numel() + 4 * Fq * co + 2 * co * co + 2 * co)
+               + bits.numel())
+    row = dict(geom=[B, T, Fq, co, *pool], plan=plan.ints(), rel_err=err, bitwise=same,
+               ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd(*args, pool=pool, keep_prob=0.5)),
+               bound=bound_ms(n_bytes, P * (6 * co * co + 20 * co)))
+    print(f"glu_drop_pool_bwd at the {co}-channel block (B={B}, wide kernel: slices of "
+          f"{plan.ks} rows, {plan.passes} dWg passes): max err {err:.3e} (tol {TOL_KERNEL}); "
+          f"rerun bitwise equal: {same}; {row['ms']:.3f} ms, bound {row['bound'][0]:.3f} ms "
+          f"({row['bound'][1]})", flush=True)
+    require(err <= TOL_KERNEL, "glu_drop_pool_bwd (wide) disagrees with its plain version")
+    require(same, "glu_drop_pool_bwd (wide) is not bitwise repeatable")
+    return row
 
 
 def gru_plan(B: int, T: int, H: int) -> dict:
@@ -729,7 +1002,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
     rows = check_kernels(geoms, gen, report)
-    serve_launches, pipe = serve(gen, report)
+    rows.update(check_kernels_bf16(geoms, gen, report, rows))
+    serve_launches, pipe, serve16_launches = serve(gen, report)
     train_geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
     rows.update(check_bwd_kernels(train_geoms, gen, report))
     train_launches = train(gen, report)
@@ -741,6 +1015,11 @@ def main() -> int:
     print(f"[{card}] device forward, batch {BATCH}: {fw['forward_ms']:.3f} ms "
           f"(plain versions {fw['plain_forward_ms']:.3f} ms; front-end + scaler "
           f"{fw['frontend_ms']:.3f} ms, CRNN {fw['model_ms']:.3f} ms)", flush=True)
+    fb = report["forward_bf16"]
+    print(f"[{card}] device forward bf16, batch {BATCH}: {fb['forward_ms']:.3f} ms "
+          f"(front-end + scaler {fb['frontend_ms']:.3f} ms, CRNN {fb['model_ms']:.3f} ms; "
+          f"fp32 {fw['forward_ms']:.3f} / {fw['frontend_ms']:.3f} / {fw['model_ms']:.3f} ms)",
+          flush=True)
     tr = report["train"]
     print(f"[{card}] train step, {TRAIN_BATCH} clips, fp32: {tr['step_ms']:.3f} ms "
           f"({tr['clips_per_s']:.1f} clips/s; plain versions {tr['plain_step_ms']:.3f} ms; "
@@ -755,6 +1034,8 @@ def main() -> int:
     sources = {
         "conv_bn_stats": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:147"),
         "glu_drop_pool": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:269"),
+        "conv_bn_stats.bf16": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:147 (bf16 mode)"),
+        "glu_drop_pool.bf16": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:269 (bf16 mode)"),
         "bigru": (gru_cu, "desed_task_tpu/ops/pallas_gru.py:38"),
         "conv_bn_stats_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:186"),
         "glu_drop_pool_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:295"),
@@ -768,11 +1049,14 @@ def main() -> int:
         b_ms = sum(r["bound"][0] for r in rs)
         by_ops = sum(r["bound"][0] for r in rs if r["bound"][1] == "operations")
         by_path = {"serving": serve_launches.get(name, 0),
+                   "serving_bf16": serve16_launches.get(name, 0),
                    "train_step": train_launches.get(name, 0),
                    "frontend": fe_launches.get(name, 0)}
+        main_path = ("frontend" if name in fe_launches
+                     else "serving_bf16" if name.endswith(".bf16") else "train_step")
         entry = dict(
             name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-            launches=by_path["frontend" if name in fe_launches else "train_step"],
+            launches=by_path[main_path],
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
             bound_ms=b_ms, bound_by="operations" if by_ops >= b_ms / 2 else "bytes",
@@ -790,7 +1074,7 @@ def main() -> int:
         lib_s = "n/a" if entry["library_ms"] is None else f"{entry['library_ms']:.3f} ms"
         if name in fe_launches:
             per = f"per call ({len(rs)} call at B={BATCH}, fp32)"
-        elif name in serve_launches:
+        elif name in serve_launches or name in serve16_launches:
             per = f"per forward ({len(rs)} call(s) at B={BATCH})"
         else:
             per = f"per train step ({len(rs)} call(s) at B={TRAIN_BATCH})"

@@ -1,4 +1,5 @@
-// Hand-written Hopper kernels for one fused CRNN conv block (fp32).
+// Hand-written Hopper kernels for one fused CRNN conv block (fp32; the
+// forward kernels also in bf16).
 //
 // Replaces desed_task_tpu/ops/pallas_cnn.py:
 //   conv_bn_stats  <- _conv_stats_kernel (pallas_cnn.py:147, called at :403)
@@ -54,6 +55,40 @@
 //   never produced (torch floor pooling). ops/fused_cnn.py `glu_fwd_plan`
 //   gives the tile, the grid and the shared memory.
 //
+// The bf16 modes (pallas_cnn.py's bf16 mode: bf16 operands, fp32 sums,
+// pallas_cnn.py:28-29), the serving path of crnn_2024(compute_dtype=bf16):
+// conv_bn_stats bf16
+//   What bounds it: x (64 M elements) and y (182 M) in bf16 per 2024 forward
+//   at B=64, ~0.49 GB (~0.15 ms at 3.35 TB/s), against ~90 GFLOP of products
+//   (~0.09 ms at the bf16 tensor cores' 989 TFLOP/s): bytes.
+//   Design: Ci > 1 `conv3x3_bf16_kernel`, the halo-tiled implicit GEMM of
+//   conv3x3_kernel with its products on the tensor cores (mma.sync
+//   m16n8k16, fp32 accumulators in registers; A and B fragments by ldmatrix
+//   straight from the staged halo and weight rows, each lane naming the row
+//   of its position + the tap's offset, so no im2col is formed; rows of 16
+//   channels with their two 16-byte halves swapped on rows 4..7 of every 8,
+//   so ldmatrix reads no bank twice). The epilogue adds the bias in fp32,
+//   rounds y to bf16 and takes the lane sums of the rounded y
+//   (pallas_cnn.py:171-178), as the fp32 STATS epilogue does. Ci = 1: the
+//   streaming kernel with bf16 loads and stores (fp32 FMA: a product of two
+//   bf16 values is exact in fp32). wgmma, TMA and swizzled layouts are left
+//   to a later change.
+// glu_drop_pool bf16
+//   What bounds it: y and z in bf16, ~0.48 GB (~0.14 ms), against 17.7
+//   GFLOP of GLU products (0.02 ms on the tensor cores, 0.26 ms on the CUDA
+//   cores at 67 TFLOP/s): bytes, on the tensor cores.
+//   Design: `glu_fwd_mma_kernel`: tiles of P positions (ordered
+//   as the fp32 kernel orders them) x CT <= 128 channels, P * CT / 16 = 512
+//   so every warp keeps 32 accumulators; BN(y) formed in fp32 from y read 8
+//   channels (16 bytes) at a time (a multiply, then an add, each rounded, as
+//   the plain version and the JAX kernel do), rounded to bf16 into the A
+//   tile (:277) and kept unrounded for the sigmoid (:279); the product on
+//   mma.sync m16n8k16 from ldmatrix'd A and Wg^T tiles; the GLU written over
+//   the sigmoid's operand in place, then dropout and the window's sum in
+//   window order from shared memory, z rounded once (:292). A first version
+//   kept the fp32 kernel's CUDA-core product on rounded operands: 1.462 ms
+//   at B=64, slower than the fp32 kernel's 1.214 (PERF.md).
+//
 // The backward passes (the training step's kernels):
 //   conv_bn_stats_bwd <- _conv_stats_bwd_kernel (pallas_cnn.py:186, :443)
 //   glu_drop_pool_bwd <- _epilogue_bwd_kernel   (pallas_cnn.py:295, :637)
@@ -104,14 +139,51 @@
 //   dybn * y, dybn and dlin are read from shared memory only, one owner
 //   thread per lane (f, c) adding the tile's positions of its lane in order.
 //   Block partials are added in a fixed order by two small passes
-//   (`glu_bwd_plan`). Co <= 128.
+//   (`glu_bwd_plan`). Where the F*Co lane sums do not fit in shared memory,
+//   each block keeps them in its own partial row in device memory (one
+//   owner thread per lane a tile, in tile order). Co > 128 (the wide
+//   kernel, a correct simple path): Wg and Wg^T are staged in slices of as
+//   many rows as fit, per product and tile, and dWg is taken in passes of
+//   512 entry tiles, each thread reading its entries of the block's partial
+//   from device memory, adding the tile's positions and writing them back,
+//   in tile order. Deterministic throughout: no atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+
+// fp32 <-> the activations' type: the identity for float; for bf16 the
+// round to nearest even that the TPU kernels' astype(bfloat16) does
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename TY>
+__device__ __forceinline__ TY from_f(float v) {
+  if constexpr (std::is_same<TY, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+// v as the activations' type holds it, back in fp32
+template <typename TY>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<TY>(v));
+}
+// the two bf16 halves of a 32-bit word (element 0 in the low half)
+__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+__device__ __forceinline__ uint32_t bf_pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 // ---------------------------------------------------------------------------
 // Asynchronous copies into shared memory (cp.async). A copy whose source lies
@@ -122,7 +194,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(ok ? 4 : 0));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(ok ? 16 : 0));
@@ -169,6 +241,17 @@ __device__ __forceinline__ void st4(float* __restrict__ p, int c, int Co, const 
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     if (c + j < Co) p[c + j] = o[j];
+}
+
+// bf16 p[c .. c+3] = o rounded, nothing past Co: one 8-byte store where Co % 4 == 0
+__device__ __forceinline__ void st4(bf16* __restrict__ p, int c, int Co, const float* o) {
+  if ((Co & 3) == 0) {
+    if (c < Co) *reinterpret_cast<uint2*>(p + c) = make_uint2(bf_pack(o[0], o[1]), bf_pack(o[2], o[3]));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j < Co) p[c + j] = __float2bfloat16_rn(o[j]);
 }
 
 // ---------------------------------------------------------------------------
@@ -461,10 +544,14 @@ __global__ void __launch_bounds__(256, 2) conv3x3_kernel(
 // (x, part) makes channels 4g .. 4g+3 at frequency f of frames
 // (b, t) = rows part * rows_per_part ..., in order, from 9 x values and its
 // 9 x 4 weights in registers, and adds y and y^2 of its lanes over them
-// into part_s / part_q row `part`.
+// into part_s / part_q row `part`. TY = bf16: x, w and the bias are read as
+// bf16 (a product of two bf16 values is exact in fp32), the fp32 sum plus
+// the bias is rounded to bf16 and y is written as bf16; the sums take the
+// rounded y (pallas_cnn.py:173-178).
+template <typename TY>
 __global__ void __launch_bounds__(256, 4) conv_c1_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
-    float* __restrict__ y, float* __restrict__ part_s, float* __restrict__ part_q, int B, int T,
+    const TY* __restrict__ x, const TY* __restrict__ w, const TY* __restrict__ bias,
+    TY* __restrict__ y, float* __restrict__ part_s, float* __restrict__ part_q, int B, int T,
     int F, int Co, int rows_per_part) {
   const int G = (Co + 3) / 4;
   const int lg = blockIdx.x * 256 + threadIdx.x;
@@ -477,10 +564,10 @@ __global__ void __launch_bounds__(256, 4) conv_c1_kernel(
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const bool ok = c0 + j < Co;
-    bv[j] = ok ? bias[c0 + j] : 0.f;
+    bv[j] = ok ? to_f(bias[c0 + j]) : 0.f;
     s[j] = q[j] = 0.f;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) wv[tap][j] = ok ? w[tap * Co + c0 + j] : 0.f;
+    for (int tap = 0; tap < 9; ++tap) wv[tap][j] = ok ? to_f(w[tap * Co + c0 + j]) : 0.f;
   }
   // unrolled so that several frames' loads are in flight at once
 #pragma unroll 4
@@ -492,7 +579,7 @@ __global__ void __launch_bounds__(256, 4) conv_c1_kernel(
     for (int tap = 0; tap < 9; ++tap) {
       const int dt = tap / 3 - 1, df = tap % 3 - 1;
       const bool ok = t + dt >= 0 && t + dt < T && f + df >= 0 && f + df < F;
-      xv[tap] = ok ? x[m + dt * F + df] : 0.f;
+      xv[tap] = ok ? to_f(x[m + dt * F + df]) : 0.f;
     }
     float o[4];
 #pragma unroll
@@ -500,7 +587,7 @@ __global__ void __launch_bounds__(256, 4) conv_c1_kernel(
       float a = 0.f;
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) a = fmaf(xv[tap], wv[tap][j], a);
-      o[j] = a + bv[j];
+      o[j] = rnd<TY>(a + bv[j]);
       s[j] += o[j];
       q[j] = fmaf(o[j], o[j], q[j]);
     }
@@ -548,6 +635,237 @@ __global__ void __launch_bounds__(32 * STATS_RUNS) lane_stats_final_kernel(
     }
     s[l] = u;
     q[l] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// conv_bn_stats in bf16 (Ci > 1): the halo-tiled implicit GEMM of
+// conv3x3_kernel with its products on the tensor cores. Rows: a tile of TT
+// frames x FF frequencies of one clip (M = TT * FF <= MT rows); columns: BN
+// output channels (the grid's second axis); depth: 9 taps x Cin. Each stage
+// copies BK = 16 input channels of the tile's halo and the matching
+// [9][BN][16] slice of wt = w as [3, 3, Co, Ci] (bf16, zeros past Cin and
+// Cout), the next stage in flight while one is multiplied: for every tap a
+// warp takes its rows' A fragments from the halo by ldmatrix (each lane
+// names the row of its position + the tap's offset, so no im2col is formed)
+// and the B fragments of its n8 tiles by ldmatrix, and issues
+// mma.m16n8k16 bf16 x bf16 -> fp32. 8 warps as WM x WN, each MI m16 tiles
+// of rows x NI n8 tiles; fp32 accumulators in registers. Narrow channel
+// tiles take more rows (MT = 128 rows at BN = 128, 256 at 64, 512 below),
+// so that the tiles, and the lane partials they write, are as few as the
+// shared memory allows.
+// Epilogue as conv3x3_kernel's STATS one: + bias in fp32, y rounded to bf16
+// (pallas_cnn.py:173-178) and put in shared memory as fp32, written out in
+// 16-byte pieces where Cout % 8 == 0, each lane's frames of the tile added
+// in order from the rounded values into part_s / part_q row (b * nt + t-tile).
+// ---------------------------------------------------------------------------
+constexpr int BK = 16;  // input channels a stage: one k-step of the mma per tap
+
+// element offset of (row, 8-channel chunk) in a [rows][16] bf16 array whose
+// chunks are swapped on rows 4..7 of every 8, so that ldmatrix's 8 rows of
+// one chunk (32 bytes apart) fall in 8 distinct groups of 4 banks
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * BK + ((chunk ^ (row >> 2)) & 1) * 8;
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(256, 2) conv3x3_bf16_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ wt, const bf16* __restrict__ bias,
+    bf16* __restrict__ y, float* __restrict__ part_s, float* __restrict__ part_q, int B, int T,
+    int F, int Cin, int Cout, int TT, int FF) {
+  constexpr int WN = BN >= 64 ? 2 : 1, WM = 8 / WN, MI = BN == 128 ? 2 : 4, NI = BN / (8 * WN);
+  constexpr int YS = BN + 8;  // row stride of the epilogue's fp32 tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  const int W = FF + 2;
+  const int NP = (TT + 2) * W;
+  const int STG = (NP + 9 * BN) * BK;  // a stage: halo rows, then weight rows tap * BN + n
+  const int R = TT * FF;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const RowTile rt = row_tile(blockIdx.x, T, F, TT, FF);
+  const int n0 = blockIdx.y * BN;
+
+  // the halo position of this lane's ldmatrix row (row lane % 16 of each of
+  // the warp's m16 tiles); rows past the tile read any position
+  int apos[MI];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const int r = wm * 16 * MI + mi * 16 + (lane & 15);
+    const int jt = r / FF;
+    apos[mi] = r < R ? (jt + 1) * W + r - jt * FF + 1 : W + 1;
+  }
+  const int achunk = lane >> 4;
+  // B: lane l names row l % 8 of n8 tile (l / 16) of a pair, chunk (l / 8) % 2
+  const int brow = wn * NI * 8 + (NI >= 2 ? (lane >> 4) * 8 : 0) + (lane & 7);
+  const int bchunk = (lane >> 3) & 1;
+
+  auto stage = [&](int sl, int buf) {
+    bf16* const H = sm + buf * STG;
+    bf16* const Wt = H + NP * BK;
+    const int c0 = sl * BK;
+    if constexpr (VEC) {  // Cin % 8 == 0: 16-byte copies of 8 channels
+      for (int i = tid; i < NP * 2; i += 256) {
+        const int pos = i >> 1, ch = i & 1;
+        const int jt = pos / W;
+        const int t = rt.t0 + jt - 1, f = rt.f0 + pos - jt * W - 1, c = c0 + ch * 8;
+        const bool ok = t >= 0 && t < T && f >= 0 && f < F && c < Cin;
+        cp_async16(H + swz(pos, ch), ok ? x + (((long long)rt.b * T + t) * F + f) * Cin + c : x,
+                   ok);
+      }
+      for (int i = tid; i < 9 * BN * 2; i += 256) {
+        const int row = i >> 1, ch = i & 1;
+        const int tap = row / BN;
+        const int n = n0 + row - tap * BN, c = c0 + ch * 8;
+        const bool ok = n < Cout && c < Cin;
+        cp_async16(Wt + swz(row, ch), ok ? wt + ((long long)tap * Cout + n) * Cin + c : wt, ok);
+      }
+    } else {  // any Cin: element copies through registers
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      for (int i = tid; i < NP * BK; i += 256) {
+        const int pos = i / BK, q = i - pos * BK;
+        const int jt = pos / W;
+        const int t = rt.t0 + jt - 1, f = rt.f0 + pos - jt * W - 1, c = c0 + q;
+        const bool ok = t >= 0 && t < T && f >= 0 && f < F && c < Cin;
+        H[swz(pos, q >> 3) + (q & 7)] =
+            ok ? x[(((long long)rt.b * T + t) * F + f) * Cin + c] : zero;
+      }
+      for (int i = tid; i < 9 * BN * BK; i += 256) {
+        const int row = i / BK, q = i - row * BK;
+        const int tap = row / BN;
+        const int n = n0 + row - tap * BN, c = c0 + q;
+        Wt[swz(row, q >> 3) + (q & 7)] =
+            n < Cout && c < Cin ? wt[((long long)tap * Cout + n) * Cin + c] : zero;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  const int n_sl = (Cin + BK - 1) / BK;
+  stage(0, 0);
+  for (int sl = 0; sl < n_sl; ++sl) {
+    const int buf = sl & 1;
+    if (sl + 1 < n_sl) {
+      stage(sl + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned hs = (unsigned)__cvta_generic_to_shared(sm + buf * STG);
+    const unsigned ws = hs + 2u * (unsigned)(NP * BK);
+#pragma unroll 3
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3 - 1) * W + tap % 3 - 1;
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        ldsm_x4(hs + 2u * (unsigned)swz(apos[mi] + off, achunk), a[mi][0], a[mi][1], a[mi][2],
+                a[mi][3]);
+      const int rb = tap * BN + brow;
+      if constexpr (NI >= 2) {
+#pragma unroll
+        for (int ni = 0; ni < NI; ni += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(ws + 2u * (unsigned)swz(rb + ni * 8, bchunk), b0, b1, b2, b3);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_bf16(acc[mi][ni], a[mi], b0, b1);
+            mma_bf16(acc[mi][ni + 1], a[mi], b2, b3);
+          }
+        }
+      } else {
+        uint32_t b0, b1;
+        ldsm_x2(ws + 2u * (unsigned)swz(rb, bchunk), b0, b1);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][0], a[mi], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue: the stage buffers are free; ys [R][YS] fp32 holds the rounded y
+  float* const ys = reinterpret_cast<float*>(smem_raw);
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int n = wn * NI * 8 + ni * 8 + 2 * tq;
+    const float b0 = n0 + n < Cout ? to_f(bias[n0 + n]) : 0.f;
+    const float b1 = n0 + n + 1 < Cout ? to_f(bias[n0 + n + 1]) : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const int r = wm * 16 * MI + mi * 16 + gq;
+      if (r < R)
+        *reinterpret_cast<float2*>(ys + r * YS + n) =
+            make_float2(rnd<bf16>(acc[mi][ni][0] + b0), rnd<bf16>(acc[mi][ni][1] + b1));
+      if (r + 8 < R)
+        *reinterpret_cast<float2*>(ys + (r + 8) * YS + n) =
+            make_float2(rnd<bf16>(acc[mi][ni][2] + b0), rnd<bf16>(acc[mi][ni][3] + b1));
+    }
+  }
+  __syncthreads();
+  constexpr int per = BN / 8;
+  for (int e = tid; e < R * per; e += 256) {
+    const int r = e / per;
+    const int n = (e - r * per) * 8;
+    const int jt = r / FF;
+    const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
+    if (t >= T || f >= F || n0 + n >= Cout) continue;
+    bf16* o = y + (((long long)rt.b * T + t) * F + f) * Cout + n0 + n;
+    const float* v = ys + r * YS + n;
+    if ((Cout & 7) == 0) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(bf_pack(v[0], v[1]), bf_pack(v[2], v[3]),
+                                                bf_pack(v[4], v[5]), bf_pack(v[6], v[7]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (n0 + n + j < Cout) o[j] = __float2bfloat16_rn(v[j]);
+    }
+  }
+  // the lane sums of the tile's frames, in frame order
+  const int L = F * Cout;
+  const long long prow = blockIdx.x / ((F + FF - 1) / FF);  // b * nt + t-tile
+  const int frames = min(TT, T - rt.t0);
+  for (int l = tid; l < FF * BN; l += 256) {
+    const int fl = l / BN, c = l - fl * BN;
+    const int f = rt.f0 + fl, n = n0 + c;
+    if (f >= F || n >= Cout) continue;
+    float s = 0.f, q = 0.f;
+    for (int jt = 0; jt < frames; ++jt) {
+      const float v = ys[(jt * FF + fl) * YS + c];
+      s += v;
+      q = fmaf(v, v, q);
+    }
+    part_s[prow * L + f * Cout + n] = s;
+    part_q[prow * L + f * Cout + n] = q;
   }
 }
 
@@ -955,27 +1273,37 @@ cudaError_t launch_dw_any(int BKO, int BNO, const float* x, const float* dye, fl
 // Partials: lanes and dWg per block (the PG groups' dWg added in group
 // order first); two small passes add the blocks' in block order.
 // smem: Wg [Co][CP] | Wg^T [Co][CP] | yt [CP][P+4] | dt [CP][P+4] | lanes [3][F*Co].
+// Where the F*Co lane sums do not fit in shared memory (`lanes` 0), the
+// block keeps them in its own partial row of part_l in device memory, each
+// lane added to by one thread a tile, in tile order. WIDE (Co > 128: the
+// dWg tiles outnumber the threads, and Wg and Wg^T do not fit whole): B and
+// D stage slices of KS rows of Wg and of Wg^T (passed transposed as wgt)
+// into one buffer in turn, and C runs `passes` passes over the dWg
+// entries, each thread adding the tile's positions into its entries of the
+// block's partial in part_w (read and written back a tile: the same thread,
+// in tile order). smem WIDE: slice [KS][CP] | yt | dt | lanes.
 // ---------------------------------------------------------------------------
 
 constexpr int GLU_THREADS = 512;
 
-template <int CT>
+template <int CT, bool WIDE>
 __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
     const float* __restrict__ y, const float* __restrict__ scale_f,
     const float* __restrict__ bias_f, const float* __restrict__ wg,
-    const float* __restrict__ bg, const uint8_t* __restrict__ bits,
-    const float* __restrict__ g, float* __restrict__ dy, float* __restrict__ part_l,
-    float* __restrict__ part_w, int B, int T, int F, int Co, int pt, int pf,
-    int keep_thresh, float inv_keep, int CP, int P, int PG, int n_tiles,
-    int tiles_per_block) {
+    const float* __restrict__ wgt, const float* __restrict__ bg,
+    const uint8_t* __restrict__ bits, const float* __restrict__ g, float* __restrict__ dy,
+    float* __restrict__ part_l, float* __restrict__ part_w, int B, int T, int F, int Co,
+    int pt, int pf, int keep_thresh, float inv_keep, int CP, int P, int PG, int n_tiles,
+    int tiles_per_block, int KS, int lanes_smem, int passes) {
   extern __shared__ __align__(16) float smem[];
   const int L = F * Co;
   const int PS = P + 4;
-  float* wg_s = smem;             // [k][c]
-  float* wgT_s = wg_s + Co * CP;  // [c][k]
-  float* yt = wgT_s + Co * CP;    // [c][p]: BN(y), then dybn
-  float* dt = yt + CP * PS;       // [c][p]: dlin
-  float* lane_s = dt + CP * PS;   // [3][L]
+  float* wg_s = smem;                          // [k][c] (WIDE: the slice [KS][CP])
+  float* wgT_s = WIDE ? smem : wg_s + Co * CP;  // [c][k]
+  float* yt = WIDE ? smem + KS * CP : wgT_s + Co * CP;  // [c][p]: BN(y), then dybn
+  float* dt = yt + CP * PS;                    // [c][p]: dlin
+  float* lane_s = lanes_smem ? dt + CP * PS    // [3][L]
+                             : part_l + (long long)blockIdx.x * 3 * L;
   const int tid = threadIdx.x;
   const int CG = CP / 4;
   const bool prod = tid < CG * (P / 4);
@@ -993,13 +1321,40 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
   const int Ptot = B * T * F;  // positions fit in an int (the wrapper checks)
   const int To = T / pt, Fo = F / pf;
   const float inv_w = 1.f / (float)(pt * pf);
+  const int nl = min(P, F) * Co;  // the lanes a tile touches: its first min(P, F) frequencies
 
-  for (int i = tid; i < Co * CP; i += GLU_THREADS) {
-    const int r = i / CP;
-    const int c = i - r * CP;
-    wg_s[i] = c < Co ? wg[r * Co + c] : 0.f;
-    wgT_s[i] = c < Co ? wg[c * Co + r] : 0.f;
+  if constexpr (!WIDE) {
+    for (int i = tid; i < Co * CP; i += GLU_THREADS) {
+      const int r = i / CP;
+      const int c = i - r * CP;
+      wg_s[i] = c < Co ? wg[r * Co + c] : 0.f;
+      wgT_s[i] = c < Co ? wg[c * Co + r] : 0.f;
+    }
   }
+  // rows k0 .. k0 + KS of `src` [Co][Co] into the slice buffer [KS][CP], zeros past Co
+  auto stage_rows = [&](const float* __restrict__ src, int k0) {
+    const int per = CP / 4;
+    for (int i = tid; i < KS * per; i += GLU_THREADS) {
+      const int k = i / per, c = (i - k * per) * 4;
+      *reinterpret_cast<float4*>(wg_s + k * CP + c) =
+          k0 + k < Co ? ld4(src + (long long)(k0 + k) * Co, c, Co)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  // acc[i][j] += a[p + i][k] w[k][c + j] over the depth rows [k0, k0 + kn)
+  auto product = [&](float (&acc)[4][4], const float* __restrict__ a, const float* __restrict__ w,
+                     int k0, int kn) {
+#pragma unroll 4
+    for (int k = 0; k < kn; ++k) {
+      const float4 av4 = *reinterpret_cast<const float4*>(a + (k0 + k) * PS + pg * 4);
+      const float4 wv4 = *reinterpret_cast<const float4*>(w + k * CP + cg * 4);
+      const float av[4] = {av4.x, av4.y, av4.z, av4.w}, wv[4] = {wv4.x, wv4.y, wv4.z, wv4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+  };
   for (int i = tid; i < 3 * L; i += GLU_THREADS) lane_s[i] = 0.f;
   float accw[4][CT];
 #pragma unroll
@@ -1058,22 +1413,22 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
       }
     }
     __syncthreads();
-    if (prod) {  // B
-      float acc[4][4];
+    float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < Co; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(yt + k * PS + pg * 4);
-        const float4 w = *reinterpret_cast<const float4*>(wg_s + k * CP + cg * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if constexpr (WIDE) {  // B over slices of Wg
+      for (int k0 = 0; k0 < Co; k0 += KS) {
+        __syncthreads();  // the previous slice read
+        stage_rows(wg, k0);
+        __syncthreads();
+        if (prod) product(acc, yt, wg_s, k0, min(KS, Co - k0));
       }
+    } else if (prod) {
+      product(acc, yt, wg_s, 0, Co);
+    }
+    if (prod) {  // B's epilogue
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = cg * 4 + j;
@@ -1088,16 +1443,57 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
       }
     }
     __syncthreads();
-    // E1: the lane sums of dlin, one owner thread per lane (f, c), the
-    // tile's positions of its lane in order
-    for (int l = tid; l < L; l += GLU_THREADS) {
-      const int f = l / Co;
-      const int c = l - f * Co;
+    // E1: the lane sums of dlin, one owner thread per lane (f, c) of the
+    // tile, the tile's positions of its lane in order (the tile's j-th
+    // position from its first has frequency f_first + j, mod F)
+    for (int e = tid; e < nl; e += GLU_THREADS) {
+      const int j = e / Co;
+      const int c = e - j * Co;
+      const int f = f_first + j < F ? f_first + j : f_first + j - F;
       float s3 = 0.f;
-      for (int p = (f - f_first + F) % F; p < P && m0 + p < Ptot; p += F) s3 += dt[c * PS + p];
-      lane_s[2 * L + l] += s3;
+      for (int p = j; p < P && m0 + p < Ptot; p += F) s3 += dt[c * PS + p];
+      lane_s[2 * L + f * Co + c] += s3;
     }
-    if (wthr) {  // C
+    if constexpr (WIDE) {  // C in passes over the dWg entries, through part_w
+      float* pw = part_w + (long long)blockIdx.x * Co * Co;
+      for (int ps = 0; ps < passes; ++ps) {
+        const int id = ps * GLU_THREADS + tid;
+        if (id >= NW) break;
+        const int wc2 = id % nc, wk2 = id / nc;
+        float aw[4][CT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) {
+            const int k = wk2 + nk * i, c = wc2 + nc * j;
+            aw[i][j] = tile > tile0 && k < Co && c < Co ? pw[k * Co + c] : 0.f;
+          }
+        for (int p = 0; p < P; p += 4) {
+          float4 a[4], d[CT];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(yt + (wk2 + nk * i) * PS + p);
+#pragma unroll
+          for (int j = 0; j < CT; ++j) d[j] = *reinterpret_cast<const float4*>(dt + (wc2 + nc * j) * PS + p);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < CT; ++j) {
+              float sw = aw[i][j];
+              sw = fmaf(a[i].x, d[j].x, sw);
+              sw = fmaf(a[i].y, d[j].y, sw);
+              sw = fmaf(a[i].z, d[j].z, sw);
+              aw[i][j] = fmaf(a[i].w, d[j].w, sw);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) {
+            const int k = wk2 + nk * i, c = wc2 + nc * j;
+            if (k < Co && c < Co) pw[k * Co + c] = aw[i][j];
+          }
+      }
+    } else if (wthr) {  // C
       for (int p = wp * pr; p < wp * pr + pr; p += 4) {
         float4 a[4], d[CT];
 #pragma unroll
@@ -1122,17 +1518,17 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc2[i][j] = 0.f;
-    if (prod) {  // D
-#pragma unroll 4
-      for (int c = 0; c < Co; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(dt + c * PS + pg * 4);
-        const float4 w = *reinterpret_cast<const float4*>(wgT_s + c * CP + cg * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(av[i], wv[j], acc2[i][j]);
+    if constexpr (WIDE) {  // D's product over slices of Wg^T (B's slice is read)
+      for (int c0 = 0; c0 < Co; c0 += KS) {
+        __syncthreads();
+        stage_rows(wgt, c0);
+        __syncthreads();
+        if (prod) product(acc2, dt, wgT_s, c0, min(KS, Co - c0));
       }
+    } else if (prod) {
+      product(acc2, dt, wgT_s, 0, Co);
+    }
+    if (prod) {  // D
       // y again (from L2), for the lane sums of dybn * y; loaded after the
       // product, whose registers it would otherwise crowd into spills
 #pragma unroll
@@ -1162,21 +1558,25 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
       }
     }
     __syncthreads();
-    for (int l = tid; l < L; l += GLU_THREADS) {  // E2: the lane sums of dybn * y and dybn
-      const int f = l / Co;
-      const int c = l - f * Co;
+    for (int e = tid; e < nl; e += GLU_THREADS) {  // E2: the lane sums of dybn * y and dybn
+      const int j = e / Co;
+      const int c = e - j * Co;
+      const int f = f_first + j < F ? f_first + j : f_first + j - F;
       float s1 = 0.f, s2 = 0.f;
-      for (int p = (f - f_first + F) % F; p < P && m0 + p < Ptot; p += F) {
+      for (int p = j; p < P && m0 + p < Ptot; p += F) {
         s1 += dt[c * PS + p];
         s2 += yt[c * PS + p];
       }
-      lane_s[l] += s1;
-      lane_s[L + l] += s2;
+      lane_s[f * Co + c] += s1;
+      lane_s[L + f * Co + c] += s2;
     }
   }
   __syncthreads();
-  float* pl = part_l + (long long)blockIdx.x * 3 * L;
-  for (int i = tid; i < 3 * L; i += GLU_THREADS) pl[i] = lane_s[i];
+  if (lanes_smem) {
+    float* pl = part_l + (long long)blockIdx.x * 3 * L;
+    for (int i = tid; i < 3 * L; i += GLU_THREADS) pl[i] = lane_s[i];
+  }
+  if constexpr (WIDE) return;  // dWg is in part_w already
   // the PG position groups' dWg, added in group order into the block's
   // partial (yt and dt, free now, hold PG * Co * Co <= 8192 floats)
   const int CC = Co * Co;
@@ -1447,6 +1847,219 @@ __global__ void __launch_bounds__(GLU_FWD_THREADS, 3) glu_fwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// glu_drop_pool in bf16 on the tensor cores. 256 threads; a tile is NQ
+// pooled outputs = P = 512 / NI positions (ordered by pooled output, then
+// window element, as glu_fwd_kernel's), block (x, y) takes output channels
+// [n0, n0 + CT), CT = 16 NI, of tiles x, x + gridDim.x, ... (narrow
+// channel tiles take more positions: every warp keeps 32 accumulators).
+// Per tile:
+//   A  BN(y) in fp32 (a multiply, then an add, each rounded), rounded to
+//      bf16 into As [P][KP + 8] (the product's operand, pallas_cnn.py:277),
+//      and unrounded into gt [P][CT + 8] for the block's channels (the
+//      sigmoid's operand, :279); 8 channels (16 bytes of y) an item;
+//   B  lin = As Wg on mma.sync m16n8k16 (fp32 accumulators): 8 warps as
+//      4 x 2 over the tile's rows (MI = 8 / NI m16 tiles a warp) and CT
+//      columns, A and B fragments by ldmatrix; Bs [CT][KP + 8] = Wg^T of
+//      the channel tile, staged once;
+//   C  GLU = (lin + bg) sigmoid(BN(y)) written over gt, in place (each
+//      element read and written by its own thread);
+//   D  dropout from the bits and the window's sum in window order, as
+//      glu_fwd_kernel adds them, z rounded to bf16 once (:292).
+// The row strides KP + 8 (bf16) and CT + 8 (fp32) keep ldmatrix's 8 rows
+// and the fragments' float2 accesses in distinct banks.
+// smem: As | Bs | gt | rowq [NQ] | fq [NQ].
+// ---------------------------------------------------------------------------
+constexpr int GLU_MMA_ROWS = 512;  // P * NI: positions a tile x n8 tiles a warp
+
+template <int NI>
+__global__ void __launch_bounds__(GLU_FWD_THREADS, 2) glu_fwd_mma_kernel(
+    const bf16* __restrict__ y, const float* __restrict__ scale_f,
+    const float* __restrict__ bias_f, const bf16* __restrict__ wg, const bf16* __restrict__ bg,
+    const uint8_t* __restrict__ bits, bf16* __restrict__ z, int B, int T, int F, int Co, int pt,
+    int pf, int keep_thresh, float inv_keep, int KP, int NQ, int n_tiles) {
+  constexpr int MI = 8 / NI, P = GLU_MMA_ROWS / NI, CT = 16 * NI, GS = CT + 8;
+  const int AS = KP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const As = reinterpret_cast<bf16*>(smem_raw);  // [P][AS]
+  bf16* const Bs = As + P * AS;                        // [CT][AS]
+  float* const gt = reinterpret_cast<float*>(Bs + CT * AS);  // [P][GS]
+  int* const rowq = reinterpret_cast<int*>(gt + P * GS);     // [NQ], -1 past the last
+  int* const fq = rowq + NQ;                                  // [NQ]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n0 = blockIdx.y * CT;
+  const int W = pt * pf, To = T / pt, Fo = F / pf;
+  const int Q = B * To * Fo;
+  const float inv_w = 1.f / (float)W;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // Bs[n][k] = Wg[k][n0 + n], zeros past Co (reads along n, coalesced)
+  for (int i = tid; i < CT * KP; i += GLU_FWD_THREADS) {
+    const int k = i / CT, n = i - k * CT;
+    Bs[n * AS + k] = k < Co && n0 + n < Co ? wg[(long long)k * Co + n0 + n] : zero;
+  }
+  const unsigned as = (unsigned)__cvta_generic_to_shared(As);
+  const unsigned bs = (unsigned)__cvta_generic_to_shared(Bs);
+  const int arow = wm * 16 * MI + (lane & 15), achunk = (lane >> 4) * 8;
+  const int brow = wn * NI * 8 + (NI >= 2 ? (lane >> 4) * 8 : 0) + (lane & 7);
+  const int bchunk = ((lane >> 3) & 1) * 8;
+  const int nch = KP / 8;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int q0 = tile * NQ;
+    __syncthreads();  // Bs staged / the previous tile's D pass and products done
+    for (int qq = tid; qq < NQ; qq += GLU_FWD_THREADS) {
+      const int q = q0 + qq;
+      int base = -1, f0 = 0;
+      if (q < Q) {
+        const int fo = q % Fo, bt = q / Fo;
+        f0 = fo * pf;
+        base = ((bt / To) * T + (bt % To) * pt) * F + f0;
+      }
+      rowq[qq] = base;
+      fq[qq] = f0;
+    }
+    __syncthreads();
+    // A: position p, channels c .. c + 7
+    for (int it = tid; it < P * nch; it += GLU_FWD_THREADS) {
+      const int p = it / nch, c = (it - p * nch) * 8;
+      const int qq = p / W, wi = p - qq * W;
+      const int base = qq < NQ ? rowq[qq] : -1;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = 0.f;
+      if (base >= 0 && c < Co) {
+        const int m = base + wi / pf * F + wi % pf;
+        const int lanef = (fq[qq] + wi % pf) * Co + c;
+        float yv[8];
+        if ((Co & 7) == 0) {
+          const uint4 u = __ldg(reinterpret_cast<const uint4*>(y + (long long)m * Co + c));
+          yv[0] = bf_lo(u.x); yv[1] = bf_hi(u.x); yv[2] = bf_lo(u.y); yv[3] = bf_hi(u.y);
+          yv[4] = bf_lo(u.z); yv[5] = bf_hi(u.z); yv[6] = bf_lo(u.w); yv[7] = bf_hi(u.w);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) yv[j] = c + j < Co ? to_f(y[(long long)m * Co + c + j]) : 0.f;
+        }
+        float sv[8], bv[8];
+        {
+          const float4 s0 = ld4(scale_f + lanef, 0, Co - c), s1 = ld4(scale_f + lanef, 4, Co - c);
+          const float4 b0 = ld4(bias_f + lanef, 0, Co - c), b1 = ld4(bias_f + lanef, 4, Co - c);
+          sv[0] = s0.x; sv[1] = s0.y; sv[2] = s0.z; sv[3] = s0.w;
+          sv[4] = s1.x; sv[5] = s1.y; sv[6] = s1.z; sv[7] = s1.w;
+          bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+          bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = c + j < Co ? __fadd_rn(__fmul_rn(yv[j], sv[j]), bv[j]) : 0.f;
+      }
+      *reinterpret_cast<uint4*>(As + p * AS + c) =
+          make_uint4(bf_pack(v[0], v[1]), bf_pack(v[2], v[3]), bf_pack(v[4], v[5]),
+                     bf_pack(v[6], v[7]));
+      const int cl = c - n0;
+      if (cl >= 0 && cl < CT) {
+        *reinterpret_cast<float4*>(gt + p * GS + cl) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(gt + p * GS + cl + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+    __syncthreads();
+    // B: the product on the tensor cores
+    float acc[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    for (int k0 = 0; k0 < KP; k0 += 16) {
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        ldsm_x4(as + 2u * (unsigned)((arow + mi * 16) * AS + k0 + achunk), a[mi][0], a[mi][1],
+                a[mi][2], a[mi][3]);
+      if constexpr (NI >= 2) {
+#pragma unroll
+        for (int ni = 0; ni < NI; ni += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(bs + 2u * (unsigned)((brow + ni * 8) * AS + k0 + bchunk), b0, b1, b2, b3);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_bf16(acc[mi][ni], a[mi], b0, b1);
+            mma_bf16(acc[mi][ni + 1], a[mi], b2, b3);
+          }
+        }
+      } else {
+        uint32_t b0, b1;
+        ldsm_x2(bs + 2u * (unsigned)(brow * AS + k0 + bchunk), b0, b1);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][0], a[mi], b0, b1);
+      }
+    }
+    // C: GLU over the gate's operand, each element by its own thread
+    const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = wn * NI * 8 + ni * 8 + 2 * tq;
+      const float bg0 = n0 + n < Co ? to_f(bg[n0 + n]) : 0.f;
+      const float bg1 = n0 + n + 1 < Co ? to_f(bg[n0 + n + 1]) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* gp =
+              reinterpret_cast<float2*>(gt + (wm * 16 * MI + mi * 16 + gq + 8 * h) * GS + n);
+          const float2 gv = *gp;
+          *gp = make_float2((acc[mi][ni][2 * h] + bg0) * sigmoidf(gv.x),
+                            (acc[mi][ni][2 * h + 1] + bg1) * sigmoidf(gv.y));
+        }
+    }
+    __syncthreads();
+    // D: dropout, the window's sum in window order, z; two channels a thread
+    constexpr int CH = CT / 2;
+    for (int e = tid; e < NQ * CH; e += GLU_FWD_THREADS) {
+      const int qq = e / CH, cl = (e - qq * CH) * 2;
+      const int q = q0 + qq, c = n0 + cl;
+      if (q >= Q || c >= Co) continue;
+      float s0 = 0.f, s1 = 0.f;
+      for (int wi = 0; wi < W; ++wi) {
+        const float2 g = *reinterpret_cast<const float2*>(gt + (qq * W + wi) * GS + cl);
+        float g0 = g.x, g1 = g.y;
+        if (bits != nullptr) {
+          const uint8_t* bp = bits + (long long)(rowq[qq] + wi / pf * F + wi % pf) * Co + c;
+          g0 = (int)bp[0] < keep_thresh ? g0 * inv_keep : 0.f;
+          g1 = c + 1 < Co && (int)bp[1] < keep_thresh ? g1 * inv_keep : 0.f;
+        }
+        s0 += g0;
+        s1 += g1;
+      }
+      bf16* zp = z + (long long)q * Co + c;
+      if ((Co & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(zp) = bf_pack(s0 * inv_w, s1 * inv_w);
+      } else {
+        zp[0] = __float2bfloat16_rn(s0 * inv_w);
+        if (c + 1 < Co) zp[1] = __float2bfloat16_rn(s1 * inv_w);
+      }
+    }
+  }
+}
+
+template <int NI>
+cudaError_t launch_glu_fwd_mma(const bf16* y, const float* scale_f, const float* bias_f,
+                               const bf16* wg, const bf16* bg, const uint8_t* bits, bf16* z,
+                               int B, int T, int F, int Co, int pt, int pf, int keep_thresh,
+                               float inv_keep, const int* plan, cudaStream_t stream) {
+  static int smem_set = 0;
+  const int NQ = plan[2], KP = plan[3];
+  const int n_tiles = plan[4], grid_x = plan[5], grid_y = plan[6], smem = plan[7];
+  cudaError_t err = ensure_smem(glu_fwd_mma_kernel<NI>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  glu_fwd_mma_kernel<NI><<<dim3(grid_x, grid_y), GLU_FWD_THREADS, smem, stream>>>(
+      y, scale_f, bias_f, wg, bg, bits, z, B, T, F, Co, pt, pf, keep_thresh, inv_keep, KP, NQ,
+      n_tiles);
+  return cudaGetLastError();
+}
+
 template <int WR>
 cudaError_t launch_glu_fwd(const float* y, const float* scale_f, const float* bias_f,
                            const float* wg, const float* bg, const uint8_t* bits, float* z,
@@ -1461,6 +2074,37 @@ cudaError_t launch_glu_fwd(const float* y, const float* scale_f, const float* bi
       y, scale_f, bias_f, wg, bg, bits, z, B, T, F, Co, pt, pf, keep_thresh, inv_keep, CT, P,
       NQ, KS, n_tiles);
   return cudaGetLastError();
+}
+
+// conv_bn_stats in bf16 (Ci > 1): conv3x3_bf16_kernel at tile width BN
+template <int BN, bool VEC>
+cudaError_t launch_fwd_bf16(const bf16* x, const bf16* wt, const bf16* bias, bf16* y,
+                            float* part_s, float* part_q, int B, int T, int F, int Ci, int Co,
+                            int TT, int FF, int smem, cudaStream_t s) {
+  static int smem_set = 0;
+  auto kernel = conv3x3_bf16_kernel<BN, VEC>;
+  cudaError_t err = ensure_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
+  dim3 grid((unsigned)tiles, (unsigned)((Co + BN - 1) / BN));
+  kernel<<<grid, 256, smem, s>>>(x, wt, bias, y, part_s, part_q, B, T, F, Ci, Co, TT, FF);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_fwd_bf16_bn(int BN, const bf16* x, const bf16* wt, const bf16* bias, bf16* y,
+                               float* part_s, float* part_q, int B, int T, int F, int Ci,
+                               int Co, int TT, int FF, int smem, cudaStream_t s) {
+#define FWD16_ARGS x, wt, bias, y, part_s, part_q, B, T, F, Ci, Co, TT, FF, smem, s
+  switch (BN) {
+    case 8: return launch_fwd_bf16<8, VEC>(FWD16_ARGS);
+    case 16: return launch_fwd_bf16<16, VEC>(FWD16_ARGS);
+    case 32: return launch_fwd_bf16<32, VEC>(FWD16_ARGS);
+    case 64: return launch_fwd_bf16<64, VEC>(FWD16_ARGS);
+    case 128: return launch_fwd_bf16<128, VEC>(FWD16_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FWD16_ARGS
 }
 
 }  // namespace
@@ -1479,8 +2123,8 @@ int conv_bn_stats(const float* x, const float* w, const float* bias, float* y,
   if (stream_c1) {
     const int G = (Co + 3) / 4;
     dim3 grid((unsigned)((F * G + 255) / 256), (unsigned)n_parts);
-    conv_c1_kernel<<<grid, 256, 0, stream>>>(x, w, bias, y, part_s, part_q, B, T, F, Co,
-                                             rows_per_part);
+    conv_c1_kernel<float><<<grid, 256, 0, stream>>>(x, w, bias, y, part_s, part_q, B, T, F,
+                                                    Co, rows_per_part);
     err = cudaGetLastError();
   } else {
     err = vec ? launch_fwd_bn<4>(bn, seg, x, w, bias, y, part_s, part_q, B, T, F, Ci, Co, tt, ff,
@@ -1511,8 +2155,52 @@ int glu_drop_pool(const float* y, const float* scale_f, const float* bias_f,
     case 4: return (int)launch_glu_fwd<4>(GLU_ARGS);
     default: return (int)launch_glu_fwd<0>(GLU_ARGS);
   }
-#undef GLU_ARGS
 }
+
+// conv_bn_stats in bf16: x [B,T,F,Ci], bias [Co] and y bf16; w bf16 as
+// [3,3,Co,Ci] (Ci > 1) or [3,3,1,Co] (Ci = 1); s, q and the partials fp32.
+// plan: ops/fused_cnn.py ConvFwdPlan for bf16.
+int conv_bn_stats_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* y,
+                       float* part_s, float* part_q, float* s, float* q, int B, int T, int F,
+                       int Ci, int Co, const int* plan, cudaStream_t stream) {
+  const int stream_c1 = plan[0], vec = plan[1], bn = plan[2], tt = plan[3], ff = plan[4];
+  const int smem = plan[6], n_parts = plan[7], rows_per_part = plan[8];
+  cudaError_t err;
+  if (stream_c1) {
+    const int G = (Co + 3) / 4;
+    dim3 grid((unsigned)((F * G + 255) / 256), (unsigned)n_parts);
+    conv_c1_kernel<bf16><<<grid, 256, 0, stream>>>(x, w, bias, y, part_s, part_q, B, T, F, Co,
+                                                   rows_per_part);
+    err = cudaGetLastError();
+  } else {
+    err = vec ? launch_fwd_bf16_bn<true>(bn, x, w, bias, y, part_s, part_q, B, T, F, Ci, Co, tt,
+                                         ff, smem, stream)
+              : launch_fwd_bf16_bn<false>(bn, x, w, bias, y, part_s, part_q, B, T, F, Ci, Co,
+                                          tt, ff, smem, stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int L = F * Co;
+  lane_stats_final_kernel<<<(L + 31) / 32, 32 * STATS_RUNS, 0, stream>>>(part_s, part_q, s, q,
+                                                                        L, n_parts);
+  return (int)cudaGetLastError();
+}
+
+// glu_drop_pool in bf16 (glu_fwd_mma_kernel): y, wg, bg and z bf16;
+// scale_f, bias_f fp32. plan: GluFwdPlan for bf16, CT = plan[0].
+int glu_drop_pool_bf16(const bf16* y, const float* scale_f, const float* bias_f,
+                       const bf16* wg, const bf16* bg, const uint8_t* bits, bf16* z,
+                       int B, int T, int F, int Co, int pt, int pf,
+                       int keep_thresh, float inv_keep, const int* plan, cudaStream_t stream) {
+  if (plan[4] == 0) return (int)cudaSuccess;
+  switch (plan[0]) {
+    case 16: return (int)launch_glu_fwd_mma<1>(GLU_ARGS);
+    case 32: return (int)launch_glu_fwd_mma<2>(GLU_ARGS);
+    case 64: return (int)launch_glu_fwd_mma<4>(GLU_ARGS);
+    case 128: return (int)launch_glu_fwd_mma<8>(GLU_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#undef GLU_ARGS
 
 }  // extern "C"
 
@@ -1569,19 +2257,23 @@ int conv_bn_stats_bwd(const float* x, const float* wt, const float* y, const flo
 // dscale_f, dbias_f [F*Co]; dwg [Co, Co]; dbg [Co]. plan: the ints of
 // ops/fused_cnn.py GluBwdPlan, in its field order.
 int glu_drop_pool_bwd(const float* y, const float* scale_f, const float* bias_f,
-                      const float* wg, const float* bg, const uint8_t* bits, const float* g,
-                      float* dy, float* part_l, float* part_w, float* dscale_f,
+                      const float* wg, const float* wgt, const float* bg, const uint8_t* bits,
+                      const float* g, float* dy, float* part_l, float* part_w, float* dscale_f,
                       float* dbias_f, float* dwg, float* dbg, int B, int T, int F, int Co,
                       int pt, int pf, int keep_thresh, float inv_keep, const int* plan,
                       cudaStream_t stream) {
   const int CP = plan[0], CT = plan[1], P = plan[2], PG = plan[3];
   const int n_tiles = plan[4], tpb = plan[5], n_blocks = plan[6], smem = plan[7];
-  auto kernel = CT == 8 ? glu_bwd_kernel<8> : glu_bwd_kernel<4>;
+  const int ks = plan[8], lanes = plan[9], passes = plan[10];
+  auto kernel = passes > 1 ? glu_bwd_kernel<8, true>
+                : CT == 8  ? glu_bwd_kernel<8, false>
+                           : glu_bwd_kernel<4, false>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(y, scale_f, bias_f, wg, bg, bits, g, dy,
+  kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(y, scale_f, bias_f, wg, wgt, bg, bits, g, dy,
                                                   part_l, part_w, B, T, F, Co, pt, pf,
-                                                  keep_thresh, inv_keep, CP, P, PG, n_tiles, tpb);
+                                                  keep_thresh, inv_keep, CP, P, PG, n_tiles, tpb,
+                                                  ks, lanes, passes);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int L = F * Co;
   glu_bwd_final_lanes<<<(L + 255) / 256, 256, 0, stream>>>(part_l, dscale_f, dbias_f, L,

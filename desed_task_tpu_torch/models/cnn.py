@@ -6,13 +6,23 @@ the same parameters:
 
   * fused (`fused_blocks=True`): each GLU + BatchNorm + 3x3/stride-1/pad-1
     block is one `ops.fused_cnn.fused_glu_block` call (two CUDA kernels on
-    the card), as the JAX model selects its Pallas blocks (cnn.py:279-296).
-    The forward kernels take any width; a block whose gradients are needed
-    and whose width the GLU backward kernel does not take
-    (`ops.fused_cnn.glu_bwd_fits`, Co > 128) runs the unfused chain, a
-    route decided from the shape before any launch;
+    the card, and two backward kernels), as the JAX model selects its
+    Pallas blocks (cnn.py:279-296), at any width;
   * unfused: the plain reference chain, conv (per-tap products), BatchNorm
     eps 1e-3, GLU, avg-pool with floor semantics.
+
+`compute_dtype` (the JAX CNN's `dtype`, cnn.py:298-301): None runs in fp32;
+bf16 casts the input to bf16 and runs the stack in bf16, the parameters and
+BatchNorm statistics staying fp32. Fused, the kernels' bf16 mode; unfused,
+the flax chain's rounding points: the conv of bf16 operands summed in fp32
+and rounded, + bias in bf16 (cnn.py:168-172), BatchNorm in fp32 with a bf16
+output (:316-323), the GLU's Dense in bf16 (product rounded, + bias
+rounded), its sigmoid as jax.nn.sigmoid lowers it for bf16 (1 / (1 +
+exp(-x)), each op rounded), the gate product rounded (:29-35), dropout in
+bf16, and nn.avg_pool's bf16 sums in window order (each add rounded), then
+the division by the window. A fused bf16 block that needs gradients raises
+NotImplementedError (the backward kernels' bf16 mode is the next slice);
+the unfused bf16 chain trains through autograd.
 
 GLU(x) = Linear(x) * sigmoid(x) (the gate is the raw input, cnn.py:29-35);
 it is not torch.nn.GLU, which splits channels. The JAX module's other
@@ -37,10 +47,32 @@ import torch
 from torch import nn
 
 from ..ops.dropout import packed_keep_mask
-from ..ops.fused_cnn import conv2d_nhwc, fused_glu_block, glu_bwd_fits
+from ..ops.fused_cnn import conv2d_nhwc, fused_glu_block
 
 BN_MOMENTUM = 0.01  # flax convention (torch momentum 0.99), cnn.py:319
 BN_EPS = 1e-3
+BF16 = torch.bfloat16
+
+
+def resolve_compute_dtype(dtype) -> torch.dtype | None:
+    """The conv stack's compute dtype: None (fp32), or torch.bfloat16 for
+    torch.bfloat16 / "bfloat16"."""
+    if dtype is None or dtype in (torch.float32, "float32"):
+        return None
+    if dtype in (BF16, "bfloat16"):
+        return BF16
+    raise ValueError(f"compute_dtype {dtype!r}: None (fp32) or bfloat16")
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16, in fp32 (the value a bf16 op of flax leaves)."""
+    return t.to(BF16).float()
+
+
+def sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid of a bf16 array: 1 / (1 + exp(-x)), each op's output
+    rounded to bf16 (fp32 in, fp32 out)."""
+    return _bf(1.0 / _bf(1.0 + _bf(torch.exp(-x))))
 
 
 class Conv2d(nn.Module):
@@ -98,6 +130,21 @@ def avg_pool_floor(x, pt: int, pf: int):
     return x[:, : To * pt, : Fo * pf].reshape(B, To, pt, Fo, pf, C).mean(dim=(2, 4))
 
 
+def avg_pool_floor_bf16(x, pt: int, pf: int):
+    """avg_pool_floor as flax's nn.avg_pool does it on bf16 values (fp32 in,
+    fp32 out): the window's elements added in window order, each sum
+    rounded to bf16, then divided by the window and rounded."""
+    B, T, F, C = x.shape
+    To, Fo = T // pt, F // pf
+    xw = x[:, : To * pt, : Fo * pf].reshape(B, To, pt, Fo, pf, C)
+    acc = None
+    for i in range(pt):
+        for j in range(pf):
+            v = xw[:, :, i, :, j]
+            acc = v if acc is None else _bf(acc + v)
+    return _bf(acc / (pt * pf))
+
+
 class CNN(nn.Module):
     """Input [B, T, F, n_in_channel] -> [B, T', F', nb_filters[-1]]."""
 
@@ -113,6 +160,7 @@ class CNN(nn.Module):
         pooling: Sequence[Sequence[int]] = ((1, 4), (1, 4), (1, 4)),
         normalization: str = "batch",
         fused_blocks: bool = True,
+        compute_dtype=None,
     ):
         super().__init__()
         if activation.lower() != "glu" or normalization != "batch":
@@ -125,6 +173,7 @@ class CNN(nn.Module):
         self.stride = list(stride)
         self.pooling = [tuple(p) for p in pooling]
         self.fused_blocks = fused_blocks
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         in_ch = n_in_channel
         for i, out_ch in enumerate(nb_filters):
             self.add_module(f"conv{i}", Conv2d(in_ch, out_ch, self.kernel_size[i]))
@@ -140,29 +189,26 @@ class CNN(nn.Module):
             n_freq = ((n_freq + 2 * p - k) // s + 1) // self.pooling[i][1]
         return n_freq
 
-    def _is_fused(self, i: int, n_freq: int, backward: bool) -> bool:
-        """Block i on n_freq frequencies takes the fused kernels: a 3x3,
-        stride-1, pad-1 conv, and, where its gradients are needed
-        (`backward`), a width the GLU backward kernel takes."""
-        co = getattr(self, f"conv{i}").weight.shape[0]
+    def _is_fused(self, i: int) -> bool:
+        """Block i takes the fused kernels: a 3x3, stride-1, pad-1 conv."""
         return bool(self.fused_blocks and self.kernel_size[i] == 3
-                    and self.stride[i] == 1 and self.padding[i] == 1
-                    and (not backward or glu_bwd_fits(n_freq, co)))
+                    and self.stride[i] == 1 and self.padding[i] == 1)
 
     def forward(self, x, train: bool | None = None, generator: torch.Generator | None = None):
         """x [B, T, F, C]; `train` defaults to self.training. Conv dropout in
-        train mode draws from `generator` (on x's device)."""
+        train mode draws from `generator` (on x's device). Returns the
+        compute dtype's tensor (bf16 where `compute_dtype` is)."""
         train = self.training if train is None else train
         rate = self.conv_dropout if train else 0.0
         if rate > 0.0 and generator is None:
             raise ValueError("CNN: train-mode conv dropout needs a torch.Generator")
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         for i in range(self.n_blocks):
             conv = getattr(self, f"conv{i}")
             bn = getattr(self, f"batchnorm{i}")
             glu = getattr(self, f"glu{i}")
-            backward = torch.is_grad_enabled() and (x.requires_grad or any(
-                p.requires_grad for m in (conv, bn, glu) for p in m.parameters()))
-            if self._is_fused(i, x.shape[2], backward):
+            if self._is_fused(i):
                 x, new_mean, new_var = fused_glu_block(
                     x.contiguous(), conv.hwio(), conv.bias, bn.weight, bn.bias,
                     bn.running_mean, bn.running_var, glu.linear.weight.t(),
@@ -175,6 +221,9 @@ class CNN(nn.Module):
                         bn.running_mean.copy_(new_mean)
                         bn.running_var.copy_(new_var)
                 continue
+            if self.compute_dtype == BF16:
+                x = self._unfused_bf16(i, x, train, rate, generator)
+                continue
             x = conv2d_nhwc(x, conv.hwio(), conv.bias, self.stride[i], self.padding[i])
             x = glu(bn(x, train))
             if rate > 0.0:  # the fused block's bytes: uint8 [B, T, F*Co]
@@ -183,3 +232,21 @@ class CNN(nn.Module):
                 x = torch.where(keep.view(x.shape), x * (1.0 / (1.0 - rate)), torch.zeros_like(x))
             x = avg_pool_floor(x, *self.pooling[i])
         return x
+
+    def _unfused_bf16(self, i: int, x, train: bool, rate: float, generator):
+        """Block i of the unfused chain in bf16 (bf16 in, bf16 out), rounding
+        where the flax chain does (see the module's docstring)."""
+        conv = getattr(self, f"conv{i}")
+        bn = getattr(self, f"batchnorm{i}")
+        lin = getattr(self, f"glu{i}").linear
+        y = _bf(conv2d_nhwc(x.float(), _bf(conv.hwio()), None, self.stride[i], self.padding[i]))
+        y = _bf(y + _bf(conv.bias))
+        y = _bf(bn(y, train))
+        z = _bf(_bf(torch.matmul(y, _bf(lin.weight.t()))) + _bf(lin.bias))
+        z = _bf(z * sigmoid_bf16(y))
+        if rate > 0.0:  # the fused block's bytes: uint8 [B, T, F*Co]
+            B, T, F, Co = z.shape
+            keep = packed_keep_mask((B, T, F * Co), 1.0 - rate, generator, z.device)
+            scale = float(_bf(torch.tensor(1.0 / (1.0 - rate))))
+            z = torch.where(keep.view(z.shape), _bf(z * scale), torch.zeros_like(z))
+        return avg_pool_floor_bf16(z, *self.pooling[i]).to(BF16)

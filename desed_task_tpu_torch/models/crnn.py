@@ -8,7 +8,10 @@ the attention-pooled weak head [B, C] (softmax over CLASSES, clipped at
 1e-7, padded frames and invalid classes masked at -1e30).
 
 The constructor takes the JAX model's configuration keys, so the recipe
-dicts in `recipes_config` build either model. Train mode follows
+dicts in `recipes_config` build either model. `compute_dtype` (None: fp32,
+or bf16, crnn.py:88-90) is the conv stack's: the CNN runs in it and its
+output is cast to fp32 before the RNN (crnn.py:151, :158); parameters, BN
+statistics, the embeddings path, the RNN and the heads stay fp32. Train mode follows
 crnn.py:114-215, drawing every mask from the `generator` passed to
 `forward`; without embeddings, dropout runs only inside the dropstep branch
 (crnn.py:193-202), as there. Unlike the lazily shaped flax module, this one
@@ -91,6 +94,7 @@ class CRNN(nn.Module):
         n_mels: int = 128,
         fused_blocks: bool = True,
         rnn_kernel: bool = True,
+        compute_dtype=None,
     ):
         super().__init__()
         if rnn_type != "BGRU":
@@ -110,7 +114,7 @@ class CRNN(nn.Module):
             n_in_channel=n_in_channel, activation=activation, conv_dropout=dropout,
             kernel_size=kernel_size, padding=padding, stride=stride,
             nb_filters=nb_filters, pooling=pooling, normalization=normalization,
-            fused_blocks=fused_blocks,
+            fused_blocks=fused_blocks, compute_dtype=compute_dtype,
         )
         nb_in = nb_filters[-1]
         cnn_out = self.cnn.out_freq(n_mels) * nb_in

@@ -29,6 +29,15 @@ each forward to its backward.
 BatchNorm scale and bias math in torch, so autograd carries the gradients
 of the batch mean and variance back into conv_bn_stats_bwd as ds and dq.
 
+bf16 mode (the forward kernels, as the JAX kernels' bf16 mode): given bf16
+activations, conv_bn_stats and glu_drop_pool take bf16 operands, sum their
+products in fp32 and store y and z in bf16, rounding where
+pallas_cnn.py:171-178, :277 and :292 round (the plain versions write each
+bf16 product as an fp32 product of bf16-rounded values: exact, as "bf16
+operands, fp32 accumulation" is). The BN statistics and affine stay fp32.
+The backward kernels have no bf16 mode yet: a bf16 block that needs
+gradients raises NotImplementedError.
+
 Layouts follow the JAX package: x [B, T, F, Ci] (NHWC), w [3, 3, Ci, Co]
 (HWIO), GLU weight wg [Co_in, Co_out] (flax Dense kernel), lane = f*Co + c.
 """
@@ -65,9 +74,26 @@ def conv2d_nhwc(x, w, bias=None, stride: int = 1, pad: int = 1):
     return out if bias is None else out + bias
 
 
+def _io_dtype(name: str, *tensors) -> torch.dtype:
+    """The activations' dtype of a call: bf16 where any of `tensors` is,
+    and then all of them must be."""
+    bf = [t.dtype == torch.bfloat16 for t in tensors]
+    if any(bf) and not all(bf):
+        raise TypeError(f"{name}: mixed dtypes "
+                        f"{[str(t.dtype) for t in tensors]}: all bf16 or none")
+    return torch.bfloat16 if bf[0] else tensors[0].dtype
+
+
 def conv_bn_stats_plain(x, w, bias):
     """y = conv3x3_same(x, w) + bias [B, T, F, Co]; s, q = per-lane sum and
-    sum of squares of y over the B*T rows, each [F*Co]."""
+    sum of squares of y over the B*T rows, each [F*Co]. bf16 x, w, bias:
+    the products of bf16 values summed in fp32, + bias in fp32, y rounded to
+    bf16, s and q (fp32) of the rounded y (pallas_cnn.py:171-178)."""
+    if _io_dtype("conv_bn_stats", x, w, bias) == torch.bfloat16:
+        y = conv2d_nhwc(x.float(), w.float(), bias.float()).to(torch.bfloat16)
+        B, T, F, Co = y.shape
+        yl = y.float().reshape(B * T, F * Co)
+        return y, yl.sum(0), (yl * yl).sum(0)
     y = conv2d_nhwc(x, w, bias)
     B, T, F, Co = y.shape
     yl = y.reshape(B * T, F * Co)
@@ -75,17 +101,24 @@ def conv_bn_stats_plain(x, w, bias):
 
 
 def glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0):
-    """z [B, T//pt, F//pf, Co] = avgpool(drop(GLU(y * scale_f + bias_f)))."""
+    """z [B, T//pt, F//pf, Co] = avgpool(drop(GLU(y * scale_f + bias_f))).
+    bf16 y, wg, bg: BN(y) in fp32, rounded to bf16 as the product's operand
+    (pallas_cnn.py:277), the sigmoid of the unrounded BN(y) (:279), dropout
+    and pool in fp32, z rounded to bf16 once (:292)."""
+    bf = _io_dtype("glu_drop_pool", y, wg, bg) == torch.bfloat16
     B, T, F, Co = y.shape
     pt, pf = pool
+    if bf:
+        y, wg, bg = y.float(), wg.float(), bg.float()
     ybn = y * scale_f.view(F, Co) + bias_f.view(F, Co)
-    z = (torch.matmul(ybn, wg) + bg) * torch.sigmoid(ybn)
+    lin_in = ybn.to(torch.bfloat16).float() if bf else ybn  # bf16-rounded, in fp32
+    z = (torch.matmul(lin_in, wg) + bg) * torch.sigmoid(ybn)
     if bits is not None:
         keep = bits.view(B, T, F, Co).to(torch.int32) < keep_threshold(keep_prob)
         z = torch.where(keep, z * (1.0 / keep_prob), torch.zeros_like(z))
     To, Fo = T // pt, F // pf
-    z = z[:, : To * pt, : Fo * pf].reshape(B, To, pt, Fo, pf, Co)
-    return z.mean(dim=(2, 4))
+    z = z[:, : To * pt, : Fo * pf].reshape(B, To, pt, Fo, pf, Co).mean(dim=(2, 4))
+    return z.to(torch.bfloat16) if bf else z
 
 
 def conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx: bool = True):
@@ -146,46 +179,60 @@ def glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_p
 def conv_bn_stats(x, w, bias):
     """conv3x3 SAME + bias and the per-lane BN statistics.
 
-    x [B, T, F, Ci], w [3, 3, Ci, Co], bias [Co] (float32) ->
-    (y [B, T, F, Co], s [F*Co], q [F*Co]), s/q summed over all B*T rows.
-    Deterministic: per-tile lane partials added in a fixed order
-    (`conv_fwd_plan`).
+    x [B, T, F, Ci], w [3, 3, Ci, Co], bias [Co], all float32 or all bf16 ->
+    (y [B, T, F, Co] in x's dtype, s [F*Co], q [F*Co] float32), s/q summed
+    over all B*T rows (in bf16 mode: of the rounded y; its kernel runs its
+    products on the tensor cores). Deterministic: per-tile lane partials
+    added in a fixed order (`conv_fwd_plan`). Launches count under
+    "conv_bn_stats" (fp32) or "conv_bn_stats.bf16".
     """
+    dtype = _io_dtype("conv_bn_stats", x, w, bias)
     if x.device.type == "cpu":
         return conv_bn_stats_plain(x, w, bias)
-    _build.require_cuda_f32("conv_bn_stats", x, w, bias)
+    bf = dtype == torch.bfloat16
+    _build.require_cuda("conv_bn_stats", torch.bfloat16 if bf else torch.float32, x, w, bias)
     B, T, F, Ci = x.shape
     Co = w.shape[-1]
     if tuple(w.shape) != (3, 3, Ci, Co) or tuple(bias.shape) != (Co,):
         raise ValueError(f"conv_bn_stats: w {tuple(w.shape)}, bias {tuple(bias.shape)}")
-    plan = conv_fwd_plan(B, T, F, Ci, Co)
-    w = _aligned(w)
+    plan = conv_fwd_plan(B, T, F, Ci, Co, bf16=bf)
+    if bf and Ci > 1:  # the tensor-core kernel reads w as [3, 3, Co, Ci]
+        w = w.permute(0, 1, 3, 2).contiguous()
+    x, w = _aligned(x), _aligned(w)
     L = F * Co
-    y = torch.empty((B, T, F, Co), device=x.device, dtype=torch.float32)
+    y = torch.empty((B, T, F, Co), device=x.device, dtype=dtype)
     part = torch.empty((2, plan.n_parts, L), device=x.device, dtype=torch.float32)
     s = torch.empty((L,), device=x.device, dtype=torch.float32)
     q = torch.empty((L,), device=x.device, dtype=torch.float32)
-    fn = _build.function("fused_cnn", "conv_bn_stats",
-                         [_build.P] * 8 + [_build.I] * 5 + [_build.P] * 2)
+    entry = "conv_bn_stats_bf16" if bf else "conv_bn_stats"
+    fn = _build.function("fused_cnn", entry, [_build.P] * 8 + [_build.I] * 5 + [_build.P] * 2)
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
              part[0].data_ptr(), part[1].data_ptr(), s.data_ptr(), q.data_ptr(),
              B, T, F, Ci, Co, _c_ints(plan), _build.stream_ptr(x))
-    _build.check(err, "conv_bn_stats")
-    _build.count_launch("conv_bn_stats")
+    _build.check(err, entry)
+    _build.count_launch("conv_bn_stats.bf16" if bf else "conv_bn_stats")
     return y, s, q
 
 
 def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0):
     """BN-apply + GLU + optional dropout + T/F avg-pool.
 
-    y [B, T, F, Co]; scale_f, bias_f [F*Co] float32; wg [Co, Co]; bg [Co];
-    bits uint8 [B, T, F*Co] or None. Returns z [B, T//pt, F//pf, Co]. Any
-    Co: the kernel takes channel tiles and Wg in slices (`glu_fwd_plan`).
+    y [B, T, F, Co], wg [Co, Co], bg [Co], all float32 or all bf16;
+    scale_f, bias_f [F*Co] float32; bits uint8 [B, T, F*Co] or None.
+    Returns z [B, T//pt, F//pf, Co] in y's dtype. fp32: any Co, the kernel
+    takes channel tiles and Wg in slices; bf16: the tensor-core kernel holds
+    Wg^T of a channel tile whole, Co up to about 500 (`glu_fwd_plan`).
+    Launches count under "glu_drop_pool" (fp32) or "glu_drop_pool.bf16".
     """
+    dtype = _io_dtype("glu_drop_pool", y, wg, bg)
     if y.device.type == "cpu":
         return glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bits,
                                    pool=pool, keep_prob=keep_prob)
-    _build.require_cuda_f32("glu_drop_pool", y, scale_f, bias_f, wg, bg)
+    bf = dtype == torch.bfloat16
+    _build.require_cuda("glu_drop_pool", torch.bfloat16 if bf else torch.float32, y, wg, bg)
+    _build.require_cuda_f32("glu_drop_pool", scale_f, bias_f)
+    if scale_f.device != y.device:
+        raise ValueError("glu_drop_pool: all tensors must be on one CUDA device")
     B, T, F, Co = y.shape
     pt, pf = pool
     if scale_f.numel() != F * Co or bias_f.numel() != F * Co or tuple(wg.shape) != (Co, Co):
@@ -195,18 +242,19 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
             raise ValueError("glu_drop_pool: bits must be contiguous uint8 like y")
         if bits.device != y.device:
             raise ValueError("glu_drop_pool: bits must be on y's device")
-    plan = glu_fwd_plan(B, T, F, Co, (pt, pf))
+    plan = glu_fwd_plan(B, T, F, Co, (pt, pf), bf16=bf)
     y, scale_f, bias_f, wg = (_aligned(t) for t in (y, scale_f, bias_f, wg))
     bits = None if bits is None else _aligned(bits)
-    z = torch.empty((B, T // pt, F // pf, Co), device=y.device, dtype=torch.float32)
-    fn = _build.function("fused_cnn", "glu_drop_pool",
+    z = torch.empty((B, T // pt, F // pf, Co), device=y.device, dtype=dtype)
+    entry = "glu_drop_pool_bf16" if bf else "glu_drop_pool"
+    fn = _build.function("fused_cnn", entry,
                          [_build.P] * 7 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P])
     err = fn(y.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), wg.data_ptr(),
              bg.data_ptr(), None if bits is None else bits.data_ptr(), z.data_ptr(),
              B, T, F, Co, pt, pf, keep_threshold(keep_prob), 1.0 / keep_prob,
              _c_ints(plan), _build.stream_ptr(y))
-    _build.check(err, "glu_drop_pool")
-    _build.count_launch("glu_drop_pool")
+    _build.check(err, entry)
+    _build.count_launch("glu_drop_pool.bf16" if bf else "glu_drop_pool")
     return z
 
 
@@ -344,9 +392,11 @@ class ConvFwdPlan:
     STATS epilogue on tiles of tt frames x ff frequencies (bn output
     channels, seg: three taps a halo read), DX_BC input channels a stage,
     smem bytes; one lane partial per (clip, frame tile), n_parts = B *
-    ceil(T / tt). Ci = 1 (stream): n_parts runs of rows_per_part frames
-    (b, t). Each lane's partials are added in row order, as STATS_RUNS runs
-    of consecutive rows added in run order."""
+    ceil(T / tt). In bf16, conv3x3_bf16_kernel on the tensor cores: tiles
+    of tt x ff <= bf16_rows(bn) rows, BF16_BK input channels a stage, vec:
+    16-byte copies (Ci % 8 == 0). Ci = 1 (stream): n_parts runs of
+    rows_per_part frames (b, t). Each lane's partials are added in row
+    order, as STATS_RUNS runs of consecutive rows added in run order."""
 
     stream: int
     vec: int
@@ -372,8 +422,32 @@ def fwd_smem(tt: int, ff: int, bn: int) -> int:
     return max(dx_smem(tt, ff, bn), 4 * tt * ff * bn)
 
 
-def conv_fwd_plan(B: int, T: int, F: int, Ci: int, Co: int) -> ConvFwdPlan:
+BF16_BK = 16  # input channels a stage of the bf16 conv: one mma k-step a tap (csrc BK)
+
+
+def bf16_rows(bn: int) -> int:
+    """Rows of a bf16 conv tile: 8 warps as 4 x 2 (bn >= 64) or 8 x 1 over
+    the tile's rows and channels, each 2 (bn = 128) or 4 m16 tiles of rows
+    (csrc WM, WN, MI)."""
+    wm, mi = (4 if bn >= 64 else 8), (2 if bn == 128 else 4)
+    return wm * 16 * mi
+
+
+def fwd_bf16_smem(tt: int, ff: int, bn: int) -> int:
+    """Two stages of the halo and the [9][bn] weight rows, 16 bf16 channels a
+    row, or the epilogue's fp32 y tile [tt * ff][bn + 8], whichever is larger."""
+    return max(2 * 2 * BF16_BK * ((tt + 2) * (ff + 2) + 9 * bn), 4 * tt * ff * (bn + 8))
+
+
+def conv_fwd_plan(B: int, T: int, F: int, Ci: int, Co: int, bf16: bool = False) -> ConvFwdPlan:
     vec = int(Co % 4 == 0)
+    if bf16 and Ci > 1:  # the tensor-core kernel
+        bn = _pow2_tile(Co, 8, 128)
+        ff = min(F, bf16_rows(bn))
+        tt, ff = _shrink(max(1, min(T, bf16_rows(bn) // ff)), ff,
+                         lambda a, b: fwd_bf16_smem(a, b, bn), SMEM_HALF)
+        return ConvFwdPlan(0, int(Ci % 8 == 0), bn, tt, ff, 0, fwd_bf16_smem(tt, ff, bn),
+                           B * _cdiv(T, tt), 0)
     if Ci == 1:  # the streaming kernel: a thread a frequency and 4 channels
         if B * T * F >= 2**31:
             raise ValueError("conv_bn_stats: the Ci=1 kernel counts rows in 32-bit ints")
@@ -393,7 +467,12 @@ class GluBwdPlan:
     """glu_drop_pool_bwd's kernel at one shape: channels padded to cp (zero
     weights), dWg thread tiles of 4 x ct, tiles of p positions (p x cp <=
     16 x GLU_THREADS), pg groups of threads splitting a tile's positions
-    for dWg, n_tiles tiles, tpb per block, n_blocks blocks; smem bytes."""
+    for dWg, n_tiles tiles, tpb per block, n_blocks blocks; smem bytes;
+    ks: 0 where Wg and Wg^T are staged whole, once, else the rows of the
+    slices staged per product (the wide kernel, Co > 128); lanes: 1 where
+    the F*Co lane sums are kept in shared memory, 0 where each block keeps
+    them in its partial row in device memory; passes: the wide kernel's
+    passes over the dWg entries (1: dWg in registers)."""
 
     cp: int
     ct: int
@@ -403,53 +482,72 @@ class GluBwdPlan:
     tpb: int
     n_blocks: int
     smem: int
+    ks: int
+    lanes: int
+    passes: int
 
     def ints(self) -> list[int]:
         return [int(getattr(self, f.name)) for f in fields(self)]
 
 
-def glu_smem(F: int, Co: int, cp: int, p: int) -> int:
-    """Wg, Wg^T, the tile's two [cp, p + 4] buffers and the lane sums."""
-    return 4 * (2 * Co * cp + 2 * cp * (p + 4) + 3 * F * Co)
+GLU_MAX_CP = 4 * GLU_THREADS  # four channels a product thread, one position group at least
 
 
-def _glu_bwd_threads(Co: int) -> tuple[int, int, int]:
-    """(cp, ct, pg) of glu_drop_pool_bwd for 1 <= Co <= 128."""
+def glu_smem(F: int, Co: int, cp: int, p: int, ks: int = 0, lanes: int = 1) -> int:
+    """Wg and Wg^T whole (ks 0) or one slice of ks rows, the tile's two
+    [cp, p + 4] buffers, and the lane sums where they are kept in shared
+    memory (lanes 1)."""
+    w = 2 * Co * cp if ks == 0 else ks * cp
+    return 4 * (w + 2 * cp * (p + 4) + (3 * F * Co if lanes else 0))
+
+
+def _glu_bwd_threads(Co: int) -> tuple[int, int, int, int]:
+    """(cp, ct, pg, passes) of glu_drop_pool_bwd: dWg tiles of 4 x ct a
+    thread, pg position groups where the tiles leave threads over, else
+    `passes` passes of GLU_THREADS tiles."""
     cp = _cdiv(Co, 4) * 4
-    if (cp // 4) ** 2 > GLU_THREADS:  # 4 x 8 dWg tiles: one a thread at most
+    if (cp // 4) ** 2 > GLU_THREADS:  # 4 x 8 dWg tiles
         cp = _cdiv(Co, 8) * 8
     ct = 4 if (cp // 4) ** 2 <= GLU_THREADS else 8
-    return cp, ct, max(1, GLU_THREADS // ((cp // 4) * (cp // ct)))
-
-
-def glu_bwd_fits(F: int, Co: int) -> bool:
-    """Whether glu_drop_pool_bwd takes blocks of F frequencies and Co
-    channels: Wg and Wg^T and the F*Co lane sums in one block's shared
-    memory, beside a tile of the least positions. `models.cnn.CNN` sends a
-    block that needs its gradients and fails this to the unfused chain."""
-    if not 1 <= Co <= 128:
-        return False
-    cp, _, pg = _glu_bwd_threads(Co)
-    return glu_smem(F, Co, cp, 4 * pg) <= SMEM_LIMIT
+    nw = (cp // 4) * (cp // ct)
+    return cp, ct, max(1, GLU_THREADS // nw), _cdiv(nw, GLU_THREADS)
 
 
 def glu_bwd_plan(B: int, T: int, F: int, Co: int) -> GluBwdPlan:
-    if not 1 <= Co <= 128:
-        raise ValueError(f"glu_drop_pool_bwd: Co={Co}: the kernel takes 1 <= Co <= 128")
+    """Up to Co = 128 (one dWg tile a thread at most): Wg and Wg^T staged
+    once, the lane sums in shared memory at the largest tile that fits them,
+    else in device memory at the full tile. Wider: Wg and Wg^T in slices of
+    as many rows as fit beside the tile (and the lane sums, where they fit),
+    dWg in passes through the block's partial in device memory."""
+    if Co < 1:
+        raise ValueError(f"glu_drop_pool_bwd: Co={Co}")
+    cp, ct, pg, passes = _glu_bwd_threads(Co)
+    if cp > GLU_MAX_CP:
+        raise ValueError(f"glu_drop_pool_bwd: Co={Co}: the kernel takes Co <= {GLU_MAX_CP} "
+                         f"(four channels a thread, {GLU_THREADS} threads)")
     if B * T * F + 16 * GLU_THREADS >= 2**31:
         raise ValueError("glu_drop_pool_bwd: the kernel counts positions in 32-bit ints")
-    if not glu_bwd_fits(F, Co):
-        raise ValueError(f"glu_drop_pool_bwd: F={F}, Co={Co} do not fit the kernel "
-                         "(the lane sums of F*Co lanes in shared memory)")
-    cp, ct, pg = _glu_bwd_threads(Co)
     step = 4 * pg
-    p = max(step, 16 * GLU_THREADS // cp // step * step)
-    while glu_smem(F, Co, cp, p) > SMEM_LIMIT and p > step:
-        p = max(step, p // 2 // step * step)
+    p_full = max(step, 16 * GLU_THREADS // cp // step * step)
+    fits = lambda p, ks, lanes: glu_smem(F, Co, cp, p, ks, lanes) <= SMEM_LIMIT
+    if passes == 1:
+        ks, p = 0, p_full
+        while not fits(p, 0, 1) and p > step:
+            p = max(step, p // 2 // step * step)
+        lanes = int(fits(p, 0, 1))
+        if not lanes:
+            p = p_full
+    else:
+        p = p_full
+        lanes = int(fits(p, 4, 1))
+        rest = SMEM_LIMIT - 4 * (2 * cp * (p + 4) + (3 * F * Co if lanes else 0))
+        ks = min(Co, rest // (4 * cp) // 4 * 4)
+    if not fits(p, ks, lanes):
+        raise ValueError(f"glu_drop_pool_bwd: F={F}, Co={Co}: one tile does not fit")
     n_tiles = max(1, _cdiv(B * T * F, p))
     tpb = _cdiv(n_tiles, min(SM_COUNT, n_tiles))
     return GluBwdPlan(cp, ct, p, pg, n_tiles, tpb, _cdiv(n_tiles, tpb),
-                      glu_smem(F, Co, cp, p))
+                      glu_smem(F, Co, cp, p, ks, lanes), ks, lanes, passes)
 
 
 GLU_FWD_THREADS = 256  # glu_drop_pool's block (csrc GLU_FWD_THREADS)
@@ -464,7 +562,11 @@ class GluFwdPlan:
     outputs of pt*pf positions each (ordered by pooled output, then window
     element), ct/4 x p/4 = 256 threads of 4 x 4; Wg in slices of ks rows
     (ks >= Co: staged once); n_tiles tiles over grid_x persistent blocks;
-    smem bytes (with two int tables of nq, the rows of the tile's windows)."""
+    smem bytes (with two int tables of nq, the rows of the tile's windows).
+    In bf16, the tensor-core kernel's: tiles of ct = 16 .. 128 channels and
+    p = GLU_MMA_ROWS / (ct / 16) positions (every warp 32 accumulators),
+    ks = Co padded to 16 (the product's depth), Wg^T of the channel tile
+    staged once."""
 
     ct: int
     p: int
@@ -485,8 +587,42 @@ def glu_fwd_smem(Co: int, ct: int, p: int, ks: int, nq: int) -> int:
     return 4 * (ks * ct + max(_cdiv(Co, 4) * 4, ct) * (p + 4) + 2 * nq)
 
 
-def glu_fwd_plan(B: int, T: int, F: int, Co: int, pool) -> GluFwdPlan:
+GLU_MMA_ROWS = 512  # positions x n8 tiles a warp of the tensor-core GLU (csrc GLU_MMA_ROWS)
+
+
+def glu_mma_smem(Co: int, ct: int, p: int, nq: int) -> int:
+    """The tensor-core GLU's As [p][kp + 8] and Bs [ct][kp + 8] (bf16, kp =
+    Co padded to 16), gt [p][ct + 8] (fp32) and the window tables [2][nq]."""
+    kp = _cdiv(Co, 16) * 16
+    return 2 * (p + ct) * (kp + 8) + 4 * p * (ct + 8) + 4 * 2 * nq
+
+
+def _glu_mma_plan(B: int, T: int, F: int, Co: int, pool) -> GluFwdPlan:
     pt, pf = pool
+    ct = 16
+    while ct < min(Co, 128):
+        ct *= 2
+    p = GLU_MMA_ROWS // (ct // 16)
+    if pt * pf > p:
+        raise ValueError(f"glu_drop_pool: a pool window of {pt * pf} positions outgrows "
+                         f"the bf16 kernel's tile of {p}")
+    nq = p // (pt * pf)
+    smem = glu_mma_smem(Co, ct, p, nq)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"glu_drop_pool: Co={Co}: one bf16 tile does not fit in shared memory")
+    if B * T * F + p >= 2**31:
+        raise ValueError("glu_drop_pool: the kernel counts positions in 32-bit ints")
+    n_tiles = _cdiv(B * (T // pt) * (F // pf), nq)
+    grid_y = _cdiv(Co, ct)
+    per_sm = max(1, min(2, SMEM_SM // (smem + 1024)))
+    grid_x = min(n_tiles, max(1, SM_COUNT * per_sm // grid_y))
+    return GluFwdPlan(ct, p, nq, _cdiv(Co, 16) * 16, n_tiles, grid_x, grid_y, smem)
+
+
+def glu_fwd_plan(B: int, T: int, F: int, Co: int, pool, bf16: bool = False) -> GluFwdPlan:
+    pt, pf = pool
+    if bf16:
+        return _glu_mma_plan(B, T, F, Co, pool)
     cg = 1
     while cg < min(_cdiv(Co, 4), 32):
         cg *= 2
@@ -554,9 +690,9 @@ def conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx: bool = True):
 
 def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.0):
     """Backward of glu_drop_pool (see `glu_drop_pool_bwd_plain`), one pass
-    over y recomputing BN(y), the GLU product and the sigmoid. Needs
-    Co <= 128. Deterministic: per-block partial sums in a fixed order
-    (`glu_bwd_plan`)."""
+    over y recomputing BN(y), the GLU product and the sigmoid, at any Co up
+    to GLU_MAX_CP and any F (`glu_bwd_plan`). Deterministic: per-block
+    partial sums in a fixed order."""
     if y.device.type == "cpu":
         return glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits, g,
                                        pool=pool, keep_prob=keep_prob)
@@ -582,10 +718,12 @@ def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.
     dbias_f = torch.empty((L,), device=dev, dtype=torch.float32)
     dwg = torch.empty((Co, Co), device=dev, dtype=torch.float32)
     dbg = torch.empty((Co,), device=dev, dtype=torch.float32)
+    wgt = wg.t().contiguous() if plan.passes > 1 else None  # the wide kernel's Wg^T slices
     fn = _build.function("fused_cnn", "glu_drop_pool_bwd",
-                         [_build.P] * 14 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P])
+                         [_build.P] * 15 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P])
     err = fn(y.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), wg.data_ptr(),
-             bg.data_ptr(), None if bits is None else bits.data_ptr(), g.data_ptr(),
+             None if wgt is None else wgt.data_ptr(), bg.data_ptr(),
+             None if bits is None else bits.data_ptr(), g.data_ptr(),
              dy.data_ptr(), part_l.data_ptr(), part_w.data_ptr(), dscale_f.data_ptr(),
              dbias_f.data_ptr(), dwg.data_ptr(), dbg.data_ptr(), B, T, F, Co, pt, pf,
              keep_threshold(keep_prob), 1.0 / keep_prob, _c_ints(plan), _build.stream_ptr(y))
@@ -658,12 +796,24 @@ def fused_glu_block(
     otherwise they are drawn from `generator` (on x's device). The kernels
     enter the autograd graph only when grad mode is on and an input needs a
     gradient; the running-statistics update is detached (pallas_cnn.py:720).
+    bf16 x: w, the conv bias, wg and bg are rounded to bf16 (pallas_cnn.py:
+    713, :738), the kernels run in their bf16 mode and z is bf16; the BN
+    statistics, scale and bias stay fp32 (:727-728). Its gradients need the
+    backward kernels' bf16 mode, which is not ported yet.
     """
     B, T, F, Ci = x.shape
     Co = w.shape[-1]
-    w, bias, wg, bg = w.contiguous(), bias.contiguous(), wg.contiguous(), bg.contiguous()
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w, bias, gamma, beta, wg, bg))
+    if x.dtype == torch.bfloat16:
+        if grad:
+            raise NotImplementedError(
+                "fused_glu_block: gradients through a bf16 block need the bf16 modes of "
+                "conv_bn_stats_bwd and glu_drop_pool_bwd (Pallas rows 3 and 4), the next "
+                "slice of the port with the bf16 train step; run the block under "
+                "torch.no_grad() or in float32")
+        w, bias, wg, bg = (t.to(torch.bfloat16) for t in (w, bias, wg, bg))
+    w, bias, wg, bg = w.contiguous(), bias.contiguous(), wg.contiguous(), bg.contiguous()
     if grad:
         y, s, q = ConvBnStats.apply(x, w, bias)
     else:

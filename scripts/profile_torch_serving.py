@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving forward goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_serving.py
+    python3 scripts/profile_torch_serving.py [--dtype float32|bfloat16]
 
 Runs the device program of desed_task_tpu_torch's InferencePipeline for the
 2024 CRNN (batch 64, ten-second clips, 768x496 frame embeddings, MEDIAN_2024,
@@ -13,11 +13,15 @@ Runs the device program of desed_task_tpu_torch's InferencePipeline for the
     device's idle share over the traced window (wall time between the first
     and last device activity, minus the summed kernel time). Where the
     profiler records no device time, it says so instead of a share.
-The full table goes to chiprun_out/profile_torch_serving.txt.
+`--dtype bfloat16` profiles the bf16 serving configuration instead
+(`crnn_2024(compute_dtype=torch.bfloat16)` with `MelConfig(compute_dtype=
+"bfloat16")`). The full table goes to chiprun_out/profile_torch_serving.txt
+(profile_torch_serving_bf16.txt).
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -28,6 +32,9 @@ BATCH = 64
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -38,13 +45,17 @@ def main() -> int:
     from desed_task_tpu_torch.inference.pipeline import InferencePipeline
     from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
     from desed_task_tpu_torch.models.crnn import init_weights
+    from desed_task_tpu_torch.ops.frontend import MelConfig
     from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024
 
     card = card_line()
     torch.backends.cudnn.allow_tf32 = False
-    model = init_weights(crnn_2024(), torch.Generator().manual_seed(0))
+    bf = args.dtype == "bfloat16"
+    model = init_weights(crnn_2024(compute_dtype=torch.bfloat16 if bf else None),
+                         torch.Generator().manual_seed(0))
     enc = ManyHotEncoder([f"c{i}" for i in range(27)], 10, 2048, 256, 4, 16000)
-    pipe = InferencePipeline(model, None, enc, median_filter=MEDIAN_2024,
+    pipe = InferencePipeline(model, None, enc, mel_cfg=MelConfig(compute_dtype=args.dtype),
+                             median_filter=MEDIAN_2024,
                              thresholds=tuple(np.arange(1 / 100, 1, 1 / 50)),
                              batch_size=BATCH, device="cuda")
     rng = np.random.default_rng(0)
@@ -67,7 +78,7 @@ def main() -> int:
         end.synchronize()
         reps.append(start.elapsed_time(end) / 10)
     q1, med, q3 = np.percentile(reps, [25, 50, 75])
-    print(f"[{card}] forward per batch of {BATCH}: median {med:.3f} ms, "
+    print(f"[{card}] {args.dtype} forward per batch of {BATCH}: median {med:.3f} ms, "
           f"quartiles {q1:.3f} / {q3:.3f} ms over {len(reps)} repeats of 10 "
           f"({BATCH / med * 1e3:.1f} clips/s)", flush=True)
 
@@ -83,7 +94,8 @@ def main() -> int:
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_torch_serving.txt").write_text(f"{card}\n{table}\n")
+    name = "profile_torch_serving_bf16.txt" if bf else "profile_torch_serving.txt"
+    (out / name).write_text(f"{card}\n{table}\n")
     if not kernels:
         print(f"[{card}] profiler recorded no device time: idle share not measured")
         return 0

@@ -2,6 +2,7 @@
 """Time the fused conv block's forward kernels of one tree on the GPU.
 
     python3 scripts/time_conv_fwd.py [--root DIR] [--iters 20] [--library] [--kernels]
+                                     [--dtype float32|bfloat16]
 
 Imports `desed_task_tpu_torch` from DIR (default: this repository), builds
 its kernels, and prints one line per 2024 conv block, at the serving batch
@@ -14,7 +15,9 @@ peaks), the bound's share of the time and the max |kernel - plain| relative
 to max(1, max |plain|); then the sums over the seven blocks. `--library`
 also times F.conv2d (cuDNN, TF32 off) on the same input, the yardstick of
 row 1. `--kernels` adds, per block, each CUDA kernel's device time per call
-(torch.profiler over --iters calls of each wrapper).
+(torch.profiler over --iters calls of each wrapper). `--dtype bfloat16`
+times the kernels' bf16 mode (bf16 x, w, y, Wg and z; the bound counts bf16
+bytes and the products at the tensor cores' bf16 peak; F.conv2d in bf16).
 Results also go to chiprun_out/time_conv_fwd.json (one entry per run).
 To compare two versions of the kernels on one card, unpack each into its
 own directory and run them in turns in one call (A, B, B, A):
@@ -33,11 +36,12 @@ from pathlib import Path
 
 N_SAMPLES = 160000
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -47,6 +51,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--library", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
 
     import torch
@@ -99,6 +104,9 @@ def main() -> int:
     cnn = crnn_2024().cnn
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
+    dt = getattr(torch, args.dtype)
+    es = 2 if dt == torch.bfloat16 else 4  # bytes of an activation or weight
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
     entries = []
     for B in (64, 60):
         T, Fq, ci = MelConfig().num_frames(N_SAMPLES), MelConfig().n_mels, 1
@@ -106,15 +114,15 @@ def main() -> int:
         for i in range(cnn.n_blocks):
             co = getattr(cnn, f"conv{i}").weight.shape[0]
             pool = tuple(cnn.pooling[i])
-            x = torch.randn(B, T, Fq, ci, generator=gen).to(dev)
-            w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev)
-            b = (torch.randn(co, generator=gen) * 0.1).to(dev)
+            x = torch.randn(B, T, Fq, ci, generator=gen).to(dev, dt)
+            w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev, dt)
+            b = (torch.randn(co, generator=gen) * 0.1).to(dev, dt)
             conv = lambda: fused_cnn.conv_bn_stats(x, w, b)
             y, _, _ = got = conv()
             err1 = rel(got, fused_cnn.conv_bn_stats_plain(x, w, b))
             M = B * T * Fq
-            b1 = bound_ms(4 * (x.numel() + w.numel() + co + M * co + 2 * Fq * co),
-                          2 * 9 * ci * co * M + co * M + 3 * M * co)
+            b1 = bound_ms(es * (x.numel() + w.numel() + co + M * co) + 4 * 2 * Fq * co,
+                          2 * 9 * ci * co * M + co * M + 3 * M * co, peak)
             row = dict(block=i, geom=[T, Fq, ci, co], conv_ms=time_ms(conv), conv_err=err1,
                        conv_bound=b1)
             if args.library:
@@ -123,8 +131,8 @@ def main() -> int:
                 row["conv2d_ms"] = time_ms(lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))
             scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
             bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
-            wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev)
-            bg = (0.1 * torch.randn(co, generator=gen)).to(dev)
+            wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev, dt)
+            bg = (0.1 * torch.randn(co, generator=gen)).to(dev, dt)
             bits, keep = None, 1.0
             if B == 60:
                 bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen,
@@ -135,14 +143,15 @@ def main() -> int:
             z = glu()
             err2 = rel([z], [fused_cnn.glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bits,
                                                            pool=pool, keep_prob=keep)])
-            b2 = bound_ms(4 * (y.numel() + 2 * Fq * co + co * co + co + z.numel())
-                          + (0 if bits is None else bits.numel()), M * (2 * co * co + 8 * co))
+            b2 = bound_ms(es * (y.numel() + co * co + co + z.numel()) + 4 * 2 * Fq * co
+                          + (0 if bits is None else bits.numel()), M * (2 * co * co + 8 * co), peak)
             row.update(glu_ms=time_ms(glu), glu_err=err2, glu_bound=b2)
             if args.kernels:
                 row.update(conv_kernels=kernel_ms(conv), glu_kernels=kernel_ms(glu))
             rows.append(row)
             lib = f", F.conv2d {row['conv2d_ms']:.3f} ms" if "conv2d_ms" in row else ""
-            print(f"[{card}] {args.root} B={B} block {i} T={T} F={Fq} {ci}->{co}: conv_bn_stats "
+            print(f"[{card}] {args.root} {args.dtype} B={B} block {i} T={T} F={Fq} {ci}->{co}: "
+                  f"conv_bn_stats "
                   f"{row['conv_ms']:.3f} ms (bound {b1[0]:.3f} {b1[1]}, "
                   f"{b1[0] / row['conv_ms']:.0%}{lib}, err {err1:.2e}); glu_drop_pool "
                   f"{row['glu_ms']:.3f} ms (bound {b2[0]:.3f} {b2[1]}, "
@@ -160,10 +169,12 @@ def main() -> int:
         if args.library:
             tot["conv2d_ms"] = sum(r["conv2d_ms"] for r in rows)
             lib = f", F.conv2d {tot['conv2d_ms']:.3f} ms"
-        print(f"[{card}] {args.root} B={B} sum of 7 blocks: conv_bn_stats {tot['conv_ms']:.3f} ms "
+        print(f"[{card}] {args.root} {args.dtype} B={B} sum of 7 blocks: conv_bn_stats "
+              f"{tot['conv_ms']:.3f} ms "
               f"(bound {tot['conv_bound']:.3f}{lib}); glu_drop_pool {tot['glu_ms']:.3f} ms "
               f"(bound {tot['glu_bound']:.3f})", flush=True)
-        entries.append(dict(card=card, root=args.root, B=B, rows=rows, total=tot))
+        entries.append(dict(card=card, root=args.root, dtype=args.dtype, B=B, rows=rows,
+                            total=tot))
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     with open(out / "time_conv_fwd.json", "a") as fh:

@@ -4,7 +4,10 @@ glu_fwd_plan, conv_bwd_plan, glu_bwd_plan), on the CPU.
 A plan is a pure function of the shape. Walked through the index maps that
 csrc/fused_cnn.cu applies to it, every row, depth index and channel must be
 covered exactly once, shared memory must fit the card, and the order in
-which partial sums are added must follow from the shape alone.
+which partial sums are added must follow from the shape alone. The forward
+plans are walked in both modes (fp32 and bf16: the tensor-core conv's warp
+tiles and ldmatrix rows, the GLU's extra gate tile); the GLU backward plan
+also at widths past 128 channels and at F * Co lane sums past shared memory.
 """
 
 import numpy as np
@@ -133,6 +136,7 @@ def test_conv_bwd_plan_covers_dw(geom):
 def test_glu_bwd_plan_covers_positions(geom):
     B, T, F, _, Co, _ = geom
     p = fc.glu_bwd_plan(B, T, F, Co)
+    assert (p.ks, p.lanes, p.passes) == (0, 1, 1)  # Wg whole, lane sums on chip
     assert p.smem == fc.glu_smem(F, Co, p.cp, p.p) <= SMEM_LIMIT
     assert Co <= p.cp and p.cp % 4 == 0 and p.p % (4 * p.pg) == 0
     assert p.p * p.cp <= 16 * fc.GLU_THREADS
@@ -179,12 +183,120 @@ def test_plans_depend_on_the_shape_alone(geom):
     assert fc.GLU_THREADS // 32 >= 12 and g1.n_blocks <= fc.SM_COUNT
 
 
-def test_glu_bwd_plan_refuses_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError):
-        fc.glu_bwd_plan(2, 4, 4, 129)
-    with pytest.raises(ValueError):
-        fc.glu_bwd_plan(2, 4, 512, 128)  # F*Co lane sums past shared memory
+# (B, T, F, Co): 192 and 256 channels (the wide kernel: Wg in slices, dWg
+# in passes), the 256-channel block of chip_smoke.py at B=60, and F * Co lane
+# sums past shared memory (512 x 128; 64 x 128 beside the whole Wg)
+WIDE_BWD = [(2, 8, 8, 192), (60, 156, 8, 256), (2, 9, 8, 256), (2, 4, 512, 128),
+            (3, 5, 64, 128), (2, 3, 7, 200)]
 
+
+@pytest.mark.parametrize("geom", WIDE_BWD, ids=[f"F{g[2]}-Co{g[3]}" for g in WIDE_BWD])
+def test_glu_bwd_plan_wide_and_large_lanes(geom):
+    """Walked through the kernel's maps: every position once (tiles of p, tpb
+    a block), every (position, channel) of a tile once among the product
+    threads, every depth row of Wg and Wg^T once over the slices, every dWg
+    entry once over the passes, and every lane of a tile once among the lane
+    passes' threads; shared memory within the card's limit."""
+    B, T, F, Co = geom
+    p = fc.glu_bwd_plan(B, T, F, Co)
+    wide = Co > 128
+    assert (p.passes > 1) == wide and (p.ks > 0) == wide and p.pg >= 1
+    assert p.smem == fc.glu_smem(F, Co, p.cp, p.p, p.ks, p.lanes) <= SMEM_LIMIT
+    # the lane sums stay on chip wherever they fit beside the least tile
+    # (the wide kernel: beside its full tile and a slice of 4 rows)
+    least = fc.glu_smem(F, Co, p.cp, p.p if wide else 4 * p.pg, 4 if wide else 0, 1)
+    assert p.lanes == int(least <= SMEM_LIMIT)
+    assert p.lanes == int(F * Co < 64 * 128)  # these shapes: 512 x 128 and 64 x 128 do not
+    pos = (np.arange(p.n_tiles)[:, None] * p.p + np.arange(p.p)[None, :]).ravel()
+    _once(np.bincount(pos[pos < B * T * F], minlength=B * T * F), "positions")
+    blocks = [range(b * p.tpb, min(p.n_tiles, (b + 1) * p.tpb)) for b in range(p.n_blocks)]
+    assert [t for r in blocks for t in r] == list(range(p.n_tiles)) and all(blocks)
+    # product threads: cp/4 channel groups x p/4 position groups
+    n_cg = p.cp // 4
+    tid = np.arange(n_cg * (p.p // 4))
+    assert tid.size <= fc.GLU_THREADS and Co <= p.cp
+    if n_cg % 8 == 0 and (p.p // 4) % 4 == 0:
+        cg = (tid // 32) % (n_cg // 8) * 8 + tid % 8
+        pg = (tid // 32) // (n_cg // 8) * 4 + (tid % 32) // 8
+    else:
+        cg, pg = tid % n_cg, tid // n_cg
+    owner = ((pg * 4)[..., None, None] + np.arange(4)[:, None]) * p.cp \
+        + (cg * 4)[..., None, None] + np.arange(4)[None, :]
+    _once(np.bincount(owner.ravel(), minlength=p.p * p.cp), "(position, channel)")
+    if wide:  # slices k0 = 0, ks, ... of min(ks, Co - k0) rows
+        rows = np.concatenate([np.arange(k0, min(Co, k0 + p.ks)) for k0 in range(0, Co, p.ks)])
+        _once(np.bincount(rows, minlength=Co), "Wg rows over the slices")
+        nk, nc = p.cp // 4, p.cp // p.ct
+        ids = np.arange(p.passes * fc.GLU_THREADS)
+        ids = ids[ids < nk * nc]
+        wk, wc = ids // nc, ids % nc
+        ent = ((wk[:, None, None] + nk * np.arange(4)[:, None]) * p.cp
+               + wc[:, None, None] + nc * np.arange(p.ct)[None, :])
+        _once(np.bincount(ent.ravel(), minlength=p.cp * p.cp), "dWg entries over the passes")
+        assert p.passes == -(-nk * nc // fc.GLU_THREADS)
+    # the lane passes: entry e < min(p, F) * Co is lane ((f_first + e // Co) % F, e % Co),
+    # adding the tile's positions e // Co, + F, ...: each lane with a position once
+    for tile in {0, 1, p.n_tiles - 1}:
+        m0 = tile * p.p
+        e = np.arange(min(p.p, F) * Co)
+        j, c = e // Co, e % Co
+        lane = ((m0 % F + j) % F) * Co + c
+        assert np.unique(lane).size == lane.size
+        touched = np.unique((np.arange(m0, min(m0 + p.p, B * T * F)) % F)[:, None] * Co
+                            + np.arange(Co)[None, :])
+        assert set(touched) <= set(lane)
+
+
+def test_glu_bwd_plan_takes_every_width():
+    """Every Co up to GLU_MAX_CP and every F plan within shared memory (the
+    wide kernel past 128 channels, the lane sums in device memory where they
+    do not fit); past 32-bit position counts or GLU_MAX_CP it raises."""
+    for Co in list(range(1, 300, 7)) + [384, 512, 1000, fc.GLU_MAX_CP]:
+        for F in (1, 2, 8, 33, 128, 512, 2000):
+            p = fc.glu_bwd_plan(2, 5, F, Co)
+            assert p.smem <= SMEM_LIMIT and (p.passes > 1) == (Co > 128)
+    with pytest.raises(ValueError):
+        fc.glu_bwd_plan(2, 4, 4, fc.GLU_MAX_CP + 1)
+    with pytest.raises(ValueError):
+        fc.glu_bwd_plan(2**16, 2**8, 2**7, 16)  # 2^31 positions
+
+
+
+def _swz(row, chunk):
+    """csrc swz: element offset of (row, 8-channel chunk) in a [rows][16] bf16 array."""
+    return row * fc.BF16_BK + ((chunk ^ (row >> 2)) & 1) * 8
+
+
+def _walk_bf16_conv(p, B, T, F, Ci, Co):
+    """conv3x3_bf16_kernel's maps: 8 warps as WM x WN, each MI m16 tiles of
+    rows x NI n8 tiles of channels; ldmatrix rows; bank groups."""
+    assert p.smem == fc.fwd_bf16_smem(p.tt, p.ff, p.bn) <= fc.SMEM_HALF
+    assert p.vec == int(Ci % 8 == 0) and p.seg == 0
+    wn = 2 if p.bn >= 64 else 1
+    wm, ni, mi = 8 // wn, p.bn // (8 * wn), 2 if p.bn == 128 else 4
+    mt = wm * 16 * mi
+    assert mt == fc.bf16_rows(p.bn) and p.tt * p.ff <= mt and 4 * mi * ni <= 64
+    lane = np.arange(32)
+    # accumulators: warp (wm, wn), lane, m16 tile mi, n8 tile ni, element e
+    # -> row wm*16*mi + mi*16 + g + 8 (e // 2), column wn*ni*8 + ni*8 + 2 tq + e % 2
+    W_m, W_n, L_, M_i, N_i, E_ = np.meshgrid(np.arange(wm), np.arange(wn), lane, np.arange(mi),
+                                              np.arange(ni), np.arange(4), indexing="ij")
+    rows = W_m * 16 * mi + M_i * 16 + L_ // 4 + 8 * (E_ // 2)
+    cols = W_n * ni * 8 + N_i * 8 + 2 * (L_ % 4) + E_ % 2
+    _once(np.bincount((rows * p.bn + cols).ravel(), minlength=mt * p.bn),
+          "(row, column) of the block tile")
+    # ldmatrix: A lane l names row l % 16 and chunk l // 16 of an m16 tile;
+    # B (x4) names row (l // 16) * 8 + l % 8 of an n8 pair and chunk (l // 8) % 2
+    a = (lane % 16) * 2 + lane // 16
+    _once(np.bincount(a, minlength=32), "A fragment rows and chunks")
+    if ni >= 2:
+        b = ((lane // 16) * 8 + lane % 8) * 2 + (lane // 8) % 2
+        _once(np.bincount(b, minlength=32), "B fragment rows and chunks")
+    # any 8 consecutive rows of one chunk fall in 8 distinct 16-byte bank groups
+    for r0 in range(0, 24):
+        for ch in (0, 1):
+            groups = {(2 * _swz(r, ch)) // 16 % 8 for r in range(r0, r0 + 8)}
+            assert len(groups) == 8
 
 
 @pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
@@ -245,6 +357,39 @@ def test_conv_fwd_plan_covers_outputs_and_lanes(geom):
     assert np.array_equal(runs, np.arange(p.n_parts))
 
 
+def _walk_glu_mma(p, B, T, F, Co, pool):
+    """glu_fwd_mma_kernel's maps: the tile's positions as glu_fwd_kernel
+    orders them, 8 warps (4 over the rows, mi = 8 / ni m16 tiles each, 2
+    over the ct columns) of m16n8 fragments, the A stage's items of 8
+    channels; shared memory within the card's limit."""
+    pt, pf = pool
+    W, To, Fo = pt * pf, T // pt, F // pf
+    Q = B * To * Fo
+    ni = p.ct // 16
+    mi = 8 // ni
+    assert p.ct in (16, 32, 64, 128) and p.p == fc.GLU_MMA_ROWS // ni == 64 * mi
+    assert p.nq == p.p // W and p.ks == -(-Co // 16) * 16 and p.grid_y == -(-Co // p.ct)
+    assert p.smem == fc.glu_mma_smem(Co, p.ct, p.p, p.nq) <= SMEM_LIMIT
+    assert p.n_tiles == -(-Q // p.nq) and (p.n_tiles == 0 or 1 <= p.grid_x <= p.n_tiles)
+    k = np.arange(p.n_tiles)[:, None]
+    pos = np.arange(p.p)[None, :]
+    q = k * p.nq + pos // W
+    valid = (pos // W < p.nq) & (q < Q)
+    _once(np.bincount((q * W + pos % W)[valid], minlength=Q * W),
+          "(pooled output, window element)")
+    Wm, Wn, L_, M_i, N_i, E_ = np.meshgrid(np.arange(4), np.arange(2), np.arange(32),
+                                           np.arange(mi), np.arange(ni), np.arange(4),
+                                           indexing="ij")
+    rows = Wm * 16 * mi + M_i * 16 + L_ // 4 + 8 * (E_ // 2)
+    cols = Wn * ni * 8 + N_i * 8 + 2 * (L_ % 4) + E_ % 2
+    _once(np.bincount((rows * p.ct + cols).ravel(), minlength=p.p * p.ct), "(row, column)")
+    items = np.arange(p.p * (p.ks // 8))
+    _once(np.bincount((items // (p.ks // 8)) * p.ks + items % (p.ks // 8) * 8,
+                      minlength=p.p * p.ks)[::8], "A items")
+    chans = (np.arange(p.grid_y)[:, None] * p.ct + np.arange(p.ct)[None, :]).ravel()
+    _once(np.bincount(chans[chans < Co], minlength=Co), "output channels")
+
+
 @pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
 def test_glu_fwd_plan_covers_pooled_outputs(geom):
     B, T, F, _, Co, pool = geom
@@ -302,15 +447,48 @@ def test_fwd_plans_depend_on_the_shape_alone(geom):
         assert g1.ks >= Co  # Wg staged once
 
 
-def test_glu_bwd_fits_matches_the_plan():
-    """The CNN's routing predicate says yes exactly where glu_bwd_plan gives a
-    plan: every 2024 block, not Co > 128, not F*Co lane sums past shared memory."""
-    for B, T, F, _, Co, _ in GEOMS + WIDE:
-        fits = fc.glu_bwd_fits(F, Co)
-        assert fits == (Co <= 128)
-        if fits:
-            fc.glu_bwd_plan(B, T, F, Co)
-        else:
-            with pytest.raises(ValueError):
-                fc.glu_bwd_plan(B, T, F, Co)
-    assert not fc.glu_bwd_fits(512, 128) and fc.glu_bwd_fits(128, 16)
+@pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
+def test_conv_fwd_plan_bf16_covers_outputs_and_lanes(geom):
+    """The bf16 plan: Ci = 1 the fp32 streaming plan; else the tensor-core
+    kernel's warp tiles and ldmatrix rows (_walk_bf16_conv), every row and
+    channel once, and each (clip, frame tile) one lane partial row, as the
+    fp32 STATS epilogue writes them."""
+    B, T, F, Ci, Co, _ = geom
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    if Ci == 1:
+        assert p == fc.conv_fwd_plan(B, T, F, Ci, Co)
+        return
+    _walk_bf16_conv(p, B, T, F, Ci, Co)
+    nt, nf = -(-T // p.tt), -(-F // p.ff)
+    _rows_once(B, T, F, p.tt, p.ff, B * nt * nf)
+    chans = (np.arange(-(-Co // p.bn))[:, None] * p.bn + np.arange(p.bn)[None, :]).ravel()
+    _once(np.bincount(chans[chans < Co], minlength=Co), "output channels")
+    assert p.n_parts == B * nt
+    i = np.arange(B * nt * nf)
+    f = (i % nf * p.ff)[:, None] + np.arange(p.ff)[None, :]
+    L = F * Co
+    writes = ((i // nf)[:, None, None] * L + (f * Co)[:, :, None]
+              + np.arange(Co)[None, None, :])[f < F]
+    _once(np.bincount(writes.ravel(), minlength=p.n_parts * L), "lane partials")
+
+
+@pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
+def test_glu_fwd_plan_bf16_covers_pooled_outputs(geom):
+    B, T, F, _, Co, pool = geom
+    _walk_glu_mma(fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True), B, T, F, Co, pool)
+
+
+@pytest.mark.parametrize("geom", _geoms_2024(60) + _geoms_2024(64) + WIDE[:2],
+                         ids=IDS[:14] + FWD_IDS[len(GEOMS):len(GEOMS) + 2])
+def test_fwd_plans_bf16_depend_on_the_shape_alone(geom):
+    """Equal shapes give equal bf16 plans; the 2024 shapes keep two blocks of
+    each bf16 forward kernel on an SM (the GLU at Co = 256 one: its tile
+    holds Wg^T of 128 channels by 256)."""
+    B, T, F, Ci, Co, pool = geom
+    a = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    g = fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True)
+    assert a == fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert g == fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True)
+    assert all(isinstance(v, int) for v in a.ints() + g.ints())
+    assert 2 * (a.smem + 1024) <= fc.SMEM_SM
+    assert (2 if Co <= 128 else 1) * (g.smem + 1024) <= fc.SMEM_SM

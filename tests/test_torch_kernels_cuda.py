@@ -11,7 +11,12 @@ slices (H=100), B=1, the stream path (H=350, 512) and bitwise reruns; for
 the backward kernels also B=1 and B=60, Ci=1, pool remainders in T and F, bitwise
 repeatability and the autograd path of the fused block; for the forward
 kernels Co > 128 and bitwise reruns, and a CNN with a 256-channel block
-in eval and train mode; for the fused
+in eval and train mode (the GLU backward's wide kernel: Co = 192, 200 and
+256, and F * Co lane sums kept in device memory); the bf16 modes of the
+forward kernels at edge shapes (Ci = 1, 3, 5, 12 and 24, Co not a multiple
+of 8 or 16, Co = 256, F * Co not a multiple of 8, T and F not multiples of
+the row tile, pools (1, 1), (2, 2), (1, 2) and others, dropout bits) and a
+bf16 CRNN forward; for the fused
 log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
 hops that do not divide n_fft, both compute dtypes and bitwise reruns.
 """
@@ -26,6 +31,10 @@ from desed_task_tpu_torch.ops.frontend import MelConfig
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4  # relative to max(1, max |plain|): fp32 sums in another order
+# bf16 outputs (y, z): one bf16 step of the plain value, 2^-7 |plain|, above
+# a floor for fp32 sums in another order where they cancel, 1e-5 of the
+# largest |plain|; at most 1 % of the elements differ at all
+BF16_STEP, BF16_FLOOR, BF16_FRAC = 2.0 ** -7, 1e-5, 0.01
 
 
 @pytest.fixture
@@ -39,6 +48,15 @@ def dev():
 def _close(a, b):
     err = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
     assert err <= TOL, err
+
+
+def _close_bf16(a, b):
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    lim = BF16_STEP * b.abs() + BF16_FLOOR * float(b.abs().max())
+    assert bool((d <= lim).all()), float((d - lim).max())
+    assert float((a != b).float().mean()) <= BF16_FRAC
 
 
 def _rand(gen, *shape, scale=1.0):
@@ -177,10 +195,10 @@ def test_crnn_kernel_forward_matches_plain(dev):
 
 @pytest.mark.parametrize("train", [False, True])
 def test_wide_cnn_runs_on_the_card(dev, train):
-    """A 2-block CNN with a 256-channel block: in eval mode both blocks take
-    the fused kernels; in train mode with a backward the 256-channel block
-    takes the unfused chain (the GLU backward kernel takes Co <= 128), and
-    outputs, running statistics and gradients match the unfused CNN."""
+    """A 2-block CNN with a 256-channel block: both blocks take the fused
+    kernels, in train mode with a backward too (the GLU backward's wide
+    kernel), and outputs, running statistics and gradients match the
+    unfused CNN."""
     from desed_task_tpu_torch.models.cnn import CNN
     from desed_task_tpu_torch.ops import _build
 
@@ -207,8 +225,9 @@ def test_wide_cnn_runs_on_the_card(dev, train):
                 z = m(x, train=False)
         torch.cuda.synchronize()
         outs.append((z.detach(), dict(_build.LAUNCHES)))
-    want = ({"conv_bn_stats": 1, "glu_drop_pool": 1, "conv_bn_stats_bwd": 1,
-             "glu_drop_pool_bwd": 1} if train else {"conv_bn_stats": 2, "glu_drop_pool": 2})
+    want = {"conv_bn_stats": 2, "glu_drop_pool": 2}
+    if train:
+        want.update(conv_bn_stats_bwd=2, glu_drop_pool_bwd=2)
     assert outs[0][1] == want and outs[1][1] == {}
     _close(outs[0][0], outs[1][0])
     for (name, a), b in zip(fused.state_dict().items(), plain.state_dict().values()):
@@ -246,6 +265,14 @@ BWD_GEOMS = [  # (B, T, F, Ci, Co, pool): B=1 / B=60, Ci=1, T and F pool remaind
     (2, 9, 7, 5, 6, (1, 1)),
     # ragged depth (576 of 640) and channel (96 of 128) tiles of dW
     (2, 13, 8, 64, 96, (1, 2)),
+    # the GLU backward's wide kernel (Wg in slices, dWg in passes): 256
+    # channels, 192, and 200 (not a multiple of 8); F * Co lane sums in
+    # device memory (512 x 16 beside a tile, 64 x 128)
+    (2, 9, 8, 256, 256, (1, 2)),
+    (3, 7, 5, 64, 192, (1, 2)),
+    (2, 6, 4, 16, 200, (2, 2)),
+    (1, 3, 512, 8, 128, (1, 2)),
+    (2, 5, 64, 16, 128, (2, 2)),
 ]
 
 
@@ -387,3 +414,113 @@ def test_fused_log_mel_raises_on_inputs_the_kernel_does_not_take(dev):
         fused_mel.fused_log_mel(audio, MelConfig(power=2.0))
     with pytest.raises(ValueError):
         fused_mel.fused_log_mel(audio, MelConfig(center=False))
+
+
+# bf16 modes of rows 1 and 2: (B, T, F, Ci, Co, pool)
+BF16_GEOMS = [
+    (3, 13, 16, 1, 8, (2, 2)),      # Ci = 1: the streaming kernel
+    (4, 12, 10, 1, 130, (1, 1)),    # Ci = 1, Co > 128 and not a multiple of 4
+    (5, 9, 6, 24, 40, (3, 2)),      # Ci % 16 != 0, Co % 16 != 0, window of 6
+    (2, 7, 5, 128, 128, (1, 2)),
+    (1, 1, 1, 3, 70, (1, 1)),       # Ci = 3 (element copies), Co % 8 != 0
+    (2, 11, 4, 64, 200, (2, 4)),    # two channel tiles, Co % 8 == 0, window of 8
+    (2, 9, 8, 256, 256, (1, 2)),    # Co = 256: two channel tiles of 128
+    (2, 37, 70, 16, 32, (2, 2)),    # F past the row tile, T ragged
+    (2, 19, 9, 12, 20, (1, 1)),     # F * Co = 180, not a multiple of 8
+    (3, 23, 3, 5, 6, (1, 2)),       # Ci, Co odd-sized; F * Co = 18
+    (2, 156, 2, 128, 128, (1, 2)),  # the last 2024 block, T not a multiple of its tile
+    (2, 313, 64, 16, 32, (2, 2)),   # the second 2024 block
+]
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("geom", BF16_GEOMS)
+def test_conv_bn_stats_bf16_kernel(dev, geom):
+    B, T, F, Ci, Co, _ = geom
+    g = torch.Generator().manual_seed(20)
+    x = _bf16(_rand(g, B, T, F, Ci)).to(dev)
+    w = _bf16(_rand(g, 3, 3, Ci, Co, scale=1 / np.sqrt(9 * Ci))).to(dev)
+    b = _bf16(_rand(g, Co, scale=0.1)).to(dev)
+    from desed_task_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    y, s, q = fused_cnn.conv_bn_stats(x, w, b)
+    assert _build.LAUNCHES == {"conv_bn_stats.bf16": 1}
+    assert y.dtype == torch.bfloat16 and s.dtype == q.dtype == torch.float32
+    yp, sp, qp = fused_cnn.conv_bn_stats_plain(x, w, b)
+    _close_bf16(y, yp)
+    # s and q are the sums of the kernel's own rounded y (fp32 sums in
+    # another order); against the plain version's they may also differ by
+    # the elements whose rounding flipped, sum |y - y_plain| (and of y^2)
+    yl, ypl = y.float().reshape(B * T, F * Co), yp.float().reshape(B * T, F * Co)
+    _close(s, yl.sum(0))
+    _close(q, (yl * yl).sum(0))
+    tol_s = TOL * max(1.0, float(sp.abs().max()))
+    tol_q = TOL * max(1.0, float(qp.abs().max()))
+    assert bool(((s - sp).abs() <= (yl - ypl).abs().sum(0) + tol_s).all())
+    assert bool(((q - qp).abs() <= (yl * yl - ypl * ypl).abs().sum(0) + tol_q).all())
+    assert all(torch.equal(a, c) for a, c in zip((y, s, q), fused_cnn.conv_bn_stats(x, w, b)))
+
+
+@pytest.mark.parametrize("geom", BF16_GEOMS)
+@pytest.mark.parametrize("keep", [None, 0.5])
+def test_glu_drop_pool_bf16_kernel(dev, geom, keep):
+    B, T, F, _, Co, pool = geom
+    g = torch.Generator().manual_seed(21)
+    y = _bf16(_rand(g, B, T, F, Co)).to(dev)
+    sf = (1 + _rand(g, F * Co, scale=0.1)).to(dev)
+    bf = _rand(g, F * Co, scale=0.1).to(dev)
+    wg = _bf16(_rand(g, Co, Co, scale=1 / np.sqrt(Co))).to(dev)
+    bg = _bf16(_rand(g, Co, scale=0.1)).to(dev)
+    bits = None
+    if keep is not None:
+        bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
+    kp = 1.0 if keep is None else keep
+    z = fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp)
+    _close_bf16(z, fused_cnn.glu_drop_pool_plain(y, sf, bf, wg, bg, bits, pool=pool,
+                                                 keep_prob=kp))
+    assert torch.equal(z, fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool,
+                                                  keep_prob=kp))
+
+
+def test_bf16_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 4, 4, 2, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 2, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # mixed dtypes
+        fused_cnn.conv_bn_stats(x, w.float(), torch.zeros(8, device=dev))
+    y = torch.zeros(1, 4, 4, 8, device=dev, dtype=torch.bfloat16)
+    sf = torch.ones(32, device=dev)
+    with pytest.raises(TypeError):  # the BN affine stays fp32
+        fused_cnn.glu_drop_pool(y, sf.bfloat16(), sf.bfloat16(),
+                                torch.zeros(8, 8, device=dev, dtype=torch.bfloat16),
+                                torch.zeros(8, device=dev, dtype=torch.bfloat16), pool=(1, 2))
+
+
+def test_crnn_bf16_forward_on_the_card(dev):
+    """A narrow CRNN with compute_dtype=bf16: on the card through the bf16
+    kernels (counted under their own keys), against the same model's plain
+    versions on the CPU, well inside the bf16-vs-fp32 gap."""
+    from desed_task_tpu_torch.models.crnn import CRNN, init_weights
+    from desed_task_tpu_torch.ops import _build
+
+    net = dict(nclass=5, n_RNN_cell=16, n_layers_RNN=2, kernel_size=[3, 3, 3],
+               padding=[1, 1, 1], stride=[1, 1, 1], nb_filters=[8, 16, 32],
+               pooling=[[2, 2], [2, 2], [1, 2]], n_mels=32)
+    g = torch.Generator().manual_seed(22)
+    fp32 = init_weights(CRNN(**net), g).eval()
+    bf16 = CRNN(**net, compute_dtype=torch.bfloat16).eval()
+    bf16.load_state_dict(fp32.state_dict())
+    x = _rand(g, 3, 32, 40, scale=4.0)
+    with torch.no_grad():
+        want = bf16(x)
+        ref32 = fp32(x)
+        bf16.to(dev)
+        _build.reset_launches()
+        got = bf16(x.to(dev))
+        torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"conv_bn_stats.bf16": 3, "glu_drop_pool.bf16": 3, "bigru": 2}
+    for a, b, c in zip(got, want, ref32):
+        assert float((a.cpu() - b).abs().max()) <= float((b - c).abs().max()) / 8
