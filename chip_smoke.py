@@ -44,6 +44,13 @@ Phases (any failure exits non-zero; nothing is caught):
      versions; then glu_drop_pool_bwd at the 256-channel block (WIDE_GEOM,
      B=60, the wide kernel; not in the sums), unit-scale cotangents, bitwise
      rerun;
+  6b. the bf16 modes of conv_bn_stats_bwd and glu_drop_pool_bwd at the seven
+     block geometries (B=60, bf16 unit-scale cotangents, dropout bits)
+     against their bf16 plain versions: dx, dy, dw, dbias, dwg and dbg
+     within one bf16 step (as phase 3b), dscale_f and dbias_f within
+     TOL_KERNEL, bitwise reruns; each block's ms, bound, plain ms and
+     cuDNN's bf16 conv backward beside row 3; glu_drop_pool_bwd in bf16 also
+     at the 256-channel block (the wide kernel);
   7. training: the 2024 mean-teacher step (crnn_2024() student and teacher
      at full width from a seed, mean_teacher_2024(), 60 ten-second clips with
      768x496 embeddings): the launch counts of one step (14/14/2 forward,
@@ -54,6 +61,16 @@ Phases (any failure exits non-zero; nothing is caught):
   8. timings: ms per train step and clips/s, the plain step, and each
      backward kernel beside its bound, its plain version and the cuDNN
      backward (F.conv2d autograd, torch.nn.GRU);
+  8b. the bf16 train step of bench.py (crnn_2024(compute_dtype=bf16),
+     MelConfig(compute_dtype="bfloat16")) at full width on 60 clips: the
+     launches of one step (conv_bn_stats.bf16 and glu_drop_pool.bf16 14,
+     bigru 2, conv_bn_stats_bwd.bf16 and glu_drop_pool_bwd.bf16 7,
+     bigru_bwd 1, no fp32 conv-block launch), finite metrics over 4 steps,
+     bitwise-equal gradients on a rerun; then, without the random parts and
+     on BF16_CPU_SLOTS clips, every conv-stack gradient (the conv biases
+     aside) nearer the same bf16 step through the plain versions on the CPU
+     than the CPU's fp32 step is (mean |diff|, each share printed); its ms,
+     clips/s and peak memory beside the fp32 step's;
   9. front-end: the fused log-mel entry point `fused_log_mel` on 64 ten-
      second clips (one launch), then at B=64 and B=60, fp32 and bf16: the
      kernel against its plain version and against the GEMM front-end
@@ -64,8 +81,9 @@ Phases (any failure exits non-zero; nothing is caught):
      this function).
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
-entries of their own, launches from the bf16 serving run), the nvidia-smi
-line, and the result line {"ok": true, "device": {...}} last.
+entries of their own, launches from the bf16 serving run, and of rows 3 and
+4, launches from the bf16 train step), the nvidia-smi line, and the result
+line {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside this file. Details go to chiprun_out/chip_smoke.json.
@@ -108,9 +126,10 @@ TOL_MEL_FP32_DB = 1e-3  # fused against the GEMM front-end, fp32 (dB)
 # kernels' second channel tile (phase 3) and the GLU backward's wide kernel
 # (phase 6); not in the sums
 WIDE_GEOM = (156, 8, 128, 256, (1, 2))
-# bf16 kernels against their plain versions (y, z): one bf16 step, 2^-7 of
-# |plain|, above a floor for fp32 sums that cancel (1e-5 of max |plain|);
-# at most 1 % of the elements differ
+# bf16 kernels against their plain versions (y, z, dx, dy, dw, dbias, dwg,
+# dbg): one bf16 step, 2^-7 of |plain|, above a floor for fp32 sums that
+# cancel (1e-5 of max |plain|); at most 1 % of the elements differ (or one,
+# in a per-channel sum of fewer than 100: bf16_check)
 BF16_STEP, BF16_FLOOR, BF16_FRAC = 2.0 ** -7, 1e-5, 0.01
 # bf16 serving against the same bf16 CRNN through the plain versions on the
 # CPU, from the same features: the conv stack's output (mean |diff|) and
@@ -126,6 +145,15 @@ BF16_STEP, BF16_FLOOR, BF16_FRAC = 2.0 ** -7, 1e-5, 0.01
 # JAX in tests/test_torch_crnn_bf16.py.
 BF16_NEARER = 1.0
 N_CPU_CLIPS = 8
+# the bf16 train step against the same step through the plain versions on
+# the CPU (phase 8b): the slots of mean_teacher_2024() cut to 10 clips, so
+# that the CPU's bf16 and fp32 steps take seconds; full width and depth, no
+# dropout, dropstep or mixup (the CPU's generator draws other numbers). Each
+# conv-stack gradient's mean |card - CPU bf16| below BF16_NEARER of its mean
+# |CPU fp32 - CPU bf16| (bf16-valued gradients: a rounding that flips
+# because an fp32 sum ran in another order moves an entry by a whole bf16
+# step, so the largest entry is no finer measure)
+BF16_CPU_SLOTS = (2, 1, 1, 2, 4)
 
 
 def card_line() -> str:
@@ -167,15 +195,20 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
-def bf16_check(a, b) -> tuple[bool, float, float]:
-    """(within one bf16 step above the floor, max |a - b| / the elementwise
-    limit, share of elements that differ) of bf16 a against plain b."""
+def bf16_check(a, b, sums: bool = False) -> tuple[bool, float, float]:
+    """(within one bf16 step above the floor, with at most BF16_FRAC of the
+    elements differing, max |a - b| / the elementwise limit, share of
+    elements that differ) of bf16 a against plain b. sums: a per-channel
+    sum (dbias, dbg: Co entries), whose fp32 total runs in another order and
+    can round the other way: one element may differ where that is more than
+    BF16_FRAC of them."""
     a, b = a.float(), b.float()
     d = (a - b).abs()
     lim = BF16_STEP * b.abs() + BF16_FLOOR * float(b.abs().max())
     worst = float((d / lim).max())
     frac = float((a != b).float().mean())
-    return worst <= 1.0 and frac <= BF16_FRAC, worst, frac
+    allowed = max(BF16_FRAC, 1.0 / a.numel()) if sums else BF16_FRAC
+    return worst <= 1.0 and frac <= allowed, worst, frac
 
 
 def block_geometries(model, mel_cfg, n_samples: int):
@@ -762,6 +795,140 @@ def check_wide_glu_bwd(gen) -> dict:
     return row
 
 
+def glu_bwd_bf16_bound(P: int, co: int, n_bytes: float) -> tuple[float, str]:
+    """Row 4 in bf16: lin is a product of bf16 values (the tensor cores'
+    peak); dlin Wg^T and BN(y)^T dlin take fp32 dlin (the fp32 peak)."""
+    tb = n_bytes / PEAK_BYTES * 1e3
+    tf = (P * 2 * co * co / PEAK_BF16_FLOPS + P * (4 * co * co + 20 * co) / PEAK_FP32_FLOPS) * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def check_bwd_kernels_bf16(geoms, gen, report, rows32):
+    """Phase 6b: the bf16 modes of rows 3 and 4 against their bf16 plain
+    versions at B=60; returns timing rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from desed_task_tpu_torch.ops import fused_cnn
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    B = TRAIN_BATCH
+    rows = {"conv_bn_stats_bwd.bf16": [], "glu_drop_pool_bwd.bf16": []}
+
+    def check_glu(T, Fq, co, pool):
+        y = torch.randn(B, T, Fq, co, generator=gen).to(dev, bf)
+        scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev, bf)
+        bg = (0.1 * torch.randn(co, generator=gen)).to(dev, bf)
+        gz = torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen).to(dev, bf)
+        bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen, dtype=torch.uint8).to(dev)
+        worsts, fracs, errs, abs_errs = [], [], [], []
+        for label, bt, keep in (("eval", None, 1.0), ("bits", bits, 0.5)):
+            got = fused_cnn.glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bt, gz, pool=pool,
+                                              keep_prob=keep)
+            want = fused_cnn.glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bt, gz,
+                                                     pool=pool, keep_prob=keep)
+            require([a.dtype for a in got] == [bf, torch.float32, torch.float32, bf, bf],
+                    "glu_drop_pool_bwd bf16: output dtypes")
+            ok = True
+            for j, (a, b) in enumerate(zip(got, want)):
+                if a.dtype == bf:
+                    good, worst, frac = bf16_check(a, b, sums=j == 4)  # dbg
+                    ok, worsts, fracs = ok and good, worsts + [worst], fracs + [frac]
+                else:
+                    errs.append(rel_err(a, b))
+                abs_errs.append(float((a.float() - b.float()).abs().max()))
+            same = all(torch.equal(a, b) for a, b in zip(got, fused_cnn.glu_drop_pool_bwd(
+                y, scale_f, bias_f, wg, bg, bt, gz, pool=pool, keep_prob=keep)))
+            print(f"glu_drop_pool_bwd.bf16  T={T:3d} F={Fq:3d} Co={co:3d} pool={pool} {label}: "
+                  f"dy, dwg, dbg {max(worsts):.3f} of the limit, {max(fracs):.2e} differ; "
+                  f"dscale_f, dbias_f max err {max(errs):.3e} (tol {TOL_KERNEL}); rerun "
+                  f"bitwise equal: {same}", flush=True)
+            require(ok, "glu_drop_pool_bwd bf16 disagrees with its plain version")
+            require(max(errs) <= TOL_KERNEL, "glu_drop_pool_bwd bf16 sums disagree")
+            require(same, "glu_drop_pool_bwd bf16 is not bitwise repeatable")
+        P = B * T * Fq
+        n_bytes = 2 * (2 * y.numel() + gz.numel() + 2 * co * co + 2 * co) + 4 * 4 * Fq * co \
+            + bits.numel()
+        args = (y, scale_f, bias_f, wg, bg, bits, gz)
+        return dict(
+            geom=[T, Fq, co, *pool], max_abs_err=max(abs_errs), limit_share=max(worsts),
+            differ=max(fracs), rel_err=max(errs),
+            ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd(*args, pool=pool, keep_prob=0.5)),
+            plain_ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd_plain(
+                *args, pool=pool, keep_prob=0.5), iters=3),
+            library_ms=None, bound=glu_bwd_bf16_bound(P, co, n_bytes))
+
+    for i, (T, Fq, ci, co, pool) in enumerate(geoms):
+        x = torch.randn(B, T, Fq, ci, generator=gen).to(dev, bf)
+        w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev, bf)
+        y = torch.randn(B, T, Fq, co, generator=gen).to(dev, bf)
+        dy = torch.randn(B, T, Fq, co, generator=gen).to(dev, bf)
+        ds = torch.randn(Fq * co, generator=gen).to(dev)
+        dq = torch.randn(Fq * co, generator=gen).to(dev)
+        need_dx = i > 0
+        worsts, fracs, abs_errs = [], [], []
+        for nd in {True, need_dx}:
+            got = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, nd)
+            want = fused_cnn.conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, nd)
+            for j, (a, b) in enumerate(zip(got, want)):
+                if b is not None:
+                    require(a.dtype == bf, "conv_bn_stats_bwd bf16: output dtype")
+                    ok, worst, frac = bf16_check(a, b, sums=j == 2)  # dbias
+                    require(ok, f"conv_bn_stats_bwd bf16 disagrees with its plain version "
+                                f"({worst:.3f} of the limit, {frac:.2e} differ)")
+                    worsts.append(worst)
+                    fracs.append(frac)
+                    abs_errs.append(float((a.float() - b.float()).abs().max()))
+        again = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)
+        same = all(torch.equal(a, b) for a, b in zip(
+            fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)[1:], again[1:]))
+        print(f"conv_bn_stats_bwd.bf16  T={T:3d} F={Fq:3d} {ci:3d}->{co:3d}: dx, dw, dbias "
+              f"{max(worsts):.3f} of the limit, {max(fracs):.2e} differ; rerun bitwise equal: "
+              f"{same}", flush=True)
+        require(same, "conv_bn_stats_bwd bf16 is not bitwise repeatable")
+        M = B * T * Fq
+        n_bytes = (2 * (x.numel() + 2 * y.numel() + 2 * w.numel() + co
+                        + (x.numel() if need_dx else 0)) + 4 * 2 * Fq * co)
+        flops = 2 * M * 9 * ci * co * (2 if need_dx else 1)
+        x_nchw = x.permute(0, 3, 1, 2).requires_grad_(need_dx)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
+        bb = torch.zeros(co, device=dev, dtype=bf, requires_grad=True)
+        out = F.conv2d(x_nchw, w_oihw, bb, padding=1)
+        g_out = dy.permute(0, 3, 1, 2)
+        lib_in = [w_oihw, bb] + ([x_nchw] if need_dx else [])
+        rows["conv_bn_stats_bwd.bf16"].append(dict(
+            geom=[T, Fq, ci, co], max_abs_err=max(abs_errs), limit_share=max(worsts),
+            differ=max(fracs),
+            ms=time_ms(lambda: fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)),
+            plain_ms=time_ms(lambda: fused_cnn.conv_bn_stats_bwd_plain(
+                x, w, y, dy, ds, dq, need_dx), iters=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(out, lib_in, g_out,
+                                                           retain_graph=True)),
+            bound=bound_ms(n_bytes, flops + 4 * M * co, PEAK_BF16_FLOPS)))
+        del out, x_nchw, x, y, dy, got, want, again
+        rows["glu_drop_pool_bwd.bf16"].append(check_glu(T, Fq, co, pool))
+        for name, n32 in (("conv_bn_stats_bwd.bf16", "conv_bn_stats_bwd"),
+                          ("glu_drop_pool_bwd.bf16", "glu_drop_pool_bwd")):
+            r = rows[name][-1]
+            lib = (f", cuDNN conv backward bf16 {r['library_ms']:.3f} ms"
+                   if r["library_ms"] else "")
+            print(f"{name}  block {i}: {r['ms']:.3f} ms (fp32 {rows32[n32][i]['ms']:.3f}), "
+                  f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} "
+                  f"ms{lib}", flush=True)
+    T, Fq, _, co, pool = WIDE_GEOM
+    require(fused_cnn.glu_bwd_plan(B, T, Fq, co).passes > 1,
+            "the 256-channel block does not take the wide kernel")
+    wide = check_glu(T, Fq, co, pool)
+    print(f"glu_drop_pool_bwd.bf16 at the {co}-channel block (B={B}, wide kernel): "
+          f"{wide['ms']:.3f} ms, bound {wide['bound'][0]:.3f} ms ({wide['bound'][1]}), "
+          f"plain {wide['plain_ms']:.3f} ms", flush=True)
+    report["bf16_bwd_kernel_rows"] = rows
+    report["wide_bwd_row_bf16"] = wide
+    return rows
+
+
 def gru_plan(B: int, T: int, H: int) -> dict:
     """The BiGRU kernels' plan at a shape: "cluster" (with its cluster size
     and batch rows) or "stream"."""
@@ -890,6 +1057,103 @@ def train(gen, report):
                            bitwise_repeat=same, losses=losses, step_ms=step_ms,
                            clips_per_s=TRAIN_BATCH / step_ms * 1e3, plain_step_ms=plain_ms,
                            peak_bytes=peak)
+    return launches, dict(cfg=cfg, tx=tx, sched=sched, batch=batch, init=init)
+
+
+def train_bf16(ctx, report):
+    """Phase 8b: bench.py's bf16 train step (crnn_2024(compute_dtype=bf16),
+    MelConfig(compute_dtype="bfloat16")) on the card, from phase 7's weights
+    and batch; then, without the random parts and on BF16_CPU_SLOTS clips,
+    against the same step through the plain versions on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig
+    from desed_task_tpu_torch.recipes_config import crnn_2024
+    from desed_task_tpu_torch.training import create_state, make_train_step
+
+    cfg, tx, sched, batch, init = (ctx[k] for k in ("cfg", "tx", "sched", "batch", "init"))
+    mel16 = MelConfig(compute_dtype="bfloat16")
+    step = make_train_step(cfg, tx, sched, mel_cfg=mel16)
+
+    def fresh(config, device, bf16=True, **over):
+        model = crnn_2024(**({"compute_dtype": torch.bfloat16} if bf16 else {}), **over)
+        model.load_state_dict(init)
+        return create_state(model, config, tx, device=device)
+
+    def run(state, step_fn, data, device, seed=7):
+        metrics = step_fn(state, data, torch.Generator(device=device).manual_seed(seed))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.detach().float().cpu() for n, p in state.student.named_parameters()})
+
+    state = fresh(cfg, "cuda")
+    _build.reset_launches()
+    metrics, grads = run(state, step, batch, "cuda")
+    launches = dict(_build.LAUNCHES)
+    want = {"conv_bn_stats.bf16": 14, "glu_drop_pool.bf16": 14, "bigru": 2,
+            "conv_bn_stats_bwd.bf16": 7, "glu_drop_pool_bwd.bf16": 7, "bigru_bwd": 1}
+    print(f"train step bf16: launches {launches}, expected {want}", flush=True)
+    require(launches == want, "the bf16 train step did not go through every bf16 kernel")
+    print("train step bf16 metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()),
+          flush=True)
+    require(all(math.isfinite(v) for v in metrics.values()), "non-finite bf16 train metrics")
+    _, grads2 = run(fresh(cfg, "cuda"), step, batch, "cuda")
+    same = all(torch.equal(grads[n], grads2[n]) for n in grads)
+    print(f"train step bf16 rerun from the same state: gradients bitwise equal: {same}",
+          flush=True)
+    require(same, "the bf16 step's gradients are not bitwise repeatable")
+    losses = [metrics["loss"]]
+    for i in range(3):
+        losses.append(run(state, step, batch, "cuda", seed=8 + i)[0]["loss"])
+    print(f"train step bf16 losses over {len(losses)} steps: {losses}", flush=True)
+    require(all(math.isfinite(v) for v in losses), "non-finite bf16 loss")
+
+    gen_t = torch.Generator(device="cuda").manual_seed(11)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, batch, gen_t), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same step without its random parts on BF16_CPU_SLOTS clips: the
+    # card, the plain versions on the CPU in bf16 and in fp32
+    small = dataclasses.replace(cfg, mixup=None, slots=tuple(
+        dataclasses.replace(sl, size=n) for sl, n in zip(cfg.slots, BF16_CPU_SLOTS)))
+    part = {sl.name: {k: v[:sl.size] for k, v in batch[sl.name].items()} for sl in small.slots}
+    part_cpu = {n: {k: v.cpu() for k, v in d.items()} for n, d in part.items()}
+    quiet = dict(dropout=0.0, dropstep_recurrent=0.0)
+    step_small = make_train_step(small, tx, sched, mel_cfg=mel16)
+    t0 = time.perf_counter()
+    _, g_card = run(fresh(small, "cuda", **quiet), step_small, part, "cuda")
+    _build.reset_launches()
+    _, g_cpu = run(fresh(small, "cpu", **quiet), step_small, part_cpu, "cpu")
+    _, g_32 = run(fresh(small, "cpu", bf16=False, **quiet),
+                  make_train_step(small, tx, sched), part_cpu, "cpu")
+    require(dict(_build.LAUNCHES) == {}, "the CPU steps launched a kernel")
+    cpu_s = time.perf_counter() - t0
+    shares = {}
+    for n in g_cpu:
+        if not n.startswith("cnn.") or (n.startswith("cnn.conv") and n.endswith(".bias")):
+            continue
+        gap = float((g_card[n] - g_cpu[n]).abs().mean())
+        precision = float((g_32[n] - g_cpu[n]).abs().mean())
+        shares[n] = gap / max(precision, 1e-30)
+        print(f"train step bf16 on {small.batch_size} clips (slots {BF16_CPU_SLOTS}, no "
+              f"dropout, dropstep or mixup): {n} mean |card - CPU bf16| {gap:.3e}, mean |CPU "
+              f"fp32 - CPU bf16| {precision:.3e}, share {shares[n]:.3f} (limit "
+              f"{BF16_NEARER:.1f}); max |diff| {float((g_card[n] - g_cpu[n]).abs().max()):.3e} "
+              f"against {float((g_32[n] - g_cpu[n]).abs().max()):.3e}", flush=True)
+    worst = max(shares, key=shares.get)
+    require(shares[worst] < BF16_NEARER,
+            f"bf16 step: {worst} is no nearer the CPU's bf16 step than its fp32 step")
+    report["train_bf16"] = dict(
+        launches=launches, metrics=metrics, bitwise_repeat=same, losses=losses,
+        step_ms=step_ms, clips_per_s=TRAIN_BATCH / step_ms * 1e3, peak_bytes=peak,
+        reduced=dict(slots=list(BF16_CPU_SLOTS), clips=small.batch_size,
+                     random_parts="off (conv dropout 0, dropstep 0, mixup None)"),
+        grad_shares=shares, cpu_compare_s=cpu_s)
     return launches
 
 
@@ -1006,7 +1270,9 @@ def main() -> int:
     serve_launches, pipe, serve16_launches = serve(gen, report)
     train_geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
     rows.update(check_bwd_kernels(train_geoms, gen, report))
-    train_launches = train(gen, report)
+    rows.update(check_bwd_kernels_bf16(train_geoms, gen, report, rows))
+    train_launches, train_ctx = train(gen, report)
+    train16_launches = train_bf16(train_ctx, report)
     fe_launches, fe_rows = frontend(gen, pipe, report)
     # the kernels line's row 7 is the entry point's call: B=64, fp32
     rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
@@ -1024,6 +1290,10 @@ def main() -> int:
     print(f"[{card}] train step, {TRAIN_BATCH} clips, fp32: {tr['step_ms']:.3f} ms "
           f"({tr['clips_per_s']:.1f} clips/s; plain versions {tr['plain_step_ms']:.3f} ms; "
           f"peak memory {tr['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+    t16 = report["train_bf16"]
+    print(f"[{card}] train step, {TRAIN_BATCH} clips, bf16: {t16['step_ms']:.3f} ms "
+          f"({t16['clips_per_s']:.1f} clips/s; peak memory {t16['peak_bytes'] / 2**30:.2f} GiB; "
+          f"fp32 {tr['step_ms']:.3f} ms, {tr['clips_per_s']:.1f} clips/s)", flush=True)
     for r in fe_rows:
         b_ms, by = r["bound"]
         print(f"[{card}] fused_log_mel B={r['B']} {r['dtype']}: {r['ms']:.3f} ms per call "
@@ -1039,6 +1309,8 @@ def main() -> int:
         "bigru": (gru_cu, "desed_task_tpu/ops/pallas_gru.py:38"),
         "conv_bn_stats_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:186"),
         "glu_drop_pool_bwd": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:295"),
+        "conv_bn_stats_bwd.bf16": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:186 (bf16 mode)"),
+        "glu_drop_pool_bwd.bf16": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:295 (bf16 mode)"),
         "bigru_bwd": (gru_cu, "desed_task_tpu/ops/pallas_gru.py:58"),
         "fused_log_mel": ("desed_task_tpu_torch/csrc/fused_mel.cu",
                           "desed_task_tpu/ops/pallas_mel.py:96"),
@@ -1051,8 +1323,10 @@ def main() -> int:
         by_path = {"serving": serve_launches.get(name, 0),
                    "serving_bf16": serve16_launches.get(name, 0),
                    "train_step": train_launches.get(name, 0),
+                   "train_step_bf16": train16_launches.get(name, 0),
                    "frontend": fe_launches.get(name, 0)}
         main_path = ("frontend" if name in fe_launches
+                     else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")
         entry = dict(
             name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],

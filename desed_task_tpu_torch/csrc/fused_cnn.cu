@@ -1,5 +1,5 @@
-// Hand-written Hopper kernels for one fused CRNN conv block (fp32; the
-// forward kernels also in bf16).
+// Hand-written Hopper kernels for one fused CRNN conv block, forward and
+// backward, in fp32 and in bf16.
 //
 // Replaces desed_task_tpu/ops/pallas_cnn.py:
 //   conv_bn_stats  <- _conv_stats_kernel (pallas_cnn.py:147, called at :403)
@@ -88,8 +88,37 @@
 //   window order from shared memory, z rounded once (:292). A first version
 //   kept the fp32 kernel's CUDA-core product on rounded operands: 1.462 ms
 //   at B=64, slower than the fp32 kernel's 1.214 (PERF.md).
+// conv_bn_stats_bwd bf16 (the bf16 train step)
+//   What bounds it: x, y, dy and dx in bf16 per 2024 train step at B=60,
+//   ~0.9 GB (~0.27 ms), against ~167 GFLOP of bf16 products (~0.17 ms on
+//   the tensor cores): bytes.
+//   Design: `dy_eff_bf16_kernel` forms dy_eff in fp32 (no FMA, in
+//   pallas_cnn.py:207's order), writes its bf16 rounding once for the two
+//   products (:208) and the blocks' dbias partials of the unrounded values
+//   (:211); dx is `conv3x3_bf16_kernel` without STATS (the same tensor-core
+//   implicit GEMM as the bf16 forward, w flipped); dW is
+//   `conv_dw_mma_kernel` on mma.sync with transposed fragments
+//   (ldmatrix.trans, both operands rows-first in shared memory), or, for
+//   shapes whose stages it cannot swizzle (Ci not 16, 32 or a multiple of
+//   64, Co % 8 != 0), conv_dw_kernel from bf16 stages on the CUDA cores
+//   (exact: a product of two bf16 values is exact in fp32). Ci = 1: the
+//   streaming kernel with bf16 loads, dbias from its own fp32 dy_eff. dw
+//   and dbias are rounded once from their fp32 totals in the final
+//   fixed-order pass (:473-474). No atomics.
+// glu_drop_pool_bwd bf16
+//   What bounds it: dglu = dlin Wg^T and dWg = BN(y)^T dlin take dlin in
+//   fp32 (:341-350: fp32 x bf16 dots keep the fp32 operand), so only lin is
+//   a product of bf16 values: ~35 GFLOP at the fp32 peak (~0.53 ms) + ~18 at
+//   the bf16 peak, against ~0.9 GB of bf16 y, dy, g and the bits (~0.28
+//   ms): operations.
+//   Design: the fp32 kernel's CUDA-core register tiles on bf16 loads and
+//   stores (`glu_bwd_kernel` with TY = bf16): BN(y) as a multiply, then an
+//   add, its bf16 rounding the operand of lin and of dWg (:312, :347), the
+//   sigmoid of the unrounded value; dy rounded to bf16 (:354); dwg and dbg
+//   rounded once in the final pass (:666-667). Splitting dlin into bf16
+//   terms for the tensor cores is left to a later change.
 //
-// The backward passes (the training step's kernels):
+// The backward passes (the training step's kernels; their bf16 modes above):
 //   conv_bn_stats_bwd <- _conv_stats_bwd_kernel (pallas_cnn.py:186, :443)
 //   glu_drop_pool_bwd <- _epilogue_bwd_kernel   (pallas_cnn.py:295, :637)
 //
@@ -207,6 +236,24 @@ __device__ __forceinline__ void cp_async_vec(float* dst, const float* src, bool 
     cp_async4(dst, src, ok);
   }
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 8 : 0));
+}
+// VEC elements of the activations' type: cp.async of 4 or 16 bytes (fp32),
+// of 8 bytes (bf16, VEC = 4), or a copy through a register (one bf16 value:
+// below cp.async's 4 bytes; visible after the barrier that ends the stage)
+template <int VEC, typename TX>
+__device__ __forceinline__ void cp_async_x(TX* dst, const TX* src, bool ok) {
+  if constexpr (std::is_same<TX, float>::value) {
+    cp_async_vec<VEC>(dst, src, ok);
+  } else if constexpr (VEC == 4) {
+    cp_async8(dst, src, ok);
+  } else {
+    *dst = ok ? *src : __float2bfloat16_rn(0.f);
+  }
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -221,6 +268,26 @@ __device__ __forceinline__ float4 ld4(const float* __restrict__ p, int c, int Co
   }
   return make_float4(c < Co ? p[c] : 0.f, c + 1 < Co ? p[c + 1] : 0.f,
                      c + 2 < Co ? p[c + 2] : 0.f, c + 3 < Co ? p[c + 3] : 0.f);
+}
+
+// bf16 p[c .. c+3] as fp32, zeros past Co: one 8-byte load where Co % 4 == 0
+__device__ __forceinline__ float4 ld4(const bf16* __restrict__ p, int c, int Co) {
+  if ((Co & 3) == 0) {
+    if (c >= Co) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p + c));
+    return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+  }
+  return make_float4(c < Co ? to_f(p[c]) : 0.f, c + 1 < Co ? to_f(p[c + 1]) : 0.f,
+                     c + 2 < Co ? to_f(p[c + 2]) : 0.f, c + 3 < Co ? to_f(p[c + 3]) : 0.f);
+}
+
+// p[0 .. 3] from shared memory as fp32 (16 bytes of fp32, 8 of bf16)
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
 }
 
 // bytes p[c .. c+3] (zeros past Co) packed little-endian into one word
@@ -298,9 +365,9 @@ __device__ __forceinline__ void stage_halo_cm(float* dst, const float* __restric
 }
 
 // Halo of tile rt, all C channels, into dst[pos][C] (position-major: a row's
-// channels are contiguous), VEC-float copies (VEC = 4 needs C % 4 == 0).
-template <int VEC>
-__device__ __forceinline__ void stage_halo_pm(float* dst, const float* __restrict__ src,
+// channels are contiguous), copies of VEC elements (VEC = 4 needs C % 4 == 0).
+template <int VEC, typename TX>
+__device__ __forceinline__ void stage_halo_pm(TX* dst, const TX* __restrict__ src,
                                               RowTile rt, int TT, int FF, int T, int F,
                                               int C, int tid, int nthreads) {
   const int W = FF + 2;
@@ -312,8 +379,8 @@ __device__ __forceinline__ void stage_halo_pm(float* dst, const float* __restric
     const int jt = pos / W;
     const int t = rt.t0 + jt - 1, f = rt.f0 + pos - jt * W - 1;
     const bool ok = t >= 0 && t < T && f >= 0 && f < F;
-    cp_async_vec<VEC>(dst + pos * C + c,
-                      ok ? src + (((long long)rt.b * T + t) * F + f) * C + c : src, ok);
+    cp_async_x<VEC>(dst + pos * C + c,
+                    ok ? src + (((long long)rt.b * T + t) * F + f) * C + c : src, ok);
   }
 }
 
@@ -343,6 +410,79 @@ __global__ void dy_eff_kernel(const float* __restrict__ y, const float* __restri
         dye[k] = dy[k] + ds[lk] + 2.f * y[k] * dq[lk];
       }
     }
+  }
+}
+
+// bf16 dy_eff: dy + ds[lane] + 2 y dq[lane] in fp32 from bf16 y and dy (the
+// sum, then the product added, each rounded, in pallas_cnn.py:207's order,
+// no FMA), rounded to bf16 into dye as the operand of the dx and dW products
+// (:208). With part_b, the block's dbias partial of the UNROUNDED values
+// (:211): block b takes rows [b * rows, (b + 1) * rows) of M; thread (rs, g)
+// channels 8g .. 8g + 7 (16-byte loads where Co % 8 == 0) of rows rs,
+// rs + RS, ...; the block adds its RS row slots in order (no atomics).
+constexpr int EFF_THREADS = 256;
+
+__global__ void __launch_bounds__(EFF_THREADS) dy_eff_bf16_kernel(
+    const bf16* __restrict__ y, const bf16* __restrict__ dy, const float* __restrict__ ds,
+    const float* __restrict__ dq, bf16* __restrict__ dye, float* __restrict__ part_b,
+    long long M, int F, int Co, int rows) {
+  __shared__ float red[EFF_THREADS * 8];
+  const int G = (Co + 7) / 8, RS = EFF_THREADS / G;
+  const int tid = threadIdx.x, g = tid % G, rs = tid / G, c0 = 8 * g;
+  const long long r0 = (long long)blockIdx.x * rows;
+  const long long r1 = min(M, r0 + rows);
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  if (rs < RS) {
+#pragma unroll 2
+    for (long long m = r0 + rs; m < r1; m += RS) {
+      const int l0 = (int)(m % F) * Co + c0;
+      const long long e0 = m * Co + c0;
+      float a[8], b[8], o[8];
+      if ((Co & 7) == 0) {
+        const uint4 ua = __ldg(reinterpret_cast<const uint4*>(dy + e0));
+        const uint4 ub = __ldg(reinterpret_cast<const uint4*>(y + e0));
+        const uint32_t wa[4] = {ua.x, ua.y, ua.z, ua.w}, wb[4] = {ub.x, ub.y, ub.z, ub.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          a[2 * k] = bf_lo(wa[k]);
+          a[2 * k + 1] = bf_hi(wa[k]);
+          b[2 * k] = bf_lo(wb[k]);
+          b[2 * k + 1] = bf_hi(wb[k]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          a[j] = c0 + j < Co ? to_f(dy[e0 + j]) : 0.f;
+          b[j] = c0 + j < Co ? to_f(y[e0 + j]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool ok = c0 + j < Co;
+        const float sv = ok ? __ldg(ds + l0 + j) : 0.f, qv = ok ? __ldg(dq + l0 + j) : 0.f;
+        o[j] = __fadd_rn(__fadd_rn(a[j], sv), __fmul_rn(__fmul_rn(2.f, b[j]), qv));
+        acc[j] += o[j];
+      }
+      if ((Co & 7) == 0) {
+        *reinterpret_cast<uint4*>(dye + e0) = make_uint4(bf_pack(o[0], o[1]), bf_pack(o[2], o[3]),
+                                                         bf_pack(o[4], o[5]), bf_pack(o[6], o[7]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (c0 + j < Co) dye[e0 + j] = __float2bfloat16_rn(o[j]);
+      }
+    }
+  }
+  if (part_b == nullptr) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) red[tid * 8 + j] = acc[j];
+  __syncthreads();
+  for (int c = tid; c < Co; c += EFF_THREADS) {
+    float sum = 0.f;
+    for (int r = 0; r < RS; ++r) sum += red[(r * G + c / 8) * 8 + c % 8];
+    part_b[(long long)blockIdx.x * Co + c] = sum;
   }
 }
 
@@ -658,6 +798,10 @@ __global__ void __launch_bounds__(32 * STATS_RUNS) lane_stats_final_kernel(
 // (pallas_cnn.py:173-178) and put in shared memory as fp32, written out in
 // 16-byte pieces where Cout % 8 == 0, each lane's frames of the tile added
 // in order from the rounded values into part_s / part_q row (b * nt + t-tile).
+// Without STATS (conv_bn_stats_bwd's dx in bf16: x = bf16 dy_eff, wt = w
+// flipped in (dt, df), which is [3, 3, Ci, Co] = [tap][out][in] of the
+// transposed conv): no bias and no sums, the output rounded to bf16 once
+// (pallas_cnn.py:239).
 // ---------------------------------------------------------------------------
 constexpr int BK = 16;  // input channels a stage: one k-step of the mma per tap
 
@@ -688,7 +832,7 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int BN, bool VEC>
+template <int BN, bool VEC, bool STATS>
 __global__ void __launch_bounds__(256, 2) conv3x3_bf16_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wt, const bf16* __restrict__ bias,
     bf16* __restrict__ y, float* __restrict__ part_s, float* __restrict__ part_q, int B, int T,
@@ -818,8 +962,8 @@ __global__ void __launch_bounds__(256, 2) conv3x3_bf16_kernel(
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni) {
     const int n = wn * NI * 8 + ni * 8 + 2 * tq;
-    const float b0 = n0 + n < Cout ? to_f(bias[n0 + n]) : 0.f;
-    const float b1 = n0 + n + 1 < Cout ? to_f(bias[n0 + n + 1]) : 0.f;
+    const float b0 = STATS && n0 + n < Cout ? to_f(bias[n0 + n]) : 0.f;
+    const float b1 = STATS && n0 + n + 1 < Cout ? to_f(bias[n0 + n + 1]) : 0.f;
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
       const int r = wm * 16 * MI + mi * 16 + gq;
@@ -850,22 +994,23 @@ __global__ void __launch_bounds__(256, 2) conv3x3_bf16_kernel(
         if (n0 + n + j < Cout) o[j] = __float2bfloat16_rn(v[j]);
     }
   }
-  // the lane sums of the tile's frames, in frame order
-  const int L = F * Cout;
-  const long long prow = blockIdx.x / ((F + FF - 1) / FF);  // b * nt + t-tile
-  const int frames = min(TT, T - rt.t0);
-  for (int l = tid; l < FF * BN; l += 256) {
-    const int fl = l / BN, c = l - fl * BN;
-    const int f = rt.f0 + fl, n = n0 + c;
-    if (f >= F || n >= Cout) continue;
-    float s = 0.f, q = 0.f;
-    for (int jt = 0; jt < frames; ++jt) {
-      const float v = ys[(jt * FF + fl) * YS + c];
-      s += v;
-      q = fmaf(v, v, q);
+  if constexpr (STATS) {  // the lane sums of the tile's frames, in frame order
+    const int L = F * Cout;
+    const long long prow = blockIdx.x / ((F + FF - 1) / FF);  // b * nt + t-tile
+    const int frames = min(TT, T - rt.t0);
+    for (int l = tid; l < FF * BN; l += 256) {
+      const int fl = l / BN, c = l - fl * BN;
+      const int f = rt.f0 + fl, n = n0 + c;
+      if (f >= F || n >= Cout) continue;
+      float s = 0.f, q = 0.f;
+      for (int jt = 0; jt < frames; ++jt) {
+        const float v = ys[(jt * FF + fl) * YS + c];
+        s += v;
+        q = fmaf(v, v, q);
+      }
+      part_s[prow * L + f * Cout + n] = s;
+      part_q[prow * L + f * Cout + n] = q;
     }
-    part_s[prow * L + f * Cout + n] = s;
-    part_q[prow * L + f * Cout + n] = q;
   }
 }
 
@@ -883,25 +1028,32 @@ __global__ void __launch_bounds__(256, 2) conv3x3_bf16_kernel(
 // full register tile. A thread's TM depth indices are fixed, so their
 // (tap, ci) offsets into the halo are computed once; the rows' offsets come
 // from a table. At the end the groups' tiles are added in group order.
+// TX = bf16 (the bf16 mode): x and the rounded dy_eff are staged as bf16 and
+// multiplied on the CUDA cores in fp32 (a product of two bf16 values is
+// exact in fp32, so the sums are those of bf16 operands with fp32
+// accumulators); dbias comes from the dy_eff pass instead (unrounded).
 constexpr int DW_MAX_ROWS = 256;
 constexpr int DW_STAGES = 2;
 
-template <int TN, int NTY, int NTX, int VEC>
+template <int TN, int NTY, int NTX, int VEC, typename TX>
 __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
-    const float* __restrict__ x, const float* __restrict__ dye, float* __restrict__ part_w,
+    const TX* __restrict__ x, const TX* __restrict__ dye, float* __restrict__ part_w,
     float* __restrict__ part_b, int B, int T, int F, int Ci, int Co, int TT, int FF,
     int n_tiles, int tiles_per_chunk) {
   constexpr int TM = 8, BKO = NTY * TM, BNO = NTX * TN, NG = NTY * NTX, RG = 256 / NG;
+  constexpr bool F32 = std::is_same<TX, float>::value;
   static_assert(256 % NG == 0 && 256 % BNO == 0, "thread tiles");
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_dw[];
+  float* const smem = reinterpret_cast<float*>(smem_dw);  // the groups' tiles at the end
   __shared__ int rowoff[DW_MAX_ROWS];  // halo offset of row r from row (0, 0)
   __shared__ float bred[256];
   const int W = FF + 2;
   const int NP = (TT + 2) * W;
   const int R = TT * FF;
-  const int XS = (NP * Ci + 3) & ~3;
-  // stage buffer b: the x halo at smem + b * XS, the dy_eff rows at ds0 + b * R * BNO
-  float* const ds0 = smem + DW_STAGES * XS;
+  const int XS = F32 ? (NP * Ci + 3) & ~3 : (NP * Ci + 7) & ~7;  // 16-byte multiples
+  // stage buffer b: the x halo at sx + b * XS, the dy_eff rows at ds0 + b * R * BNO
+  TX* const sx = reinterpret_cast<TX*>(smem_dw);
+  TX* const ds0 = sx + DW_STAGES * XS;
   const int K = 9 * Ci;
   const int k0 = blockIdx.x * BKO, n0 = blockIdx.y * BNO;
   const int tid = threadIdx.x, grp = tid / NG, tx = tid % NTX, ty = (tid % NG) / NTX;
@@ -923,7 +1075,7 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
 
   auto stage = [&](int tile, int buf) {
     const RowTile rt = row_tile(tile, T, F, TT, FF);
-    stage_halo_pm<VEC>(smem + buf * XS, x, rt, TT, FF, T, F, Ci, tid, 256);
+    stage_halo_pm<VEC>(sx + buf * XS, x, rt, TT, FF, T, F, Ci, tid, 256);
     constexpr int per = BNO / VEC;
     for (int i = tid; i < R * per; i += 256) {
       const int r = i / per;
@@ -931,8 +1083,8 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
       const int jt = r / FF;
       const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
       const bool ok = t < T && f < F && n0 + n < Co;
-      cp_async_vec<VEC>(ds0 + buf * R * BNO + r * BNO + n,
-                        ok ? dye + (((long long)rt.b * T + t) * F + f) * Co + n0 + n : dye, ok);
+      cp_async_x<VEC>(ds0 + buf * R * BNO + r * BNO + n,
+                      ok ? dye + (((long long)rt.b * T + t) * F + f) * Co + n0 + n : dye, ok);
     }
     cp_async_commit();
   };
@@ -962,16 +1114,16 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
     } else {
       cp_async_commit();
     }
-    const float* X = smem + buf * XS + (W + 1) * Ci;  // the position of row (0, 0)
-    const float* D = ds0 + buf * R * BNO;
+    const TX* X = sx + buf * XS + (W + 1) * Ci;  // the position of row (0, 0)
+    const TX* D = ds0 + buf * R * BNO;
     for (int r = grp; r < R; r += RG) {
-      const float* xr = X + rowoff[r];
-      const float* dr = D + r * BNO;
+      const TX* xr = X + rowoff[r];
+      const TX* dr = D + r * BNO;
       float a[TM], b[TN];
       if constexpr (VEC == 4) {
 #pragma unroll
         for (int g = 0; g < TM / 4; ++g) {
-          const float4 v = *reinterpret_cast<const float4*>(xr + aoff[4 * g]);
+          const float4 v = lds4(xr + aoff[4 * g]);
           a[4 * g] = v.x;
           a[4 * g + 1] = v.y;
           a[4 * g + 2] = v.z;
@@ -979,7 +1131,7 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
         }
 #pragma unroll
         for (int g = 0; g < TN / 4; ++g) {
-          const float4 v = *reinterpret_cast<const float4*>(dr + co[4 * g]);
+          const float4 v = lds4(dr + co[4 * g]);
           b[4 * g] = v.x;
           b[4 * g + 1] = v.y;
           b[4 * g + 2] = v.z;
@@ -987,17 +1139,17 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xr[aoff[i]];
+        for (int i = 0; i < TM; ++i) a[i] = to_f(xr[aoff[i]]);
 #pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = dr[co[j]];
+        for (int j = 0; j < TN; ++j) b[j] = to_f(dr[co[j]]);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    if (kt0)  // thread t sums channel t % BNO over rows t / BNO, + 256 / BNO, ...
-      for (int r = tid / BNO; r < R; r += 256 / BNO) bsum += D[r * BNO + tid % BNO];
+    if (F32 && kt0)  // thread t sums channel t % BNO over rows t / BNO, + 256 / BNO, ...
+      for (int r = tid / BNO; r < R; r += 256 / BNO) bsum += to_f(D[r * BNO + tid % BNO]);
   }
   cp_async_wait<0>();
   __syncthreads();  // every stage read
@@ -1027,7 +1179,7 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
       }
     }
   }
-  if (kt0) {
+  if (F32 && kt0) {
     bred[tid] = bsum;
     __syncthreads();
     if (tid < BNO && n0 + tid < Co) {
@@ -1038,17 +1190,191 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// dW in bf16 on the tensor cores (Ci 16, 32 or a multiple of 64; Co % 8 ==
+// 0): block (kt, nt, chunk) computes the [BKO x BNO] tile of dW[k][co] = sum
+// over rows m of x[m + tap offset][ci] * dy_eff[m][co] (k = tap * Ci + ci,
+// dy_eff in bf16) over the row tiles of its chunk, in order, on mma.sync
+// m16n8k16 with fp32 accumulators: the product's M is 16 depth indices k
+// (one tap, 16 channels), its N 8 channels co, its K 16 rows m. Both
+// operands lie in shared memory rows-first (the halo [pos][channel], the
+// dy_eff rows [r][co]), the transpose of what mma takes, so their fragments
+// come through ldmatrix.trans; each lane names the halo row of its position
+// + the tap's offset (rowpos table), so no im2col is formed. A stage holds
+// a row tile's halo of the CS channels the block's depth tile reads (CS =
+// BKO where a depth tile lies in one tap, else all Ci) and its dy_eff rows,
+// zero rows padding R to a multiple of 16; the next tile is in flight while
+// one is multiplied (a ring of DW_STAGES, one barrier a tile). 8 warps as
+// WK x WN, each MI k16 tiles x NI n8 tiles. Rows of 16-byte chunks are
+// XOR-swizzled (swz_rows) so that ldmatrix's 8 rows fall in 8 distinct bank
+// groups. Each thread writes its accumulators as the chunk's partial.
+// ---------------------------------------------------------------------------
+
+// element offset of 16-byte chunk c of row `row` in a [rows][CG chunks] bf16
+// array, the chunk index XORed with the row (CG a power of two, or a
+// multiple of 8): any 8 consecutive rows of one chunk lie in 8 bank groups
+__device__ __forceinline__ int swz_rows(int row, int c, int CG) {
+  const int sw = CG >= 8 ? (row & 7) : (row / (8 / CG)) & (CG - 1);
+  return (row * CG + (c ^ sw)) * 8;
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t& r0, uint32_t& r1,
+                                          uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+template <int WK, int MI, int NI>
+__global__ void __launch_bounds__(256, 2) conv_dw_mma_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ dye, float* __restrict__ part_w,
+    int B, int T, int F, int Ci, int Co, int TT, int FF, int CS, int n_tiles,
+    int tiles_per_chunk) {
+  constexpr int WN = 8 / WK, BKO = WK * MI * 16, BNO = WN * NI * 8, CGD = BNO / 8;
+  static_assert(WK * WN == 8 && NI % 2 == 0, "warp tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int rowpos[DW_MAX_ROWS];  // halo position of row r of a tile
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  const int W = FF + 2, NP = (TT + 2) * W, R = TT * FF, R16 = (R + 15) & ~15;
+  const int CGX = CS / 8;
+  const int STG = NP * CS + R16 * BNO;  // a stage: the halo, then the dy_eff rows
+  const int K = 9 * Ci;
+  const int k0 = blockIdx.x * BKO, n0 = blockIdx.y * BNO;
+  const int cs0 = CS < Ci ? k0 % Ci : 0;  // the staged channels [cs0, cs0 + CS)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wk = warp % WK, wn = warp / WK;
+  const int tile0 = blockIdx.z * tiles_per_chunk;
+  const int tile1 = min(n_tiles, tile0 + tiles_per_chunk);
+
+  for (int r = tid; r < R16; r += 256) {
+    const int jt = r / FF;
+    rowpos[r] = r < R ? (jt + 1) * W + r - jt * FF + 1 : W + 1;  // padding rows: any
+  }
+  // this warp's k16 tiles: valid (warp-uniform), the tap's offset, the
+  // lane's 8-channel chunk (ldmatrix matrix l / 8: chunk (l / 8) % 2)
+  bool kval[MI];
+  int aoff[MI], ach[MI];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const int k = k0 + (wk * MI + mi) * 16;
+    kval[mi] = k < K;
+    const int tap = kval[mi] ? k / Ci : 0;
+    aoff[mi] = (tap / 3 - 1) * W + tap % 3 - 1;
+    ach[mi] = (kval[mi] ? k - tap * Ci - cs0 : 0) / 8 + ((lane >> 3) & 1);
+  }
+  const int arow = ((lane >> 4) << 3) + (lane & 7);         // A: rows m of matrix l / 8
+  const int brow = (((lane >> 3) & 1) << 3) + (lane & 7);   // B: rows m of matrix l / 8
+  const int bch = wn * NI + (lane >> 4);                    // B: n8 tile of the pair
+
+  auto stage = [&](int tile, int buf) {
+    const RowTile rt = row_tile(tile, T, F, TT, FF);
+    bf16* const H = sm + buf * STG;
+    bf16* const D = H + NP * CS;
+    for (int i = tid; i < NP * CGX; i += 256) {
+      const int pos = i / CGX, c = i - pos * CGX;
+      const int jt = pos / W;
+      const int t = rt.t0 + jt - 1, f = rt.f0 + pos - jt * W - 1;
+      const bool ok = t >= 0 && t < T && f >= 0 && f < F;
+      cp_async16(H + swz_rows(pos, c, CGX),
+                 ok ? x + (((long long)rt.b * T + t) * F + f) * Ci + cs0 + c * 8 : x, ok);
+    }
+    for (int i = tid; i < R16 * CGD; i += 256) {
+      const int r = i / CGD, c = i - r * CGD;
+      const int jt = r / FF;
+      const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
+      const bool ok = r < R && t < T && f < F && n0 + c * 8 < Co;
+      cp_async16(D + swz_rows(r, c, CGD),
+                 ok ? dye + (((long long)rt.b * T + t) * F + f) * Co + n0 + c * 8 : dye, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  for (int st = 0; st < DW_STAGES - 1; ++st) {
+    if (tile0 + st < tile1) {
+      stage(tile0 + st, st);
+    } else {
+      cp_async_commit();
+    }
+  }
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int buf = (tile - tile0) % DW_STAGES;
+    cp_async_wait<DW_STAGES - 2>();
+    __syncthreads();  // the tile landed for all; the previous buffer is free
+    if (tile + DW_STAGES - 1 < tile1) {
+      stage(tile + DW_STAGES - 1, (buf + DW_STAGES - 1) % DW_STAGES);
+    } else {
+      cp_async_commit();
+    }
+    const unsigned hs = (unsigned)__cvta_generic_to_shared(sm + buf * STG);
+    const unsigned ds = hs + 2u * (unsigned)(NP * CS);
+#pragma unroll 2
+    for (int m0 = 0; m0 < R16; m0 += 16) {
+      uint32_t a[MI][4];
+      const int pa = rowpos[m0 + arow];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        if (kval[mi])
+          ldsm_x4_t(hs + 2u * (unsigned)swz_rows(pa + aoff[mi], ach[mi], CGX), a[mi][0],
+                    a[mi][1], a[mi][2], a[mi][3]);
+#pragma unroll
+      for (int ni = 0; ni < NI; ni += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(ds + 2u * (unsigned)swz_rows(m0 + brow, bch + ni, CGD), b0, b1, b2, b3);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          if (!kval[mi]) continue;
+          mma_bf16(acc[mi][ni], a[mi], b0, b1);
+          mma_bf16(acc[mi][ni + 1], a[mi], b2, b3);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator e of (mi, ni): depth k0 + (wk MI + mi) 16 + gq + 8 (e / 2),
+  // channel n0 + (wn NI + ni) 8 + 2 tq + e % 2
+  const int gq = lane >> 2, tq = lane & 3;
+  const long long chunk = blockIdx.z;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    if (!kval[mi]) continue;
+    const int kb = k0 + (wk * MI + mi) * 16 + gq;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = n0 + (wn * NI + ni) * 8 + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* o = part_w + (chunk * K + kb + 8 * h) * Co + n;
+        if (n < Co) o[0] = acc[mi][ni][2 * h];
+        if (n + 1 < Co) o[1] = acc[mi][ni][2 * h + 1];
+      }
+    }
+  }
+}
+
 // dW and dbias partials for Ci = 1 (the first block: 9 taps of one input
 // channel), bound by the bytes of y and dy, which it reads once: dy_eff is
 // formed as they are read, a thread keeps 9 taps x 4 channels of dW and 4 of
 // dbias in registers over rows rs, rs + RS, ... of its block's range, and the
-// block adds its RS row slots in order.
+// block adds its RS row slots in order. TX = bf16: x, y and dy read as bf16,
+// dy_eff formed in fp32 without FMA (pallas_cnn.py:207) and summed unrounded
+// into dbias (:211), its bf16 rounding the dW products' operand (:208).
 constexpr int C1_VALS = 40;  // 9 * 4 + 4 sums a thread
 
+template <typename TX>
 __global__ void __launch_bounds__(256) conv_dw_c1_kernel(
-    const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ dy,
+    const TX* __restrict__ x, const TX* __restrict__ y, const TX* __restrict__ dy,
     const float* __restrict__ ds, const float* __restrict__ dq, float* __restrict__ part_w,
     float* __restrict__ part_b, int B, int T, int F, int Co, int rows_per_block) {
+  constexpr bool F32 = std::is_same<TX, float>::value;
   __shared__ float red[256 * C1_VALS];
   const int G = (Co + 3) / 4;  // channel groups of 4
   const int RS = 256 / G;      // row slots
@@ -1075,30 +1401,45 @@ __global__ void __launch_bounds__(256) conv_dw_c1_kernel(
       for (int tap = 0; tap < 9; ++tap) {
         const int dt = tap / 3 - 1, df = tap % 3 - 1;
         const bool ok = t + dt >= 0 && t + dt < T && f + df >= 0 && f + df < F;
-        xv[tap] = ok ? x[m + dt * F + df] : 0.f;
+        xv[tap] = ok ? to_f(x[m + dt * F + df]) : 0.f;
       }
       float e[4];
       if (Co % 4 == 0) {
-        const float4 a = *reinterpret_cast<const float4*>(dy + mc + 4 * g);
-        const float4 b = *reinterpret_cast<const float4*>(y + mc + 4 * g);
+        const float4 a = ld4(dy + mc, 4 * g, Co);
+        const float4 b = ld4(y + mc, 4 * g, Co);
         const float4 s = *reinterpret_cast<const float4*>(ds + f * Co + 4 * g);
         const float4 q = *reinterpret_cast<const float4*>(dq + f * Co + 4 * g);
-        e[0] = a.x + s.x + 2.f * b.x * q.x;
-        e[1] = a.y + s.y + 2.f * b.y * q.y;
-        e[2] = a.z + s.z + 2.f * b.z * q.z;
-        e[3] = a.w + s.w + 2.f * b.w * q.w;
+        if constexpr (F32) {
+          e[0] = a.x + s.x + 2.f * b.x * q.x;
+          e[1] = a.y + s.y + 2.f * b.y * q.y;
+          e[2] = a.z + s.z + 2.f * b.z * q.z;
+          e[3] = a.w + s.w + 2.f * b.w * q.w;
+        } else {
+          const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+          const float sv[4] = {s.x, s.y, s.z, s.w}, qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            e[j] = __fadd_rn(__fadd_rn(av[j], sv[j]), __fmul_rn(__fmul_rn(2.f, bv[j]), qv[j]));
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = 4 * g + j;
-          e[j] = c < Co ? dy[mc + c] + ds[f * Co + c] + 2.f * y[mc + c] * dq[f * Co + c] : 0.f;
+          if constexpr (F32) {
+            e[j] = c < Co ? dy[mc + c] + ds[f * Co + c] + 2.f * y[mc + c] * dq[f * Co + c] : 0.f;
+          } else {
+            e[j] = c < Co ? __fadd_rn(__fadd_rn(to_f(dy[mc + c]), ds[f * Co + c]),
+                                      __fmul_rn(__fmul_rn(2.f, to_f(y[mc + c])), dq[f * Co + c]))
+                          : 0.f;
+          }
         }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         bacc[j] += e[j];
+        const float ec = rnd<TX>(e[j]);
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) acc[tap][j] = fmaf(xv[tap], e[j], acc[tap][j]);
+        for (int tap = 0; tap < 9; ++tap) acc[tap][j] = fmaf(xv[tap], ec, acc[tap][j]);
       }
     }
   }
@@ -1124,20 +1465,23 @@ __global__ void __launch_bounds__(256) conv_dw_c1_kernel(
   }
 }
 
-// dW[e] and dbias[c]: the chunks' partials added in chunk order.
+// dW[e] and dbias[c]: the partials added in order (n_w chunks of dW, n_b
+// rows of dbias), each total rounded once to the output type (bf16:
+// pallas_cnn.py:473-474).
+template <typename TO>
 __global__ void dw_final_kernel(const float* __restrict__ part_w,
-                                const float* __restrict__ part_b, float* __restrict__ dw,
-                                float* __restrict__ db, int KC, int Co, int n_chunks) {
+                                const float* __restrict__ part_b, TO* __restrict__ dw,
+                                TO* __restrict__ db, int KC, int Co, int n_w, int n_b) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e < KC) {
     float a = 0.f;
-    for (int c = 0; c < n_chunks; ++c) a += part_w[(long long)c * KC + e];
-    dw[e] = a;
+    for (int c = 0; c < n_w; ++c) a += part_w[(long long)c * KC + e];
+    dw[e] = from_f<TO>(a);
   }
   if (e < Co) {
     float b = 0.f;
-    for (int c = 0; c < n_chunks; ++c) b += part_b[(long long)c * Co + e];
-    db[e] = b;
+    for (int c = 0; c < n_b; ++c) b += part_b[(long long)c * Co + e];
+    db[e] = from_f<TO>(b);
   }
 }
 
@@ -1214,11 +1558,11 @@ cudaError_t launch_dx_bn(int BN, const float* dye, const float* wt, float* dx, i
   }
 }
 
-template <int TN, int NTY, int NTX, int VEC>
-cudaError_t launch_dw(const float* x, const float* dye, float* part_w, float* part_b, int B,
+template <int TN, int NTY, int NTX, int VEC, typename TX>
+cudaError_t launch_dw(const TX* x, const TX* dye, float* part_w, float* part_b, int B,
                       int T, int F, int Ci, int Co, int TT, int FF, int n_tiles, int tpc,
                       int chunks, int smem, cudaStream_t s) {
-  auto kernel = conv_dw_kernel<TN, NTY, NTX, VEC>;
+  auto kernel = conv_dw_kernel<TN, NTY, NTX, VEC, TX>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((9 * Ci + 8 * NTY - 1) / (8 * NTY), (Co + NTX * TN - 1) / (NTX * TN), chunks);
@@ -1228,30 +1572,32 @@ cudaError_t launch_dw(const float* x, const float* dye, float* part_w, float* pa
 
 // The dW tile [BKO x BNO] picks the thread grid: NTY = BKO / 8 depth rows of
 // threads; BNO of 16 or 32 channels in 4-wide, 64 or 128 in 8-wide thread tiles.
-template <int NTY, int VEC>
-cudaError_t launch_dw_n(int BNO, const float* x, const float* dye, float* part_w,
+template <int NTY, int VEC, typename TX>
+cudaError_t launch_dw_n(int BNO, const TX* x, const TX* dye, float* part_w,
                         float* part_b, int B, int T, int F, int Ci, int Co, int TT, int FF,
                         int n_tiles, int tpc, int chunks, int smem, cudaStream_t s) {
+#define DW_ARGS x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s
   switch (BNO) {
-    case 16: return launch_dw<4, NTY, 4, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
-    case 32: return launch_dw<4, NTY, 8, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
-    case 64: return launch_dw<8, NTY, 8, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
-    case 128: return launch_dw<8, NTY, 16, VEC>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 16: return launch_dw<4, NTY, 4, VEC, TX>(DW_ARGS);
+    case 32: return launch_dw<4, NTY, 8, VEC, TX>(DW_ARGS);
+    case 64: return launch_dw<8, NTY, 8, VEC, TX>(DW_ARGS);
+    case 128: return launch_dw<8, NTY, 16, VEC, TX>(DW_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int VEC>
-cudaError_t launch_dw_any(int BKO, int BNO, const float* x, const float* dye, float* part_w,
+template <int VEC, typename TX>
+cudaError_t launch_dw_any(int BKO, int BNO, const TX* x, const TX* dye, float* part_w,
                           float* part_b, int B, int T, int F, int Ci, int Co, int TT, int FF,
                           int n_tiles, int tpc, int chunks, int smem, cudaStream_t s) {
   switch (BKO) {
-    case 16: return launch_dw_n<2, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
-    case 32: return launch_dw_n<4, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
-    case 64: return launch_dw_n<8, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
-    case 128: return launch_dw_n<16, VEC>(BNO, x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s);
+    case 16: return launch_dw_n<2, VEC, TX>(BNO, DW_ARGS);
+    case 32: return launch_dw_n<4, VEC, TX>(BNO, DW_ARGS);
+    case 64: return launch_dw_n<8, VEC, TX>(BNO, DW_ARGS);
+    case 128: return launch_dw_n<16, VEC, TX>(BNO, DW_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef DW_ARGS
 }
 
 // ---------------------------------------------------------------------------
@@ -1282,19 +1628,28 @@ cudaError_t launch_dw_any(int BKO, int BNO, const float* x, const float* dye, fl
 // entries, each thread adding the tile's positions into its entries of the
 // block's partial in part_w (read and written back a tile: the same thread,
 // in tile order). smem WIDE: slice [KS][CP] | yt | dt | lanes.
+// TY = bf16 (the bf16 mode, pallas_cnn.py:295-357 with bf16 refs): y, g,
+// Wg and bg read as bf16 and held in fp32; A forms BN(y) as a multiply, then
+// an add (no FMA, as the JAX kernel's separate ops), puts its bf16 rounding
+// in yt (lin's operand and dWg's left operand, :312, :347) and the unrounded
+// value in dt, whose sigmoid B takes before it writes dlin there (:314).
+// dlin stays fp32 in both of its products (:341-350 are fp32 x bf16
+// dots, the fp32 operand kept), so they stay on the CUDA cores; dy is
+// rounded to bf16 (:354), the lane sums and dWg stay fp32 partials.
 // ---------------------------------------------------------------------------
 
 constexpr int GLU_THREADS = 512;
 
-template <int CT, bool WIDE>
+template <int CT, bool WIDE, typename TY>
 __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
-    const float* __restrict__ y, const float* __restrict__ scale_f,
-    const float* __restrict__ bias_f, const float* __restrict__ wg,
-    const float* __restrict__ wgt, const float* __restrict__ bg,
-    const uint8_t* __restrict__ bits, const float* __restrict__ g, float* __restrict__ dy,
+    const TY* __restrict__ y, const float* __restrict__ scale_f,
+    const float* __restrict__ bias_f, const TY* __restrict__ wg,
+    const TY* __restrict__ wgt, const TY* __restrict__ bg,
+    const uint8_t* __restrict__ bits, const TY* __restrict__ g, TY* __restrict__ dy,
     float* __restrict__ part_l, float* __restrict__ part_w, int B, int T, int F, int Co,
     int pt, int pf, int keep_thresh, float inv_keep, int CP, int P, int PG, int n_tiles,
     int tiles_per_block, int KS, int lanes_smem, int passes) {
+  constexpr bool BF = std::is_same<TY, bf16>::value;
   extern __shared__ __align__(16) float smem[];
   const int L = F * Co;
   const int PS = P + 4;
@@ -1327,12 +1682,12 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
     for (int i = tid; i < Co * CP; i += GLU_THREADS) {
       const int r = i / CP;
       const int c = i - r * CP;
-      wg_s[i] = c < Co ? wg[r * Co + c] : 0.f;
-      wgT_s[i] = c < Co ? wg[c * Co + r] : 0.f;
+      wg_s[i] = c < Co ? to_f(wg[r * Co + c]) : 0.f;
+      wgT_s[i] = c < Co ? to_f(wg[c * Co + r]) : 0.f;
     }
   }
   // rows k0 .. k0 + KS of `src` [Co][Co] into the slice buffer [KS][CP], zeros past Co
-  auto stage_rows = [&](const float* __restrict__ src, int k0) {
+  auto stage_rows = [&](const TY* __restrict__ src, int k0) {
     const int per = CP / 4;
     for (int i = tid; i < KS * per; i += GLU_THREADS) {
       const int k = i / per, c = (i - k * per) * 4;
@@ -1407,7 +1762,14 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
         for (int j = 0; j < 4; ++j) {  // padded channels load zeros: v = 0, gu = 0
           float gj = pooled[i] ? gv[j] * inv_w : 0.f;
           if (bits != nullptr) gj = (int)((kb[i] >> (8 * j)) & 255u) < keep_thresh ? gj * inv_keep : 0.f;
-          yt[(cg * 4 + j) * PS + pg * 4 + i] = ok[i] ? fmaf(yv[j], sv[j], bv[j]) : 0.f;
+          const int e = (cg * 4 + j) * PS + pg * 4 + i;
+          if constexpr (BF) {
+            const float v = ok[i] ? __fadd_rn(__fmul_rn(yv[j], sv[j]), bv[j]) : 0.f;
+            yt[e] = rnd<bf16>(v);
+            dt[e] = v;
+          } else {
+            yt[e] = ok[i] ? fmaf(yv[j], sv[j], bv[j]) : 0.f;
+          }
           gu[i][j] = gj;
         }
       }
@@ -1432,10 +1794,10 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = cg * 4 + j;
-        const float bgc = c < Co ? bg[c] : 0.f;
+        const float bgc = c < Co ? to_f(bg[c]) : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float s = sigmoidf(yt[c * PS + pg * 4 + i]);
+          const float s = sigmoidf(BF ? dt[c * PS + pg * 4 + i] : yt[c * PS + pg * 4 + i]);
           const float lin = acc[i][j] + bgc;
           dt[c * PS + pg * 4 + i] = gu[i][j] * s;
           t2[i][j] = gu[i][j] * lin * s * (1.f - s);
@@ -1617,22 +1979,24 @@ __global__ void glu_bwd_final_lanes(float* __restrict__ part_l, float* __restric
   part_l[2 * L + l] = c;
 }
 
-// dWg[e] over the partials in order; dbg[c] over the F lanes of channel c in order.
+// dWg[e] over the partials in order; dbg[c] over the F lanes of channel c in
+// order; each total rounded once to the output type (bf16: pallas_cnn.py:666-667).
+template <typename TO>
 __global__ void glu_bwd_final_w(const float* __restrict__ part_l,
-                                const float* __restrict__ part_w, float* __restrict__ dwg,
-                                float* __restrict__ dbg, int F, int Co, int n_parts) {
+                                const float* __restrict__ part_w, TO* __restrict__ dwg,
+                                TO* __restrict__ dbg, int F, int Co, int n_parts) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int CC = Co * Co;
   if (e < CC) {
     float a = 0.f;
     for (int i = 0; i < n_parts; ++i) a += part_w[(long long)i * CC + e];
-    dwg[e] = a;
+    dwg[e] = from_f<TO>(a);
   }
   if (e < Co) {
     const float* lanes = part_l + 2 * (long long)F * Co;
     float a = 0.f;
     for (int f = 0; f < F; ++f) a += lanes[f * Co + e];
-    dbg[e] = a;
+    dbg[e] = from_f<TO>(a);
   }
 }
 
@@ -2082,7 +2446,7 @@ cudaError_t launch_fwd_bf16(const bf16* x, const bf16* wt, const bf16* bias, bf1
                             float* part_s, float* part_q, int B, int T, int F, int Ci, int Co,
                             int TT, int FF, int smem, cudaStream_t s) {
   static int smem_set = 0;
-  auto kernel = conv3x3_bf16_kernel<BN, VEC>;
+  auto kernel = conv3x3_bf16_kernel<BN, VEC, true>;
   cudaError_t err = ensure_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
@@ -2105,6 +2469,97 @@ cudaError_t launch_fwd_bf16_bn(int BN, const bf16* x, const bf16* wt, const bf16
     default: return cudaErrorInvalidValue;
   }
 #undef FWD16_ARGS
+}
+
+// conv_bn_stats_bwd's dW in bf16 on the tensor cores, at dW tile width BNO
+template <int WK, int MI, int NI>
+cudaError_t launch_dw_mma(const bf16* x, const bf16* dye, float* part_w, int B, int T, int F,
+                          int Ci, int Co, int TT, int FF, int CS, int n_tiles, int tpc,
+                          int chunks, int smem, cudaStream_t s) {
+  static int smem_set = 0;
+  constexpr int BKO = WK * MI * 16, BNO = (8 / WK) * NI * 8;
+  auto kernel = conv_dw_mma_kernel<WK, MI, NI>;
+  cudaError_t err = ensure_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((9 * Ci + BKO - 1) / BKO, (Co + BNO - 1) / BNO, chunks);
+  kernel<<<grid, 256, smem, s>>>(x, dye, part_w, B, T, F, Ci, Co, TT, FF, CS, n_tiles, tpc);
+  return cudaGetLastError();
+}
+
+// the warp tiles of conv_dw_mma_kernel by BNO (ops/fused_cnn.py DW_MMA)
+cudaError_t launch_dw_mma_n(int BNO, const bf16* x, const bf16* dye, float* part_w, int B,
+                            int T, int F, int Ci, int Co, int TT, int FF, int CS, int n_tiles,
+                            int tpc, int chunks, int smem, cudaStream_t s) {
+#define DWM_ARGS x, dye, part_w, B, T, F, Ci, Co, TT, FF, CS, n_tiles, tpc, chunks, smem, s
+  switch (BNO) {
+    case 16: return launch_dw_mma<8, 2, 2>(DWM_ARGS);
+    case 32: return launch_dw_mma<8, 1, 4>(DWM_ARGS);
+    case 64: return launch_dw_mma<4, 2, 4>(DWM_ARGS);
+    case 128: return launch_dw_mma<4, 1, 8>(DWM_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef DWM_ARGS
+}
+
+// conv_bn_stats_bwd's dx in bf16: conv3x3_bf16_kernel without STATS over
+// the bf16 dy_eff (Co channels in, Ci out) with w flipped
+template <int BN, bool VEC>
+cudaError_t launch_dx_bf16(const bf16* dye, const bf16* wf, bf16* dx, int B, int T, int F,
+                           int Co, int Ci, int TT, int FF, int smem, cudaStream_t s) {
+  static int smem_set = 0;
+  auto kernel = conv3x3_bf16_kernel<BN, VEC, false>;
+  cudaError_t err = ensure_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
+  dim3 grid((unsigned)tiles, (unsigned)((Ci + BN - 1) / BN));
+  kernel<<<grid, 256, smem, s>>>(dye, wf, nullptr, dx, nullptr, nullptr, B, T, F, Co, Ci, TT,
+                                 FF);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_dx_bf16_bn(int BN, const bf16* dye, const bf16* wf, bf16* dx, int B, int T,
+                              int F, int Co, int Ci, int TT, int FF, int smem, cudaStream_t s) {
+#define DX16_ARGS dye, wf, dx, B, T, F, Co, Ci, TT, FF, smem, s
+  switch (BN) {
+    case 8: return launch_dx_bf16<8, VEC>(DX16_ARGS);
+    case 16: return launch_dx_bf16<16, VEC>(DX16_ARGS);
+    case 32: return launch_dx_bf16<32, VEC>(DX16_ARGS);
+    case 64: return launch_dx_bf16<64, VEC>(DX16_ARGS);
+    case 128: return launch_dx_bf16<128, VEC>(DX16_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef DX16_ARGS
+}
+
+// glu_drop_pool_bwd in either type: the kernel, then the lane and dWg passes
+template <typename TY>
+cudaError_t launch_glu_bwd(const TY* y, const float* scale_f, const float* bias_f, const TY* wg,
+                           const TY* wgt, const TY* bg, const uint8_t* bits, const TY* g, TY* dy,
+                           float* part_l, float* part_w, float* dscale_f, float* dbias_f,
+                           TY* dwg, TY* dbg, int B, int T, int F, int Co, int pt, int pf,
+                           int keep_thresh, float inv_keep, const int* plan,
+                           cudaStream_t stream) {
+  const int CP = plan[0], CT = plan[1], P = plan[2], PG = plan[3];
+  const int n_tiles = plan[4], tpb = plan[5], n_blocks = plan[6], smem = plan[7];
+  const int ks = plan[8], lanes = plan[9], passes = plan[10];
+  auto kernel = passes > 1 ? glu_bwd_kernel<8, true, TY>
+                : CT == 8  ? glu_bwd_kernel<8, false, TY>
+                           : glu_bwd_kernel<4, false, TY>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(y, scale_f, bias_f, wg, wgt, bg, bits, g, dy,
+                                                  part_l, part_w, B, T, F, Co, pt, pf,
+                                                  keep_thresh, inv_keep, CP, P, PG, n_tiles, tpb,
+                                                  ks, lanes, passes);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int L = F * Co;
+  glu_bwd_final_lanes<<<(L + 255) / 256, 256, 0, stream>>>(part_l, dscale_f, dbias_f, L,
+                                                           n_blocks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  glu_bwd_final_w<TY><<<(Co * Co + 255) / 256, 256, 0, stream>>>(part_l, part_w, dwg, dbg, F,
+                                                                 Co, n_blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -2237,18 +2692,70 @@ int conv_bn_stats_bwd(const float* x, const float* wt, const float* y, const flo
     if (err != cudaSuccess) return (int)err;
   }
   if (stream_dw) {
-    conv_dw_c1_kernel<<<chunks, 256, 0, stream>>>(x, y, dy, ds, dq, part_w, part_b, B, T, F,
-                                                  Co, rows_per_block);
+    conv_dw_c1_kernel<float><<<chunks, 256, 0, stream>>>(x, y, dy, ds, dq, part_w, part_b, B,
+                                                         T, F, Co, rows_per_block);
     err = cudaGetLastError();
   } else {
-    err = vec ? launch_dw_any<4>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
-                                 dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream)
-              : launch_dw_any<1>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
-                                 dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream);
+    err = vec ? launch_dw_any<4, float>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
+                                        dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream)
+              : launch_dw_any<1, float>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
+                                        dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream);
   }
   if (err != cudaSuccess) return (int)err;
   const int KC = 9 * Ci * Co;
-  dw_final_kernel<<<(KC + 255) / 256, 256, 0, stream>>>(part_w, part_b, dw, db, KC, Co, chunks);
+  dw_final_kernel<float><<<(KC + 255) / 256, 256, 0, stream>>>(part_w, part_b, dw, db, KC, Co,
+                                                               chunks, chunks);
+  return (int)cudaGetLastError();
+}
+
+// Backward of conv_bn_stats in bf16: x, y, dy bf16 [B,T,F,Ci|Co]; ds, dq
+// fp32; wf = w flipped in (dt, df), bf16 [3,3,Ci,Co] (NULL without dx);
+// dye bf16 scratch (rounded dy_eff), dx bf16; part_w [chunks, 9*Ci, Co] and
+// part_b fp32 scratch ([eff_blocks, Co], or [chunks, Co] on the Ci = 1
+// path, whose kernel sums dbias itself); dw, db bf16. plan: ConvBwdPlan
+// for bf16 (dx_vec, eff_blocks, eff_rows, dw_cs at 15-18; dw_cs > 0: dW on
+// the tensor cores, conv_dw_mma_kernel, over CS staged channels).
+int conv_bn_stats_bwd_bf16(const bf16* x, const bf16* wf, const bf16* y, const bf16* dy,
+                           const float* ds, const float* dq, bf16* dye, bf16* dx, float* part_w,
+                           float* part_b, bf16* dw, bf16* db, int B, int T, int F, int Ci,
+                           int Co, const int* plan, cudaStream_t stream) {
+  const int stream_dw = plan[0], vec = plan[1];
+  const int dx_bn = plan[2], dx_tt = plan[3], dx_ff = plan[4], dx_smem = plan[5];
+  const int dw_bko = plan[6], dw_bno = plan[7], dw_tt = plan[8], dw_ff = plan[9];
+  const int dw_tiles = plan[10], dw_tpc = plan[11], chunks = plan[12], dw_smem = plan[13];
+  const int rows_per_block = plan[14], dx_vec = plan[15], eff_blocks = plan[16];
+  const int eff_rows = plan[17], dw_cs = plan[18];
+  const long long M = (long long)B * T * F;
+  cudaError_t err = cudaSuccess;
+  if (dye != nullptr) {
+    dy_eff_bf16_kernel<<<eff_blocks, EFF_THREADS, 0, stream>>>(
+        y, dy, ds, dq, dye, stream_dw ? nullptr : part_b, M, F, Co, eff_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (dx != nullptr) {
+    err = dx_vec ? launch_dx_bf16_bn<true>(dx_bn, dye, wf, dx, B, T, F, Co, Ci, dx_tt, dx_ff,
+                                           dx_smem, stream)
+                 : launch_dx_bf16_bn<false>(dx_bn, dye, wf, dx, B, T, F, Co, Ci, dx_tt, dx_ff,
+                                            dx_smem, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (stream_dw) {
+    conv_dw_c1_kernel<bf16><<<chunks, 256, 0, stream>>>(x, y, dy, ds, dq, part_w, part_b, B, T,
+                                                        F, Co, rows_per_block);
+    err = cudaGetLastError();
+  } else if (dw_cs > 0) {
+    err = launch_dw_mma_n(dw_bno, x, dye, part_w, B, T, F, Ci, Co, dw_tt, dw_ff, dw_cs, dw_tiles,
+                          dw_tpc, chunks, dw_smem, stream);
+  } else {
+    err = vec ? launch_dw_any<4, bf16>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
+                                       dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream)
+              : launch_dw_any<1, bf16>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
+                                       dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int KC = 9 * Ci * Co;
+  dw_final_kernel<bf16><<<(KC + 255) / 256, 256, 0, stream>>>(
+      part_w, part_b, dw, db, KC, Co, chunks, stream_dw ? chunks : eff_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -2262,26 +2769,22 @@ int glu_drop_pool_bwd(const float* y, const float* scale_f, const float* bias_f,
                       float* dbias_f, float* dwg, float* dbg, int B, int T, int F, int Co,
                       int pt, int pf, int keep_thresh, float inv_keep, const int* plan,
                       cudaStream_t stream) {
-  const int CP = plan[0], CT = plan[1], P = plan[2], PG = plan[3];
-  const int n_tiles = plan[4], tpb = plan[5], n_blocks = plan[6], smem = plan[7];
-  const int ks = plan[8], lanes = plan[9], passes = plan[10];
-  auto kernel = passes > 1 ? glu_bwd_kernel<8, true>
-                : CT == 8  ? glu_bwd_kernel<8, false>
-                           : glu_bwd_kernel<4, false>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(y, scale_f, bias_f, wg, wgt, bg, bits, g, dy,
-                                                  part_l, part_w, B, T, F, Co, pt, pf,
-                                                  keep_thresh, inv_keep, CP, P, PG, n_tiles, tpb,
-                                                  ks, lanes, passes);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int L = F * Co;
-  glu_bwd_final_lanes<<<(L + 255) / 256, 256, 0, stream>>>(part_l, dscale_f, dbias_f, L,
-                                                           n_blocks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  glu_bwd_final_w<<<(Co * Co + 255) / 256, 256, 0, stream>>>(part_l, part_w, dwg, dbg, F, Co,
-                                                             n_blocks);
-  return (int)cudaGetLastError();
+  return (int)launch_glu_bwd<float>(y, scale_f, bias_f, wg, wgt, bg, bits, g, dy, part_l, part_w,
+                                    dscale_f, dbias_f, dwg, dbg, B, T, F, Co, pt, pf, keep_thresh,
+                                    inv_keep, plan, stream);
+}
+
+// Backward of glu_drop_pool in bf16: y, wg, wgt, bg, g, dy, dwg, dbg bf16;
+// scale_f, bias_f, the partials, dscale_f and dbias_f fp32. plan: GluBwdPlan.
+int glu_drop_pool_bwd_bf16(const bf16* y, const float* scale_f, const float* bias_f,
+                           const bf16* wg, const bf16* wgt, const bf16* bg, const uint8_t* bits,
+                           const bf16* g, bf16* dy, float* part_l, float* part_w,
+                           float* dscale_f, float* dbias_f, bf16* dwg, bf16* dbg, int B, int T,
+                           int F, int Co, int pt, int pf, int keep_thresh, float inv_keep,
+                           const int* plan, cudaStream_t stream) {
+  return (int)launch_glu_bwd<bf16>(y, scale_f, bias_f, wg, wgt, bg, bits, g, dy, part_l, part_w,
+                                   dscale_f, dbias_f, dwg, dbg, B, T, F, Co, pt, pf, keep_thresh,
+                                   inv_keep, plan, stream);
 }
 
 }  // extern "C"

@@ -20,9 +20,10 @@ output (:316-323), the GLU's Dense in bf16 (product rounded, + bias
 rounded), its sigmoid as jax.nn.sigmoid lowers it for bf16 (1 / (1 +
 exp(-x)), each op rounded), the gate product rounded (:29-35), dropout in
 bf16, and nn.avg_pool's bf16 sums in window order (each add rounded), then
-the division by the window. A fused bf16 block that needs gradients raises
-NotImplementedError (the backward kernels' bf16 mode is the next slice);
-the unfused bf16 chain trains through autograd.
+the division by the window. Both forms train in bf16: the fused blocks
+through the backward kernels' bf16 mode (the fp32 parameters receive the
+bf16 gradients of their rounded copies, as JAX's astype VJP gives them),
+the unfused chain through autograd.
 
 GLU(x) = Linear(x) * sigmoid(x) (the gate is the raw input, cnn.py:29-35);
 it is not torch.nn.GLU, which splits channels. The JAX module's other

@@ -29,14 +29,19 @@ each forward to its backward.
 BatchNorm scale and bias math in torch, so autograd carries the gradients
 of the batch mean and variance back into conv_bn_stats_bwd as ds and dq.
 
-bf16 mode (the forward kernels, as the JAX kernels' bf16 mode): given bf16
-activations, conv_bn_stats and glu_drop_pool take bf16 operands, sum their
-products in fp32 and store y and z in bf16, rounding where
-pallas_cnn.py:171-178, :277 and :292 round (the plain versions write each
-bf16 product as an fp32 product of bf16-rounded values: exact, as "bf16
-operands, fp32 accumulation" is). The BN statistics and affine stay fp32.
-The backward kernels have no bf16 mode yet: a bf16 block that needs
-gradients raises NotImplementedError.
+bf16 mode (the JAX kernels' bf16 mode): given bf16 activations, the four
+kernels take bf16 operands, sum their products in fp32 and store y, z, dy
+and dx in bf16, rounding where pallas_cnn.py rounds (the plain versions
+write each bf16 product as an fp32 product of bf16-rounded values: exact,
+as "bf16 operands, fp32 accumulation" is). Forward: :171-178, :277, :292.
+conv_bn_stats_bwd: dy_eff in fp32 (:203-207), dbias from the unrounded
+dy_eff (:211), bf16(dy_eff) the operand of the dW and dx products (:208),
+dx rounded (:239), dw and dbias rounded once from their fp32 totals
+(:473-474). glu_drop_pool_bwd: bf16(BN(y)) the operand of lin and the left
+operand of dWg, the sigmoid of the unrounded BN(y), dlin kept in fp32 in
+both of its products (:341-350: fp32 x bf16 dots, which keep the fp32
+operand), dy rounded (:354), dscale_f and dbias_f fp32, dwg and dbg rounded
+once (:666-667). The BN statistics and affine stay fp32.
 
 Layouts follow the JAX package: x [B, T, F, Ci] (NHWC), w [3, 3, Ci, Co]
 (HWIO), GLU weight wg [Co_in, Co_out] (flax Dense kernel), lane = f*Co + c.
@@ -124,11 +129,19 @@ def glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_pro
 def conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx: bool = True):
     """Backward of conv_bn_stats: cotangents dy [B, T, F, Co] of y and ds, dq
     [F*Co] of the lane sums -> (dx [B, T, F, Ci] or None, dw [3, 3, Ci, Co],
-    dbias [Co]), with dy_eff = dy + ds + 2 y dq (pallas_cnn.py:207)."""
+    dbias [Co]), with dy_eff = dy + ds + 2 y dq (pallas_cnn.py:207).
+    bf16 x, w, y, dy (ds, dq fp32): dy_eff in fp32, dbias summed from it
+    (:211), bf16(dy_eff) the operand of the dW and dx products (:208), dx,
+    dw and dbias rounded to bf16 once (:239, :473-474)."""
+    bf = _io_dtype("conv_bn_stats_bwd", x, w, y, dy) == torch.bfloat16
     B, T, F, Ci = x.shape
     Co = w.shape[-1]
+    if bf:
+        x, w, y, dy = x.float(), w.float(), y.float(), dy.float()
     dy_eff = dy + ds.view(F, Co) + 2.0 * y * dq.view(F, Co)
     dbias = dy_eff.sum(dim=(0, 1, 2))
+    if bf:
+        dy_eff = dy_eff.to(torch.bfloat16).float()
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
     d2 = dy_eff.reshape(-1, Co)
     dw = torch.stack([
@@ -137,6 +150,9 @@ def conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx: bool = True):
     dx = None
     if need_dx:  # transposed conv: SAME conv with the flipped, transposed kernel
         dx = conv2d_nhwc(dy_eff, w.flip(0, 1).transpose(2, 3))
+    if bf:
+        dx = None if dx is None else dx.to(torch.bfloat16)
+        dw, dbias = dw.to(torch.bfloat16), dbias.to(torch.bfloat16)
     return dx, dw, dbias
 
 
@@ -153,11 +169,20 @@ def _unpool(g, T, F, pool):
 
 def glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.0):
     """Backward of glu_drop_pool for the cotangent g [B, T//pt, F//pf, Co] ->
-    (dy [B, T, F, Co], dscale_f [F*Co], dbias_f [F*Co], dwg [Co, Co], dbg [Co])."""
+    (dy [B, T, F, Co], dscale_f [F*Co], dbias_f [F*Co], dwg [Co, Co], dbg [Co]).
+    bf16 y, wg, bg, g: BN(y) in fp32 (a multiply, then an add), rounded to
+    bf16 as lin's operand and dWg's left operand (pallas_cnn.py:312, :347),
+    the sigmoid of the unrounded BN(y); dlin stays fp32 in both of its
+    products (:341-350); dy rounded to bf16 (:354), dscale_f and dbias_f
+    fp32, dwg and dbg rounded to bf16 once (:666-667)."""
+    bf = _io_dtype("glu_drop_pool_bwd", y, wg, bg, g) == torch.bfloat16
     B, T, F, Co = y.shape
+    if bf:
+        y, wg, bg, g = y.float(), wg.float(), bg.float(), g.float()
     sc, bi = scale_f.view(F, Co), bias_f.view(F, Co)
     ybn = y * sc + bi
-    lin = torch.matmul(ybn, wg) + bg
+    ybn_c = ybn.to(torch.bfloat16).float() if bf else ybn  # bf16-rounded, in fp32
+    lin = torch.matmul(ybn_c, wg) + bg
     s = torch.sigmoid(ybn)
     gu = _unpool(g, T, F, pool)
     if bits is not None:
@@ -167,8 +192,11 @@ def glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_p
     dybn = torch.matmul(dlin, wg.t()) + gu * lin * s * (1.0 - s)
     dscale_f = (dybn * y).sum(dim=(0, 1)).reshape(-1)
     dbias_f = dybn.sum(dim=(0, 1)).reshape(-1)
-    dwg = ybn.reshape(-1, Co).t() @ dlin.reshape(-1, Co)
-    return dybn * sc, dscale_f, dbias_f, dwg, dlin.sum(dim=(0, 1, 2))
+    dwg = ybn_c.reshape(-1, Co).t() @ dlin.reshape(-1, Co)
+    dy, dbg = dybn * sc, dlin.sum(dim=(0, 1, 2))
+    if bf:
+        dy, dwg, dbg = (t.to(torch.bfloat16) for t in (dy, dwg, dbg))
+    return dy, dscale_f, dbias_f, dwg, dbg
 
 
 # --------------------------------------------------------------------------
@@ -282,7 +310,14 @@ class ConvBwdPlan:
     [9*Ci, Co] (`dw_threads`: 8 x 4 or 8 x 8 a thread, row groups) over row
     tiles of dw_tt x dw_ff, dw_tiles in all, dw_tpc per chunk, `chunks`
     chunks; or (stream, Ci = 1) `chunks` blocks of rows_per_block rows. The
-    partials are added in chunk order."""
+    partials are added in chunk order. In bf16: dx is the tensor-core conv
+    (conv3x3_bf16_kernel's tiles, `_bf16_conv_tiles`; dx_vec: 16-byte
+    copies of dy_eff, Co % 8 == 0); dW runs on the tensor cores where
+    `dw_mma_takes` (conv_dw_mma_kernel: `DW_MMA` warp tiles, dw_cs staged
+    channels, row tiles from `dw_mma_smem`), else on the CUDA cores from
+    bf16 stages (dw_cs 0, the fp32 tiles, dw_smem in bf16); the dy_eff pass
+    writes dbias partials from the unrounded dy_eff, one per block of
+    eff_rows rows (eff_blocks blocks; 0 in fp32)."""
 
     stream: int
     vec: int
@@ -299,6 +334,10 @@ class ConvBwdPlan:
     chunks: int
     dw_smem: int
     rows_per_block: int
+    dx_vec: int = 0
+    eff_blocks: int = 0
+    eff_rows: int = 0
+    dw_cs: int = 0
 
     def ints(self) -> list[int]:
         return [int(getattr(self, f.name)) for f in fields(self)]
@@ -346,27 +385,76 @@ def dw_threads(bko: int, bno: int) -> tuple[int, int, int, int, int]:
     return 8, tn, nty, ntx, 256 // (nty * ntx)
 
 
-def dw_smem(tt: int, ff: int, ci: int, bko: int, bno: int) -> int:
-    """The ring of stages (x halo, dy_eff rows), or the row groups' tiles
-    added at the end, whichever is larger."""
-    xs = _cdiv((tt + 2) * (ff + 2) * ci, 4) * 4
+def dw_smem(tt: int, ff: int, ci: int, bko: int, bno: int, esize: int = 4) -> int:
+    """The ring of stages (x halo, dy_eff rows; `esize`-byte elements, the
+    halo padded to 16 bytes), or the row groups' fp32 tiles added at the
+    end, whichever is larger."""
+    xs = _cdiv((tt + 2) * (ff + 2) * ci, 16 // esize) * (16 // esize)
     _, _, _, _, rg = dw_threads(bko, bno)
-    return 4 * max(DW_STAGES * (xs + tt * ff * bno), rg * bko * bno if rg > 1 else 0)
+    return max(esize * DW_STAGES * (xs + tt * ff * bno), 4 * rg * bko * bno if rg > 1 else 0)
 
 
-def conv_bwd_plan(B: int, T: int, F: int, Ci: int, Co: int) -> ConvBwdPlan:
+EFF_MAX_CO = 8 * 256  # the bf16 dy_eff pass: 8 channels a thread, one row slot at least
+# conv_dw_mma_kernel's warps by dW tile width BNO: (WK, MI, NI), 8 warps as
+# WK x (8 / WK), each MI k16 tiles x NI n8 tiles; BKO = 16 WK MI (csrc launch_dw_mma_n)
+DW_MMA = {16: (8, 2, 2), 32: (8, 1, 4), 64: (4, 2, 4), 128: (4, 1, 8)}
+
+
+def dw_mma_takes(Ci: int, Co: int) -> bool:
+    """The tensor-core dW: k16 tiles of one tap (Ci % 16 == 0), whole n8
+    tiles of 16-byte dy_eff chunks (Co % 8 == 0), and staged rows whose
+    16-byte chunks swizzle (Ci / 8 a power of two or a multiple of 8)."""
+    return Co % 8 == 0 and (Ci in (16, 32) or Ci % 64 == 0)
+
+
+def dw_mma_tile(Ci: int, Co: int) -> tuple[int, int, int]:
+    """(BKO, BNO, CS) of conv_dw_mma_kernel: CS staged halo channels, BKO
+    where a depth tile lies in one tap, else all Ci."""
+    bno = _pow2_tile(Co, 16, 128)
+    wk, mi, _ = DW_MMA[bno]
+    bko = 16 * wk * mi
+    return bko, bno, bko if bko < Ci and Ci % bko == 0 else Ci
+
+
+def dw_mma_smem(tt: int, ff: int, cs: int, bno: int) -> int:
+    """DW_STAGES stages of the halo [(tt+2)(ff+2)][cs] and the dy_eff rows
+    [tt ff padded to 16][bno], bf16."""
+    return 2 * DW_STAGES * ((tt + 2) * (ff + 2) * cs + _cdiv(tt * ff, 16) * 16 * bno)
+
+
+
+def conv_bwd_plan(B: int, T: int, F: int, Ci: int, Co: int, bf16: bool = False) -> ConvBwdPlan:
     M, K = B * T * F, 9 * Ci
     vec = int(Ci % 4 == 0 and Co % 4 == 0)
-    bn = _pow2_tile(Ci, 8, 128)
-    ff = min(F, 16384 // bn)
-    tt, ff = _shrink(min(T, 16384 // bn // ff), ff, lambda a, b: dx_smem(a, b, bn), SMEM_HALF)
-    dxp = (bn, tt, ff, dx_smem(tt, ff, bn))
+    if bf16:  # dx on the tensor cores, dbias partials from the dy_eff pass
+        if Co > EFF_MAX_CO:
+            raise ValueError(f"conv_bn_stats_bwd: bf16 takes Co <= {EFF_MAX_CO}")
+        dxp = _bf16_conv_tiles(T, F, Ci)
+        blocks = max(1, min(DW_BLOCKS, _cdiv(M, 256)))
+        rows = _cdiv(M, blocks)
+        extra = dict(dx_vec=int(Co % 8 == 0), eff_blocks=_cdiv(M, rows), eff_rows=rows)
+    else:
+        bn = _pow2_tile(Ci, 8, 128)
+        ff = min(F, 16384 // bn)
+        tt, ff = _shrink(min(T, 16384 // bn // ff), ff, lambda a, b: dx_smem(a, b, bn), SMEM_HALF)
+        dxp, extra = (bn, tt, ff, dx_smem(tt, ff, bn)), {}
     if Ci == 1 and Co <= 128:  # the streaming dW kernel: blocks of rows, no tiles
         if M >= 2**31:
             raise ValueError("conv_bn_stats_bwd: the Ci=1 kernel counts rows in 32-bit ints")
         blocks = max(1, min(DW_BLOCKS, _cdiv(M, 256)))
         rpb = _cdiv(M, blocks)
-        return ConvBwdPlan(1, vec, *dxp, 0, 0, 0, 0, 0, 0, _cdiv(M, rpb), 0, rpb)
+        return ConvBwdPlan(1, vec, *dxp, 0, 0, 0, 0, 0, 0, _cdiv(M, rpb), 0, rpb, **extra)
+    if bf16 and dw_mma_takes(Ci, Co):  # dW on the tensor cores: stages of 256 rows at most
+        bko, bno, cs = dw_mma_tile(Ci, Co)
+        wff = min(F, 64)
+        wtt, wff = _shrink(min(T, max(1, DW_MAX_ROWS // wff)), wff,
+                           lambda a, b: dw_mma_smem(a, b, cs, bno), SMEM_HALF)
+        tiles = B * _cdiv(T, wtt) * _cdiv(F, wff)
+        per_chunk = _cdiv(K, bko) * _cdiv(Co, bno)
+        chunks = max(1, min(tiles, DW_BLOCKS // per_chunk))
+        tpc = _cdiv(tiles, chunks)
+        return ConvBwdPlan(0, vec, *dxp, bko, bno, wtt, wff, tiles, tpc, _cdiv(tiles, tpc),
+                           dw_mma_smem(wtt, wff, cs, bno), 0, **extra, dw_cs=cs)
     # dW tiles: 16, 32, 64 or 128 a side. Each depth tile reads all rows
     # again (from L2), so the depth tile trades the depth computed past K
     # against the number of tiles. Stages of 128 rows (8 a row group at
@@ -383,7 +471,7 @@ def conv_bwd_plan(B: int, T: int, F: int, Ci: int, Co: int) -> ConvBwdPlan:
     chunks = max(1, min(tiles, DW_BLOCKS // per_chunk))
     tpc = _cdiv(tiles, chunks)
     return ConvBwdPlan(0, vec, *dxp, bko, bno, wtt, wff, tiles, tpc, _cdiv(tiles, tpc),
-                       dw_smem(wtt, wff, Ci, bko, bno), 0)
+                       dw_smem(wtt, wff, Ci, bko, bno, 2 if bf16 else 4), 0, **extra)
 
 
 @dataclass(frozen=True)
@@ -439,15 +527,20 @@ def fwd_bf16_smem(tt: int, ff: int, bn: int) -> int:
     return max(2 * 2 * BF16_BK * ((tt + 2) * (ff + 2) + 9 * bn), 4 * tt * ff * (bn + 8))
 
 
+def _bf16_conv_tiles(T: int, F: int, Cout: int) -> tuple[int, int, int, int]:
+    """(bn, tt, ff, smem) of conv3x3_bf16_kernel for Cout output channels."""
+    bn = _pow2_tile(Cout, 8, 128)
+    ff = min(F, bf16_rows(bn))
+    tt, ff = _shrink(max(1, min(T, bf16_rows(bn) // ff)), ff,
+                     lambda a, b: fwd_bf16_smem(a, b, bn), SMEM_HALF)
+    return bn, tt, ff, fwd_bf16_smem(tt, ff, bn)
+
+
 def conv_fwd_plan(B: int, T: int, F: int, Ci: int, Co: int, bf16: bool = False) -> ConvFwdPlan:
     vec = int(Co % 4 == 0)
     if bf16 and Ci > 1:  # the tensor-core kernel
-        bn = _pow2_tile(Co, 8, 128)
-        ff = min(F, bf16_rows(bn))
-        tt, ff = _shrink(max(1, min(T, bf16_rows(bn) // ff)), ff,
-                         lambda a, b: fwd_bf16_smem(a, b, bn), SMEM_HALF)
-        return ConvFwdPlan(0, int(Ci % 8 == 0), bn, tt, ff, 0, fwd_bf16_smem(tt, ff, bn),
-                           B * _cdiv(T, tt), 0)
+        bn, tt, ff, smem = _bf16_conv_tiles(T, F, Co)
+        return ConvFwdPlan(0, int(Ci % 8 == 0), bn, tt, ff, 0, smem, B * _cdiv(T, tt), 0)
     if Ci == 1:  # the streaming kernel: a thread a frequency and 4 channels
         if B * T * F >= 2**31:
             raise ValueError("conv_bn_stats: the Ci=1 kernel counts rows in 32-bit ints")
@@ -654,11 +747,20 @@ def _aligned(t):
 
 def conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx: bool = True):
     """Backward of conv_bn_stats (see `conv_bn_stats_bwd_plain`); dx is
-    skipped when `need_dx` is false. Deterministic: per-chunk partial sums
-    of dW and dbias, added in a fixed order (`conv_bwd_plan`)."""
+    skipped when `need_dx` is false. x, w, y, dy all float32 or all bf16;
+    ds, dq float32. Deterministic: per-chunk partial sums of dW and dbias,
+    added in a fixed order (`conv_bwd_plan`). bf16: dx, dw and dbias come
+    back in bf16, each rounded once from its fp32 total; dx runs on the
+    tensor cores. Launches count under "conv_bn_stats_bwd" (fp32) or
+    "conv_bn_stats_bwd.bf16"."""
+    dtype = _io_dtype("conv_bn_stats_bwd", x, w, y, dy)
     if x.device.type == "cpu":
         return conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx)
-    _build.require_cuda_f32("conv_bn_stats_bwd", x, w, y, dy, ds, dq)
+    bf = dtype == torch.bfloat16
+    _build.require_cuda("conv_bn_stats_bwd", torch.bfloat16 if bf else torch.float32, x, w, y, dy)
+    _build.require_cuda_f32("conv_bn_stats_bwd", ds, dq)
+    if ds.device != x.device:
+        raise ValueError("conv_bn_stats_bwd: all tensors must be on one CUDA device")
     B, T, F, Ci = x.shape
     Co = w.shape[-1]
     if (tuple(w.shape) != (3, 3, Ci, Co) or tuple(y.shape) != (B, T, F, Co)
@@ -666,37 +768,49 @@ def conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx: bool = True):
             or dq.numel() != F * Co):
         raise ValueError(f"conv_bn_stats_bwd: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"y {tuple(y.shape)}, dy {tuple(dy.shape)}")
-    plan = conv_bwd_plan(B, T, F, Ci, Co)
+    plan = conv_bwd_plan(B, T, F, Ci, Co, bf16=bf)
     x, y, dy, ds, dq = (_aligned(t) for t in (x, y, dy, ds, dq))
     dev = x.device
-    wt = w.flip(0, 1).transpose(2, 3).contiguous() if need_dx else None
+    wt = None
+    if need_dx:  # w flipped in (dt, df); transposed to [3, 3, Co, Ci] for the fp32 kernel
+        wt = (w.flip(0, 1) if bf else w.flip(0, 1).transpose(2, 3)).contiguous()
     dx = torch.empty_like(x) if need_dx else None
     dye = torch.empty_like(y) if need_dx or not plan.stream else None
     part_w = torch.empty((plan.chunks, 9 * Ci, Co), device=dev, dtype=torch.float32)
-    part_b = torch.empty((plan.chunks, Co), device=dev, dtype=torch.float32)
-    dw = torch.empty((3, 3, Ci, Co), device=dev, dtype=torch.float32)
-    dbias = torch.empty((Co,), device=dev, dtype=torch.float32)
-    fn = _build.function("fused_cnn", "conv_bn_stats_bwd",
-                         [_build.P] * 12 + [_build.I] * 5 + [_build.P] * 2)
+    n_b = plan.eff_blocks if bf and not plan.stream else plan.chunks
+    part_b = torch.empty((n_b, Co), device=dev, dtype=torch.float32)
+    dw = torch.empty((3, 3, Ci, Co), device=dev, dtype=dtype)
+    dbias = torch.empty((Co,), device=dev, dtype=dtype)
+    entry = "conv_bn_stats_bwd_bf16" if bf else "conv_bn_stats_bwd"
+    fn = _build.function("fused_cnn", entry, [_build.P] * 12 + [_build.I] * 5 + [_build.P] * 2)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = fn(x.data_ptr(), ptr(wt), y.data_ptr(), dy.data_ptr(), ds.data_ptr(),
              dq.data_ptr(), ptr(dye), ptr(dx), part_w.data_ptr(), part_b.data_ptr(),
              dw.data_ptr(), dbias.data_ptr(), B, T, F, Ci, Co, _c_ints(plan),
              _build.stream_ptr(x))
-    _build.check(err, "conv_bn_stats_bwd")
-    _build.count_launch("conv_bn_stats_bwd")
+    _build.check(err, entry)
+    _build.count_launch("conv_bn_stats_bwd.bf16" if bf else "conv_bn_stats_bwd")
     return dx, dw, dbias
 
 
 def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.0):
     """Backward of glu_drop_pool (see `glu_drop_pool_bwd_plain`), one pass
     over y recomputing BN(y), the GLU product and the sigmoid, at any Co up
-    to GLU_MAX_CP and any F (`glu_bwd_plan`). Deterministic: per-block
-    partial sums in a fixed order."""
+    to GLU_MAX_CP and any F (`glu_bwd_plan`). y, wg, bg, g all float32 or
+    all bf16; scale_f, bias_f float32. Deterministic: per-block partial sums
+    in a fixed order. bf16: dy, dwg and dbg come back in bf16 (dwg and dbg
+    rounded once from their fp32 totals), dscale_f and dbias_f in fp32.
+    Launches count under "glu_drop_pool_bwd" (fp32) or
+    "glu_drop_pool_bwd.bf16"."""
+    dtype = _io_dtype("glu_drop_pool_bwd", y, wg, bg, g)
     if y.device.type == "cpu":
         return glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits, g,
                                        pool=pool, keep_prob=keep_prob)
-    _build.require_cuda_f32("glu_drop_pool_bwd", y, scale_f, bias_f, wg, bg, g)
+    bf = dtype == torch.bfloat16
+    _build.require_cuda("glu_drop_pool_bwd", torch.bfloat16 if bf else torch.float32, y, wg, bg, g)
+    _build.require_cuda_f32("glu_drop_pool_bwd", scale_f, bias_f)
+    if scale_f.device != y.device:
+        raise ValueError("glu_drop_pool_bwd: all tensors must be on one CUDA device")
     B, T, F, Co = y.shape
     pt, pf = pool
     if (scale_f.numel() != F * Co or bias_f.numel() != F * Co or tuple(wg.shape) != (Co, Co)
@@ -716,10 +830,11 @@ def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.
     part_w = torch.empty((plan.n_blocks, Co * Co), device=dev, dtype=torch.float32)
     dscale_f = torch.empty((L,), device=dev, dtype=torch.float32)
     dbias_f = torch.empty((L,), device=dev, dtype=torch.float32)
-    dwg = torch.empty((Co, Co), device=dev, dtype=torch.float32)
-    dbg = torch.empty((Co,), device=dev, dtype=torch.float32)
+    dwg = torch.empty((Co, Co), device=dev, dtype=dtype)
+    dbg = torch.empty((Co,), device=dev, dtype=dtype)
     wgt = wg.t().contiguous() if plan.passes > 1 else None  # the wide kernel's Wg^T slices
-    fn = _build.function("fused_cnn", "glu_drop_pool_bwd",
+    entry = "glu_drop_pool_bwd_bf16" if bf else "glu_drop_pool_bwd"
+    fn = _build.function("fused_cnn", entry,
                          [_build.P] * 15 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P])
     err = fn(y.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), wg.data_ptr(),
              None if wgt is None else wgt.data_ptr(), bg.data_ptr(),
@@ -727,8 +842,8 @@ def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.
              dy.data_ptr(), part_l.data_ptr(), part_w.data_ptr(), dscale_f.data_ptr(),
              dbias_f.data_ptr(), dwg.data_ptr(), dbg.data_ptr(), B, T, F, Co, pt, pf,
              keep_threshold(keep_prob), 1.0 / keep_prob, _c_ints(plan), _build.stream_ptr(y))
-    _build.check(err, "glu_drop_pool_bwd")
-    _build.count_launch("glu_drop_pool_bwd")
+    _build.check(err, entry)
+    _build.count_launch("glu_drop_pool_bwd.bf16" if bf else "glu_drop_pool_bwd")
     return dy, dscale_f, dbias_f, dwg, dbg
 
 
@@ -798,20 +913,15 @@ def fused_glu_block(
     gradient; the running-statistics update is detached (pallas_cnn.py:720).
     bf16 x: w, the conv bias, wg and bg are rounded to bf16 (pallas_cnn.py:
     713, :738), the kernels run in their bf16 mode and z is bf16; the BN
-    statistics, scale and bias stay fp32 (:727-728). Its gradients need the
-    backward kernels' bf16 mode, which is not ported yet.
+    statistics, scale and bias stay fp32 (:727-728). The backward kernels'
+    bf16 mode gives the bf16 gradients of the rounded parameters, which the
+    cast's backward carries to fp32 parameters unchanged (JAX's astype VJP).
     """
     B, T, F, Ci = x.shape
     Co = w.shape[-1]
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w, bias, gamma, beta, wg, bg))
     if x.dtype == torch.bfloat16:
-        if grad:
-            raise NotImplementedError(
-                "fused_glu_block: gradients through a bf16 block need the bf16 modes of "
-                "conv_bn_stats_bwd and glu_drop_pool_bwd (Pallas rows 3 and 4), the next "
-                "slice of the port with the bf16 train step; run the block under "
-                "torch.no_grad() or in float32")
         w, bias, wg, bg = (t.to(torch.bfloat16) for t in (w, bias, wg, bg))
     w, bias, wg, bg = w.contiguous(), bias.contiguous(), wg.contiguous(), bg.contiguous()
     if grad:

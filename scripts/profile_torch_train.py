@@ -2,11 +2,13 @@
 """Where the time of the port's 2024 mean-teacher train step goes, on one
 NVIDIA GPU.
 
-    python3 scripts/profile_torch_train.py
+    python3 scripts/profile_torch_train.py [--dtype bfloat16]
 
 Builds the step as chip_smoke.py does (crnn_2024() student and teacher from
 a seed, mean_teacher_2024(): 60 ten-second clips in slots [12, 6, 6, 12, 24],
-768x496 frame embeddings, fp32, the hand-written kernels) and prints:
+768x496 frame embeddings, fp32, the hand-written kernels; with --dtype
+bfloat16 bench.py's bf16 step: crnn_2024(compute_dtype=torch.bfloat16) and
+MelConfig(compute_dtype="bfloat16")) and prints:
   * the step time as the median and quartiles of 7 timed repeats of 5 steps
     (CUDA events), with clips/s and the card's name and power limit;
   * the host time to issue one step (perf_counter around the call, no
@@ -20,11 +22,13 @@ a seed, mean_teacher_2024(): 60 ten-second clips in slots [12, 6, 6, 12, 24],
     with_stack);
   * where the host's time goes: cProfile over 3 steps (synchronised), the
     functions with the most time of their own.
-The full tables go to chiprun_out/profile_torch_train.txt.
+The full tables go to chiprun_out/profile_torch_train.txt (fp32) or
+chiprun_out/profile_torch_train_bf16.txt.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -35,6 +39,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -42,6 +49,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from chip_smoke import card_line, randomize
+    from desed_task_tpu_torch.ops.frontend import MelConfig
     from desed_task_tpu_torch.recipes_config import crnn_2024, mean_teacher_2024
     from desed_task_tpu_torch.training import create_state, make_optimizer, make_train_step
 
@@ -60,9 +68,11 @@ def main() -> int:
                                       device=dev),
     } for s in cfg.slots}
     tx, sched = make_optimizer(lr=1e-3, rampup_steps=1000)
-    state = create_state(randomize(crnn_2024(), torch.Generator().manual_seed(0)), cfg, tx,
+    bf = args.dtype == "bfloat16"
+    model = crnn_2024(**({"compute_dtype": torch.bfloat16} if bf else {}))
+    state = create_state(randomize(model, torch.Generator().manual_seed(0)), cfg, tx,
                          device="cuda")
-    step = make_train_step(cfg, tx, sched)
+    step = make_train_step(cfg, tx, sched, mel_cfg=MelConfig(compute_dtype=args.dtype))
     gen = torch.Generator(device="cuda").manual_seed(3)
     clips = cfg.batch_size
 
@@ -82,7 +92,7 @@ def main() -> int:
         end.synchronize()
         reps.append(start.elapsed_time(end) / 5)
     q1, med, q3 = np.percentile(reps, [25, 50, 75])
-    print(f"[{card}] train step of {clips} clips: median {med:.3f} ms, quartiles "
+    print(f"[{card}] {args.dtype} train step of {clips} clips: median {med:.3f} ms, quartiles "
           f"{q1:.3f} / {q3:.3f} ms over {len(reps)} repeats of 5 "
           f"({clips / med * 1e3:.1f} clips/s); host issue time median "
           f"{np.median(issue):.3f} ms per step", flush=True)
@@ -99,7 +109,8 @@ def main() -> int:
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_torch_train.txt").write_text(f"{card}\n{table}\n")
+    txt = out / ("profile_torch_train_bf16.txt" if bf else "profile_torch_train.txt")
+    txt.write_text(f"{card}\n{table}\n")
     if not kernels:
         print(f"[{card}] profiler recorded no device time: idle share not measured")
         return 0
@@ -157,7 +168,7 @@ def main() -> int:
     buf = io.StringIO()
     stats = pstats.Stats(host, stream=buf).sort_stats("tottime")
     stats.print_stats(25)
-    with open(out / "profile_torch_train.txt", "a") as f:
+    with open(txt, "a") as f:
         f.write(buf.getvalue())
     print(f"[{card}] host, cProfile over 3 steps (own time per step):")
     for (file, line, fn), (_, calls, tt, _, _) in sorted(

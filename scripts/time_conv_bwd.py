@@ -2,6 +2,7 @@
 """Time the fused conv block's backward kernels of one tree on the GPU.
 
     python3 scripts/time_conv_bwd.py [--root DIR] [--iters 20] [--library] [--kernels]
+                                     [--dtype bfloat16]
 
 Imports `desed_task_tpu_torch` from DIR (default: this repository), builds
 its kernels, and prints one line per 2024 conv block at the train batch
@@ -14,7 +15,12 @@ max(1, max |plain|) under unit-scale cotangents; then the sums over the
 seven blocks. `--library` also times cuDNN's fp32 conv backward (F.conv2d
 autograd, TF32 off) on the same shapes, the yardstick of conv_bn_stats_bwd.
 `--kernels` adds, per block, each CUDA kernel's device time per call
-(torch.profiler over --iters calls of each wrapper).
+(torch.profiler over --iters calls of each wrapper). `--dtype bfloat16`
+times the kernels' bf16 mode (bf16 activations, weights and cotangents;
+bytes counted at 2 a value, products of bf16 values at the tensor cores'
+peak, row 4's products with fp32 dlin at the fp32 peak; the error is the
+largest |kernel - plain| over the limit of one bf16 step, 2^-7 |plain| +
+1e-5 max |plain|; --library: cuDNN's conv backward in bf16).
 Results also go to chiprun_out/time_conv_bwd.json (one entry per run).
 To compare two versions of the kernels on one card, unpack each into its
 own directory and run them in turns in one call (A, B, B, A):
@@ -34,11 +40,14 @@ from pathlib import Path
 B = 60  # mean_teacher_2024()
 N_SAMPLES = 160000
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(n_bytes: float, flops: float, flops_bf16: float = 0.0) -> tuple[float, str]:
+    """flops at the fp32 peak plus flops_bf16 at the bf16 tensor cores' peak."""
+    tb = n_bytes / PEAK_BYTES * 1e3
+    tf = (flops / PEAK_FP32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -48,6 +57,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--library", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
 
     import torch
@@ -93,9 +103,22 @@ def main() -> int:
                 e.device_time_total / 1e3 / args.iters
                 for e in prof.key_averages() if e.device_time_total > 0}
 
+    bf = args.dtype == "bfloat16"
+    dt = torch.bfloat16 if bf else torch.float32
+    esize = 2 if bf else 4
+
     def rel(got, want):
-        return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-                   for a, b in zip(got, want) if b is not None)
+        """fp32 outputs: max |kernel - plain| / max(1, max |plain|); bf16
+        outputs: max |kernel - plain| over one bf16 step of |plain|."""
+        errs = []
+        for a, b in zip(got, want):
+            if b is None:
+                continue
+            a, b, is_bf = a.float(), b.float(), b.dtype == torch.bfloat16
+            lim = (2.0 ** -7 * b.abs() + 1e-5 * float(b.abs().max())) if is_bf else \
+                max(1.0, float(b.abs().max()))
+            errs.append(float(((a - b).abs() / lim).max()))
+        return max(errs)
 
     cnn = crnn_2024().cnn
     T, Fq, ci = MelConfig().num_frames(N_SAMPLES), MelConfig().n_mels, 1
@@ -106,23 +129,24 @@ def main() -> int:
         co = getattr(cnn, f"conv{i}").weight.shape[0]
         pool = tuple(cnn.pooling[i])
         need_dx = i > 0
-        x = torch.randn(B, T, Fq, ci, generator=gen).to(dev)
-        w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev)
-        y = torch.randn(B, T, Fq, co, generator=gen).to(dev)
-        dy = torch.randn(B, T, Fq, co, generator=gen).to(dev)
+        x = torch.randn(B, T, Fq, ci, generator=gen).to(dev, dt)
+        w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev, dt)
+        y = torch.randn(B, T, Fq, co, generator=gen).to(dev, dt)
+        dy = torch.randn(B, T, Fq, co, generator=gen).to(dev, dt)
         ds, dq = (torch.randn(Fq * co, generator=gen).to(dev) for _ in range(2))
         conv = lambda: fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)
         err3 = rel(conv(), fused_cnn.conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx))
         M = B * T * Fq
-        b3 = bound_ms(4 * (x.numel() + 2 * y.numel() + 2 * w.numel() + 2 * Fq * co + co
-                           + (x.numel() if need_dx else 0)),
-                      2 * M * 9 * ci * co * (2 if need_dx else 1) + 4 * M * co)
+        products = 2 * M * 9 * ci * co * (2 if need_dx else 1)
+        b3 = bound_ms(esize * (x.numel() + 2 * y.numel() + 2 * w.numel() + co
+                               + (x.numel() if need_dx else 0)) + 4 * 2 * Fq * co,
+                      4 * M * co + (0 if bf else products), products if bf else 0)
         row = dict(block=i, geom=[T, Fq, ci, co], conv_ms=time_ms(conv), conv_err=err3,
                    conv_bound=b3)
         if args.library:
             x_nchw = x.permute(0, 3, 1, 2).requires_grad_(need_dx)
             w_oihw = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
-            bias = torch.zeros(co, device=dev, requires_grad=True)
+            bias = torch.zeros(co, device=dev, dtype=dt, requires_grad=True)
             out = F.conv2d(x_nchw, w_oihw, bias, padding=1)
             g_out = dy.permute(0, 3, 1, 2)
             lib_in = [w_oihw, bias] + ([x_nchw] if need_dx else [])
@@ -131,22 +155,26 @@ def main() -> int:
             del out, x_nchw
         scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
         bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
-        wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev)
-        bg = (0.1 * torch.randn(co, generator=gen)).to(dev)
-        gz = torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen).to(dev)
+        wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev, dt)
+        bg = (0.1 * torch.randn(co, generator=gen)).to(dev, dt)
+        gz = torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen).to(dev, dt)
         bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen, dtype=torch.uint8).to(dev)
         glu = lambda: fused_cnn.glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, gz,
                                                   pool=pool, keep_prob=0.5)
         err4 = rel(glu(), fused_cnn.glu_drop_pool_bwd_plain(y, scale_f, bias_f, wg, bg, bits,
                                                            gz, pool=pool, keep_prob=0.5))
-        b4 = bound_ms(4 * (2 * y.numel() + gz.numel() + 4 * Fq * co + 2 * co * co + 2 * co)
-                      + bits.numel(), M * (6 * co * co + 20 * co))
+        # bf16: lin = bf16(BN(y)) Wg on the tensor cores; dlin Wg^T and
+        # BN(y)^T dlin take fp32 dlin
+        b4 = bound_ms(esize * (2 * y.numel() + gz.numel() + 2 * co * co + 2 * co)
+                      + 4 * 4 * Fq * co + bits.numel(),
+                      M * ((4 if bf else 6) * co * co + 20 * co), M * 2 * co * co if bf else 0)
         row.update(glu_ms=time_ms(glu), glu_err=err4, glu_bound=b4)
         if args.kernels:
             row.update(conv_kernels=kernel_ms(conv), glu_kernels=kernel_ms(glu))
         rows.append(row)
         lib = f", cuDNN {row['cudnn_ms']:.3f} ms" if "cudnn_ms" in row else ""
-        print(f"[{card}] {args.root} block {i} T={T} F={Fq} {ci}->{co}: conv_bn_stats_bwd "
+        print(f"[{card}] {args.root} {args.dtype} block {i} T={T} F={Fq} {ci}->{co}: "
+              f"conv_bn_stats_bwd "
               f"{row['conv_ms']:.3f} ms (bound {b3[0]:.3f} {b3[1]}{lib}, err {err3:.2e}); "
               f"glu_drop_pool_bwd {row['glu_ms']:.3f} ms (bound {b4[0]:.3f} {b4[1]}, "
               f"err {err4:.2e})", flush=True)
@@ -162,13 +190,15 @@ def main() -> int:
     if args.library:
         tot["cudnn_ms"] = sum(r["cudnn_ms"] for r in rows)
         lib = f", cuDNN {tot['cudnn_ms']:.3f} ms"
-    print(f"[{card}] {args.root} sum of 7 blocks: conv_bn_stats_bwd {tot['conv_ms']:.3f} ms "
+    print(f"[{card}] {args.root} {args.dtype} sum of 7 blocks: conv_bn_stats_bwd "
+          f"{tot['conv_ms']:.3f} ms "
           f"(bound {tot['conv_bound']:.3f}{lib}); glu_drop_pool_bwd {tot['glu_ms']:.3f} ms "
           f"(bound {tot['glu_bound']:.3f})", flush=True)
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     with open(out / "time_conv_bwd.json", "a") as fh:
-        fh.write(json.dumps(dict(card=card, root=args.root, rows=rows, total=tot)) + "\n")
+        fh.write(json.dumps(dict(card=card, root=args.root, dtype=args.dtype, rows=rows,
+                                 total=tot)) + "\n")
     return 0
 
 

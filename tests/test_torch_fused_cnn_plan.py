@@ -472,6 +472,94 @@ def test_conv_fwd_plan_bf16_covers_outputs_and_lanes(geom):
     _once(np.bincount(writes.ravel(), minlength=p.n_parts * L), "lane partials")
 
 
+def _swz_rows(row, c, cg):
+    """csrc swz_rows: element offset of 16-byte chunk c of a row of cg chunks."""
+    sw = (row & 7) if cg >= 8 else (row // (8 // cg)) & (cg - 1)
+    return (row * cg + (c ^ sw)) * 8
+
+
+def _walk_dw_mma(p, B, T, F, Ci, Co):
+    """conv_dw_mma_kernel's maps: the depth and channel tiles cover [9 Ci,
+    Co] once; 8 warps as WK x WN, MI k16 x NI n8 tiles each, cover a block
+    tile once; a k16 tile lies in one tap and in the staged channels; the
+    swizzle keeps each row's chunks (a permutation) and puts 8 consecutive
+    rows of one chunk in 8 bank groups; the chunks cover the row tiles."""
+    K = 9 * Ci
+    assert fc.dw_mma_takes(Ci, Co) and not p.stream
+    bko, bno, cs = fc.dw_mma_tile(Ci, Co)
+    assert (p.dw_bko, p.dw_bno, p.dw_cs) == (bko, bno, cs)
+    wk, mi, ni = fc.DW_MMA[bno]
+    wn = 8 // wk
+    assert (16 * wk * mi, 8 * wn * ni) == (bko, bno) and ni % 2 == 0
+    W_k, W_n, M_i, N_i = np.meshgrid(np.arange(wk), np.arange(wn), np.arange(mi),
+                                     np.arange(ni), indexing="ij")
+    k16 = (W_k * mi + M_i).ravel()
+    n8 = (W_n * ni + N_i).ravel()
+    _once(np.bincount(k16 * (bno // 8) + n8, minlength=bko // 16 * bno // 8), "warp tiles")
+    k = (np.arange(-(-K // bko))[:, None] * bko + np.arange(bko)[None, :]).ravel()
+    _once(np.bincount(k[k < K], minlength=K), "depth")
+    n = (np.arange(-(-Co // bno))[:, None] * bno + np.arange(bno)[None, :]).ravel()
+    _once(np.bincount(n[n < Co], minlength=Co), "dW channels")
+    for k0 in range(0, K, bko):
+        cs0 = k0 % Ci if cs < Ci else 0
+        for kk in range(k0, min(K, k0 + bko), 16):
+            tap, ci = kk // Ci, kk % Ci
+            assert (kk + 15) // Ci == tap and cs0 <= ci and ci + 16 <= cs0 + cs
+    for cg in {cs // 8, bno // 8}:
+        assert cg & (cg - 1) == 0 or cg % 8 == 0
+        for row in range(16):
+            assert sorted(_swz_rows(row, c, cg) for c in range(cg)) == [
+                (row * cg + c) * 8 for c in range(cg)]
+        for r0 in range(24):
+            for c in range(cg):
+                assert len({_swz_rows(r, c, cg) // 8 % 8 for r in range(r0, r0 + 8)}) == 8
+    R = p.dw_tt * p.dw_ff
+    assert R <= fc.DW_MAX_ROWS and p.dw_smem == fc.dw_mma_smem(p.dw_tt, p.dw_ff, cs, bno)
+    assert p.dw_smem <= fc.SMEM_HALF
+    _rows_once(B, T, F, p.dw_tt, p.dw_ff, p.dw_tiles)
+    tiles = np.concatenate([np.arange(c * p.dw_tpc, min(p.dw_tiles, (c + 1) * p.dw_tpc))
+                            for c in range(p.chunks)])
+    assert np.array_equal(tiles, np.arange(p.dw_tiles))
+    blocks = -(-K // bko) * -(-Co // bno) * p.chunks
+    assert blocks <= fc.DW_BLOCKS or p.chunks == 1
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=IDS)
+def test_conv_bwd_plan_bf16_covers_dx_dw_and_dbias(geom):
+    """The bf16 backward plan: dx on the tensor-core conv (its warp tiles and
+    ldmatrix rows, _walk_bf16_conv, with Co channels in and Ci out; every
+    row and dx channel once); dW on the tensor cores where dw_mma_takes
+    (_walk_dw_mma), else on the fp32 plan's tiles and chunks with bf16
+    stages; the dy_eff pass's blocks of eff_rows rows cover every row once,
+    and its threads (8 channels each, EFF row slots) every channel."""
+    B, T, F, Ci, Co, _ = geom
+    p = fc.conv_bwd_plan(B, T, F, Ci, Co, bf16=True)
+    q = fc.conv_bwd_plan(B, T, F, Ci, Co)
+    assert (q.dx_vec, q.eff_blocks, q.eff_rows) == (0, 0, 0)
+    dx = fc.ConvFwdPlan(0, p.dx_vec, p.dx_bn, p.dx_tt, p.dx_ff, 0, p.dx_smem, 0, 0)
+    _walk_bf16_conv(dx, B, T, F, Co, Ci)
+    _rows_once(B, T, F, p.dx_tt, p.dx_ff, B * -(-T // p.dx_tt) * -(-F // p.dx_ff))
+    chans = (np.arange(-(-Ci // p.dx_bn))[:, None] * p.dx_bn + np.arange(p.dx_bn)).ravel()
+    _once(np.bincount(chans[chans < Ci], minlength=Ci), "dx channels")
+    if p.dw_cs:  # the tensor-core dW
+        _walk_dw_mma(p, B, T, F, Ci, Co)
+    else:  # the streaming kernel, or the CUDA-core kernel on the fp32 tiles
+        same = ("stream", "vec", "dw_bko", "dw_bno", "dw_tt", "dw_ff", "dw_tiles", "dw_tpc",
+                "chunks", "rows_per_block")
+        assert all(getattr(p, k) == getattr(q, k) for k in same)
+        assert p.stream or not fc.dw_mma_takes(Ci, Co)
+        if not p.stream:
+            assert p.dw_smem == fc.dw_smem(p.dw_tt, p.dw_ff, Ci, p.dw_bko, p.dw_bno, 2)
+            assert p.dw_smem <= q.dw_smem <= fc.SMEM_HALF
+    M = B * T * F
+    assert (p.eff_blocks - 1) * p.eff_rows < M <= p.eff_blocks * p.eff_rows
+    assert p.eff_blocks <= fc.DW_BLOCKS
+    groups = -(-Co // 8)
+    assert 256 // groups >= 1
+    c = (np.arange(groups)[:, None] * 8 + np.arange(8)[None, :]).ravel()
+    _once(np.bincount(c[c < Co], minlength=Co), "dy_eff channels")
+
+
 @pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
 def test_glu_fwd_plan_bf16_covers_pooled_outputs(geom):
     B, T, F, _, Co, pool = geom

@@ -16,7 +16,8 @@ in eval and train mode (the GLU backward's wide kernel: Co = 192, 200 and
 forward kernels at edge shapes (Ci = 1, 3, 5, 12 and 24, Co not a multiple
 of 8 or 16, Co = 256, F * Co not a multiple of 8, T and F not multiples of
 the row tile, pools (1, 1), (2, 2), (1, 2) and others, dropout bits) and a
-bf16 CRNN forward; for the fused
+bf16 CRNN forward; the bf16 modes of the backward kernels at edge shapes
+(BF16_BWD_GEOMS) and the bf16 block's autograd path; for the fused
 log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
 hops that do not divide n_fft, both compute dtypes and bitwise reruns.
 """
@@ -57,6 +58,18 @@ def _close_bf16(a, b):
     lim = BF16_STEP * b.abs() + BF16_FLOOR * float(b.abs().max())
     assert bool((d <= lim).all()), float((d - lim).max())
     assert float((a != b).float().mean()) <= BF16_FRAC
+
+
+def _close_bf16_sum(a, b):
+    """A per-channel bf16 sum (dbias, dbg: Co entries) against its plain
+    version: as _close_bf16, except that one element may differ where that
+    is more than BF16_FRAC of them (an fp32 total in another order can round
+    the other way)."""
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+    a, b = a.float(), b.float()
+    lim = BF16_STEP * b.abs() + BF16_FLOOR * float(b.abs().max())
+    assert bool(((a - b).abs() <= lim).all())
+    assert int((a != b).sum()) <= max(BF16_FRAC * a.numel(), 1)
 
 
 def _rand(gen, *shape, scale=1.0):
@@ -497,6 +510,138 @@ def test_bf16_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         fused_cnn.glu_drop_pool(y, sf.bfloat16(), sf.bfloat16(),
                                 torch.zeros(8, 8, device=dev, dtype=torch.bfloat16),
                                 torch.zeros(8, device=dev, dtype=torch.bfloat16), pool=(1, 2))
+
+
+# the bf16 modes of the backward kernels (rows 3 and 4): the streaming Ci = 1
+# dW kernel (with and without dx), the CUDA-core dW from bf16 stages (Ci 5,
+# 8, 12 and 24: Ci and Co odd, element staging, scalar dy_eff, Co % 8 != 0),
+# the tensor-core dW (ragged row, depth and channel tiles), dx in two
+# channel tiles (Ci = 256), the GLU backward's wide kernel, lane sums in
+# device memory, pool remainders, and two 2024 blocks
+BF16_BWD_GEOMS = [
+    (1, 13, 16, 1, 8, (2, 2)),
+    (1, 5, 130, 1, 24, (1, 2)),
+    (2, 9, 7, 5, 6, (1, 1)),
+    (2, 23, 3, 12, 20, (1, 1)),
+    (60, 11, 6, 24, 40, (3, 4)),
+    (3, 7, 5, 128, 128, (1, 2)),
+    (2, 13, 8, 64, 96, (1, 2)),
+    (3, 37, 70, 16, 32, (2, 2)),
+    (2, 9, 8, 256, 256, (1, 2)),
+    (1, 3, 512, 8, 128, (1, 2)),
+    (2, 313, 64, 16, 32, (2, 2)),
+    (2, 156, 2, 128, 128, (1, 2)),
+    # the tensor-core dW: frames of 3 positions (ldmatrix rows across frame
+    # ends), a depth tile over taps (Ci = 192 staged whole), Co = 8 (half a
+    # dW channel tile)
+    (2, 19, 3, 32, 64, (1, 1)),
+    (2, 5, 4, 192, 64, (1, 2)),
+    (2, 6, 10, 16, 8, (1, 1)),
+]
+
+
+@pytest.mark.parametrize("geom", BF16_BWD_GEOMS)
+def test_conv_bn_stats_bwd_bf16_kernel(dev, geom):
+    from desed_task_tpu_torch.ops import _build
+
+    B, T, F, Ci, Co, _ = geom
+    g = torch.Generator().manual_seed(23)
+    x = _bf16(_rand(g, B, T, F, Ci)).to(dev)
+    w = _bf16(_rand(g, 3, 3, Ci, Co, scale=1 / np.sqrt(9 * Ci))).to(dev)
+    y = _bf16(_rand(g, B, T, F, Co)).to(dev)
+    dy = _bf16(_rand(g, B, T, F, Co)).to(dev)
+    ds, dq = _rand(g, F * Co).to(dev), _rand(g, F * Co, scale=0.1).to(dev)
+    for need_dx in (True, False):
+        _build.reset_launches()
+        got = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, need_dx)
+        assert _build.LAUNCHES == {"conv_bn_stats_bwd.bf16": 1}
+        want = fused_cnn.conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, need_dx)
+        assert (got[0] is None) == (not need_dx)
+        for a, b, check in zip(got, want, (_close_bf16, _close_bf16, _close_bf16_sum)):
+            if b is not None:
+                check(a, b)
+    again = fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+
+
+@pytest.mark.parametrize("geom", BF16_BWD_GEOMS)
+@pytest.mark.parametrize("keep", [None, 0.5])
+def test_glu_drop_pool_bwd_bf16_kernel(dev, geom, keep):
+    from desed_task_tpu_torch.ops import _build
+
+    B, T, F, _, Co, pool = geom
+    g = torch.Generator().manual_seed(24)
+    args, gz = _glu_args(g, B, T, F, Co, pool)
+    args = [_bf16(args[0]), args[1], args[2], _bf16(args[3]), _bf16(args[4])]
+    args, gz = [a.to(dev) for a in args], _bf16(gz).to(dev)
+    bits = None
+    if keep is not None:
+        bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
+    kp = 1.0 if keep is None else keep
+    _build.reset_launches()
+    got = fused_cnn.glu_drop_pool_bwd(*args, bits, gz, pool=pool, keep_prob=kp)
+    assert _build.LAUNCHES == {"glu_drop_pool_bwd.bf16": 1}
+    want = fused_cnn.glu_drop_pool_bwd_plain(*args, bits, gz, pool=pool, keep_prob=kp)
+    assert [a.dtype for a in got] == [torch.bfloat16, torch.float32, torch.float32,
+                                      torch.bfloat16, torch.bfloat16]
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a.dtype == torch.bfloat16:
+            (_close_bf16_sum if j == 4 else _close_bf16)(a, b)  # dbg: a per-channel sum
+        else:
+            _close(a, b)
+    again = fused_cnn.glu_drop_pool_bwd(*args, bits, gz, pool=pool, keep_prob=kp)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_glu_block_bf16_gradients(dev):
+    """The bf16 block's autograd path on the card against the plain versions
+    on the CPU: the bf16 gradients (x, and the bf16 values in the fp32
+    grads of w, wg and bg) within one bf16 step, gamma and beta (fp32 sums)
+    within TOL; the conv bias's gradient is the noise of dy rounded to bf16
+    (its exact value is 0), held within 5e-5 of the largest gradient."""
+    B, T, F, Ci, Co = 4, 11, 8, 16, 32
+    g = torch.Generator().manual_seed(25)
+    args = [_bf16(_rand(g, B, T, F, Ci)), _rand(g, 3, 3, Ci, Co, scale=0.1), _rand(g, Co),
+            1 + _rand(g, Co, scale=0.1), _rand(g, Co, scale=0.1), _rand(g, Co, scale=0.1),
+            1 + _rand(g, Co, scale=0.1).abs(), _rand(g, Co, Co, scale=0.2), _rand(g, Co)]
+    bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8)
+    gz = _bf16(_rand(g, B, T // 2, F // 2, Co))
+    grads = []
+    for device in ("cpu", dev):
+        leaves = [a.to(device).requires_grad_(i not in (5, 6)) for i, a in enumerate(args)]
+        z, _, _ = fused_cnn.fused_glu_block(*leaves, bits=bits.to(device), pool=(2, 2),
+                                            train=True, dropout_rate=0.5)
+        assert z.dtype == torch.bfloat16
+        grads.append([t.cpu() for t in torch.autograd.grad(
+            (z.float() * gz.to(device).float()).sum(), [a for a in leaves if a.requires_grad])])
+    scale = max(float(t.abs().max()) for t in grads[0])
+    for name, a, b in zip(("x", "w", "bias", "gamma", "beta", "wg", "bg"), grads[1], grads[0]):
+        if name == "bias":
+            assert float((a - b).abs().max()) <= 5e-5 * scale
+        elif name in ("gamma", "beta"):
+            _close(a, b)
+        else:
+            check = _close_bf16_sum if name == "bg" else _close_bf16
+            check(a.to(torch.bfloat16), b.to(torch.bfloat16))
+
+
+def test_bf16_bwd_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 4, 4, 2, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 2, 8, device=dev, dtype=torch.bfloat16)
+    y = torch.zeros(1, 4, 4, 8, device=dev, dtype=torch.bfloat16)
+    sf = torch.ones(32, device=dev)
+    with pytest.raises(TypeError):  # mixed dtypes
+        fused_cnn.conv_bn_stats_bwd(x, w, y, y.float(), sf, sf)
+    with pytest.raises(TypeError):  # the statistics' cotangents stay fp32
+        fused_cnn.conv_bn_stats_bwd(x, w, y, y, sf.bfloat16(), sf.bfloat16())
+    wg = torch.zeros(8, 8, device=dev, dtype=torch.bfloat16)
+    bg = torch.zeros(8, device=dev, dtype=torch.bfloat16)
+    gz = torch.zeros(1, 4, 2, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # the BN affine stays fp32
+        fused_cnn.glu_drop_pool_bwd(y, sf.bfloat16(), sf.bfloat16(), wg, bg, None, gz,
+                                    pool=(1, 2))
+    with pytest.raises(TypeError):  # mixed dtypes
+        fused_cnn.glu_drop_pool_bwd(y, sf, sf, wg, bg, None, gz.float(), pool=(1, 2))
 
 
 def test_crnn_bf16_forward_on_the_card(dev):
