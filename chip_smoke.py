@@ -49,8 +49,9 @@ Phases (any failure exits non-zero; nothing is caught):
      against their bf16 plain versions: dx, dy, dw, dbias, dwg and dbg
      within one bf16 step (as phase 3b), dscale_f and dbias_f within
      TOL_KERNEL, bitwise reruns; each block's ms, bound, plain ms and
-     cuDNN's bf16 conv backward beside row 3; glu_drop_pool_bwd in bf16 also
-     at the 256-channel block (the wide kernel);
+     cuDNN's bf16 conv backward beside row 3, then row 3's seven-block sum
+     beside cuDNN's from the same call; glu_drop_pool_bwd in bf16 also at
+     the 256-channel block (the wide kernel);
   7. training: the 2024 mean-teacher step (crnn_2024() student and teacher
      at full width from a seed, mean_teacher_2024(), 60 ten-second clips with
      768x496 embeddings): the launch counts of one step (14/14/2 forward,
@@ -917,6 +918,10 @@ def check_bwd_kernels_bf16(geoms, gen, report, rows32):
             print(f"{name}  block {i}: {r['ms']:.3f} ms (fp32 {rows32[n32][i]['ms']:.3f}), "
                   f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} "
                   f"ms{lib}", flush=True)
+    r3 = rows["conv_bn_stats_bwd.bf16"]
+    print(f"conv_bn_stats_bwd.bf16  sum of {len(r3)} blocks: {sum(r['ms'] for r in r3):.3f} ms, "
+          f"cuDNN conv backward bf16 {sum(r['library_ms'] for r in r3):.3f} ms (this call), "
+          f"bound {sum(r['bound'][0] for r in r3):.3f} ms", flush=True)
     T, Fq, _, co, pool = WIDE_GEOM
     require(fused_cnn.glu_bwd_plan(B, T, Fq, co).passes > 1,
             "the 256-channel block does not take the wide kernel")

@@ -97,14 +97,19 @@
 //   products (:208) and the blocks' dbias partials of the unrounded values
 //   (:211); dx is `conv3x3_bf16_kernel` without STATS (the same tensor-core
 //   implicit GEMM as the bf16 forward, w flipped); dW is
-//   `conv_dw_mma_kernel` on mma.sync with transposed fragments
-//   (ldmatrix.trans, both operands rows-first in shared memory), or, for
-//   shapes whose stages it cannot swizzle (Ci not 16, 32 or a multiple of
-//   64, Co % 8 != 0), conv_dw_kernel from bf16 stages on the CUDA cores
-//   (exact: a product of two bf16 values is exact in fp32). Ci = 1: the
-//   streaming kernel with bf16 loads, dbias from its own fp32 dy_eff. dw
-//   and dbias are rounded once from their fp32 totals in the final
-//   fixed-order pass (:473-474). No atomics.
+//   `conv_dw_taps_kernel` on mma.sync with transposed fragments
+//   (ldmatrix.trans, both operands rows-first in shared memory): a block
+//   owns [9 taps x 16 or 32 channels] x up to 128 output channels of dW,
+//   and one stage of a row tile's halo and dy_eff rows serves all nine
+//   taps, so dy_eff is staged Ci / 32 times and the halo once (a first
+//   design, a depth tile of one tap a block, staged both for every tap and
+//   ran its products at 8 % of the tensor cores' peak). For Ci % 16 != 0
+//   or Co % 8 != 0, conv_dw_kernel from bf16 stages on the CUDA cores
+//   (exact: a product of two bf16 values is exact in fp32). Ci = 1:
+//   `conv_dw_c1_bf16_kernel`, a streaming pass over y and dy (16-byte
+//   loads, 8 channels a thread), x from a shared-memory tile, dbias from
+//   its own fp32 dy_eff. dw and dbias are rounded once from their fp32
+//   totals in the final fixed-order pass (:473-474). No atomics.
 // glu_drop_pool_bwd bf16
 //   What bounds it: dglu = dlin Wg^T and dWg = BN(y)^T dlin take dlin in
 //   fp32 (:341-350: fp32 x bf16 dots keep the fp32 operand), so only lin is
@@ -1191,30 +1196,52 @@ __global__ void __launch_bounds__(256, 2) conv_dw_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dW in bf16 on the tensor cores (Ci 16, 32 or a multiple of 64; Co % 8 ==
-// 0): block (kt, nt, chunk) computes the [BKO x BNO] tile of dW[k][co] = sum
-// over rows m of x[m + tap offset][ci] * dy_eff[m][co] (k = tap * Ci + ci,
-// dy_eff in bf16) over the row tiles of its chunk, in order, on mma.sync
-// m16n8k16 with fp32 accumulators: the product's M is 16 depth indices k
-// (one tap, 16 channels), its N 8 channels co, its K 16 rows m. Both
-// operands lie in shared memory rows-first (the halo [pos][channel], the
-// dy_eff rows [r][co]), the transpose of what mma takes, so their fragments
-// come through ldmatrix.trans; each lane names the halo row of its position
-// + the tap's offset (rowpos table), so no im2col is formed. A stage holds
-// a row tile's halo of the CS channels the block's depth tile reads (CS =
-// BKO where a depth tile lies in one tap, else all Ci) and its dy_eff rows,
-// zero rows padding R to a multiple of 16; the next tile is in flight while
-// one is multiplied (a ring of DW_STAGES, one barrier a tile). 8 warps as
-// WK x WN, each MI k16 tiles x NI n8 tiles. Rows of 16-byte chunks are
-// XOR-swizzled (swz_rows) so that ldmatrix's 8 rows fall in 8 distinct bank
-// groups. Each thread writes its accumulators as the chunk's partial.
+// dW in bf16 on the tensor cores (Ci % 16 == 0, Co % 8 == 0):
+// conv_dw_taps_kernel. Block (kg, nt, chunk) computes the [9 taps x CS
+// channels] x [BNO] tile of dW[k][co] = sum over rows m of x[m + tap
+// offset][ci] * dy_eff[m][co] (k = tap * Ci + ci, ci in [kg CS, kg CS + CS),
+// co in [nt BNO, nt BNO + BNO), dy_eff in bf16) over the row tiles of its
+// chunk, in order, on mma.sync m16n8k16 with fp32 accumulators: the
+// product's M is 16 channels of one tap, its N 8 channels co, its K 16 rows
+// m. A stage holds a row tile's halo of the block's CS channels and its
+// dy_eff rows, and all nine taps' products come from that one stage: a
+// warp's B fragments (its dy_eff channels, 16 rows) are loaded once an m16
+// step and serve its nine k16 tiles, one a tap, and each A fragment serves
+// its NI n8 tiles. So dy_eff passes through shared memory Ci / CS times and
+// the halo once per channel tile (a depth tile of one tap, the first
+// design, staged both again for every tap: 18 and 9 times at block 4).
+// Both operands lie rows-first in shared memory (the halo [row][channel],
+// the dy_eff rows [r][co]), the transpose of what mma takes, so their
+// fragments come through ldmatrix.trans; each lane names the halo row of
+// its position + the tap's offset (rowtab), so no im2col is formed. 8 warps
+// as WK x WN x WR: WK = CS / 16 channel slices, WN groups of NI n8 tiles,
+// WR groups that split each stage's m16 steps and add their tiles in group
+// order at the end. A ring of DWT_STAGES stages (cp.async), one barrier a
+// tile, one block an SM. Bank groups: halo position (a, b) (frame a,
+// frequency b of the halo) lies in row a WP + b, its 16-byte chunks XORed
+// by the key a FF + b. The 8 rows of one ldmatrix are 8 consecutive output
+// rows at one tap, so their keys are 8 consecutive integers, across frame
+// ends too. With WP = FF + 2 at CS = 32 (4 chunks a row: the bank group is
+// 4 (row mod 2) + chunk, row = key mod 2) and FF + 4 at CS = 16 (2 chunks:
+// 2 (row mod 4) + chunk, row = key mod 4), the key alone sets the group,
+// and 8 consecutive keys give 8 groups. The dy_eff rows are consecutive
+// (swz_rows). Each block writes its tile as the chunk's partial;
+// dw_final_kernel adds the chunks in order (no atomics).
 // ---------------------------------------------------------------------------
 
-// element offset of 16-byte chunk c of row `row` in a [rows][CG chunks] bf16
-// array, the chunk index XORed with the row (CG a power of two, or a
-// multiple of 8): any 8 consecutive rows of one chunk lie in 8 bank groups
+// element offset of 16-byte chunk c of a [rows][CG chunks] bf16 array, the
+// chunk index XORed with the row (CG a power of two, or a multiple of 8):
+// any 8 consecutive rows of one chunk lie in 8 bank groups
 __device__ __forceinline__ int swz_rows(int row, int c, int CG) {
   const int sw = CG >= 8 ? (row & 7) : (row / (8 / CG)) & (CG - 1);
+  return (row * CG + (c ^ sw)) * 8;
+}
+
+// element offset of 16-byte chunk c of halo row `row` (CG = 2 or 4 chunks a
+// row), XORed by the position's key (see conv_dw_taps_kernel)
+template <int CG>
+__device__ __forceinline__ int swz_halo(int row, int key, int c) {
+  const int sw = CG == 4 ? (key >> 1) & 3 : (key >> 2) & 1;
   return (row * CG + (c ^ sw)) * 8;
 }
 
@@ -1225,79 +1252,83 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t& r0, uint32_t&
                : "r"(addr));
 }
 
-template <int WK, int MI, int NI>
-__global__ void __launch_bounds__(256, 2) conv_dw_mma_kernel(
+// n / d for 0 <= n < 2^16 and 1 <= d < 2^16: with m = ceil(2^32 / d), n m /
+// 2^32 is n / d plus less than 2^-16, which never reaches the next integer
+struct FastDiv {
+  unsigned long long m;
+  __device__ explicit FastDiv(int d) : m(((1ull << 32) + d - 1) / (unsigned long long)d) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    return (int)(((unsigned long long)n * m) >> 32);
+  }
+};
+
+constexpr int DWT_STAGES = 3;
+constexpr int DWT_MAX_ROWS = 512;
+
+template <int WK, int WN, int NI, int WR>
+__global__ void __launch_bounds__(256, 1) conv_dw_taps_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ dye, float* __restrict__ part_w,
-    int B, int T, int F, int Ci, int Co, int TT, int FF, int CS, int n_tiles,
-    int tiles_per_chunk) {
-  constexpr int WN = 8 / WK, BKO = WK * MI * 16, BNO = WN * NI * 8, CGD = BNO / 8;
-  static_assert(WK * WN == 8 && NI % 2 == 0, "warp tiles");
+    int B, int T, int F, int Ci, int Co, int TT, int FF, int n_tiles, int tiles_per_chunk) {
+  constexpr int CS = 16 * WK, CG = 2 * WK, BNO = 8 * WN * NI, CGD = BNO / 8;
+  static_assert(WK * WN * WR == 8 && NI % 2 == 0 && (WK == 1 || WK == 2), "warp tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int rowpos[DW_MAX_ROWS];  // halo position of row r of a tile
+  __shared__ int2 rowtab[DWT_MAX_ROWS];  // (halo row, key) of row r at the centre tap
   bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
-  const int W = FF + 2, NP = (TT + 2) * W, R = TT * FF, R16 = (R + 15) & ~15;
-  const int CGX = CS / 8;
-  const int STG = NP * CS + R16 * BNO;  // a stage: the halo, then the dy_eff rows
-  const int K = 9 * Ci;
-  const int k0 = blockIdx.x * BKO, n0 = blockIdx.y * BNO;
-  const int cs0 = CS < Ci ? k0 % Ci : 0;  // the staged channels [cs0, cs0 + CS)
+  const int W = FF + 2, WP = FF + (CG == 4 ? 2 : 4);
+  const int NH = (TT + 2) * WP, R = TT * FF, R16 = (R + 15) & ~15;
+  const int STG = NH * CS + R16 * BNO;  // a stage: the halo rows, then the dy_eff rows
+  const int K = 9 * Ci, cs0 = blockIdx.x * CS, n0 = blockIdx.y * BNO;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wk = warp % WK, wn = warp / WK;
+  const int wk = warp % WK, wn = warp / WK % WN, wr = warp / (WK * WN);
   const int tile0 = blockIdx.z * tiles_per_chunk;
   const int tile1 = min(n_tiles, tile0 + tiles_per_chunk);
+  const FastDiv div_w(W), div_ff(FF);
 
-  for (int r = tid; r < R16; r += 256) {
-    const int jt = r / FF;
-    rowpos[r] = r < R ? (jt + 1) * W + r - jt * FF + 1 : W + 1;  // padding rows: any
+  for (int r = tid; r < R16; r += 256) {  // padding rows (zero dy_eff): row 0's
+    const int q = r < R ? r : 0;
+    const int jt = q / FF;
+    rowtab[r] = make_int2((jt + 1) * WP + q - jt * FF + 1, q + FF + 1);
   }
-  // this warp's k16 tiles: valid (warp-uniform), the tap's offset, the
-  // lane's 8-channel chunk (ldmatrix matrix l / 8: chunk (l / 8) % 2)
-  bool kval[MI];
-  int aoff[MI], ach[MI];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-    const int k = k0 + (wk * MI + mi) * 16;
-    kval[mi] = k < K;
-    const int tap = kval[mi] ? k / Ci : 0;
-    aoff[mi] = (tap / 3 - 1) * W + tap % 3 - 1;
-    ach[mi] = (kval[mi] ? k - tap * Ci - cs0 : 0) / 8 + ((lane >> 3) & 1);
-  }
-  const int arow = ((lane >> 4) << 3) + (lane & 7);         // A: rows m of matrix l / 8
-  const int brow = (((lane >> 3) & 1) << 3) + (lane & 7);   // B: rows m of matrix l / 8
+  const int arow = ((lane >> 4) << 3) + (lane & 7);        // A: rows m of matrix l / 8
+  const int ach = 2 * wk + ((lane >> 3) & 1);               // A: its channel chunk
+  const int brow = (((lane >> 3) & 1) << 3) + (lane & 7);  // B: rows m of matrix l / 8
   const int bch = wn * NI + (lane >> 4);                    // B: n8 tile of the pair
 
   auto stage = [&](int tile, int buf) {
     const RowTile rt = row_tile(tile, T, F, TT, FF);
     bf16* const H = sm + buf * STG;
-    bf16* const D = H + NP * CS;
-    for (int i = tid; i < NP * CGX; i += 256) {
-      const int pos = i / CGX, c = i - pos * CGX;
-      const int jt = pos / W;
-      const int t = rt.t0 + jt - 1, f = rt.f0 + pos - jt * W - 1;
+    bf16* const D = H + NH * CS;
+    const long long bt = (long long)rt.b * T;
+    for (int i = tid; i < (TT + 2) * W * CG; i += 256) {
+      const int pos = i / CG, c = i % CG;
+      const int a = div_w(pos), b = pos - a * W;
+      const int t = rt.t0 + a - 1, f = rt.f0 + b - 1;
       const bool ok = t >= 0 && t < T && f >= 0 && f < F;
-      cp_async16(H + swz_rows(pos, c, CGX),
-                 ok ? x + (((long long)rt.b * T + t) * F + f) * Ci + cs0 + c * 8 : x, ok);
+      cp_async16(H + swz_halo<CG>(a * WP + b, a * FF + b, c),
+                 ok ? x + ((bt + t) * F + f) * Ci + cs0 + c * 8 : x, ok);
     }
     for (int i = tid; i < R16 * CGD; i += 256) {
-      const int r = i / CGD, c = i - r * CGD;
-      const int jt = r / FF;
+      const int r = i / CGD, c = i % CGD;
+      const int jt = div_ff(r);
       const int t = rt.t0 + jt, f = rt.f0 + r - jt * FF;
       const bool ok = r < R && t < T && f < F && n0 + c * 8 < Co;
-      cp_async16(D + swz_rows(r, c, CGD),
-                 ok ? dye + (((long long)rt.b * T + t) * F + f) * Co + n0 + c * 8 : dye, ok);
+      cp_async16(D + swz_rows(r, c, CGD), ok ? dye + ((bt + t) * F + f) * Co + n0 + c * 8 : dye,
+                 ok);
     }
     cp_async_commit();
   };
 
-  float acc[MI][NI][4];
+  float acc[9][NI][4];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[tap][ni][e] = 0.f;
 
-  for (int st = 0; st < DW_STAGES - 1; ++st) {
+  // one commit group per tile, empty past the chunk's last tile, so that
+  // waiting for all but DWT_STAGES - 2 groups means the current tile landed
+  for (int st = 0; st < DWT_STAGES - 1; ++st) {
     if (tile0 + st < tile1) {
       stage(tile0 + st, st);
     } else {
@@ -1305,68 +1336,90 @@ __global__ void __launch_bounds__(256, 2) conv_dw_mma_kernel(
     }
   }
   for (int tile = tile0; tile < tile1; ++tile) {
-    const int buf = (tile - tile0) % DW_STAGES;
-    cp_async_wait<DW_STAGES - 2>();
+    const int buf = (tile - tile0) % DWT_STAGES;
+    cp_async_wait<DWT_STAGES - 2>();
     __syncthreads();  // the tile landed for all; the previous buffer is free
-    if (tile + DW_STAGES - 1 < tile1) {
-      stage(tile + DW_STAGES - 1, (buf + DW_STAGES - 1) % DW_STAGES);
+    if (tile + DWT_STAGES - 1 < tile1) {
+      stage(tile + DWT_STAGES - 1, (buf + DWT_STAGES - 1) % DWT_STAGES);
     } else {
       cp_async_commit();
     }
     const unsigned hs = (unsigned)__cvta_generic_to_shared(sm + buf * STG);
-    const unsigned ds = hs + 2u * (unsigned)(NP * CS);
-#pragma unroll 2
-    for (int m0 = 0; m0 < R16; m0 += 16) {
-      uint32_t a[MI][4];
-      const int pa = rowpos[m0 + arow];
+    const unsigned ds = hs + 2u * (unsigned)(NH * CS);
+    for (int m0 = wr * 16; m0 < R16; m0 += 16 * WR) {
+      uint32_t b[NI][2];
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        if (kval[mi])
-          ldsm_x4_t(hs + 2u * (unsigned)swz_rows(pa + aoff[mi], ach[mi], CGX), a[mi][0],
-                    a[mi][1], a[mi][2], a[mi][3]);
+      for (int ni = 0; ni < NI; ni += 2)
+        ldsm_x4_t(ds + 2u * (unsigned)swz_rows(m0 + brow, bch + ni, CGD), b[ni][0], b[ni][1],
+                  b[ni + 1][0], b[ni + 1][1]);
+      const int2 rk = rowtab[m0 + arow];
 #pragma unroll
-      for (int ni = 0; ni < NI; ni += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(ds + 2u * (unsigned)swz_rows(m0 + brow, bch + ni, CGD), b0, b1, b2, b3);
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dt = tap / 3 - 1, df = tap % 3 - 1;
+        uint32_t a[4];
+        ldsm_x4_t(hs + 2u * (unsigned)swz_halo<CG>(rk.x + dt * WP + df, rk.y + dt * FF + df, ach),
+                  a[0], a[1], a[2], a[3]);
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          if (!kval[mi]) continue;
-          mma_bf16(acc[mi][ni], a[mi], b0, b1);
-          mma_bf16(acc[mi][ni + 1], a[mi], b2, b3);
-        }
+        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[tap][ni], a, b[ni][0], b[ni][1]);
       }
     }
   }
   cp_async_wait<0>();
 
-  // accumulator e of (mi, ni): depth k0 + (wk MI + mi) 16 + gq + 8 (e / 2),
-  // channel n0 + (wn NI + ni) 8 + 2 tq + e % 2
+  // accumulator e of (tap, ni): channel cs0 + 16 wk + gq + 8 (e / 2) of the
+  // tap, column (wn NI + ni) 8 + 2 tq + e % 2 of the tile
   const int gq = lane >> 2, tq = lane & 3;
+  if constexpr (WR > 1) {  // the row groups' tiles, added in group order
+    float* const red = reinterpret_cast<float*>(smem_raw);  // [9 CS][BNO], the ring is free
+    __syncthreads();
+    for (int g = 0; g < WR; ++g) {
+      if (wr == g) {
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float* p = red + (tap * CS + 16 * wk + gq + 8 * (e >> 1)) * BNO +
+                         (wn * NI + ni) * 8 + 2 * tq + (e & 1);
+              if (g == 0) {
+                *p = acc[tap][ni][e];
+              } else if (g < WR - 1) {
+                *p += acc[tap][ni][e];
+              } else {
+                acc[tap][ni][e] = *p + acc[tap][ni][e];
+              }
+            }
+      }
+      if (g < WR - 1) __syncthreads();
+    }
+  }
+  if (wr != WR - 1) return;
   const long long chunk = blockIdx.z;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-    if (!kval[mi]) continue;
-    const int kb = k0 + (wk * MI + mi) * 16 + gq;
+  for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
       const int n = n0 + (wn * NI + ni) * 8 + 2 * tq;
+      if (n >= Co) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float* o = part_w + (chunk * K + kb + 8 * h) * Co + n;
-        if (n < Co) o[0] = acc[mi][ni][2 * h];
-        if (n + 1 < Co) o[1] = acc[mi][ni][2 * h + 1];
+        const int k = tap * Ci + cs0 + 16 * wk + gq + 8 * h;
+        *reinterpret_cast<float2*>(part_w + (chunk * K + k) * Co + n) =
+            make_float2(acc[tap][ni][2 * h], acc[tap][ni][2 * h + 1]);
       }
     }
-  }
 }
 
 // dW and dbias partials for Ci = 1 (the first block: 9 taps of one input
 // channel), bound by the bytes of y and dy, which it reads once: dy_eff is
 // formed as they are read, a thread keeps 9 taps x 4 channels of dW and 4 of
 // dbias in registers over rows rs, rs + RS, ... of its block's range, and the
-// block adds its RS row slots in order. TX = bf16: x, y and dy read as bf16,
-// dy_eff formed in fp32 without FMA (pallas_cnn.py:207) and summed unrounded
-// into dbias (:211), its bf16 rounding the dW products' operand (:208).
+// block adds its RS row slots in order. Launched with TX = float (row 3);
+// the bf16 mode has its own kernel, conv_dw_c1_bf16_kernel below. Its TX =
+// bf16 branches read x, y and dy as bf16, form dy_eff in fp32 without FMA
+// (pallas_cnn.py:207), sum it unrounded into dbias (:211) and take its bf16
+// rounding as the dW products' operand (:208).
 constexpr int C1_VALS = 40;  // 9 * 4 + 4 sums a thread
 
 template <typename TX>
@@ -1459,6 +1512,182 @@ __global__ void __launch_bounds__(256) conv_dw_c1_kernel(
     for (int r = 0; r < RS; ++r) s += red[(r * G + c / 4) * C1_VALS + v];
     if (tap < 9) {
       part_w[((long long)blockIdx.x * 9 + tap) * Co + c] = s;
+    } else {
+      part_b[(long long)blockIdx.x * Co + c] = s;
+    }
+  }
+}
+
+// dW and dbias partials in bf16 for Ci = 1 (the first block of the bf16
+// train step): conv_dw_c1_bf16_kernel. Bound by the bytes of y and dy (bf16,
+// 154 MB each at B = 60, against 9.6 MB of x); the fp32 kernel's design
+// (conv_dw_c1_kernel: 4 channels a thread, 9 x taps a thread from device
+// memory, 36 loads per x value) is bound by its instructions instead. Block
+// i takes the rows of frames [i FPB, i FPB + FPB) (frame = b T + t) and
+// first stages their x, with one frame more on each side, into shared memory
+// [FPB + 2][F + 16] (x of frame j - 1 at column 8 + f, zeros at 7 and
+// 8 + F, so the frequency taps need no test; a time tap across the clip's
+// edge reads 0 by the row's t). Thread (slot s, group g) takes channels
+// 8g .. 8g + 7 (16-byte loads of y and dy where Co % 8 == 0; 2 threads a row
+// at Co = 16) of rows s, s + RS, ... of the block, forms dy_eff in fp32
+// without FMA in pallas_cnn.py:207's order, adds it unrounded into dbias
+// (:211), rounds it to bf16 as the product operand (:208) and keeps 9 x 8
+// dW sums in registers; ds and dq are loaded again only where the row's
+// frequency changes. The block adds its row slots in a fixed order: the
+// lanes of a group by butterfly shuffles, then the 8 warps in order.
+constexpr int C1B_THREADS = 256;
+
+__global__ void __launch_bounds__(C1B_THREADS, 2) conv_dw_c1_bf16_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ y, const bf16* __restrict__ dy,
+    const float* __restrict__ ds, const float* __restrict__ dq, float* __restrict__ part_w,
+    float* __restrict__ part_b, int B, int T, int F, int Co, int FPB) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const xs = reinterpret_cast<bf16*>(smem_raw);
+  const int FP = F + 16;  // the x tile's row pitch
+  float* const red =      // [8 warps][10][8 GP]: the warps' sums (9 taps, dbias)
+      reinterpret_cast<float*>(smem_raw + ((2 * (FPB + 2) * FP + 15) & ~15));
+  const int G = (Co + 7) / 8;
+  int GP = 1;  // threads a row, a power of two (the shuffles' lanes)
+  while (GP < G) GP *= 2;
+  const int RS = C1B_THREADS / GP;
+  const int tid = threadIdx.x, g = tid & (GP - 1), rs = tid / GP, c0 = 8 * g;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int NF = B * T;
+  const int fr0 = blockIdx.x * FPB;
+  const int nfr = min(NF, fr0 + FPB) - fr0;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  if ((F & 7) == 0) {  // 16-byte rows
+    const int per = F / 8;
+    for (int i = tid; i < (nfr + 2) * per; i += C1B_THREADS) {
+      const int j = i / per, v = i - j * per;
+      const int fr = fr0 - 1 + j;
+      const uint4 val = fr >= 0 && fr < NF
+                            ? __ldg(reinterpret_cast<const uint4*>(x + (long long)fr * F) + v)
+                            : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(xs + j * FP + 8 + 8 * v) = val;
+    }
+  } else {
+    for (int i = tid; i < (nfr + 2) * F; i += C1B_THREADS) {
+      const int j = i / F, f = i - j * F;
+      const int fr = fr0 - 1 + j;
+      xs[j * FP + 8 + f] = fr >= 0 && fr < NF ? x[(long long)fr * F + f] : zero;
+    }
+  }
+  for (int j = tid; j < nfr + 2; j += C1B_THREADS) {
+    xs[j * FP + 7] = zero;
+    xs[j * FP + 8 + F] = zero;
+  }
+  __syncthreads();
+
+  float acc[9][8], bacc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    bacc[k] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) acc[tap][k] = 0.f;
+  }
+  if (g < G) {
+    // row i of the block is frame j = i / F (time t), frequency f = i % F,
+    // stepped by RS rows without a division
+    const int dj = RS / F, dfr = RS - dj * F, djt = dj % T;
+    int j = rs / F, f = rs - j * F, t = (fr0 + j) % T, fs = -1;
+    float sv[8], qv[8];
+#pragma unroll 2
+    for (int i = rs; i < nfr * F; i += RS) {
+      if (f != fs) {  // this row's ds, dq
+        fs = f;
+        const int l0 = f * Co + c0;
+        if ((Co & 7) == 0) {
+          const float4 s0 = __ldg(reinterpret_cast<const float4*>(ds + l0));
+          const float4 s1 = __ldg(reinterpret_cast<const float4*>(ds + l0) + 1);
+          const float4 q0 = __ldg(reinterpret_cast<const float4*>(dq + l0));
+          const float4 q1 = __ldg(reinterpret_cast<const float4*>(dq + l0) + 1);
+          sv[0] = s0.x, sv[1] = s0.y, sv[2] = s0.z, sv[3] = s0.w;
+          sv[4] = s1.x, sv[5] = s1.y, sv[6] = s1.z, sv[7] = s1.w;
+          qv[0] = q0.x, qv[1] = q0.y, qv[2] = q0.z, qv[3] = q0.w;
+          qv[4] = q1.x, qv[5] = q1.y, qv[6] = q1.z, qv[7] = q1.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            sv[k] = c0 + k < Co ? __ldg(ds + l0 + k) : 0.f;
+            qv[k] = c0 + k < Co ? __ldg(dq + l0 + k) : 0.f;
+          }
+        }
+      }
+      const long long e0 = ((long long)(fr0 + j) * F + f) * Co + c0;
+      float a[8], b[8];
+      if ((Co & 7) == 0) {
+        const uint4 ua = __ldg(reinterpret_cast<const uint4*>(dy + e0));
+        const uint4 ub = __ldg(reinterpret_cast<const uint4*>(y + e0));
+        const uint32_t wa[4] = {ua.x, ua.y, ua.z, ua.w}, wb[4] = {ub.x, ub.y, ub.z, ub.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          a[2 * k] = bf_lo(wa[k]);
+          a[2 * k + 1] = bf_hi(wa[k]);
+          b[2 * k] = bf_lo(wb[k]);
+          b[2 * k + 1] = bf_hi(wb[k]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          a[k] = c0 + k < Co ? to_f(dy[e0 + k]) : 0.f;
+          b[k] = c0 + k < Co ? to_f(y[e0 + k]) : 0.f;
+        }
+      }
+      const bf16* xr = xs + (j + 1) * FP + 8 + f;  // x of (t, f)
+      float xv[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dt = tap / 3 - 1, df = tap % 3 - 1;
+        const bool ok = dt == 0 || (dt < 0 ? t > 0 : t < T - 1);
+        xv[tap] = ok ? to_f(xr[dt * FP + df]) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float e = __fadd_rn(__fadd_rn(a[k], sv[k]), __fmul_rn(__fmul_rn(2.f, b[k]), qv[k]));
+        bacc[k] += e;
+        const float ec = rnd<bf16>(e);
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) acc[tap][k] = fmaf(xv[tap], ec, acc[tap][k]);
+      }
+      f += dfr;
+      j += dj;
+      t += djt;
+      if (f >= F) {
+        f -= F;
+        ++j;
+        ++t;
+      }
+      if (t >= T) t -= T;
+    }
+  }
+  // the lanes of one group (lane % GP), then the warps, in a fixed order
+  for (int off = GP; off < 32; off *= 2) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      bacc[k] += __shfl_xor_sync(0xffffffffu, bacc[k], off);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        acc[tap][k] += __shfl_xor_sync(0xffffffffu, acc[tap][k], off);
+    }
+  }
+  const int NC = 8 * GP;
+  if (lane < GP) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      red[(warp * 10 + 9) * NC + c0 + k] = bacc[k];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) red[(warp * 10 + tap) * NC + c0 + k] = acc[tap][k];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < 10 * Co; e += C1B_THREADS) {
+    const int v = e / Co, c = e - v * Co;  // v = 9: dbias
+    float s = 0.f;
+    for (int w = 0; w < C1B_THREADS / 32; ++w) s += red[(w * 10 + v) * NC + c];
+    if (v < 9) {
+      part_w[((long long)blockIdx.x * 9 + v) * Co + c] = s;
     } else {
       part_b[(long long)blockIdx.x * Co + c] = s;
     }
@@ -1562,8 +1791,9 @@ template <int TN, int NTY, int NTX, int VEC, typename TX>
 cudaError_t launch_dw(const TX* x, const TX* dye, float* part_w, float* part_b, int B,
                       int T, int F, int Ci, int Co, int TT, int FF, int n_tiles, int tpc,
                       int chunks, int smem, cudaStream_t s) {
+  static int smem_set = 0;
   auto kernel = conv_dw_kernel<TN, NTY, NTX, VEC, TX>;
-  cudaError_t err = set_smem(kernel, smem);
+  cudaError_t err = ensure_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((9 * Ci + 8 * NTY - 1) / (8 * NTY), (Co + NTX * TN - 1) / (NTX * TN), chunks);
   kernel<<<grid, 256, smem, s>>>(x, dye, part_w, part_b, B, T, F, Ci, Co, TT, FF, n_tiles, tpc);
@@ -2471,34 +2701,52 @@ cudaError_t launch_fwd_bf16_bn(int BN, const bf16* x, const bf16* wt, const bf16
 #undef FWD16_ARGS
 }
 
-// conv_bn_stats_bwd's dW in bf16 on the tensor cores, at dW tile width BNO
-template <int WK, int MI, int NI>
-cudaError_t launch_dw_mma(const bf16* x, const bf16* dye, float* part_w, int B, int T, int F,
-                          int Ci, int Co, int TT, int FF, int CS, int n_tiles, int tpc,
-                          int chunks, int smem, cudaStream_t s) {
+// conv_bn_stats_bwd's dW in bf16 on the tensor cores: conv_dw_taps_kernel
+// with 8 warps as WK x WN x WR of NI n8 tiles each
+template <int WK, int WN, int NI, int WR>
+cudaError_t launch_dw_taps(const bf16* x, const bf16* dye, float* part_w, int B, int T, int F,
+                           int Ci, int Co, int TT, int FF, int n_tiles, int tpc, int chunks,
+                           int smem, cudaStream_t s) {
   static int smem_set = 0;
-  constexpr int BKO = WK * MI * 16, BNO = (8 / WK) * NI * 8;
-  auto kernel = conv_dw_mma_kernel<WK, MI, NI>;
+  constexpr int CS = 16 * WK, BNO = 8 * WN * NI;
+  auto kernel = conv_dw_taps_kernel<WK, WN, NI, WR>;
   cudaError_t err = ensure_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((9 * Ci + BKO - 1) / BKO, (Co + BNO - 1) / BNO, chunks);
-  kernel<<<grid, 256, smem, s>>>(x, dye, part_w, B, T, F, Ci, Co, TT, FF, CS, n_tiles, tpc);
+  dim3 grid(Ci / CS, (Co + BNO - 1) / BNO, chunks);
+  kernel<<<grid, 256, smem, s>>>(x, dye, part_w, B, T, F, Ci, Co, TT, FF, n_tiles, tpc);
   return cudaGetLastError();
 }
 
-// the warp tiles of conv_dw_mma_kernel by BNO (ops/fused_cnn.py DW_MMA)
-cudaError_t launch_dw_mma_n(int BNO, const bf16* x, const bf16* dye, float* part_w, int B,
-                            int T, int F, int Ci, int Co, int TT, int FF, int CS, int n_tiles,
-                            int tpc, int chunks, int smem, cudaStream_t s) {
-#define DWM_ARGS x, dye, part_w, B, T, F, Ci, Co, TT, FF, CS, n_tiles, tpc, chunks, smem, s
-  switch (BNO) {
-    case 16: return launch_dw_mma<8, 2, 2>(DWM_ARGS);
-    case 32: return launch_dw_mma<8, 1, 4>(DWM_ARGS);
-    case 64: return launch_dw_mma<4, 2, 4>(DWM_ARGS);
-    case 128: return launch_dw_mma<4, 1, 8>(DWM_ARGS);
+// the warps of conv_dw_taps_kernel by (CS, BNO) (ops/fused_cnn.py
+// dw_taps_warps: NI = min(4, BNO / 8), WK = CS / 16, WN = BNO / 8 NI, WR = 8 / WK WN)
+cudaError_t launch_dw_taps_tile(int CS, int BNO, const bf16* x, const bf16* dye, float* part_w,
+                                int B, int T, int F, int Ci, int Co, int TT, int FF,
+                                int n_tiles, int tpc, int chunks, int smem, cudaStream_t s) {
+#define DWT_ARGS x, dye, part_w, B, T, F, Ci, Co, TT, FF, n_tiles, tpc, chunks, smem, s
+  switch (CS * 1000 + BNO) {
+    case 16016: return launch_dw_taps<1, 1, 2, 8>(DWT_ARGS);
+    case 16032: return launch_dw_taps<1, 1, 4, 8>(DWT_ARGS);
+    case 16064: return launch_dw_taps<1, 2, 4, 4>(DWT_ARGS);
+    case 16128: return launch_dw_taps<1, 4, 4, 2>(DWT_ARGS);
+    case 32016: return launch_dw_taps<2, 1, 2, 4>(DWT_ARGS);
+    case 32032: return launch_dw_taps<2, 1, 4, 4>(DWT_ARGS);
+    case 32064: return launch_dw_taps<2, 2, 4, 2>(DWT_ARGS);
+    case 32128: return launch_dw_taps<2, 4, 4, 1>(DWT_ARGS);
     default: return cudaErrorInvalidValue;
   }
-#undef DWM_ARGS
+#undef DWT_ARGS
+}
+
+// conv_bn_stats_bwd's dW and dbias in bf16 at Ci = 1: conv_dw_c1_bf16_kernel
+cudaError_t launch_dw_c1_bf16(const bf16* x, const bf16* y, const bf16* dy, const float* ds,
+                              const float* dq, float* part_w, float* part_b, int B, int T,
+                              int F, int Co, int fpb, int blocks, int smem, cudaStream_t s) {
+  static int smem_set = 0;
+  cudaError_t err = ensure_smem(conv_dw_c1_bf16_kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  conv_dw_c1_bf16_kernel<<<blocks, C1B_THREADS, smem, s>>>(x, y, dy, ds, dq, part_w, part_b, B,
+                                                          T, F, Co, fpb);
+  return cudaGetLastError();
 }
 
 // conv_bn_stats_bwd's dx in bf16: conv3x3_bf16_kernel without STATS over
@@ -2714,7 +2962,8 @@ int conv_bn_stats_bwd(const float* x, const float* wt, const float* y, const flo
 // part_b fp32 scratch ([eff_blocks, Co], or [chunks, Co] on the Ci = 1
 // path, whose kernel sums dbias itself); dw, db bf16. plan: ConvBwdPlan
 // for bf16 (dx_vec, eff_blocks, eff_rows, dw_cs at 15-18; dw_cs > 0: dW on
-// the tensor cores, conv_dw_mma_kernel, over CS staged channels).
+// the tensor cores, conv_dw_taps_kernel, [9 taps x dw_cs] x dw_bno a block;
+// stream: conv_dw_c1_bf16_kernel, `chunks` blocks of dw_tt frames).
 int conv_bn_stats_bwd_bf16(const bf16* x, const bf16* wf, const bf16* y, const bf16* dy,
                            const float* ds, const float* dq, bf16* dye, bf16* dx, float* part_w,
                            float* part_b, bf16* dw, bf16* db, int B, int T, int F, int Ci,
@@ -2723,8 +2972,7 @@ int conv_bn_stats_bwd_bf16(const bf16* x, const bf16* wf, const bf16* y, const b
   const int dx_bn = plan[2], dx_tt = plan[3], dx_ff = plan[4], dx_smem = plan[5];
   const int dw_bko = plan[6], dw_bno = plan[7], dw_tt = plan[8], dw_ff = plan[9];
   const int dw_tiles = plan[10], dw_tpc = plan[11], chunks = plan[12], dw_smem = plan[13];
-  const int rows_per_block = plan[14], dx_vec = plan[15], eff_blocks = plan[16];
-  const int eff_rows = plan[17], dw_cs = plan[18];
+  const int dx_vec = plan[15], eff_blocks = plan[16], eff_rows = plan[17], dw_cs = plan[18];
   const long long M = (long long)B * T * F;
   cudaError_t err = cudaSuccess;
   if (dye != nullptr) {
@@ -2740,12 +2988,11 @@ int conv_bn_stats_bwd_bf16(const bf16* x, const bf16* wf, const bf16* y, const b
     if (err != cudaSuccess) return (int)err;
   }
   if (stream_dw) {
-    conv_dw_c1_kernel<bf16><<<chunks, 256, 0, stream>>>(x, y, dy, ds, dq, part_w, part_b, B, T,
-                                                        F, Co, rows_per_block);
-    err = cudaGetLastError();
+    err = launch_dw_c1_bf16(x, y, dy, ds, dq, part_w, part_b, B, T, F, Co, dw_tt, chunks,
+                            dw_smem, stream);
   } else if (dw_cs > 0) {
-    err = launch_dw_mma_n(dw_bno, x, dye, part_w, B, T, F, Ci, Co, dw_tt, dw_ff, dw_cs, dw_tiles,
-                          dw_tpc, chunks, dw_smem, stream);
+    err = launch_dw_taps_tile(dw_cs, dw_bno, x, dye, part_w, B, T, F, Ci, Co, dw_tt, dw_ff,
+                              dw_tiles, dw_tpc, chunks, dw_smem, stream);
   } else {
     err = vec ? launch_dw_any<4, bf16>(dw_bko, dw_bno, x, dye, part_w, part_b, B, T, F, Ci, Co,
                                        dw_tt, dw_ff, dw_tiles, dw_tpc, chunks, dw_smem, stream)

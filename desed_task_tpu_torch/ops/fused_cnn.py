@@ -50,6 +50,7 @@ Layouts follow the JAX package: x [B, T, F, Ci] (NHWC), w [3, 3, Ci, Co]
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, fields
 
 import torch
@@ -313,11 +314,15 @@ class ConvBwdPlan:
     partials are added in chunk order. In bf16: dx is the tensor-core conv
     (conv3x3_bf16_kernel's tiles, `_bf16_conv_tiles`; dx_vec: 16-byte
     copies of dy_eff, Co % 8 == 0); dW runs on the tensor cores where
-    `dw_mma_takes` (conv_dw_mma_kernel: `DW_MMA` warp tiles, dw_cs staged
-    channels, row tiles from `dw_mma_smem`), else on the CUDA cores from
-    bf16 stages (dw_cs 0, the fp32 tiles, dw_smem in bf16); the dy_eff pass
-    writes dbias partials from the unrounded dy_eff, one per block of
-    eff_rows rows (eff_blocks blocks; 0 in fp32)."""
+    `dw_taps_takes` (conv_dw_taps_kernel: blocks of [9 taps x dw_cs
+    channels] x dw_bno, dw_bko = 9 dw_cs, warps by `dw_taps_warps`, row
+    tiles from `dw_taps_smem`), else on the CUDA cores from bf16 stages
+    (dw_cs 0, the fp32 tiles, dw_smem in bf16); the dy_eff pass writes
+    dbias partials from the unrounded dy_eff, one per block of eff_rows
+    rows (eff_blocks blocks; 0 in fp32). bf16 at Ci = 1 (stream):
+    conv_dw_c1_bf16_kernel, `chunks` blocks of dw_tt whole frames (dw_ff =
+    F, rows_per_block = dw_tt F rows), the frames' x in dw_smem bytes of
+    shared memory (`c1_bf16_smem`)."""
 
     stream: int
     vec: int
@@ -395,35 +400,79 @@ def dw_smem(tt: int, ff: int, ci: int, bko: int, bno: int, esize: int = 4) -> in
 
 
 EFF_MAX_CO = 8 * 256  # the bf16 dy_eff pass: 8 channels a thread, one row slot at least
-# conv_dw_mma_kernel's warps by dW tile width BNO: (WK, MI, NI), 8 warps as
-# WK x (8 / WK), each MI k16 tiles x NI n8 tiles; BKO = 16 WK MI (csrc launch_dw_mma_n)
-DW_MMA = {16: (8, 2, 2), 32: (8, 1, 4), 64: (4, 2, 4), 128: (4, 1, 8)}
+# conv_dw_taps_kernel (bf16 dW on the tensor cores): a ring of DWT_STAGES
+# stages of up to DWT_MAX_ROWS rows, one block an SM (csrc DWT_STAGES,
+# DWT_MAX_ROWS); the row table [DWT_MAX_ROWS] of int2 is static
+DWT_STAGES = 3
+DWT_MAX_ROWS = 512
+DWT_SMEM = SMEM_LIMIT - 8 * DWT_MAX_ROWS
 
 
-def dw_mma_takes(Ci: int, Co: int) -> bool:
-    """The tensor-core dW: k16 tiles of one tap (Ci % 16 == 0), whole n8
-    tiles of 16-byte dy_eff chunks (Co % 8 == 0), and staged rows whose
-    16-byte chunks swizzle (Ci / 8 a power of two or a multiple of 8)."""
-    return Co % 8 == 0 and (Ci in (16, 32) or Ci % 64 == 0)
+def dw_taps_takes(Ci: int, Co: int) -> bool:
+    """The tensor-core dW: k16 tiles of 16 channels of one tap (Ci % 16 ==
+    0) and whole n8 tiles of 16-byte dy_eff chunks (Co % 8 == 0)."""
+    return Co % 8 == 0 and Ci % 16 == 0
 
 
-def dw_mma_tile(Ci: int, Co: int) -> tuple[int, int, int]:
-    """(BKO, BNO, CS) of conv_dw_mma_kernel: CS staged halo channels, BKO
-    where a depth tile lies in one tap, else all Ci."""
-    bno = _pow2_tile(Co, 16, 128)
-    wk, mi, _ = DW_MMA[bno]
-    bko = 16 * wk * mi
-    return bko, bno, bko if bko < Ci and Ci % bko == 0 else Ci
+def dw_taps_tile(Ci: int, Co: int) -> tuple[int, int]:
+    """(CS, BNO) of conv_dw_taps_kernel: CS staged halo channels (32 where
+    they divide Ci, else 16), BNO dW channels (16 .. 128)."""
+    return (32 if Ci % 32 == 0 else 16), _pow2_tile(Co, 16, 128)
 
 
-def dw_mma_smem(tt: int, ff: int, cs: int, bno: int) -> int:
-    """DW_STAGES stages of the halo [(tt+2)(ff+2)][cs] and the dy_eff rows
-    [tt ff padded to 16][bno], bf16."""
-    return 2 * DW_STAGES * ((tt + 2) * (ff + 2) * cs + _cdiv(tt * ff, 16) * 16 * bno)
+def dw_taps_warps(cs: int, bno: int) -> tuple[int, int, int, int]:
+    """(WK, WN, NI, WR) of conv_dw_taps_kernel: 8 warps as WK = cs / 16
+    channel slices (all nine taps each) x WN column groups of NI n8 tiles x
+    WR groups that split each stage's m16 steps (csrc launch_dw_taps_tile)."""
+    ni = min(4, bno // 8)
+    wk, wn = cs // 16, bno // (8 * ni)
+    return wk, wn, ni, 8 // (wk * wn)
 
 
+def dw_halo_pitch(ff: int, cs: int) -> int:
+    """Halo rows a frame of conv_dw_taps_kernel's stage: ff + 2 at cs = 32
+    (rows of 4 chunks: the bank group follows the row's parity), ff + 4 at
+    cs = 16 (2 chunks: the row mod 4), so that row = a (ff + 2 or 4) + b
+    and the bank key a ff + b agree where the swizzle reads the row."""
+    return ff + (2 if cs == 32 else 4)
 
+
+def dw_taps_smem(tt: int, ff: int, cs: int, bno: int) -> int:
+    """DWT_STAGES stages of the halo [(tt+2) dw_halo_pitch][cs] and the
+    dy_eff rows [tt ff padded to 16][bno], bf16, or the fp32 tile [9 cs][bno]
+    through which the WR row groups add their sums, whichever is larger."""
+    ring = 2 * DWT_STAGES * ((tt + 2) * dw_halo_pitch(ff, cs) * cs
+                             + _cdiv(tt * ff, 16) * 16 * bno)
+    return max(ring, 4 * 9 * cs * bno if dw_taps_warps(cs, bno)[3] > 1 else 0)
+
+
+def _balance(n: int, tile: int) -> int:
+    """The tile that splits n into as many tiles as `tile` does, evenly."""
+    return _cdiv(n, _cdiv(n, tile))
+
+
+C1_BF16_BLOCKS = 2 * SM_COUNT  # blocks of conv_dw_c1_bf16_kernel (two an SM)
+
+
+def c1_bf16_groups(Co: int) -> int:
+    """Threads a row of conv_dw_c1_bf16_kernel: 8 channels each, padded to a
+    power of two (the shuffle reduction's lanes)."""
+    g = 1
+    while g < _cdiv(Co, 8):
+        g *= 2
+    return g
+
+
+def c1_bf16_smem(frames: int, F: int, Co: int) -> int:
+    """conv_dw_c1_bf16_kernel's x tile [frames + 2][F + 16] bf16 (16-byte
+    rows where F % 8 == 0), then the warps' sums [8][10][8 groups] fp32."""
+    return _cdiv(2 * (frames + 2) * (F + 16), 16) * 16 + 4 * 8 * 10 * 8 * c1_bf16_groups(Co)
+
+
+@functools.lru_cache(maxsize=None)
 def conv_bwd_plan(B: int, T: int, F: int, Ci: int, Co: int, bf16: bool = False) -> ConvBwdPlan:
+    """conv_bn_stats_bwd's plan at a shape, computed once per shape (the
+    wrapper asks on every call)."""
     M, K = B * T * F, 9 * Ci
     vec = int(Ci % 4 == 0 and Co % 4 == 0)
     if bf16:  # dx on the tensor cores, dbias partials from the dy_eff pass
@@ -441,20 +490,31 @@ def conv_bwd_plan(B: int, T: int, F: int, Ci: int, Co: int, bf16: bool = False) 
     if Ci == 1 and Co <= 128:  # the streaming dW kernel: blocks of rows, no tiles
         if M >= 2**31:
             raise ValueError("conv_bn_stats_bwd: the Ci=1 kernel counts rows in 32-bit ints")
+        if bf16:  # blocks of whole frames, their x staged once
+            frames = B * T
+            most = (SMEM_HALF - c1_bf16_smem(0, F, Co)) // (2 * (F + 16))
+            if most < 1:
+                raise ValueError(f"conv_bn_stats_bwd: F={F}: one frame of x does not fit")
+            fpb = min(most, _cdiv(frames, C1_BF16_BLOCKS))
+            return ConvBwdPlan(1, vec, *dxp, 0, 0, fpb, F, 0, 0, _cdiv(frames, fpb),
+                               c1_bf16_smem(fpb, F, Co), fpb * F, **extra)
         blocks = max(1, min(DW_BLOCKS, _cdiv(M, 256)))
         rpb = _cdiv(M, blocks)
         return ConvBwdPlan(1, vec, *dxp, 0, 0, 0, 0, 0, 0, _cdiv(M, rpb), 0, rpb, **extra)
-    if bf16 and dw_mma_takes(Ci, Co):  # dW on the tensor cores: stages of 256 rows at most
-        bko, bno, cs = dw_mma_tile(Ci, Co)
-        wff = min(F, 64)
-        wtt, wff = _shrink(min(T, max(1, DW_MAX_ROWS // wff)), wff,
-                           lambda a, b: dw_mma_smem(a, b, cs, bno), SMEM_HALF)
+    if bf16 and dw_taps_takes(Ci, Co):  # dW on the tensor cores, all nine taps a stage
+        cs, bno = dw_taps_tile(Ci, Co)
+        wff = _balance(F, 64)
+        lo, hi = 1, max(1, min(T, DWT_MAX_ROWS // wff))  # the most frames that fit
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if dw_taps_smem(mid, wff, cs, bno) <= DWT_SMEM else (lo, mid - 1)
+        wtt = _balance(T, lo)
         tiles = B * _cdiv(T, wtt) * _cdiv(F, wff)
-        per_chunk = _cdiv(K, bko) * _cdiv(Co, bno)
-        chunks = max(1, min(tiles, DW_BLOCKS // per_chunk))
+        per_chunk = Ci // cs * _cdiv(Co, bno)
+        chunks = max(1, min(tiles, SM_COUNT // per_chunk))
         tpc = _cdiv(tiles, chunks)
-        return ConvBwdPlan(0, vec, *dxp, bko, bno, wtt, wff, tiles, tpc, _cdiv(tiles, tpc),
-                           dw_mma_smem(wtt, wff, cs, bno), 0, **extra, dw_cs=cs)
+        return ConvBwdPlan(0, vec, *dxp, 9 * cs, bno, wtt, wff, tiles, tpc, _cdiv(tiles, tpc),
+                           dw_taps_smem(wtt, wff, cs, bno), 0, **extra, dw_cs=cs)
     # dW tiles: 16, 32, 64 or 128 a side. Each depth tile reads all rows
     # again (from L2), so the depth tile trades the depth computed past K
     # against the number of tiles. Stages of 128 rows (8 a row group at

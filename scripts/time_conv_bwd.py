@@ -15,12 +15,15 @@ max(1, max |plain|) under unit-scale cotangents; then the sums over the
 seven blocks. `--library` also times cuDNN's fp32 conv backward (F.conv2d
 autograd, TF32 off) on the same shapes, the yardstick of conv_bn_stats_bwd.
 `--kernels` adds, per block, each CUDA kernel's device time per call
-(torch.profiler over --iters calls of each wrapper). `--dtype bfloat16`
-times the kernels' bf16 mode (bf16 activations, weights and cotangents;
-bytes counted at 2 a value, products of bf16 values at the tensor cores'
-peak, row 4's products with fp32 dlin at the fp32 peak; the error is the
-largest |kernel - plain| over the limit of one bf16 step, 2^-7 |plain| +
-1e-5 max |plain|; --library: cuDNN's conv backward in bf16).
+(torch.profiler over --iters calls of each wrapper), with the dW kernels'
+(`conv_dw_*`: the tensor-core `conv_dw_taps_kernel`, the Ci = 1
+`conv_dw_c1_bf16_kernel` and the fp32 ones) summed per block and over the
+seven. `--dtype bfloat16` times the kernels' bf16 mode (bf16 activations,
+weights and cotangents; bytes counted at 2 a value, products of bf16
+values at the tensor cores' peak, row 4's products with fp32 dlin at the
+fp32 peak; the error is the largest |kernel - plain| over the limit of one
+bf16 step, 2^-7 |plain| + 1e-5 max |plain|; --library: cuDNN's conv
+backward in bf16).
 Results also go to chiprun_out/time_conv_bwd.json (one entry per run).
 To compare two versions of the kernels on one card, unpack each into its
 own directory and run them in turns in one call (A, B, B, A):
@@ -171,6 +174,7 @@ def main() -> int:
         row.update(glu_ms=time_ms(glu), glu_err=err4, glu_bound=b4)
         if args.kernels:
             row.update(conv_kernels=kernel_ms(conv), glu_kernels=kernel_ms(glu))
+            row["dw_ms"] = sum(v for k, v in row["conv_kernels"].items() if "conv_dw" in k)
         rows.append(row)
         lib = f", cuDNN {row['cudnn_ms']:.3f} ms" if "cudnn_ms" in row else ""
         print(f"[{card}] {args.root} {args.dtype} block {i} T={T} F={Fq} {ci}->{co}: "
@@ -180,6 +184,8 @@ def main() -> int:
               f"err {err4:.2e})", flush=True)
         for key in ("conv_kernels", "glu_kernels") if args.kernels else ():
             print("    " + "; ".join(f"{k} {v:.3f} ms" for k, v in row[key].items()), flush=True)
+        if args.kernels:
+            print(f"    dW (the conv_dw_* kernels) {row['dw_ms']:.3f} ms", flush=True)
         del x, y, dy, bits
         T, Fq, ci = T // pool[0], Fq // pool[1], co
 
@@ -187,9 +193,12 @@ def main() -> int:
     tot.update(conv_bound=sum(r["conv_bound"][0] for r in rows),
                glu_bound=sum(r["glu_bound"][0] for r in rows))
     lib = ""
+    if args.kernels:
+        tot["dw_ms"] = sum(r["dw_ms"] for r in rows)
+        lib = f", dW kernels {tot['dw_ms']:.3f} ms"
     if args.library:
         tot["cudnn_ms"] = sum(r["cudnn_ms"] for r in rows)
-        lib = f", cuDNN {tot['cudnn_ms']:.3f} ms"
+        lib += f", cuDNN {tot['cudnn_ms']:.3f} ms"
     print(f"[{card}] {args.root} {args.dtype} sum of 7 blocks: conv_bn_stats_bwd "
           f"{tot['conv_ms']:.3f} ms "
           f"(bound {tot['conv_bound']:.3f}{lib}); glu_drop_pool_bwd {tot['glu_ms']:.3f} ms "

@@ -478,59 +478,198 @@ def _swz_rows(row, c, cg):
     return (row * cg + (c ^ sw)) * 8
 
 
-def _walk_dw_mma(p, B, T, F, Ci, Co):
-    """conv_dw_mma_kernel's maps: the depth and channel tiles cover [9 Ci,
-    Co] once; 8 warps as WK x WN, MI k16 x NI n8 tiles each, cover a block
-    tile once; a k16 tile lies in one tap and in the staged channels; the
-    swizzle keeps each row's chunks (a permutation) and puts 8 consecutive
-    rows of one chunk in 8 bank groups; the chunks cover the row tiles."""
+def _swz_halo(row, key, c, cg):
+    """csrc swz_halo: element offset of chunk c of halo row `row` (cg = 2 or
+    4 chunks), XORed by the position's key."""
+    sw = (key >> 1) & 3 if cg == 4 else (key >> 2) & 1
+    return (row * cg + (c ^ sw)) * 8
+
+
+def _fast_div(n, d):
+    """csrc FastDiv: n * ceil(2^32 / d) >> 32."""
+    return (np.asarray(n, dtype=np.uint64) * np.uint64(((1 << 32) + d - 1) // d)) >> np.uint64(32)
+
+
+def _walk_dw_taps(p, B, T, F, Ci, Co):
+    """conv_dw_taps_kernel's maps: the blocks' [9 taps x CS] x BNO tiles
+    cover [9 Ci, Co] once; 8 warps as WK x WN x WR, NI n8 tiles each, cover a
+    block tile once per row group, and the WR groups split the m16 steps;
+    the chunks cover the row tiles; shared memory fits one block an SM."""
     K = 9 * Ci
-    assert fc.dw_mma_takes(Ci, Co) and not p.stream
-    bko, bno, cs = fc.dw_mma_tile(Ci, Co)
-    assert (p.dw_bko, p.dw_bno, p.dw_cs) == (bko, bno, cs)
-    wk, mi, ni = fc.DW_MMA[bno]
-    wn = 8 // wk
-    assert (16 * wk * mi, 8 * wn * ni) == (bko, bno) and ni % 2 == 0
-    W_k, W_n, M_i, N_i = np.meshgrid(np.arange(wk), np.arange(wn), np.arange(mi),
-                                     np.arange(ni), indexing="ij")
-    k16 = (W_k * mi + M_i).ravel()
-    n8 = (W_n * ni + N_i).ravel()
-    _once(np.bincount(k16 * (bno // 8) + n8, minlength=bko // 16 * bno // 8), "warp tiles")
-    k = (np.arange(-(-K // bko))[:, None] * bko + np.arange(bko)[None, :]).ravel()
-    _once(np.bincount(k[k < K], minlength=K), "depth")
+    assert fc.dw_taps_takes(Ci, Co) and not p.stream
+    cs, bno = fc.dw_taps_tile(Ci, Co)
+    assert (p.dw_bko, p.dw_bno, p.dw_cs) == (9 * cs, bno, cs) and Ci % cs == 0
+    wk, wn, ni, wr = fc.dw_taps_warps(cs, bno)
+    assert (16 * wk, 8 * wn * ni, wk * wn * wr) == (cs, bno, 8) and ni % 2 == 0
+    # accumulator e of (tap, ni) in warp (wk, wn): row tap cs + 16 wk + g + 8 (e // 2),
+    # column (wn ni + ni) 8 + 2 tq + e % 2 of the block tile
+    W_k, W_n, L_, Tap, N_i, E_ = np.meshgrid(np.arange(wk), np.arange(wn), np.arange(32),
+                                             np.arange(9), np.arange(ni), np.arange(4),
+                                             indexing="ij")
+    rows = Tap * cs + 16 * W_k + L_ // 4 + 8 * (E_ // 2)
+    cols = (W_n * ni + N_i) * 8 + 2 * (L_ % 4) + E_ % 2
+    _once(np.bincount((rows * bno + cols).ravel(), minlength=9 * cs * bno), "block tile")
+    # the grid's (channel group, column tile) blocks: k = tap Ci + kg cs + c
+    kg, nt, tap, c = np.meshgrid(np.arange(Ci // cs), np.arange(-(-Co // bno)), np.arange(9),
+                                 np.arange(cs), indexing="ij")
+    k = (tap * Ci + kg * cs + c).ravel()
+    _once(np.bincount(k, minlength=K) // -(-Co // bno), "depth")
     n = (np.arange(-(-Co // bno))[:, None] * bno + np.arange(bno)[None, :]).ravel()
     _once(np.bincount(n[n < Co], minlength=Co), "dW channels")
-    for k0 in range(0, K, bko):
-        cs0 = k0 % Ci if cs < Ci else 0
-        for kk in range(k0, min(K, k0 + bko), 16):
-            tap, ci = kk // Ci, kk % Ci
-            assert (kk + 15) // Ci == tap and cs0 <= ci and ci + 16 <= cs0 + cs
-    for cg in {cs // 8, bno // 8}:
-        assert cg & (cg - 1) == 0 or cg % 8 == 0
-        for row in range(16):
-            assert sorted(_swz_rows(row, c, cg) for c in range(cg)) == [
-                (row * cg + c) * 8 for c in range(cg)]
-        for r0 in range(24):
-            for c in range(cg):
-                assert len({_swz_rows(r, c, cg) // 8 % 8 for r in range(r0, r0 + 8)}) == 8
     R = p.dw_tt * p.dw_ff
-    assert R <= fc.DW_MAX_ROWS and p.dw_smem == fc.dw_mma_smem(p.dw_tt, p.dw_ff, cs, bno)
-    assert p.dw_smem <= fc.SMEM_HALF
+    r16 = -(-R // 16)
+    steps = np.concatenate([np.arange(g, r16, wr) for g in range(wr)])
+    _once(np.bincount(steps, minlength=r16), "m16 steps of a stage")
+    assert R <= fc.DWT_MAX_ROWS
+    assert p.dw_smem == fc.dw_taps_smem(p.dw_tt, p.dw_ff, cs, bno) <= fc.DWT_SMEM
+    assert fc.DWT_SMEM + 8 * fc.DWT_MAX_ROWS <= SMEM_LIMIT
     _rows_once(B, T, F, p.dw_tt, p.dw_ff, p.dw_tiles)
     tiles = np.concatenate([np.arange(c * p.dw_tpc, min(p.dw_tiles, (c + 1) * p.dw_tpc))
                             for c in range(p.chunks)])
     assert np.array_equal(tiles, np.arange(p.dw_tiles))
-    blocks = -(-K // bko) * -(-Co // bno) * p.chunks
-    assert blocks <= fc.DW_BLOCKS or p.chunks == 1
+    blocks = Ci // cs * -(-Co // bno) * p.chunks
+    assert blocks <= fc.SM_COUNT or p.chunks == 1
+
+
+def _walk_dw_taps_fragments(p, B, T, F, Ci, Co, tiles, kg=0, nt=0):
+    """conv_dw_taps_kernel's stages and ldmatrix reads, emulated for some row
+    tiles of block (kg, nt): the copies put every halo position and dy_eff
+    row through the swizzles once; each lane's ldmatrix address at every m16
+    step and tap finds the x of its row's position + the tap's offset
+    (zero past the clip) and the dy_eff of its row; the 8 rows of one
+    matrix lie in 8 bank groups, across frame ends too."""
+    def clip(b, C):  # one clip of x or dy_eff: distinct values per clip
+        return np.random.default_rng([b, C]).integers(1, 1000, (T, F, C)).astype(np.float64)
+
+    cs, bno = p.dw_cs, p.dw_bno
+    wk_n, wn_n, ni_n, wr_n = fc.dw_taps_warps(cs, bno)
+    cg, cgd, tt, ff = cs // 8, bno // 8, p.dw_tt, p.dw_ff
+    W, WP = ff + 2, fc.dw_halo_pitch(ff, cs)
+    R = tt * ff
+    r16 = -(-R // 16) * 16
+    cs0, n0 = kg * cs, nt * bno
+    nf, ntt = -(-F // ff), -(-T // tt)
+    lane = np.arange(32)
+    for tile in tiles:
+        b0, t0, f0 = tile // nf // ntt, (tile // nf) % ntt * tt, tile % nf * ff
+        xc, dc = clip(b0, Ci), clip(b0, Co)
+        sm = np.full(((tt + 2) * WP * cs + r16 * bno,), np.nan)
+        hits = np.zeros(sm.shape, dtype=int)
+        # the halo copies: pos = i / cg (a = pos / W by FastDiv), chunk c
+        pos = np.arange((tt + 2) * W)
+        a = _fast_div(pos, W).astype(int)
+        assert np.array_equal(a, pos // W)
+        b = pos - a * W
+        t, f = t0 + a - 1, f0 + b - 1
+        ok = (t >= 0) & (t < T) & (f >= 0) & (f < F)
+        for c in range(cg):
+            dst = _swz_halo(a * WP + b, a * ff + b, c, cg)
+            val = np.where(ok[:, None], xc[np.clip(t, 0, T - 1), np.clip(f, 0, F - 1),
+                                           cs0 + 8 * c: cs0 + 8 * c + 8], 0.0)
+            idx = dst[:, None] + np.arange(8)
+            sm[idx] = val
+            np.add.at(hits, idx.ravel(), 1)
+        # the dy_eff copies: row r (jt = r / FF by FastDiv), chunk c
+        r = np.arange(r16)
+        jt = _fast_div(r, ff).astype(int)
+        assert np.array_equal(jt, r // ff)
+        t, f = t0 + jt, f0 + r - jt * ff
+        for c in range(cgd):
+            ok = (r < R) & (t < T) & (f < F) & (n0 + 8 * c < Co)
+            dst = (tt + 2) * WP * cs + _swz_rows(r, c, cgd)
+            ch = min(n0 + 8 * c, Co - 8)
+            val = np.where(ok[:, None], dc[np.clip(t, 0, T - 1), np.clip(f, 0, F - 1),
+                                           ch: ch + 8], 0.0)
+            idx = dst[:, None] + np.arange(8)
+            sm[idx] = val
+            np.add.at(hits, idx.ravel(), 1)
+        assert hits.max() == 1, "a stage element written twice"
+        # the row table: (halo row, key) of row r at the centre tap
+        q = np.where(r < R, r, 0)
+        rho, kap = (q // ff + 1) * WP + q % ff + 1, q + ff + 1
+        arow = ((lane >> 4) << 3) + (lane & 7)
+        brow = (((lane >> 3) & 1) << 3) + (lane & 7)
+        for wk in range(wk_n):
+            ach = 2 * wk + ((lane >> 3) & 1)
+            for m0 in range(0, r16, 16):
+                m = m0 + arow
+                for tap in range(9):
+                    dt, df = tap // 3 - 1, tap % 3 - 1
+                    addr = _swz_halo(rho[m] + dt * WP + df, kap[m] + dt * ff + df, ach, cg)
+                    got = sm[addr[:, None] + np.arange(8)]
+                    jt, jf = m // ff, m % ff
+                    t, f = t0 + jt + dt, f0 + jf + df
+                    ok = (t >= 0) & (t < T) & (f >= 0) & (f < F)
+                    want = np.where(ok[:, None], xc[np.clip(t, 0, T - 1), np.clip(f, 0, F - 1)][
+                        np.arange(32)[:, None], cs0 + 8 * ach[:, None] + np.arange(8)], 0.0)
+                    real = m < R
+                    assert np.array_equal(got[real], want[real]), (tile, wk, m0, tap)
+                    assert not np.isnan(got).any()
+                    groups = (2 * addr // 16) % 8
+                    for mat in range(4):
+                        lm = slice(8 * mat, 8 * mat + 8)
+                        if real[lm].all():
+                            assert len(set(groups[lm])) == 8, (tile, m0, tap, mat)
+        for wn in range(wn_n):
+            for m0 in range(0, r16, 16):
+                m = m0 + brow
+                for ni in range(0, ni_n, 2):
+                    ch = wn * ni_n + (lane >> 4) + ni
+                    addr = (tt + 2) * WP * cs + _swz_rows(m, ch, cgd)
+                    got = sm[addr[:, None] + np.arange(8)]
+                    jt, jf = m // ff, m % ff
+                    t, f = t0 + jt, f0 + jf
+                    co = n0 + 8 * ch[:, None] + np.arange(8)
+                    ok = ((m < R) & (t < T) & (f < F))[:, None] & (co < Co)
+                    want = np.where(ok, dc[np.clip(t, 0, T - 1), np.clip(f, 0, F - 1)][
+                        np.arange(32)[:, None], np.clip(co, 0, Co - 1)], 0.0)
+                    assert np.array_equal(got, want), (tile, wn, m0, ni)
+                    groups = (2 * addr // 16) % 8
+                    for mat in range(4):
+                        assert len(set(groups[8 * mat: 8 * mat + 8])) == 8
+
+
+def _walk_dw_c1_bf16(p, B, T, F, Co):
+    """conv_dw_c1_bf16_kernel's maps: blocks of dw_tt whole frames cover the
+    rows once; the threads' row slots, stepped without a division, find each
+    row of a block once with its frame, frequency and time; the x tile and
+    the warps' sums fit in shared memory for two blocks an SM."""
+    NF = B * T
+    fpb = p.dw_tt
+    assert p.stream and (p.dw_ff, p.rows_per_block) == (F, fpb * F)
+    assert (p.chunks - 1) * fpb < NF <= p.chunks * fpb and p.chunks <= max(
+        fc.C1_BF16_BLOCKS, -(-NF // fpb))
+    assert p.dw_smem == fc.c1_bf16_smem(fpb, F, Co) <= fc.SMEM_HALF
+    gp = fc.c1_bf16_groups(Co)
+    assert gp <= 16 and 8 * gp >= Co and gp & (gp - 1) == 0
+    rs_n = 256 // gp
+    seen = np.zeros(NF * F, dtype=int)
+    for blk in range(p.chunks):
+        fr0 = blk * fpb
+        nfr = min(NF, fr0 + fpb) - fr0
+        dj, dfr = rs_n // F, rs_n % F
+        djt = dj % T
+        for rs in range(rs_n):
+            j, f = rs // F, rs % F
+            t = (fr0 + j) % T
+            for i in range(rs, nfr * F, rs_n):
+                assert (j, f, t) == (i // F, i % F, (fr0 + i // F) % T)
+                seen[(fr0 + j) * F + f] += 1
+                f, j, t = f + dfr, j + dj, t + djt
+                if f >= F:
+                    f, j, t = f - F, j + 1, t + 1
+                if t >= T:
+                    t -= T
+    _once(seen, "rows of the Ci = 1 kernel")
 
 
 @pytest.mark.parametrize("geom", GEOMS, ids=IDS)
 def test_conv_bwd_plan_bf16_covers_dx_dw_and_dbias(geom):
     """The bf16 backward plan: dx on the tensor-core conv (its warp tiles and
     ldmatrix rows, _walk_bf16_conv, with Co channels in and Ci out; every
-    row and dx channel once); dW on the tensor cores where dw_mma_takes
-    (_walk_dw_mma), else on the fp32 plan's tiles and chunks with bf16
-    stages; the dy_eff pass's blocks of eff_rows rows cover every row once,
+    row and dx channel once); dW on the tensor cores where dw_taps_takes
+    (_walk_dw_taps), at Ci = 1 in whole frames (_walk_dw_c1_bf16), else on
+    the fp32 plan's tiles and chunks with bf16 stages; the dy_eff pass's blocks of eff_rows rows cover every row once,
     and its threads (8 channels each, EFF row slots) every channel."""
     B, T, F, Ci, Co, _ = geom
     p = fc.conv_bwd_plan(B, T, F, Ci, Co, bf16=True)
@@ -541,16 +680,18 @@ def test_conv_bwd_plan_bf16_covers_dx_dw_and_dbias(geom):
     _rows_once(B, T, F, p.dx_tt, p.dx_ff, B * -(-T // p.dx_tt) * -(-F // p.dx_ff))
     chans = (np.arange(-(-Ci // p.dx_bn))[:, None] * p.dx_bn + np.arange(p.dx_bn)).ravel()
     _once(np.bincount(chans[chans < Ci], minlength=Ci), "dx channels")
+    assert (p.stream, p.vec) == (q.stream, q.vec)
     if p.dw_cs:  # the tensor-core dW
-        _walk_dw_mma(p, B, T, F, Ci, Co)
-    else:  # the streaming kernel, or the CUDA-core kernel on the fp32 tiles
-        same = ("stream", "vec", "dw_bko", "dw_bno", "dw_tt", "dw_ff", "dw_tiles", "dw_tpc",
-                "chunks", "rows_per_block")
+        _walk_dw_taps(p, B, T, F, Ci, Co)
+    elif p.stream:  # the bf16 streaming kernel at Ci = 1
+        _walk_dw_c1_bf16(p, B, T, F, Co)
+    else:  # the CUDA-core kernel on the fp32 tiles
+        same = ("dw_bko", "dw_bno", "dw_tt", "dw_ff", "dw_tiles", "dw_tpc", "chunks",
+                "rows_per_block")
         assert all(getattr(p, k) == getattr(q, k) for k in same)
-        assert p.stream or not fc.dw_mma_takes(Ci, Co)
-        if not p.stream:
-            assert p.dw_smem == fc.dw_smem(p.dw_tt, p.dw_ff, Ci, p.dw_bko, p.dw_bno, 2)
-            assert p.dw_smem <= q.dw_smem <= fc.SMEM_HALF
+        assert not fc.dw_taps_takes(Ci, Co)
+        assert p.dw_smem == fc.dw_smem(p.dw_tt, p.dw_ff, Ci, p.dw_bko, p.dw_bno, 2)
+        assert p.dw_smem <= q.dw_smem <= fc.SMEM_HALF
     M = B * T * F
     assert (p.eff_blocks - 1) * p.eff_rows < M <= p.eff_blocks * p.eff_rows
     assert p.eff_blocks <= fc.DW_BLOCKS
@@ -580,3 +721,72 @@ def test_fwd_plans_bf16_depend_on_the_shape_alone(geom):
     assert all(isinstance(v, int) for v in a.ints() + g.ints())
     assert 2 * (a.smem + 1024) <= fc.SMEM_SM
     assert (2 if Co <= 128 else 1) * (g.smem + 1024) <= fc.SMEM_SM
+
+
+# the bf16 dW kernels at the 2024 blocks (B=60) and at odd shapes: the
+# tensor-core kernel at Ci 16, 32, 48, 64, 128 and 256 (CS 16 and 32), Co 8
+# to 256 (one or two channel tiles, a ragged one, WR 1 to 8 row groups), F 1
+# to 130 (frames shorter than the 8 rows of an ldmatrix, two frequency
+# tiles), T not a multiple of the row tile; the Ci = 1 kernel at Co 8 to 128
+# (ragged 8-channel groups, Co % 8 != 0), F 1 to 130 (F % 8 != 0), a block
+# past B * T
+DW_BF16_GEOMS = [g[:5] for g in _geoms_2024(60)] + [
+    (2, 19, 3, 16, 8), (3, 37, 1, 32, 16), (2, 23, 5, 48, 24), (1, 50, 7, 64, 40),
+    (2, 9, 64, 128, 96), (2, 13, 6, 256, 256), (4, 11, 2, 48, 136), (1, 7, 130, 16, 64),
+    (2, 5, 9, 32, 200), (1, 3, 1, 64, 128),
+    (1, 13, 16, 1, 8), (1, 5, 130, 1, 24), (2, 8, 8, 1, 128), (3, 7, 1, 1, 40), (2, 7, 6, 1, 12),
+    (2, 9, 5, 1, 16), (1, 1, 1, 1, 8), (7, 300, 3, 1, 16)]
+DW_BF16_IDS = [f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}" for g in DW_BF16_GEOMS]
+
+
+@pytest.mark.parametrize("geom", DW_BF16_GEOMS, ids=DW_BF16_IDS)
+def test_dw_bf16_plans_cover_dw(geom):
+    """The bf16 dW plans: the tensor-core kernel's blocks, warps, m16 steps,
+    chunks and shared memory (_walk_dw_taps), or the Ci = 1 kernel's
+    frames and row slots (_walk_dw_c1_bf16); equal shapes, equal plans."""
+    B, T, F, Ci, Co = geom
+    p = fc.conv_bwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert p == fc.conv_bwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert all(isinstance(v, int) for v in p.ints())
+    if Ci == 1:
+        _walk_dw_c1_bf16(p, B, T, F, Co)
+    else:
+        assert p.dw_cs and fc.dw_taps_takes(Ci, Co)
+        _walk_dw_taps(p, B, T, F, Ci, Co)
+
+
+@pytest.mark.parametrize("geom", [g for g in DW_BF16_GEOMS if g[3] > 1],
+                         ids=[i for g, i in zip(DW_BF16_GEOMS, DW_BF16_IDS) if g[3] > 1])
+def test_dw_taps_stages_and_fragments(geom):
+    """conv_dw_taps_kernel's copies and ldmatrix reads, emulated for the first,
+    a middle and the last row tile of the first and the last block of a
+    chunk (_walk_dw_taps_fragments)."""
+    B, T, F, Ci, Co = geom
+    p = fc.conv_bwd_plan(B, T, F, Ci, Co, bf16=True)
+    tiles = sorted({0, p.dw_tiles // 2, p.dw_tiles - 1})
+    _walk_dw_taps_fragments(p, B, T, F, Ci, Co, tiles)
+    _walk_dw_taps_fragments(p, B, T, F, Ci, Co, tiles[-1:], kg=Ci // p.dw_cs - 1,
+                            nt=-(-Co // p.dw_bno) - 1)
+
+
+def test_fast_div_is_exact():
+    """csrc FastDiv, n * ceil(2^32 / d) >> 32, is n // d wherever the dW
+    kernel takes it: n < 2^16 (halo positions, stage rows), d < 2^16."""
+    n = np.arange(1 << 16)
+    for d in list(range(1, 1100)) + [4097, 65535]:
+        assert np.array_equal(_fast_div(n, d).astype(np.int64), n // d), d
+
+
+
+def test_dw_taps_takes_every_shape_of_the_first_design():
+    """Every (Ci, Co) that the first tensor-core dW took (Ci 16, 32 or a
+    multiple of 64; Co % 8 == 0) goes to conv_dw_taps_kernel, and so do Ci
+    = 48, 80, ...; other shapes keep the CUDA-core dW from bf16 stages."""
+    for ci in range(2, 400):
+        for co in range(1, 300):
+            first = co % 8 == 0 and (ci in (16, 32) or ci % 64 == 0)
+            assert fc.dw_taps_takes(ci, co) == (co % 8 == 0 and ci % 16 == 0)
+            assert fc.dw_taps_takes(ci, co) or not first
+    for ci, co in [(16, 8), (48, 24), (80, 8), (5, 6), (24, 40), (16, 20)]:
+        p = fc.conv_bwd_plan(2, 9, 7, ci, co, bf16=True)
+        assert bool(p.dw_cs) == fc.dw_taps_takes(ci, co)

@@ -514,7 +514,7 @@ def test_bf16_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
 
 # the bf16 modes of the backward kernels (rows 3 and 4): the streaming Ci = 1
 # dW kernel (with and without dx), the CUDA-core dW from bf16 stages (Ci 5,
-# 8, 12 and 24: Ci and Co odd, element staging, scalar dy_eff, Co % 8 != 0),
+# 8, 12 and 24: Ci and Co odd, element staging, scalar dy_eff, Ci % 16 != 0),
 # the tensor-core dW (ragged row, depth and channel tiles), dx in two
 # channel tiles (Ci = 256), the GLU backward's wide kernel, lane sums in
 # device memory, pool remainders, and two 2024 blocks
@@ -537,6 +537,21 @@ BF16_BWD_GEOMS = [
     (2, 19, 3, 32, 64, (1, 1)),
     (2, 5, 4, 192, 64, (1, 2)),
     (2, 6, 10, 16, 8, (1, 1)),
+    # the nine-tap dW: Ci = 48 (16 channels a block), two channel tiles of
+    # 128 with a ragged one (Co = 136, 200), F = 1 and frames of 5 and 9
+    # positions (ldmatrix rows across frame ends), two frequency tiles
+    # (F = 130); the bf16 Ci = 1 kernel: Co = 40 (ragged 8-channel groups),
+    # Co = 12 (scalar y, dy, ds and dq loads), F = 1, 5 and 6 (scalar x
+    # rows), blocks of frames across clip ends
+    (2, 23, 5, 48, 24, (1, 1)),
+    (4, 11, 2, 48, 136, (1, 2)),
+    (2, 5, 9, 32, 200, (1, 1)),
+    (1, 3, 1, 64, 128, (1, 1)),
+    (1, 7, 130, 16, 64, (1, 2)),
+    (3, 7, 1, 1, 40, (1, 1)),
+    (2, 7, 6, 1, 12, (1, 2)),
+    (2, 9, 5, 1, 16, (1, 1)),
+    (7, 300, 3, 1, 16, (2, 1)),
 ]
 
 
