@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing is caught):
      bigru at T=156, H=192 (its plan must be "cluster"; bitwise-equal
      rerun);
   3b. the bf16 modes of conv_bn_stats and glu_drop_pool (eval and with
-     bits) at the seven block geometries (B=64) against their plain
+     bits) at the seven block geometries and at the 256-channel block
+     (WIDE_GEOM; not in the sums; glu_drop_pool's ring kernel there, its
+     register kernel at the seven blocks, each line naming the kernel its
+     plan picks) (B=64) against their plain
      versions in bf16: y and z within one bf16 step (2^-7 |plain|, above a
      floor of 1e-5 max |plain| for fp32 sums that cancel), at most 1 % of
      their elements differing, s and q within TOL_KERNEL, bitwise reruns;
@@ -360,8 +363,12 @@ def check_kernels_bf16(geoms, gen, report, rows32):
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     rows = {"conv_bn_stats.bf16": [], "glu_drop_pool.bf16": []}
+    wide = {"conv_bn_stats.bf16": [], "glu_drop_pool.bf16": []}
     B = BATCH
-    for i, (T, Fq, ci, co, pool) in enumerate(geoms):
+    for i, (T, Fq, ci, co, pool) in enumerate(list(geoms) + [WIDE_GEOM]):
+        out = rows if i < len(geoms) else wide
+        ref32 = rows32 if i < len(geoms) else report["wide_kernel_rows"]
+        i32 = i if i < len(geoms) else 0
         x = torch.randn(B, T, Fq, ci, generator=gen).to(dev, bf)
         w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev, bf)
         b = (torch.randn(co, generator=gen) * 0.1).to(dev, bf)
@@ -386,7 +393,7 @@ def check_kernels_bf16(geoms, gen, report, rows32):
         n_bytes = 2 * (x.numel() + w.numel() + co + M * co) + 4 * 2 * Fq * co
         flops = 2 * 9 * ci * co * M
         x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
-        rows["conv_bn_stats.bf16"].append(dict(
+        out["conv_bn_stats.bf16"].append(dict(
             geom=[T, Fq, ci, co], max_abs_err=float((y.float() - yp.float()).abs().max()),
             limit_share=worst, differ=frac, stats_err=err,
             ms=time_ms(lambda: fused_cnn.conv_bn_stats(x, w, b)),
@@ -410,14 +417,16 @@ def check_kernels_bf16(geoms, gen, report, rows32):
             abs_errs.append(float((z.float() - zp.float()).abs().max()))
             same = torch.equal(z, fused_cnn.glu_drop_pool(y, scale_f, bias_f, wg, bg, bb,
                                                           pool=pool, keep_prob=keep))
-            print(f"glu_drop_pool.bf16  T={T:3d} F={Fq:3d} Co={co:3d} pool={pool} {label}: z "
-                  f"{worst:.3f} of the limit, {frac:.2e} differ; rerun bitwise equal: {same}",
-                  flush=True)
+            plan = fused_cnn.glu_fwd_plan(B, T, Fq, co, tuple(pool), bf16=True)
+            kernel = "glu_fwd_frag_kernel" if plan.frag else "glu_fwd_ring_kernel"
+            print(f"glu_drop_pool.bf16  T={T:3d} F={Fq:3d} Co={co:3d} pool={pool} {label} "
+                  f"({kernel}): z {worst:.3f} of the limit, {frac:.2e} differ; rerun bitwise "
+                  f"equal: {same}", flush=True)
             require(ok, "glu_drop_pool bf16 disagrees with its plain version")
             require(same, "glu_drop_pool bf16 is not bitwise repeatable")
         P = B * T * Fq
         n_bytes = 2 * (y.numel() + co * co + co + z.numel()) + 4 * 2 * Fq * co
-        rows["glu_drop_pool.bf16"].append(dict(
+        out["glu_drop_pool.bf16"].append(dict(
             geom=[T, Fq, co, *pool], max_abs_err=max(abs_errs), limit_share=max(worsts),
             differ=max(fracs),
             ms=time_ms(lambda: fused_cnn.glu_drop_pool(y, scale_f, bias_f, wg, bg, None,
@@ -428,13 +437,15 @@ def check_kernels_bf16(geoms, gen, report, rows32):
                                             PEAK_BF16_FLOPS)))
         for name, n32 in (("conv_bn_stats.bf16", "conv_bn_stats"),
                           ("glu_drop_pool.bf16", "glu_drop_pool")):
-            r = rows[name][-1]
+            r = out[name][-1]
             lib = f", F.conv2d bf16 {r['library_ms']:.3f} ms" if r["library_ms"] else ""
-            print(f"{name}  block {i}: {r['ms']:.3f} ms (fp32 {rows32[n32][i]['ms']:.3f}), bound "
+            where = f"block {i}" if i < len(geoms) else f"the {co}-channel block (not in the sums)"
+            print(f"{name}  {where}: {r['ms']:.3f} ms (fp32 {ref32[n32][i32]['ms']:.3f}), bound "
                   f"{r['bound'][0]:.3f} ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} ms{lib}",
                   flush=True)
         del x, y, yp, z, zp, bits
     report["bf16_kernel_rows"] = rows
+    report["bf16_wide_kernel_rows"] = wide
     return rows
 
 

@@ -74,20 +74,45 @@
 //   bf16 values is exact in fp32). wgmma, TMA and swizzled layouts are left
 //   to a later change.
 // glu_drop_pool bf16
-//   What bounds it: y and z in bf16, ~0.48 GB (~0.14 ms), against 17.7
-//   GFLOP of GLU products (0.02 ms on the tensor cores, 0.26 ms on the CUDA
-//   cores at 67 TFLOP/s): bytes, on the tensor cores.
-//   Design: `glu_fwd_mma_kernel`: tiles of P positions (ordered
-//   as the fp32 kernel orders them) x CT <= 128 channels, P * CT / 16 = 512
-//   so every warp keeps 32 accumulators; BN(y) formed in fp32 from y read 8
-//   channels (16 bytes) at a time (a multiply, then an add, each rounded, as
-//   the plain version and the JAX kernel do), rounded to bf16 into the A
-//   tile (:277) and kept unrounded for the sigmoid (:279); the product on
-//   mma.sync m16n8k16 from ldmatrix'd A and Wg^T tiles; the GLU written over
-//   the sigmoid's operand in place, then dropout and the window's sum in
-//   window order from shared memory, z rounded once (:292). A first version
-//   kept the fp32 kernel's CUDA-core product on rounded operands: 1.462 ms
-//   at B=64, slower than the fp32 kernel's 1.214 (PERF.md).
+//   What bounds it: y and z in bf16 and, in training, the uint8 dropout
+//   bits: ~0.48 GB per 2024 forward at B=64 (~0.145 ms at 3.35 TB/s; ~0.19
+//   ms with bits at B=60), against 17.7 GFLOP of GLU products (0.02 ms on
+//   the tensor cores): bytes, on paper. On the card the instructions per
+//   element bound it: BN(y), the sigmoid (two special-function operations
+//   an element, ~0.044 ms at the first block alone), dropout and the pool.
+//   A first design (`glu_fwd_mma_kernel`, removed) ran at 12-18 % of the
+//   bytes bound: phases one after another with one 16-byte load a thread in
+//   flight, tiles of positions ordered by pooled output gathered through a
+//   table, the bits read a byte at a time, and every element written to and
+//   read back from shared memory three times (As, gt, the GLU).
+//   Design, two kernels (`glu_fwd_plan` picks one from the shape):
+//   `glu_fwd_frag_kernel` (Co = 16-128, pools up to 2 x 2: every 2024
+//   block) keeps a tile in registers: each warp works alone on its own
+//   tiles of 2 frames x 8-32 frequencies (or 16 consecutive rows of narrow
+//   frames), its raw y and bits copied by 16-byte cp.async into its own
+//   ring of 2-4 stages, 1-3 tiles ahead; an m16 tile is 8 frequencies of
+//   two frames, so a lane's fragment rows g and g + 8 are one frequency in
+//   the window's two frames and lane ^ 4 holds the next frequency: BN(y) is
+//   formed in fp32 on the ldmatrix'd A fragment, rounded for mma.sync and
+//   kept unrounded as the gate of the accumulators of the same rows and
+//   channels, and the GLU, dropout and window sum (in window order, through
+//   __shfl_xor_sync) run on the accumulators. No block barrier after the
+//   weights are staged. `glu_fwd_ring_kernel` takes every other shape (Co
+//   not 16-128 or not a multiple of 16, larger pools, Fo*pf neither a
+//   multiple nor a divisor of 8): tiles of whole frames (or runs of whole
+//   windows where frames are too wide), a block-wide ring of raw y and bits
+//   by cp.async (element loads where F*Co or the tile's run is not a
+//   multiple of 8 elements), As and gt in shared memory, mma.sync, the GLU
+//   over gt, dropout from the staged bits and the pool from gt, z 16 bytes
+//   at a time. Both: the sigmoid as ex2 and rcp (a few ulp from expf);
+//   wgmma was not tried (depth 16-128; the tensor cores are not the limit).
+//   A ring kernel with warp-group tiles, stages 2-4, tiles of 2-8 KB and an
+//   unrolled m16 loop were measured and did not move the time (PERF.md).
+//   Measured (H100 80GB HBM3, 700 W, scripts/time_conv_fwd.py --kernels):
+//   the seven 2024 blocks take 0.41 ms of device time at B=64 (0.88 with
+//   glu_fwd_mma_kernel) and 0.44 ms at B=60 with bits (1.18), each block at
+//   13-41 % of its bytes bound; the register kernel uses 62-128 registers,
+//   242 at Co = 128 (one block an SM).
 // conv_bn_stats_bwd bf16 (the bf16 train step)
 //   What bounds it: x, y, dy and dx in bf16 per 2024 train step at B=60,
 //   ~0.9 GB (~0.27 ms), against ~167 GFLOP of bf16 products (~0.17 ms on
@@ -193,6 +218,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+// the same to within a few ulp, on the special function unit (ex2, rcp)
+__device__ __forceinline__ float sigmoid_fast(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
 
 // fp32 <-> the activations' type: the identity for float; for bf16 the
 // round to nearest even that the TPU kernels' astype(bfloat16) does
@@ -228,10 +255,18 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(ok ? 4 : 0));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+// 16 (8) bytes into shared memory, of which the first n are read from src
+// and the rest are zeros
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int n) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async8_n(void* dst, const void* src, int n) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  cp_async16_n(dst, src, ok ? 16 : 0);
 }
 template <int VEC>
 __device__ __forceinline__ void cp_async_vec(float* dst, const float* src, bool ok) {
@@ -242,9 +277,7 @@ __device__ __forceinline__ void cp_async_vec(float* dst, const float* src, bool 
   }
 }
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 8 : 0));
+  cp_async8_n(dst, src, ok ? 8 : 0);
 }
 // VEC elements of the activations' type: cp.async of 4 or 16 bytes (fp32),
 // of 8 bytes (bf16, VEC = 4), or a copy through a register (one bf16 value:
@@ -2442,215 +2475,560 @@ __global__ void __launch_bounds__(GLU_FWD_THREADS, 3) glu_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// glu_drop_pool in bf16 on the tensor cores. 256 threads; a tile is NQ
-// pooled outputs = P = 512 / NI positions (ordered by pooled output, then
-// window element, as glu_fwd_kernel's), block (x, y) takes output channels
-// [n0, n0 + CT), CT = 16 NI, of tiles x, x + gridDim.x, ... (narrow
-// channel tiles take more positions: every warp keeps 32 accumulators).
-// Per tile:
-//   A  BN(y) in fp32 (a multiply, then an add, each rounded), rounded to
-//      bf16 into As [P][KP + 8] (the product's operand, pallas_cnn.py:277),
-//      and unrounded into gt [P][CT + 8] for the block's channels (the
-//      sigmoid's operand, :279); 8 channels (16 bytes of y) an item;
-//   B  lin = As Wg on mma.sync m16n8k16 (fp32 accumulators): 8 warps as
-//      4 x 2 over the tile's rows (MI = 8 / NI m16 tiles a warp) and CT
-//      columns, A and B fragments by ldmatrix; Bs [CT][KP + 8] = Wg^T of
-//      the channel tile, staged once;
-//   C  GLU = (lin + bg) sigmoid(BN(y)) written over gt, in place (each
-//      element read and written by its own thread);
-//   D  dropout from the bits and the window's sum in window order, as
-//      glu_fwd_kernel adds them, z rounded to bf16 once (:292).
-// The row strides KP + 8 (bf16) and CT + 8 (fp32) keep ldmatrix's 8 rows
-// and the fragments' float2 accesses in distinct banks.
-// smem: As | Bs | gt | rowq [NQ] | fq [NQ].
+// glu_drop_pool in bf16 on the tensor cores at the shapes that
+// glu_fwd_frag_kernel does not take: whole-frame tiles through a ring of
+// asynchronous copies. A tile is TT frames (a multiple of pt, below To*pt)
+// x FF frequencies (a multiple of pf, below Fo*pf; FF = Fo*pf, whole frames,
+// wherever they fit) of one clip, at all Co channels: TT runs of FF*Co
+// consecutive elements of y and of the bits, one run where FF = F. Tiles are
+// numbered f-tile fastest, then t-tile, then clip; block (x, y) takes output
+// channels [n0, n0 + CT) of tiles x, x + gridDim.x, ... Shared memory:
+//   Bs [CT][KP + 8] bf16   Wg^T of the channel tile, staged once
+//   As [RM*16][KP + 8]     bf16(BN(y)) of the tile's rows, the product's
+//                          operand (pallas_cnn.py:277); RM = rows / 16 up
+//   gt [RM*16][CT + 8]     BN(y) in fp32 for the block's channels (the
+//                          sigmoid's operand, :279), then the GLU over it
+//   ring, S stages         the tile's raw y [rows][Co] bf16, then its bits
+//                          [rows][Co] uint8, as they lie in device memory
+// Row r of a tile is frame r / FF, frequency r % FF. Per tile:
+//   wait for its stage (issued S - 1 tiles ago), sync, and issue the copies
+//   of the tile S - 1 ahead into the stage the previous tile freed: 16-byte
+//   cp.async of y and 8-byte cp.async of the bits (vec: F*Co and FF*Co
+//   multiples of 8, so every run starts on 16 bytes; a run's last chunk
+//   copies what is left and zero-fills the rest), else element loads (the
+//   plain path; the plan chooses it from the shape);
+//   A  BN(y) = y * scale + bias in fp32 (a multiply, then an add, each
+//      rounded), 8 channels an item, into As (rounded) and gt (not); each
+//      thread keeps the scale and bias of the last lane it read, which
+//      stays its lane at every tile where FF*KP/8 divides the block;
+//   B  lin = As Wg on mma.sync m16n8k16, fp32 accumulators: 8 warps as WM
+//      row x WN column groups (NI n8 tiles a warp), a warp's MI m16 tiles
+//      interleaved (tile wm + WM mi of each pass of WM MI tiles);
+//   C  GLU = (lin + bg) sigmoid(BN(y)) over gt, each element by the thread
+//      that holds its accumulator;
+//   D  dropout from the staged bits, the window's sum in window order
+//      wi = dt pf + df, times 1 / (pt pf), z rounded to bf16 once (:292), 8
+//      channels (16 bytes of z) an item where Co % 8 == 0.
+// Row strides of KP + 8 (bf16) and CT + 8 (fp32) keep ldmatrix's 8 rows in
+// 8 distinct bank groups. No atomics, no sums across tiles.
 // ---------------------------------------------------------------------------
-constexpr int GLU_MMA_ROWS = 512;  // P * NI: positions a tile x n8 tiles a warp
+constexpr int GLU_RING_THREADS = 256;
 
-template <int NI>
-__global__ void __launch_bounds__(GLU_FWD_THREADS, 2) glu_fwd_mma_kernel(
+struct GluTile {
+  int b, t0, f0, tv, fv;  // clip, first frame and frequency, valid frames and frequencies
+};
+
+__device__ __forceinline__ GluTile glu_tile(int i, int Ts, int Fs, int TT, int FF) {
+  const int nf = (Fs + FF - 1) / FF, nt = (Ts + TT - 1) / TT;
+  GluTile g;
+  g.f0 = (i % nf) * FF;
+  i /= nf;
+  g.t0 = (i % nt) * TT;
+  g.b = i / nt;
+  g.tv = min(TT, Ts - g.t0);
+  g.fv = min(FF, Fs - g.f0);
+  return g;
+}
+
+// wait until at most n (0, 1 or 2) of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 2) {
+    cp_async_wait<2>();
+  } else if (n == 1) {
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+}
+
+template <int NI, int WN>
+__global__ void __launch_bounds__(GLU_RING_THREADS, 2) glu_fwd_ring_kernel(
     const bf16* __restrict__ y, const float* __restrict__ scale_f,
     const float* __restrict__ bias_f, const bf16* __restrict__ wg, const bf16* __restrict__ bg,
-    const uint8_t* __restrict__ bits, bf16* __restrict__ z, int B, int T, int F, int Co, int pt,
-    int pf, int keep_thresh, float inv_keep, int KP, int NQ, int n_tiles) {
-  constexpr int MI = 8 / NI, P = GLU_MMA_ROWS / NI, CT = 16 * NI, GS = CT + 8;
+    const uint8_t* __restrict__ bits, bf16* __restrict__ z, int T, int F, int Co, int pt, int pf,
+    int keep_thresh, float inv_keep, int TT, int FF, int S, int vec, int KP, int n_tiles) {
+  constexpr int CT = WN * NI * 8, WM = 8 / WN, MI = 8 / NI, GS = CT + 8, C8 = CT / 8;
+  constexpr int NT = GLU_RING_THREADS;
   const int AS = KP + 8;
+  const int rows = TT * FF, RM = (rows + 15) / 16;
+  const int ybytes = (rows * Co * 2 + 15) & ~15, sbytes = ybytes + ((rows * Co + 15) & ~15);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const As = reinterpret_cast<bf16*>(smem_raw);  // [P][AS]
-  bf16* const Bs = As + P * AS;                        // [CT][AS]
-  float* const gt = reinterpret_cast<float*>(Bs + CT * AS);  // [P][GS]
-  int* const rowq = reinterpret_cast<int*>(gt + P * GS);     // [NQ], -1 past the last
-  int* const fq = rowq + NQ;                                  // [NQ]
+  bf16* const Bs = reinterpret_cast<bf16*>(smem_raw);          // [CT][AS]
+  bf16* const As = Bs + CT * AS;                               // [RM * 16][AS]
+  float* const gt = reinterpret_cast<float*>(As + RM * 16 * AS);  // [RM * 16][GS]
+  unsigned char* const ring = reinterpret_cast<unsigned char*>(gt + RM * 16 * GS);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
+  const int wm = warp / WN, wn = warp % WN;
   const int n0 = blockIdx.y * CT;
-  const int W = pt * pf, To = T / pt, Fo = F / pf;
-  const int Q = B * To * Fo;
-  const float inv_w = 1.f / (float)W;
+  const int To = T / pt, Fo = F / pf, Ts = To * pt, Fs = Fo * pf;
+  const float inv_w = 1.f / (float)(pt * pf);
+  const bool has_bits = bits != nullptr;
   const bf16 zero = __float2bfloat16_rn(0.f);
 
   // Bs[n][k] = Wg[k][n0 + n], zeros past Co (reads along n, coalesced)
-  for (int i = tid; i < CT * KP; i += GLU_FWD_THREADS) {
+  for (int i = tid; i < CT * KP; i += NT) {
     const int k = i / CT, n = i - k * CT;
     Bs[n * AS + k] = k < Co && n0 + n < Co ? wg[(long long)k * Co + n0 + n] : zero;
   }
+  // the tile's copies into stage s (nothing past the last tile)
+  auto issue = [&](int tile, int s) {
+    if (tile >= n_tiles) return;
+    const GluTile g = glu_tile(tile, Ts, Fs, TT, FF);
+    bf16* const yd = reinterpret_cast<bf16*>(ring + s * sbytes);
+    uint8_t* const bd = ring + s * sbytes + ybytes;
+    const int len = g.fv * Co, dst = FF * Co;  // a frame's run; its place in the stage
+    const long long src0 = (((long long)g.b * T + g.t0) * F + g.f0) * Co;
+    const long long fstride = (long long)F * Co;
+    if (vec) {
+      const int per = (len + 7) >> 3;
+      for (int i = tid; i < g.tv * per; i += NT) {
+        const int j = i / per, k = (i - j * per) * 8;
+        const int n = min(8, len - k);
+        const long long src = src0 + j * fstride + k;
+        cp_async16_n(yd + j * dst + k, y + src, 2 * n);
+        if (has_bits) cp_async8_n(bd + j * dst + k, bits + src, n);
+      }
+    } else {
+      for (int i = tid; i < g.tv * len; i += NT) {
+        const int j = i / len, k = i - j * len;
+        const long long src = src0 + j * fstride + k;
+        yd[j * dst + k] = y[src];
+        if (has_bits) bd[j * dst + k] = bits[src];
+      }
+    }
+  };
+
+  const int nch = KP / 8;
+  int lane_c = -1;  // the BN lane (f * Co + c) whose scale and bias sv, bv hold
+  float sv[8], bv[8];
+  const int gq = lane >> 2, tq = lane & 3;
+  float bgv[NI][2];  // bg at this thread's accumulator columns
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int n = n0 + wn * NI * 8 + ni * 8 + 2 * tq;
+    bgv[ni][0] = n < Co ? to_f(bg[n]) : 0.f;
+    bgv[ni][1] = n + 1 < Co ? to_f(bg[n + 1]) : 0.f;
+  }
   const unsigned as = (unsigned)__cvta_generic_to_shared(As);
   const unsigned bs = (unsigned)__cvta_generic_to_shared(Bs);
-  const int arow = wm * 16 * MI + (lane & 15), achunk = (lane >> 4) * 8;
+  const int achunk = (lane >> 4) * 8;
   const int brow = wn * NI * 8 + (NI >= 2 ? (lane >> 4) * 8 : 0) + (lane & 7);
   const int bchunk = ((lane >> 3) & 1) * 8;
-  const int nch = KP / 8;
+  const int qt = FF / pf, nq = (TT / pt) * qt;  // pooled outputs a tile: TT/pt rows x qt
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int q0 = tile * NQ;
-    __syncthreads();  // Bs staged / the previous tile's D pass and products done
-    for (int qq = tid; qq < NQ; qq += GLU_FWD_THREADS) {
-      const int q = q0 + qq;
-      int base = -1, f0 = 0;
-      if (q < Q) {
-        const int fo = q % Fo, bt = q / Fo;
-        f0 = fo * pf;
-        base = ((bt / To) * T + (bt % To) * pt) * F + f0;
-      }
-      rowq[qq] = base;
-      fq[qq] = f0;
-    }
-    __syncthreads();
-    // A: position p, channels c .. c + 7
-    for (int it = tid; it < P * nch; it += GLU_FWD_THREADS) {
-      const int p = it / nch, c = (it - p * nch) * 8;
-      const int qq = p / W, wi = p - qq * W;
-      const int base = qq < NQ ? rowq[qq] : -1;
+  for (int s = 0; s < S - 1; ++s) {
+    issue(blockIdx.x + s * gridDim.x, s);
+    cp_async_commit();
+  }
+  int k = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++k) {
+    const int s = k % S;
+    cp_async_wait_upto(S - 2);
+    __syncthreads();  // the tile's stage landed; the previous tile's reads done
+    issue(tile + (S - 1) * gridDim.x, (k + S - 1) % S);
+    cp_async_commit();
+    const GluTile g = glu_tile(tile, Ts, Fs, TT, FF);
+    const bf16* const yr = reinterpret_cast<const bf16*>(ring + s * sbytes);
+    const uint8_t* const br = ring + s * sbytes + ybytes;
+    // A: row r, channels c .. c + 7
+    for (int it = tid; it < rows * nch; it += NT) {
+      const int r = it / nch, c = (it - r * nch) * 8;
+      const int j = r / FF, fl = r - j * FF;
       float v[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      if (base >= 0 && c < Co) {
-        const int m = base + wi / pf * F + wi % pf;
-        const int lanef = (fq[qq] + wi % pf) * Co + c;
-        float yv[8];
-        if ((Co & 7) == 0) {
-          const uint4 u = __ldg(reinterpret_cast<const uint4*>(y + (long long)m * Co + c));
-          yv[0] = bf_lo(u.x); yv[1] = bf_hi(u.x); yv[2] = bf_lo(u.y); yv[3] = bf_hi(u.y);
-          yv[4] = bf_lo(u.z); yv[5] = bf_hi(u.z); yv[6] = bf_lo(u.w); yv[7] = bf_hi(u.w);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) yv[j] = c + j < Co ? to_f(y[(long long)m * Co + c + j]) : 0.f;
-        }
-        float sv[8], bv[8];
-        {
-          const float4 s0 = ld4(scale_f + lanef, 0, Co - c), s1 = ld4(scale_f + lanef, 4, Co - c);
-          const float4 b0 = ld4(bias_f + lanef, 0, Co - c), b1 = ld4(bias_f + lanef, 4, Co - c);
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      if (j < g.tv && fl < g.fv && c < Co) {
+        const int lf = (g.f0 + fl) * Co + c;
+        if (lf != lane_c) {
+          lane_c = lf;
+          const float4 s0 = ld4(scale_f + lf, 0, Co - c), s1 = ld4(scale_f + lf, 4, Co - c);
+          const float4 b0 = ld4(bias_f + lf, 0, Co - c), b1 = ld4(bias_f + lf, 4, Co - c);
           sv[0] = s0.x; sv[1] = s0.y; sv[2] = s0.z; sv[3] = s0.w;
           sv[4] = s1.x; sv[5] = s1.y; sv[6] = s1.z; sv[7] = s1.w;
           bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
           bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
         }
+        float yv[8];
+        if ((Co & 7) == 0) {
+          const uint4 u = *reinterpret_cast<const uint4*>(yr + r * Co + c);
+          yv[0] = bf_lo(u.x); yv[1] = bf_hi(u.x); yv[2] = bf_lo(u.y); yv[3] = bf_hi(u.y);
+          yv[4] = bf_lo(u.z); yv[5] = bf_hi(u.z); yv[6] = bf_lo(u.w); yv[7] = bf_hi(u.w);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = c + j < Co ? __fadd_rn(__fmul_rn(yv[j], sv[j]), bv[j]) : 0.f;
+          for (int e = 0; e < 8; ++e) yv[e] = c + e < Co ? to_f(yr[r * Co + c + e]) : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = c + e < Co ? __fadd_rn(__fmul_rn(yv[e], sv[e]), bv[e]) : 0.f;
       }
-      *reinterpret_cast<uint4*>(As + p * AS + c) =
+      *reinterpret_cast<uint4*>(As + r * AS + c) =
           make_uint4(bf_pack(v[0], v[1]), bf_pack(v[2], v[3]), bf_pack(v[4], v[5]),
                      bf_pack(v[6], v[7]));
       const int cl = c - n0;
       if (cl >= 0 && cl < CT) {
-        *reinterpret_cast<float4*>(gt + p * GS + cl) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(gt + p * GS + cl + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        *reinterpret_cast<float4*>(gt + r * GS + cl) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(gt + r * GS + cl + 4) = make_float4(v[4], v[5], v[6], v[7]);
       }
     }
     __syncthreads();
-    // B: the product on the tensor cores
-    float acc[MI][NI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    for (int k0 = 0; k0 < KP; k0 += 16) {
-      uint32_t a[MI][4];
+    // B and C, in passes of WM * MI m16 tiles
+    for (int mb = 0; mb < RM; mb += WM * MI) {
+      float acc[MI][NI][4];
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi)
-        ldsm_x4(as + 2u * (unsigned)((arow + mi * 16) * AS + k0 + achunk), a[mi][0], a[mi][1],
-                a[mi][2], a[mi][3]);
-      if constexpr (NI >= 2) {
 #pragma unroll
-        for (int ni = 0; ni < NI; ni += 2) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4(bs + 2u * (unsigned)((brow + ni * 8) * AS + k0 + bchunk), b0, b1, b2, b3);
+        for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-          for (int mi = 0; mi < MI; ++mi) {
-            mma_bf16(acc[mi][ni], a[mi], b0, b1);
-            mma_bf16(acc[mi][ni + 1], a[mi], b2, b3);
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      for (int k0 = 0; k0 < KP; k0 += 16) {
+        uint32_t b[NI][2];
+        if constexpr (NI >= 2) {
+#pragma unroll
+          for (int ni = 0; ni < NI; ni += 2)
+            ldsm_x4(bs + 2u * (unsigned)((brow + ni * 8) * AS + k0 + bchunk), b[ni][0],
+                    b[ni][1], b[ni + 1][0], b[ni + 1][1]);
+        } else {
+          ldsm_x2(bs + 2u * (unsigned)(brow * AS + k0 + bchunk), b[0][0], b[0][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const int mt = mb + wm + WM * mi;
+          if (mt >= RM) continue;  // warp-uniform
+          uint32_t a[4];
+          ldsm_x4(as + 2u * (unsigned)((mt * 16 + (lane & 15)) * AS + k0 + achunk), a[0], a[1],
+                  a[2], a[3]);
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], a, b[ni][0], b[ni][1]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int mt = mb + wm + WM * mi;
+        if (mt >= RM) continue;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int n = wn * NI * 8 + ni * 8 + 2 * tq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* gp = reinterpret_cast<float2*>(gt + (mt * 16 + gq + 8 * h) * GS + n);
+            const float2 gv = *gp;
+            *gp = make_float2((acc[mi][ni][2 * h] + bgv[ni][0]) * sigmoid_fast(gv.x),
+                              (acc[mi][ni][2 * h + 1] + bgv[ni][1]) * sigmoid_fast(gv.y));
           }
         }
-      } else {
-        uint32_t b0, b1;
-        ldsm_x2(bs + 2u * (unsigned)(brow * AS + k0 + bchunk), b0, b1);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][0], a[mi], b0, b1);
       }
-    }
-    // C: GLU over the gate's operand, each element by its own thread
-    const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int n = wn * NI * 8 + ni * 8 + 2 * tq;
-      const float bg0 = n0 + n < Co ? to_f(bg[n0 + n]) : 0.f;
-      const float bg1 = n0 + n + 1 < Co ? to_f(bg[n0 + n + 1]) : 0.f;
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float2* gp =
-              reinterpret_cast<float2*>(gt + (wm * 16 * MI + mi * 16 + gq + 8 * h) * GS + n);
-          const float2 gv = *gp;
-          *gp = make_float2((acc[mi][ni][2 * h] + bg0) * sigmoidf(gv.x),
-                            (acc[mi][ni][2 * h + 1] + bg1) * sigmoidf(gv.y));
-        }
     }
     __syncthreads();
-    // D: dropout, the window's sum in window order, z; two channels a thread
-    constexpr int CH = CT / 2;
-    for (int e = tid; e < NQ * CH; e += GLU_FWD_THREADS) {
-      const int qq = e / CH, cl = (e - qq * CH) * 2;
-      const int q = q0 + qq, c = n0 + cl;
-      if (q >= Q || c >= Co) continue;
-      float s0 = 0.f, s1 = 0.f;
-      for (int wi = 0; wi < W; ++wi) {
-        const float2 g = *reinterpret_cast<const float2*>(gt + (qq * W + wi) * GS + cl);
-        float g0 = g.x, g1 = g.y;
-        if (bits != nullptr) {
-          const uint8_t* bp = bits + (long long)(rowq[qq] + wi / pf * F + wi % pf) * Co + c;
-          g0 = (int)bp[0] < keep_thresh ? g0 * inv_keep : 0.f;
-          g1 = c + 1 < Co && (int)bp[1] < keep_thresh ? g1 * inv_keep : 0.f;
+    // D: pooled output (jo, fo) of the tile, channels c .. c + 7
+    for (int it = tid; it < nq * C8; it += NT) {
+      const int qi = it / C8, cl = (it - qi * C8) * 8;
+      const int jo = qi / qt, fo = qi - jo * qt;
+      const int c = n0 + cl;
+      if (jo * pt >= g.tv || fo * pf >= g.fv || c >= Co) continue;
+      float sum[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum[e] = 0.f;
+      for (int dt = 0; dt < pt; ++dt)
+        for (int df = 0; df < pf; ++df) {
+          const int r = (jo * pt + dt) * FF + fo * pf + df;
+          const float4 g0 = *reinterpret_cast<const float4*>(gt + r * GS + cl);
+          const float4 g1 = *reinterpret_cast<const float4*>(gt + r * GS + cl + 4);
+          float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+          if (has_bits) {
+            uint32_t kb[2];
+            if ((Co & 7) == 0) {
+              const uint2 u = *reinterpret_cast<const uint2*>(br + r * Co + c);
+              kb[0] = u.x;
+              kb[1] = u.y;
+            } else {
+              kb[0] = kb[1] = 0u;
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                if (c + e < Co) kb[e >> 2] |= (uint32_t)br[r * Co + c + e] << (8 * (e & 3));
+            }
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              gv[e] = (int)((kb[e >> 2] >> (8 * (e & 3))) & 255u) < keep_thresh ? gv[e] * inv_keep
+                                                                               : 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sum[e] += gv[e];
         }
-        s0 += g0;
-        s1 += g1;
-      }
-      bf16* zp = z + (long long)q * Co + c;
-      if ((Co & 1) == 0) {
-        *reinterpret_cast<uint32_t*>(zp) = bf_pack(s0 * inv_w, s1 * inv_w);
+      bf16* const zp =
+          z + (((long long)g.b * To + g.t0 / pt + jo) * Fo + g.f0 / pf + fo) * Co + c;
+      if ((Co & 7) == 0) {
+        *reinterpret_cast<uint4*>(zp) =
+            make_uint4(bf_pack(sum[0] * inv_w, sum[1] * inv_w), bf_pack(sum[2] * inv_w, sum[3] * inv_w),
+                       bf_pack(sum[4] * inv_w, sum[5] * inv_w), bf_pack(sum[6] * inv_w, sum[7] * inv_w));
       } else {
-        zp[0] = __float2bfloat16_rn(s0 * inv_w);
-        if (c + 1 < Co) zp[1] = __float2bfloat16_rn(s1 * inv_w);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (c + e < Co) zp[e] = __float2bfloat16_rn(sum[e] * inv_w);
       }
     }
   }
+  cp_async_wait<0>();  // the tail's groups are empty; nothing is left in flight
+}
+
+template <int NI, int WN>
+cudaError_t launch_glu_fwd_ring(const bf16* y, const float* scale_f, const float* bias_f,
+                                const bf16* wg, const bf16* bg, const uint8_t* bits, bf16* z,
+                                int T, int F, int Co, int pt, int pf, int keep_thresh,
+                                float inv_keep, const int* plan, cudaStream_t stream) {
+  static int smem_set = 0;
+  const int TT = plan[1], FF = plan[2], S = plan[3], vec = plan[4], KP = plan[5];
+  const int n_tiles = plan[6], grid_x = plan[7], grid_y = plan[8], smem = plan[9];
+  cudaError_t err = ensure_smem(glu_fwd_ring_kernel<NI, WN>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  glu_fwd_ring_kernel<NI, WN><<<dim3(grid_x, grid_y), GLU_RING_THREADS, smem, stream>>>(
+      y, scale_f, bias_f, wg, bg, bits, z, T, F, Co, pt, pf, keep_thresh, inv_keep, TT, FF, S,
+      vec, KP, n_tiles);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// glu_drop_pool in bf16 in registers, for the shapes GluBf16Plan gives
+// `frag` (ops/fused_cnn.py glu_frag_takes): Co = 16, 32, 64 or 128, pools
+// of at most 2 x 2, Fo*pf a multiple of 8 (frag 1) or, at pt = 1, a divisor
+// of 8 (frag 2). Each warp works alone on its own tiles: TT frames x FW
+// frequencies of one clip at all Co channels, numbered f-tile fastest, then
+// t-tile, then clip; warp w of block x takes tiles 8 x + w, stepping by
+// 8 gridDim.x. Shared memory: Bs [Co][Co + 8] (Wg as it is, read by
+// ldmatrix.trans) and sb [Fs][Co/2 + 4] float4 (the scale and bias of
+// channel pairs, (s_k, s_k+1, b_k, b_k+1)) for the block, staged once, then
+// each warp's ring of S stages: y [TT][FW][Co + 8] bf16 (16-byte cp.async,
+// rows padded so that ldmatrix's 8 rows fall in 8 bank groups) and bits
+// [TT][FW][Co] uint8. The 16 rows of an m16 tile are, with frag 1 (TT =
+// 2), 8 frequencies of frame 0 and the same 8 of frame 1; with frag 2 (FW
+// = Fs, TT Fs a multiple of 16), 16 consecutive (frame, frequency) rows. So
+// a lane's fragment rows g and g + 8 are one frequency in two frames, and
+// lane ^ 4 holds the next frequency. Per m16 tile, with no shared-memory
+// round trip:
+//   ldmatrix of the raw y, BN(y) in fp32 (a multiply, then an add) per
+//   fragment element, rounded into the A fragment (pallas_cnn.py:277) and
+//   kept unrounded as the gate of the accumulators of the same rows and
+//   channels (:279: the A fragment of depth step ks holds exactly the
+//   elements of accumulator tiles 2 ks and 2 ks + 1);
+//   lin = A Wg on mma.sync m16n8k16, GLU, dropout from the staged bits,
+//   the window's sum in window order wi = dt pf + df (rows g and g + 8 are
+//   dt = 0, 1 at pt = 2; lane ^ 4, by __shfl_xor_sync, is df = 1), times
+//   1 / (pt pf), z rounded once (:292) and stored 2 channels a lane.
+// ---------------------------------------------------------------------------
+constexpr int GLU_FRAG_THREADS = 256;
+
+// BN(y) of the two bf16 values of u with (s_k, s_k+1, b_k, b_k+1): the fp32
+// values into lo, hi, their bf16 rounding back into u
+__device__ __forceinline__ void bn_pair(uint32_t& u, float4 sb, float& lo, float& hi) {
+  lo = __fadd_rn(__fmul_rn(bf_lo(u), sb.x), sb.z);
+  hi = __fadd_rn(__fmul_rn(bf_hi(u), sb.y), sb.w);
+  u = bf_pack(lo, hi);
+}
+
+// blocks an SM that the registers allow (ops/fused_cnn.py GLU_FRAG_PER_SM)
+constexpr int glu_frag_per_sm(int ni) { return ni == 16 ? 1 : ni == 2 ? 3 : 2; }
+
+template <int NI>  // Co = 8 NI
+__global__ void __launch_bounds__(GLU_FRAG_THREADS, glu_frag_per_sm(NI)) glu_fwd_frag_kernel(
+    const bf16* __restrict__ y, const float* __restrict__ scale_f,
+    const float* __restrict__ bias_f, const bf16* __restrict__ wg, const bf16* __restrict__ bg,
+    const uint8_t* __restrict__ bits, bf16* __restrict__ z, int T, int F, int pt, int pf,
+    int keep_thresh, float inv_keep, int TT, int FW, int consec, int S, int n_tiles) {
+  constexpr int Co = 8 * NI, KS = Co / 16, YP = Co + 8, SP = Co / 2 + 4;
+  constexpr int NW = GLU_FRAG_THREADS / 32;
+  const int To = T / pt, Fo = F / pf, Ts = To * pt, Fs = Fo * pf;
+  const int ybytes = TT * FW * YP * 2, sbytes = ybytes + TT * FW * Co;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const Bs = reinterpret_cast<bf16*>(smem_raw);          // [Co][YP]
+  float4* const sb = reinterpret_cast<float4*>(Bs + Co * YP);  // [Fs][SP]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned char* const ring = reinterpret_cast<unsigned char*>(sb + Fs * SP) + warp * S * sbytes;
+  const bool has_bits = bits != nullptr;
+  const float inv_w = 1.f / (float)(pt * pf);
+
+  for (int i = tid; i < Co * NI; i += GLU_FRAG_THREADS) {
+    const int k = i / NI, c = (i - k * NI) * 8;
+    cp_async16(Bs + k * YP + c, wg + k * Co + c, true);
+  }
+  cp_async_commit();
+  for (int i = tid; i < Fs * (Co / 2); i += GLU_FRAG_THREADS) {
+    const int f = i / (Co / 2), p = i - f * (Co / 2), l = f * Co + 2 * p;
+    sb[f * SP + p] = make_float4(scale_f[l], scale_f[l + 1], bias_f[l], bias_f[l + 1]);
+  }
+  const int gq = lane >> 2, tq = lane & 3;
+  float bgv[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    bgv[ni][0] = to_f(bg[ni * 8 + 2 * tq]);
+    bgv[ni][1] = to_f(bg[ni * 8 + 2 * tq + 1]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // Bs and sb staged; from here on each warp works alone
+
+  const int nf = (Fs + FW - 1) / FW, nt = (Ts + TT - 1) / TT;
+  auto decode = [&](int tile, int& b, int& t0, int& f0, int& tv, int& fv) {
+    const int fi = tile % nf, r = tile / nf;
+    b = r / nt;
+    t0 = (r - b * nt) * TT;
+    f0 = fi * FW;
+    tv = min(TT, Ts - t0);
+    fv = min(FW, Fs - f0);
+  };
+  auto issue = [&](int tile, int s) {
+    if (tile >= n_tiles) return;
+    int b, t0, f0, tv, fv;
+    decode(tile, b, t0, f0, tv, fv);
+    bf16* const yd = reinterpret_cast<bf16*>(ring + s * sbytes);
+    uint8_t* const bd = ring + s * sbytes + ybytes;
+    const int per = fv * NI;  // 16-byte chunks of a frame's run
+    for (int j = 0; j < tv; ++j) {
+      const long long src0 = (((long long)b * T + t0 + j) * F + f0) * Co;
+      for (int q = lane; q < per; q += 32) {
+        const int f = q / NI, c = (q - f * NI) * 8;
+        cp_async16(yd + (j * FW + f) * YP + c, y + src0 + q * 8, true);
+        if (has_bits) cp_async8(bd + (j * FW + f) * Co + c, bits + src0 + q * 8, true);
+      }
+    }
+  };
+
+  const int first = blockIdx.x * NW + warp, stride = gridDim.x * NW;
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+  const unsigned bs_s = (unsigned)__cvta_generic_to_shared(Bs);
+  // ldmatrix rows: A, row (lane & 15) of the m16 tile at chunk lane >> 4;
+  // B (.trans), depth row ((lane >> 3) & 1) 8 + (lane & 7) at n8 tile lane >> 4
+  const int a_row = consec ? (lane & 15) : ((lane >> 3) & 1) * FW + (lane & 7);
+  const int a_chunk = (lane >> 4) * 8;
+  const int b_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * YP + (lane >> 4) * 8;
+  for (int s = 0; s < S - 1; ++s) {
+    issue(first + s * stride, s);
+    cp_async_commit();
+  }
+  int k = 0;
+  for (int tile = first; tile < n_tiles; tile += stride, ++k) {
+    const int s = k % S;
+    cp_async_wait_upto(S - 2);
+    __syncwarp();  // every lane's copies of the tile landed; the previous tile read
+    issue(tile + (S - 1) * stride, (k + S - 1) % S);
+    cp_async_commit();
+    int b, t0, f0, tv, fv;
+    decode(tile, b, t0, f0, tv, fv);
+    const unsigned ys = ring_s + s * sbytes;
+    const uint8_t* const bd = ring + s * sbytes + ybytes;
+    const int n_m = consec ? (tv * FW + 15) / 16 : fv / 8;  // m16 tiles
+    for (int mt = 0; mt < n_m; ++mt) {
+      // this lane's rows g, g + 8: frames j0, j1 at frequency fl of the tile
+      int fl, j0, j1;
+      if (consec) {
+        const int r0 = 16 * mt + gq;
+        j0 = r0 / FW;
+        fl = r0 - j0 * FW;
+        j1 = j0 + 8 / FW;
+      } else {
+        fl = 8 * mt + gq;
+        j0 = 0;
+        j1 = 1;
+      }
+      const int row0 = consec ? 16 * mt : 8 * mt;  // the m16 tile's first stage row
+      const int fg = f0 + fl;
+      uint32_t a[KS][4];
+      float gv[KS][8];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        ldsm_x4(ys + 2u * (unsigned)((a_row + row0) * YP + ks * 16 + a_chunk), a[ks][0],
+                a[ks][1], a[ks][2], a[ks][3]);
+        const float4 s0 = sb[fg * SP + ks * 8 + tq], s1 = sb[fg * SP + ks * 8 + 4 + tq];
+        bn_pair(a[ks][0], s0, gv[ks][0], gv[ks][1]);  // row g, channels 16 ks + 2 tq, + 1
+        bn_pair(a[ks][1], s0, gv[ks][2], gv[ks][3]);  // row g + 8
+        bn_pair(a[ks][2], s1, gv[ks][4], gv[ks][5]);  // row g, channels + 8
+        bn_pair(a[ks][3], s1, gv[ks][6], gv[ks][7]);  // row g + 8, channels + 8
+      }
+      float acc[NI][4];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int ni = 0; ni < NI; ni += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4_t(bs_s + 2u * (unsigned)(ks * 16 * YP + ni * 8 + b_off), b0, b1, b2, b3);
+          mma_bf16(acc[ni], a[ks], b0, b1);
+          mma_bf16(acc[ni + 1], a[ks], b2, b3);
+        }
+      // GLU and dropout: accumulator e of tile ni is row g (e < 2) or g + 8,
+      // channel ni * 8 + 2 tq + e % 2; its gate is gv[ni / 2][4 (ni % 2) + e]
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        uint32_t kb = 0xffffffffu;
+        if (has_bits) {
+          const int c = ni * 8 + 2 * tq;
+          kb = (uint32_t)*reinterpret_cast<const uint16_t*>(bd + (j0 * FW + fl) * Co + c) |
+               (uint32_t)*reinterpret_cast<const uint16_t*>(bd + (j1 * FW + fl) * Co + c) << 16;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = (acc[ni][e] + bgv[ni][e & 1]) * sigmoid_fast(gv[ni >> 1][4 * (ni & 1) + e]);
+          if (has_bits) v = (int)((kb >> (8 * e)) & 255u) < keep_thresh ? v * inv_keep : 0.f;
+          acc[ni][e] = v;
+        }
+      }
+      // the pool: rows g, g + 8 are frames j0, j1; lane ^ 4 the next frequency
+      const bool lead = pf == 1 || (gq & 1) == 0;
+      const int fo = fg / pf;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = __shfl_xor_sync(0xffffffffu, acc[ni][e], 4);
+        const int c = ni * 8 + 2 * tq;
+        if (!lead) continue;
+        if (pt == 2) {  // one window row: frame t0, then t0 + 1
+          float o0 = acc[ni][0], o1 = acc[ni][1];
+          if (pf == 2) {
+            o0 += p[0];
+            o1 += p[1];
+          }
+          o0 += acc[ni][2];
+          o1 += acc[ni][3];
+          if (pf == 2) {
+            o0 += p[2];
+            o1 += p[3];
+          }
+          *reinterpret_cast<uint32_t*>(z + (((long long)b * To + t0 / 2) * Fo + fo) * Co + c) =
+              bf_pack(o0 * inv_w, o1 * inv_w);
+        } else {  // pt == 1: each frame a window row of its own
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = h ? j1 : j0;
+            if (j >= tv) continue;
+            float o0 = acc[ni][2 * h], o1 = acc[ni][2 * h + 1];
+            if (pf == 2) {
+              o0 += p[2 * h];
+              o1 += p[2 * h + 1];
+            }
+            *reinterpret_cast<uint32_t*>(z + (((long long)b * To + t0 + j) * Fo + fo) * Co + c) =
+                bf_pack(o0 * inv_w, o1 * inv_w);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the tail's groups are empty; nothing is left in flight
 }
 
 template <int NI>
-cudaError_t launch_glu_fwd_mma(const bf16* y, const float* scale_f, const float* bias_f,
-                               const bf16* wg, const bf16* bg, const uint8_t* bits, bf16* z,
-                               int B, int T, int F, int Co, int pt, int pf, int keep_thresh,
-                               float inv_keep, const int* plan, cudaStream_t stream) {
+cudaError_t launch_glu_fwd_frag(const bf16* y, const float* scale_f, const float* bias_f,
+                                const bf16* wg, const bf16* bg, const uint8_t* bits, bf16* z,
+                                int T, int F, int pt, int pf, int keep_thresh, float inv_keep,
+                                const int* plan, cudaStream_t stream) {
   static int smem_set = 0;
-  const int NQ = plan[2], KP = plan[3];
-  const int n_tiles = plan[4], grid_x = plan[5], grid_y = plan[6], smem = plan[7];
-  cudaError_t err = ensure_smem(glu_fwd_mma_kernel<NI>, smem, smem_set);
+  const int TT = plan[1], FW = plan[2], S = plan[3], n_tiles = plan[6], grid_x = plan[7];
+  const int smem = plan[9], consec = plan[11] == 2;
+  cudaError_t err = ensure_smem(glu_fwd_frag_kernel<NI>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  glu_fwd_mma_kernel<NI><<<dim3(grid_x, grid_y), GLU_FWD_THREADS, smem, stream>>>(
-      y, scale_f, bias_f, wg, bg, bits, z, B, T, F, Co, pt, pf, keep_thresh, inv_keep, KP, NQ,
-      n_tiles);
+  glu_fwd_frag_kernel<NI><<<grid_x, GLU_FRAG_THREADS, smem, stream>>>(
+      y, scale_f, bias_f, wg, bg, bits, z, T, F, pt, pf, keep_thresh, inv_keep, TT, FW, consec,
+      S, n_tiles);
   return cudaGetLastError();
 }
 
@@ -2888,20 +3266,35 @@ int conv_bn_stats_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* y,
   return (int)cudaGetLastError();
 }
 
-// glu_drop_pool in bf16 (glu_fwd_mma_kernel): y, wg, bg and z bf16;
-// scale_f, bias_f fp32. plan: GluFwdPlan for bf16, CT = plan[0].
+// glu_drop_pool in bf16 (glu_fwd_frag_kernel where plan[11], else
+// glu_fwd_ring_kernel): y, wg, bg and z bf16; scale_f, bias_f fp32. plan:
+// ops/fused_cnn.py GluBf16Plan, in its field order (CT = plan[0]; no launch
+// where it has no tile).
 int glu_drop_pool_bf16(const bf16* y, const float* scale_f, const float* bias_f,
                        const bf16* wg, const bf16* bg, const uint8_t* bits, bf16* z,
                        int B, int T, int F, int Co, int pt, int pf,
                        int keep_thresh, float inv_keep, const int* plan, cudaStream_t stream) {
-  if (plan[4] == 0) return (int)cudaSuccess;
-  switch (plan[0]) {
-    case 16: return (int)launch_glu_fwd_mma<1>(GLU_ARGS);
-    case 32: return (int)launch_glu_fwd_mma<2>(GLU_ARGS);
-    case 64: return (int)launch_glu_fwd_mma<4>(GLU_ARGS);
-    case 128: return (int)launch_glu_fwd_mma<8>(GLU_ARGS);
+  if (plan[6] == 0) return (int)cudaSuccess;
+#define RING_ARGS y, scale_f, bias_f, wg, bg, bits, z, T, F, Co, pt, pf, keep_thresh, inv_keep, plan, stream
+  if (plan[11]) {  // the register kernel, Co = 8 NI
+#define FRAG_ARGS y, scale_f, bias_f, wg, bg, bits, z, T, F, pt, pf, keep_thresh, inv_keep, plan, stream
+    switch (Co) {
+      case 16: return (int)launch_glu_fwd_frag<2>(FRAG_ARGS);
+      case 32: return (int)launch_glu_fwd_frag<4>(FRAG_ARGS);
+      case 64: return (int)launch_glu_fwd_frag<8>(FRAG_ARGS);
+      case 128: return (int)launch_glu_fwd_frag<16>(FRAG_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef FRAG_ARGS
+  }
+  switch (plan[0]) {  // CT = 8 WN NI
+    case 16: return (int)launch_glu_fwd_ring<1, 2>(RING_ARGS);
+    case 32: return (int)launch_glu_fwd_ring<2, 2>(RING_ARGS);
+    case 64: return (int)launch_glu_fwd_ring<4, 2>(RING_ARGS);
+    case 128: return (int)launch_glu_fwd_ring<4, 4>(RING_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef RING_ARGS
 }
 #undef GLU_ARGS
 

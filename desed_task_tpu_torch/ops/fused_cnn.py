@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass, fields
 
 import torch
@@ -249,8 +250,10 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
     y [B, T, F, Co], wg [Co, Co], bg [Co], all float32 or all bf16;
     scale_f, bias_f [F*Co] float32; bits uint8 [B, T, F*Co] or None.
     Returns z [B, T//pt, F//pf, Co] in y's dtype. fp32: any Co, the kernel
-    takes channel tiles and Wg in slices; bf16: the tensor-core kernel holds
-    Wg^T of a channel tile whole, Co up to about 500 (`glu_fwd_plan`).
+    takes channel tiles and Wg in slices; bf16: tensor-core kernels, a
+    warp's tile in registers at the 2024 shapes (`glu_frag_takes`), else
+    tiles through shared memory that hold Wg^T of a channel tile whole, Co
+    up to about 700 (`glu_fwd_plan`).
     Launches count under "glu_drop_pool" (fp32) or "glu_drop_pool.bf16".
     """
     dtype = _io_dtype("glu_drop_pool", y, wg, bg)
@@ -596,7 +599,9 @@ def _bf16_conv_tiles(T: int, F: int, Cout: int) -> tuple[int, int, int, int]:
     return bn, tt, ff, fwd_bf16_smem(tt, ff, bn)
 
 
+@functools.lru_cache(maxsize=None)
 def conv_fwd_plan(B: int, T: int, F: int, Ci: int, Co: int, bf16: bool = False) -> ConvFwdPlan:
+    """conv_bn_stats' plan at a shape, computed once per shape."""
     vec = int(Co % 4 == 0)
     if bf16 and Ci > 1:  # the tensor-core kernel
         bn, tt, ff, smem = _bf16_conv_tiles(T, F, Co)
@@ -666,12 +671,14 @@ def _glu_bwd_threads(Co: int) -> tuple[int, int, int, int]:
     return cp, ct, max(1, GLU_THREADS // nw), _cdiv(nw, GLU_THREADS)
 
 
+@functools.lru_cache(maxsize=None)
 def glu_bwd_plan(B: int, T: int, F: int, Co: int) -> GluBwdPlan:
     """Up to Co = 128 (one dWg tile a thread at most): Wg and Wg^T staged
     once, the lane sums in shared memory at the largest tile that fits them,
     else in device memory at the full tile. Wider: Wg and Wg^T in slices of
     as many rows as fit beside the tile (and the lane sums, where they fit),
-    dWg in passes through the block's partial in device memory."""
+    dWg in passes through the block's partial in device memory. Computed
+    once per shape."""
     if Co < 1:
         raise ValueError(f"glu_drop_pool_bwd: Co={Co}")
     cp, ct, pg, passes = _glu_bwd_threads(Co)
@@ -710,16 +717,12 @@ SMEM_SM = 228 * 1024  # shared memory of one SM, 1 KB of it reserved per block
 
 @dataclass(frozen=True)
 class GluFwdPlan:
-    """glu_drop_pool's kernel at one shape: channel tiles of ct (a power of
-    two, at most 128; grid_y of them), tiles of p positions = nq pooled
+    """glu_drop_pool's fp32 kernel at one shape: channel tiles of ct (a power
+    of two, at most 128; grid_y of them), tiles of p positions = nq pooled
     outputs of pt*pf positions each (ordered by pooled output, then window
     element), ct/4 x p/4 = 256 threads of 4 x 4; Wg in slices of ks rows
     (ks >= Co: staged once); n_tiles tiles over grid_x persistent blocks;
-    smem bytes (with two int tables of nq, the rows of the tile's windows).
-    In bf16, the tensor-core kernel's: tiles of ct = 16 .. 128 channels and
-    p = GLU_MMA_ROWS / (ct / 16) positions (every warp 32 accumulators),
-    ks = Co padded to 16 (the product's depth), Wg^T of the channel tile
-    staged once."""
+    smem bytes (with two int tables of nq, the rows of the tile's windows)."""
 
     ct: int
     p: int
@@ -740,42 +743,175 @@ def glu_fwd_smem(Co: int, ct: int, p: int, ks: int, nq: int) -> int:
     return 4 * (ks * ct + max(_cdiv(Co, 4) * 4, ct) * (p + 4) + 2 * nq)
 
 
-GLU_MMA_ROWS = 512  # positions x n8 tiles a warp of the tensor-core GLU (csrc GLU_MMA_ROWS)
+@dataclass(frozen=True)
+class GluBf16Plan:
+    """glu_drop_pool's bf16 kernels at one shape. glu_fwd_ring_kernel (frag
+    0): channel tiles of ct = 16 .. 128 (grid_y of them; warps by
+    `glu_ring_warps`), tiles of tt frames (a multiple of pt) x ff
+    frequencies (a multiple of pf; Fo*pf, whole frames, where they fit) of
+    one clip at all Co channels, numbered f-tile fastest, then t-tile, then
+    clip; a ring of `stages` stages of the tiles' raw y and bits, filled by
+    16-byte copies where vec (F*Co and ff*Co multiples of 8), else by
+    element loads; kp = Co padded to 16 (the product's depth); n_tiles
+    tiles over grid_x persistent blocks, per_sm of them an SM; smem bytes
+    (`glu_ring_layout`). glu_fwd_frag_kernel (frag 1 or 2, where
+    `glu_frag_takes`): each warp alone on tiles of tt frames x ff
+    frequencies, ct = kp = Co, a ring of `stages` stages a warp
+    (`glu_frag_layout`), n_tiles warp tiles over grid_x blocks of 8 warps;
+    frag 1: tt = 2, ff a multiple of 8 (m16 tiles of 8 frequencies x 2
+    frames); frag 2 (pt = 1, Fo*pf dividing 8): ff = Fo*pf, tt ff a multiple
+    of 16 (m16 tiles of 16 consecutive rows)."""
+
+    ct: int
+    tt: int
+    ff: int
+    stages: int
+    vec: int
+    kp: int
+    n_tiles: int
+    grid_x: int
+    grid_y: int
+    smem: int
+    per_sm: int
+    frag: int = 0
+
+    def ints(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in fields(self)]
 
 
-def glu_mma_smem(Co: int, ct: int, p: int, nq: int) -> int:
-    """The tensor-core GLU's As [p][kp + 8] and Bs [ct][kp + 8] (bf16, kp =
-    Co padded to 16), gt [p][ct + 8] (fp32) and the window tables [2][nq]."""
-    kp = _cdiv(Co, 16) * 16
-    return 2 * (p + ct) * (kp + 8) + 4 * p * (ct + 8) + 4 * 2 * nq
+GLU_RING_ELEMS = 4096  # elements of y a tile aims at (8 KB of bf16)
+GLU_FRAG_WARPS = 8  # glu_fwd_frag_kernel's block (csrc GLU_FRAG_THREADS / 32)
+GLU_FRAG_ELEMS = 1024  # elements of y a warp's tile aims at (2 KB of bf16)
+GLU_FRAG_PER_SM = {16: 3, 32: 2, 64: 2, 128: 1}  # its blocks an SM (csrc glu_frag_per_sm)
 
 
-def _glu_mma_plan(B: int, T: int, F: int, Co: int, pool) -> GluFwdPlan:
+def glu_ring_warps(ct: int) -> tuple[int, int, int, int]:
+    """(WN, NI, WM, MI) of glu_fwd_ring_kernel: 8 warps as WM row x WN column
+    groups, NI n8 tiles a warp (ct = 8 WN NI), MI = 8 / NI m16 tiles a warp
+    a pass (32 accumulators a thread)."""
+    wn = 4 if ct == 128 else 2
+    ni = ct // (8 * wn)
+    return wn, ni, 8 // wn, 8 // ni
+
+
+def _r16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def glu_ring_layout(Co: int, ct: int, rows: int, stages: int) -> dict:
+    """Byte offsets of glu_fwd_ring_kernel's shared memory: Bs [ct][kp + 8]
+    and As [rows padded to 16][kp + 8] bf16, gt [rows padded to 16][ct + 8]
+    fp32, then `stages` stages of y [rows][Co] bf16 and bits [rows][Co]
+    uint8, each part padded to 16 bytes; `end` is the size."""
+    a_row = 2 * (_cdiv(Co, 16) * 16 + 8)
+    as_ = ct * a_row
+    gt = as_ + _r16(rows) * a_row
+    ring = gt + 4 * _r16(rows) * (ct + 8)
+    ybytes = _r16(2 * rows * Co)
+    stage = ybytes + _r16(rows * Co)
+    return dict(bs=0, As=as_, gt=gt, ring=ring, ybytes=ybytes, stage=stage,
+                end=ring + stages * stage)
+
+
+def glu_frag_takes(T: int, F: int, Co: int, pool) -> bool:
+    """Shapes of glu_fwd_frag_kernel: Co = 16, 32, 64 or 128 (whole k16
+    steps, all channels a warp), pools of at most 2 x 2 (a window's elements
+    in one lane and lane ^ 4), at least one pooled frame, and Fo*pf a
+    multiple of 8 (m16 tiles of 8 frequencies x 2 frames) or, at pt = 1, a
+    divisor of 8 (m16 tiles of 16 consecutive rows)."""
     pt, pf = pool
-    ct = 16
-    while ct < min(Co, 128):
-        ct *= 2
-    p = GLU_MMA_ROWS // (ct // 16)
-    if pt * pf > p:
-        raise ValueError(f"glu_drop_pool: a pool window of {pt * pf} positions outgrows "
-                         f"the bf16 kernel's tile of {p}")
-    nq = p // (pt * pf)
-    smem = glu_mma_smem(Co, ct, p, nq)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"glu_drop_pool: Co={Co}: one bf16 tile does not fit in shared memory")
-    if B * T * F + p >= 2**31:
-        raise ValueError("glu_drop_pool: the kernel counts positions in 32-bit ints")
-    n_tiles = _cdiv(B * (T // pt) * (F // pf), nq)
+    Fs = F // pf * pf
+    return (Co in (16, 32, 64, 128) and pt <= 2 and pf <= 2 and T // pt >= 1 and Fs >= 1
+            and (Fs % 8 == 0 or (pt == 1 and 8 % Fs == 0)))
+
+
+def glu_frag_layout(Co: int, Fs: int, tt: int, ff: int, stages: int) -> dict:
+    """Byte offsets of glu_fwd_frag_kernel's shared memory: Bs [Co][Co + 8]
+    bf16 and sb [Fs][Co/2 + 4] float4 for the block, then each of its 8
+    warps' `stages` stages of y [tt][ff][Co + 8] bf16 and bits [tt][ff][Co]
+    uint8 (`stage` bytes each, the first warp's at `ring`); `end` is the
+    size."""
+    sb = 2 * Co * (Co + 8)
+    ring = sb + 16 * Fs * (Co // 2 + 4)
+    ybytes = 2 * tt * ff * (Co + 8)
+    stage = ybytes + tt * ff * Co
+    return dict(bs=0, sb=sb, ring=ring, ybytes=ybytes, stage=stage,
+                end=ring + GLU_FRAG_WARPS * stages * stage)
+
+
+def _stages(smem, most: int = 2) -> tuple[int, int]:
+    """(per_sm, stages): the most blocks an SM (`most` down to 1), then the
+    most stages (4, 3 or 2) that fit them; (0, 0) where not even two stages
+    fit one block."""
+    for per_sm in range(most, 0, -1):
+        for s in (4, 3, 2):
+            if smem(s) <= SMEM_LIMIT and per_sm * (smem(s) + 1024) <= SMEM_SM:
+                return per_sm, s
+    return 0, 0
+
+
+def _glu_frag_plan(B: int, T: int, F: int, Co: int, pool) -> GluBf16Plan | None:
+    pt, pf = pool
+    Ts, Fs = T // pt * pt, F // pf * pf
+    if Fs % 8 == 0:  # 2 frames x ff frequencies
+        frag, tt = 1, 2
+        ff = min(Fs, max(8, GLU_FRAG_ELEMS // (2 * Co) // 8 * 8))
+    else:  # whole frames of Fs | 8 frequencies, 16 rows at least
+        frag, ff, step = 2, Fs, 16 // Fs
+        tt = max(step, GLU_FRAG_ELEMS // (Fs * Co) // step * step)
+    per_sm, stages = _stages(lambda s: glu_frag_layout(Co, Fs, tt, ff, s)["end"],
+                             GLU_FRAG_PER_SM[Co])
+    if not stages:
+        return None
+    n_tiles = B * _cdiv(Ts, tt) * _cdiv(Fs, ff)
+    if n_tiles >= 2**31:
+        raise ValueError("glu_drop_pool: the bf16 kernel counts tiles in 32-bit ints")
+    grid_x = min(_cdiv(n_tiles, GLU_FRAG_WARPS), SM_COUNT * per_sm)
+    return GluBf16Plan(Co, tt, ff, stages, 1, Co, n_tiles, grid_x, 1,
+                       glu_frag_layout(Co, Fs, tt, ff, stages)["end"], per_sm, frag)
+
+
+def _glu_ring_plan(B: int, T: int, F: int, Co: int, pool) -> GluBf16Plan:
+    pt, pf = pool
+    ct = _pow2_tile(Co, 16, 128)
+    To, Fo = T // pt, F // pf
+    Ts, Fs = To * pt, Fo * pf
+    smem = lambda tt, ff, s: glu_ring_layout(Co, ct, tt * ff, s)["end"]
+    fits = lambda tt, ff, s: smem(tt, ff, s) <= SMEM_LIMIT
+    # whole frames where a window's pt of them fit, else the widest run of
+    # windows whose elements stay a multiple of 8 (16-byte copies)
+    step = pf * (8 // math.gcd(pf * Co, 8))
+    ff = max(Fs, pf)
+    if not fits(pt, ff, 2):
+        ff = max((f for f in range(step, Fs + 1, step) if fits(pt, f, 2)), default=0)
+        ff = ff or max((f for f in range(pf, Fs + 1, pf) if fits(pt, f, 2)), default=0)
+    if not ff:
+        raise ValueError(f"glu_drop_pool: Co={Co}, pool {pool}: one bf16 tile of a window "
+                         f"does not fit in shared memory")
+    k = max(1, min(max(To, 1), GLU_RING_ELEMS // Co // (pt * ff)))
+    k = _balance(max(To, 1), k)
+    while k > 1 and not fits(k * pt, ff, 2):
+        k = _cdiv(k, 2)
+    tt = k * pt
+    per_sm, stages = _stages(lambda s: smem(tt, ff, s))
+    n_tiles = B * _cdiv(Ts, tt) * _cdiv(Fs, ff)
+    if n_tiles >= 2**31:
+        raise ValueError("glu_drop_pool: the bf16 kernel counts tiles in 32-bit ints")
     grid_y = _cdiv(Co, ct)
-    per_sm = max(1, min(2, SMEM_SM // (smem + 1024)))
     grid_x = min(n_tiles, max(1, SM_COUNT * per_sm // grid_y))
-    return GluFwdPlan(ct, p, nq, _cdiv(Co, 16) * 16, n_tiles, grid_x, grid_y, smem)
+    vec = int(F * Co % 8 == 0 and ff * Co % 8 == 0)
+    return GluBf16Plan(ct, tt, ff, stages, vec, _cdiv(Co, 16) * 16, n_tiles, grid_x, grid_y,
+                       smem(tt, ff, stages), per_sm)
 
 
-def glu_fwd_plan(B: int, T: int, F: int, Co: int, pool, bf16: bool = False) -> GluFwdPlan:
+@functools.lru_cache(maxsize=None)
+def glu_fwd_plan(B: int, T: int, F: int, Co: int, pool, bf16: bool = False):
+    """glu_drop_pool's plan at a shape (`GluBf16Plan` in bf16, else
+    `GluFwdPlan`), computed once per shape."""
     pt, pf = pool
-    if bf16:
-        return _glu_mma_plan(B, T, F, Co, pool)
+    if bf16:  # the register kernel where it takes the shape and fits, else the ring
+        plan = _glu_frag_plan(B, T, F, Co, pool) if glu_frag_takes(T, F, Co, pool) else None
+        return plan or _glu_ring_plan(B, T, F, Co, pool)
     cg = 1
     while cg < min(_cdiv(Co, 4), 32):
         cg *= 2

@@ -6,8 +6,10 @@ csrc/fused_cnn.cu applies to it, every row, depth index and channel must be
 covered exactly once, shared memory must fit the card, and the order in
 which partial sums are added must follow from the shape alone. The forward
 plans are walked in both modes (fp32 and bf16: the tensor-core conv's warp
-tiles and ldmatrix rows, the GLU's extra gate tile); the GLU backward plan
-also at widths past 128 channels and at F * Co lane sums past shared memory.
+tiles and ldmatrix rows; the bf16 GLU's register and ring kernels, whose
+tile walks are also emulated in numpy against the plain version); the GLU
+backward plan also at widths past 128 channels and at F * Co lane sums past
+shared memory.
 """
 
 import numpy as np
@@ -357,37 +359,363 @@ def test_conv_fwd_plan_covers_outputs_and_lanes(geom):
     assert np.array_equal(runs, np.arange(p.n_parts))
 
 
-def _walk_glu_mma(p, B, T, F, Co, pool):
-    """glu_fwd_mma_kernel's maps: the tile's positions as glu_fwd_kernel
-    orders them, 8 warps (4 over the rows, mi = 8 / ni m16 tiles each, 2
-    over the ct columns) of m16n8 fragments, the A stage's items of 8
-    channels; shared memory within the card's limit."""
+def _ring_tiles(p, B, T, F, pool):
+    """(b, t0, f0, tv, fv) of each tile of glu_fwd_ring_kernel (csrc
+    `glu_tile`: f-tiles fastest, then t-tiles, then clips; frames below
+    To*pt, frequencies below Fo*pf)."""
     pt, pf = pool
-    W, To, Fo = pt * pf, T // pt, F // pf
-    Q = B * To * Fo
-    ni = p.ct // 16
-    mi = 8 // ni
-    assert p.ct in (16, 32, 64, 128) and p.p == fc.GLU_MMA_ROWS // ni == 64 * mi
-    assert p.nq == p.p // W and p.ks == -(-Co // 16) * 16 and p.grid_y == -(-Co // p.ct)
-    assert p.smem == fc.glu_mma_smem(Co, p.ct, p.p, p.nq) <= SMEM_LIMIT
-    assert p.n_tiles == -(-Q // p.nq) and (p.n_tiles == 0 or 1 <= p.grid_x <= p.n_tiles)
-    k = np.arange(p.n_tiles)[:, None]
-    pos = np.arange(p.p)[None, :]
-    q = k * p.nq + pos // W
-    valid = (pos // W < p.nq) & (q < Q)
-    _once(np.bincount((q * W + pos % W)[valid], minlength=Q * W),
-          "(pooled output, window element)")
-    Wm, Wn, L_, M_i, N_i, E_ = np.meshgrid(np.arange(4), np.arange(2), np.arange(32),
-                                           np.arange(mi), np.arange(ni), np.arange(4),
-                                           indexing="ij")
-    rows = Wm * 16 * mi + M_i * 16 + L_ // 4 + 8 * (E_ // 2)
-    cols = Wn * ni * 8 + N_i * 8 + 2 * (L_ % 4) + E_ % 2
-    _once(np.bincount((rows * p.ct + cols).ravel(), minlength=p.p * p.ct), "(row, column)")
-    items = np.arange(p.p * (p.ks // 8))
-    _once(np.bincount((items // (p.ks // 8)) * p.ks + items % (p.ks // 8) * 8,
-                      minlength=p.p * p.ks)[::8], "A items")
+    Ts, Fs = T // pt * pt, F // pf * pf
+    nf, nt = -(-Fs // p.ff), -(-Ts // p.tt)
+    i = np.arange(p.n_tiles)
+    f0, t0, b = i % nf * p.ff, i // nf % nt * p.tt, i // nf // nt
+    return b, t0, f0, np.minimum(p.tt, Ts - t0), np.minimum(p.ff, Fs - f0)
+
+
+def _ring_copies(p, g, T, F, Co):
+    """The copies of one tile's stage as the kernel issues them: (source
+    element of y and of the bits, stage element, elements read); with vec,
+    16-byte chunks (8 elements) of each frame's run, the last one partial."""
+    b, t0, f0, tv, fv = g
+    run = fv * Co
+    per = -(-run // 8) if p.vec else run
+    i = np.arange(tv * per)
+    j, k = i // per, i % per * (8 if p.vec else 1)
+    n = np.minimum(8, run - k) if p.vec else np.ones_like(k)
+    src = ((b * T + t0 + j) * F + f0) * Co + k
+    return src, j * p.ff * Co + k, n
+
+
+def _walk_glu_ring(p, B, T, F, Co, pool):
+    """glu_fwd_ring_kernel's plan: channel tiles and warps, shared memory
+    layout (every part and stage on 16 bytes, within the card's limit, the
+    occupancy it claims), tiles of whole windows below the pooled extent,
+    every pooled output once, every staged frame inside its clip and below
+    To*pt, every copy aligned; the fragments' rows and columns once a pass."""
+    pt, pf = pool
+    To, Fo = T // pt, F // pf
+    assert p.ct in (16, 32, 64, 128) and p.ct == fc._pow2_tile(Co, 16, 128)
+    assert p.grid_y == -(-Co // p.ct) and p.kp == -(-Co // 16) * 16
+    assert p.tt % pt == 0 and p.ff % pf == 0 and 2 <= p.stages <= 4
+    assert p.ff <= max(Fo * pf, pf)
+    rows = p.tt * p.ff
+    assert not p.frag
+    lay = fc.glu_ring_layout(Co, p.ct, rows, p.stages)
+    offs = [lay["bs"], lay["As"], lay["gt"], lay["ring"]] + [
+        lay["ring"] + s * lay["stage"] + part for s in range(p.stages)
+        for part in (0, lay["ybytes"])] + [lay["end"]]
+    assert all(o % 16 == 0 for o in offs) and offs == sorted(offs)
+    assert lay["As"] == 2 * p.ct * (p.kp + 8) and lay["ybytes"] >= 2 * rows * Co
+    assert lay["stage"] - lay["ybytes"] >= rows * Co
+    assert p.smem == lay["end"] <= SMEM_LIMIT
+    assert p.per_sm * (p.smem + 1024) <= fc.SMEM_SM
+    assert p.vec == int(F * Co % 8 == 0 and p.ff * Co % 8 == 0)
+    if To == 0 or Fo == 0:
+        assert p.n_tiles == 0
+        return
+    assert p.n_tiles == B * -(-To * pt // p.tt) * -(-Fo * pf // p.ff)
+    assert 1 <= p.grid_x <= p.n_tiles
+    b, t0, f0, tv, fv = _ring_tiles(p, B, T, F, pool)
+    assert (tv % pt == 0).all() and (fv % pf == 0).all() and (tv > 0).all() and (fv > 0).all()
+    # pooled outputs: tile (jo, fo) -> z row, each once
+    jo, fo = np.meshgrid(np.arange(p.tt // pt), np.arange(p.ff // pf), indexing="ij")
+    ok = (jo[None] * pt < tv[:, None, None]) & (fo[None] * pf < fv[:, None, None])
+    q = ((b[:, None, None] * To + t0[:, None, None] // pt + jo[None]) * Fo
+         + f0[:, None, None] // pf + fo[None])
+    _once(np.bincount(q[ok], minlength=B * To * Fo), "pooled outputs")
+    # each tile's copies: inside its clip, below To*pt and Fo*pf, each staged
+    # element once, every chunk on 16 bytes (y) and 8 (bits)
+    for i in sorted({0, p.n_tiles // 2, p.n_tiles - 1}):
+        g = (b[i], t0[i], f0[i], tv[i], fv[i])
+        src, dst, n = _ring_copies(p, g, T, F, Co)
+        e = np.arange(8)[None, :]
+        live = e < n[:, None]
+        s_el, d_el = (src[:, None] + e)[live], (dst[:, None] + e)[live]
+        t, f = s_el // Co // F % T, s_el // Co % F
+        assert (s_el // Co // F // T == b[i]).all() and (t < To * pt).all() and (f < Fo * pf).all()
+        assert (t >= t0[i]).all() and (t < t0[i] + tv[i]).all()
+        assert (f >= f0[i]).all() and (f < f0[i] + fv[i]).all()
+        assert np.unique(s_el).size == s_el.size == tv[i] * fv[i] * Co
+        assert np.array_equal((t - t0[i]) * p.ff * Co + (f - f0[i]) * Co + s_el % Co, d_el)
+        if p.vec:
+            assert (src % 8 == 0).all() and (dst % 8 == 0).all()
+            assert (dst + 8 <= rows * Co).all()  # a zero-filled tail stays in the stage
+    # fragments: warp (wm, wn), pass, m16 tile mt = pass + wm + WM mi, n8 tile
+    # ni, lane, element -> each (row, column) of the padded tile once
+    wn_, ni_, wm_, mi_ = fc.glu_ring_warps(p.ct)
+    assert wn_ * ni_ * 8 == p.ct and wm_ * wn_ == 8 and mi_ * ni_ == 8
+    rm = -(-rows // 16)
+    Pa, Wm, Wn, M_i, N_i, L_, E_ = np.meshgrid(
+        np.arange(0, rm, wm_ * mi_), np.arange(wm_), np.arange(wn_), np.arange(mi_),
+        np.arange(ni_), np.arange(32), np.arange(4), indexing="ij")
+    mt = Pa + Wm + wm_ * M_i
+    live = mt < rm
+    r = (mt * 16 + L_ // 4 + 8 * (E_ // 2))[live]
+    c = (Wn * ni_ * 8 + N_i * 8 + 2 * (L_ % 4) + E_ % 2)[live]
+    _once(np.bincount(r * p.ct + c, minlength=rm * 16 * p.ct), "(row, column)")
     chans = (np.arange(p.grid_y)[:, None] * p.ct + np.arange(p.ct)[None, :]).ravel()
     _once(np.bincount(chans[chans < Co], minlength=Co), "output channels")
+
+
+def _frag_tiles(p, B, T, F, pool):
+    """(b, t0, f0, tv, fv) of each warp tile of glu_fwd_frag_kernel (csrc
+    `decode`: f-tiles fastest, then t-tiles, then clips)."""
+    pt, pf = pool
+    Ts, Fs = T // pt * pt, F // pf * pf
+    nf, nt = -(-Fs // p.ff), -(-Ts // p.tt)
+    i = np.arange(p.n_tiles)
+    fi, r = i % nf, i // nf
+    b = r // nt
+    t0 = (r - b * nt) * p.tt
+    return b, t0, fi * p.ff, np.minimum(p.tt, Ts - t0), np.minimum(p.ff, Fs - fi * p.ff)
+
+
+def _frag_copies(p, g, T, F, Co):
+    """A warp tile's 16-byte copies as the kernel issues them: (source
+    element, stage element of y (rows of Co + 8), stage byte of the bits)."""
+    b, t0, f0, tv, fv = g
+    ni = Co // 8
+    per = fv * ni
+    i = np.arange(tv * per)
+    j, q = i // per, i % per
+    f, c = q // ni, q % ni * 8
+    src = (((b * T + t0 + j) * F + f0 + f) * Co + c)
+    return src, (j * p.ff + f) * (Co + 8) + c, (j * p.ff + f) * Co + c
+
+
+def _frag_rows(p, mt, gq):
+    """Each lane's rows g and g + 8 of m16 tile mt: (stage row of the tile's
+    first row, frequency fl in the tile, frames j0 and j1)."""
+    if p.frag == 2:  # 16 consecutive rows of whole frames of ff frequencies
+        r0 = 16 * mt + gq
+        return 16 * mt, r0 % p.ff, r0 // p.ff, r0 // p.ff + 8 // p.ff
+    return 8 * mt, 8 * mt + gq, np.zeros_like(gq), np.ones_like(gq)
+
+
+def _walk_glu_frag(p, B, T, F, Co, pool):
+    """glu_fwd_frag_kernel's plan: the shapes it takes, its shared memory
+    (16-byte parts, within the card's limit and the occupancy it claims),
+    every warp tile once over the blocks' warps, every pooled output once
+    (by the lanes that store them), every copy inside its clip, below To*pt
+    and Fo*pf, aligned and staged once."""
+    pt, pf = pool
+    To, Fo = T // pt, F // pf
+    Fs = Fo * pf
+    assert fc.glu_frag_takes(T, F, Co, pool) and p.frag in (1, 2)
+    assert p.ct == p.kp == Co and p.grid_y == 1 and p.vec == 1 and 2 <= p.stages <= 4
+    if p.frag == 1:
+        assert p.tt == 2 and p.ff % 8 == 0 and p.ff <= Fs and Fs % 8 == 0
+    else:
+        assert pt == 1 and p.ff == Fs and 8 % Fs == 0 and p.tt * p.ff % 16 == 0
+    lay = fc.glu_frag_layout(Co, Fs, p.tt, p.ff, p.stages)
+    offs = [lay["bs"], lay["sb"], lay["ring"]] + [
+        lay["ring"] + (w * p.stages + s) * lay["stage"] + part for w in range(fc.GLU_FRAG_WARPS)
+        for s in range(p.stages) for part in (0, lay["ybytes"])] + [lay["end"]]
+    assert all(o % 16 == 0 for o in offs) and offs == sorted(offs)
+    assert p.smem == lay["end"] <= SMEM_LIMIT and p.per_sm * (p.smem + 1024) <= fc.SMEM_SM
+    assert p.per_sm <= fc.GLU_FRAG_PER_SM[Co]
+    # ldmatrix's 8 rows of y and of Bs (pitch Co + 8) in 8 distinct bank groups
+    assert len({(r * (Co + 8) * 2 // 16) % 8 for r in range(8)}) == 8
+    nw = p.grid_x * fc.GLU_FRAG_WARPS
+    assert p.n_tiles == B * -(-To * pt // p.tt) * -(-Fs // p.ff)
+    assert nw - fc.GLU_FRAG_WARPS < p.n_tiles
+    owned = np.concatenate([np.arange(w, p.n_tiles, nw) for w in range(nw)])
+    _once(np.bincount(owned, minlength=p.n_tiles), "warp tiles")
+    b, t0, f0, tv, fv = _frag_tiles(p, B, T, F, pool)
+    assert (t0 % pt == 0).all() and (fv > 0).all() and (tv > 0).all()
+    assert (tv == p.tt).all() or pt == 1
+    # pooled outputs as the kernel's lanes store them: each lane's rows (frame
+    # j, frequency fl) of each m16 tile, a store where the window starts
+    gq = np.arange(8)  # the lane rows g (each with 4 lanes tq of 2 channels)
+    n_m = -(-(tv * p.ff) // 16) if p.frag == 2 else fv // 8
+    q_all = []
+    for mt in range(int(n_m.max())):
+        _, fl, j0, j1 = _frag_rows(p, mt, gq)
+        for j in ([j0] if pt == 2 else [j0, j1]):
+            live = (mt < n_m)[:, None] & (j < tv[:, None]) & ((gq & 1) == 0 if pf == 2 else True)
+            to = (t0[:, None] + j) // pt
+            q = (b[:, None] * To + to) * Fo + (f0[:, None] + fl) // pf
+            q_all.append(q[live])
+    _once(np.bincount(np.concatenate(q_all), minlength=B * To * Fo), "pooled outputs")
+    for i in sorted({0, p.n_tiles // 2, p.n_tiles - 1}):
+        g = (b[i], t0[i], f0[i], tv[i], fv[i])
+        src, ydst, bdst = _frag_copies(p, g, T, F, Co)
+        assert (src % 8 == 0).all() and (ydst % 8 == 0).all() and (bdst % 8 == 0).all()
+        s_el = (src[:, None] + np.arange(8)[None, :]).ravel()
+        t, ff_ = s_el // Co // F % T, s_el // Co % F
+        assert (s_el // Co // F // T == b[i]).all() and (t < To * pt).all() and (ff_ < Fs).all()
+        assert ((t - t0[i] < tv[i]) & (t >= t0[i]) & (ff_ >= f0[i]) & (ff_ - f0[i] < fv[i])).all()
+        assert np.unique(s_el).size == s_el.size == tv[i] * fv[i] * Co
+        assert np.unique(ydst).size == ydst.size and (ydst + 8 <= p.tt * p.ff * (Co + 8)).all()
+
+
+def _emulate_glu_frag(p, y, sf, bfv, wg, bg, bits, pool, keep):
+    """z of glu_fwd_frag_kernel from its plan, lane by lane, in fp32 without
+    the bf16 roundings: each warp tile's stage from its copies; per m16
+    tile each lane's A fragment registers from ldmatrix's row addresses
+    (matrix i's row r named by lane 8 i + r), BN(y) from sb, the B
+    fragments from Bs by ldmatrix.trans (lane 8 i + 2 tq + h names the row
+    of the h-th element); the product from the fragments in the m16n8k16
+    layout; the GLU with each accumulator's gate taken from the A fragment
+    the kernel takes it from; dropout from the staged bits; the pool through
+    lane ^ 4 and rows g, g + 8; each pooled output once."""
+    B, T, F, Co = y.shape
+    pt, pf = pool
+    To, Fo, Fs = T // pt, F // pf, F // pf * pf
+    ni_, ks_, yp, sp = Co // 8, Co // 16, Co + 8, Co // 2 + 4
+    yf, bits_f = y.reshape(-1), None if bits is None else bits.reshape(-1)
+    thresh = fc.keep_threshold(keep)
+    sb = np.zeros((Fs, sp, 4), np.float32)
+    pr = np.arange(Co // 2)
+    for f in range(Fs):
+        lane_ = f * Co + 2 * pr
+        sb[f, : Co // 2] = np.stack([sf[lane_], sf[lane_ + 1], bfv[lane_], bfv[lane_ + 1]], 1)
+    sb = sb.reshape(-1, 4)
+    bs = np.zeros((Co, yp), np.float32)  # Wg as it is: [k][n]
+    bs[:, :Co] = wg
+    bs = bs.reshape(-1)
+    lanes = np.arange(32)
+    gq, tq = lanes >> 2, lanes & 3
+    a_row = (lanes & 15) if p.frag == 2 else ((lanes >> 3) & 1) * p.ff + (lanes & 7)
+    a_chunk = (lanes >> 4) * 8
+    b_off = (((lanes >> 3) & 1) * 8 + (lanes & 7)) * yp + (lanes >> 4) * 8
+    z = np.full((B * To * Fo, Co), np.nan, np.float32)
+    tiles = _frag_tiles(p, B, T, F, pool)
+    for i in range(p.n_tiles):
+        b, t0, f0, tv, fv = (int(a[i]) for a in tiles)
+        ys = np.full(p.tt * p.ff * yp, np.nan, np.float32)
+        bst = np.full(p.tt * p.ff * Co, -1, np.int64)
+        src, ydst, bdst = _frag_copies(p, (b, t0, f0, tv, fv), T, F, Co)
+        e8 = np.arange(8)
+        ys[(ydst[:, None] + e8).ravel()] = yf[(src[:, None] + e8).ravel()]
+        if bits_f is not None:
+            bst[(bdst[:, None] + e8).ravel()] = bits_f[(src[:, None] + e8).ravel()]
+        n_m = -(-(tv * p.ff) // 16) if p.frag == 2 else fv // 8
+        for mt in range(n_m):
+            row0, fl, j0, j1 = _frag_rows(p, mt, gq)
+            fg = f0 + fl
+            amat = np.full((16, Co), np.nan, np.float32)
+            gates = np.zeros((ks_, 8, 32), np.float32)  # gv[ks][0..7] of each lane
+            for ks in range(ks_):
+                for r in range(4):  # register r from matrix r: rows named by lanes 8 r + g
+                    addr = (a_row[8 * r + gq] + row0) * yp + ks * 16 + a_chunk[8 * r + gq] \
+                        + 2 * tq
+                    sbv = sb[fg * sp + ks * 8 + (4 if r >= 2 else 0) + tq]
+                    lo = ys[addr] * sbv[:, 0] + sbv[:, 2]
+                    hi = ys[addr + 1] * sbv[:, 1] + sbv[:, 3]
+                    gates[ks, 2 * r], gates[ks, 2 * r + 1] = lo, hi
+                    row = gq + 8 * (r & 1)
+                    k = ks * 16 + 8 * (r >> 1) + 2 * tq
+                    amat[row, k], amat[row, k + 1] = lo, hi
+            bmat = np.full((Co, Co), np.nan, np.float32)  # [k][n]
+            for ks in range(ks_):
+                for n2 in range(0, ni_, 2):
+                    for r in range(4):
+                        for h in range(2):  # .trans: lane 8 r + 2 tq + h names the row
+                            addr = ks * 16 * yp + n2 * 8 + b_off[8 * r + 2 * tq + h] + gq
+                            k = ks * 16 + 8 * (r & 1) + 2 * tq + h
+                            bmat[k, (n2 + (r >> 1)) * 8 + gq] = bs[addr]
+            cmat = amat @ bmat
+            acc = np.zeros((ni_, 4, 32), np.float32)
+            for ni in range(ni_):
+                for e in range(4):
+                    row, n = gq + 8 * (e >> 1), ni * 8 + 2 * tq + (e & 1)
+                    gate = gates[ni >> 1, 4 * (ni & 1) + e]
+                    v = (cmat[row, n] + bg[n]) / (1.0 + np.exp(-gate))
+                    if bits_f is not None:
+                        kb = bst[((j1 if e >= 2 else j0) * p.ff + fl) * Co + n]
+                        v = np.where(kb < thresh, v / keep, 0.0)
+                    acc[ni, e] = v
+            part = acc[:, :, lanes ^ 4]  # __shfl_xor_sync(..., 4)
+            lead = (gq & 1) == 0 if pf == 2 else np.ones(32, bool)
+            for ni in range(ni_):
+                c = ni * 8 + 2 * tq
+                outs = []
+                if pt == 2:
+                    o = [acc[ni, 0], acc[ni, 1]]
+                    if pf == 2:
+                        o = [o[0] + part[ni, 0], o[1] + part[ni, 1]]
+                    o = [o[0] + acc[ni, 2], o[1] + acc[ni, 3]]
+                    if pf == 2:
+                        o = [o[0] + part[ni, 2], o[1] + part[ni, 3]]
+                    outs.append((t0 // 2, lead, o))
+                else:
+                    for hh, j in enumerate((j0, j1)):
+                        o = [acc[ni, 2 * hh], acc[ni, 2 * hh + 1]]
+                        if pf == 2:
+                            o = [o[0] + part[ni, 2 * hh], o[1] + part[ni, 2 * hh + 1]]
+                        outs.append((t0 + j, lead & (j < tv), o))
+                for to, sel, o in outs:
+                    q = (b * To + to) * Fo + fg // pf
+                    for h in range(2):
+                        assert np.isnan(z[q[sel], c[sel] + h]).all(), "a pooled output written twice"
+                        z[q[sel], c[sel] + h] = o[h][sel] / (pt * pf)
+    return z.reshape(B, To, Fo, Co)
+
+
+def _emulate_glu_ring(p, y, sf, bfv, wg, bg, bits, pool, keep):
+    """z of glu_fwd_ring_kernel from its plan, in fp32 without the bf16
+    roundings: each tile's stage from the copies, BN(y) of its rows into As
+    and gt by the A items (8 channels, the thread's cached lane), the
+    product, the GLU, then dropout and each window's sum in window order
+    from the staged bits; every pooled output written once (else NaN)."""
+    B, T, F, Co = y.shape
+    pt, pf = pool
+    To, Fo = T // pt, F // pf
+    yf, bits_f = y.reshape(-1), None if bits is None else bits.reshape(-1)
+    thresh = fc.keep_threshold(keep)
+    z = np.full((B * To * Fo, Co), np.nan, np.float32)
+    rows, nch = p.tt * p.ff, p.kp // 8
+    tiles = _ring_tiles(p, B, T, F, pool)
+    for ty in range(p.grid_y):
+        n0 = ty * p.ct
+        bs = np.zeros((p.ct, p.kp), np.float32)  # Wg^T of the channel tile
+        n_hi = min(Co, n0 + p.ct)
+        bs[: n_hi - n0, :Co] = wg[:, n0:n_hi].T
+        bgt = np.zeros(p.ct, np.float32)
+        bgt[: n_hi - n0] = bg[n0:n_hi]
+        for i in range(p.n_tiles):
+            g = tuple(int(a[i]) for a in tiles)
+            b, t0, f0, tv, fv = g
+            ys = np.full(rows * Co + 8, np.nan, np.float32)
+            st = np.full(rows * Co + 8, -1, np.int64)
+            src, dst, n = _ring_copies(p, g, T, F, Co)
+            for s_, d_, n_ in zip(src, dst, n):
+                ys[d_: d_ + n_] = yf[s_: s_ + n_]
+                if bits_f is not None:
+                    st[d_: d_ + n_] = bits_f[s_: s_ + n_]
+            # A: items (row, 8 channels)
+            it = np.arange(rows * nch)
+            r, c = it // nch, it % nch * 8
+            j, fl = r // p.ff, r % p.ff
+            cc = c[:, None] + np.arange(8)[None, :]
+            valid = ((j < tv) & (fl < fv))[:, None] & (cc < Co)
+            lane = (f0 + fl)[:, None] * Co + cc
+            yv = ys[np.where(valid, r[:, None] * Co + cc, rows * Co)]
+            v = np.where(valid, yv * sf[np.where(valid, lane, 0)] + bfv[np.where(valid, lane, 0)],
+                         0.0).astype(np.float32)
+            assert not np.isnan(v).any(), "an item read an element no copy staged"
+            a_tile = np.zeros((rows, p.kp), np.float32)
+            a_tile[r[:, None], cc] = v
+            gt = a_tile[:, n0: n0 + p.ct] if n0 + p.ct <= p.kp else np.pad(
+                a_tile[:, n0:], ((0, 0), (0, n0 + p.ct - p.kp)))
+            glu = (a_tile @ bs.T + bgt) / (1.0 + np.exp(-gt))
+            # D: pooled output (jo, fo), its window in order wi = dt pf + df
+            for jo in range(tv // pt):
+                for fo in range(fv // pf):
+                    s = np.zeros(p.ct, np.float32)
+                    for dt in range(pt):
+                        for df in range(pf):
+                            rr = (jo * pt + dt) * p.ff + fo * pf + df
+                            gv = glu[rr]
+                            if bits_f is not None:
+                                kb = st[rr * Co + n0: rr * Co + n0 + p.ct]
+                                kb = np.pad(kb, (0, p.ct - kb.size), constant_values=-1)
+                                gv = np.where(kb[: p.ct] < thresh, gv / keep, 0.0)
+                            s = s + gv.astype(np.float32)
+                    q = (b * To + t0 // pt + jo) * Fo + f0 // pf + fo
+                    assert np.isnan(z[q, n0:n_hi]).all(), "a pooled output written twice"
+                    z[q, n0:n_hi] = (s / (pt * pf))[: n_hi - n0]
+    return z.reshape(B, To, Fo, Co)
 
 
 @pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
@@ -701,18 +1029,85 @@ def test_conv_bwd_plan_bf16_covers_dx_dw_and_dbias(geom):
     _once(np.bincount(c[c < Co], minlength=Co), "dy_eff channels")
 
 
-@pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
+# the bf16 GLU's tiles beside FWD_GEOMS (the ring kernel): odd T, F % pf != 0, Co = 8, 24,
+# 40, 136 and 256, F * Co not a multiple of 8 (element loads: Co 5, 6, 70),
+# pools (1, 1), (1, 2), (2, 1) and (2, 2), one frequency, frames too wide
+# for shared memory (F = 300 at 128 channels: tiles of part of a frame)
+GLU_BF16_EXTRA = [(2, 13, 8, 16, 8, (2, 2)), (2, 9, 7, 16, 24, (1, 2)),
+                  (3, 11, 5, 16, 40, (2, 1)), (2, 7, 6, 16, 136, (2, 2)),
+                  (1, 5, 4, 16, 256, (1, 1)), (2, 9, 5, 16, 5, (1, 2)),
+                  (2, 10, 3, 16, 6, (2, 1)), (1, 3, 1, 16, 70, (1, 1)),
+                  (1, 300, 2, 16, 12, (1, 1)), (1, 4, 300, 16, 128, (2, 2)),
+                  (2, 19, 9, 16, 20, (2, 2)), (1, 15, 11, 16, 48, (3, 2)),
+                  # the register kernel: odd T (a last frame pair of one frame
+                  # at pt = 1), F % pf != 0, a ragged frequency tile, pools
+                  # (1, 1), (1, 2), (2, 1) and (2, 2), Co = 16, 32, 64, 128
+                  (2, 7, 16, 16, 16, (2, 2)), (2, 9, 24, 16, 32, (1, 2)),
+                  (1, 5, 16, 16, 64, (2, 1)), (2, 6, 41, 16, 16, (1, 2)),
+                  (1, 4, 8, 16, 32, (1, 1)), (2, 5, 32, 16, 64, (1, 2)),
+                  (3, 313, 64, 16, 32, (2, 2)), (2, 4, 8, 16, 128, (1, 1)),
+                  # ... and its consecutive rows (pt = 1, Fo*pf = 1, 2, 4)
+                  (2, 5, 4, 16, 128, (1, 2)), (1, 9, 2, 16, 128, (1, 2)),
+                  (1, 6, 3, 16, 64, (1, 2)), (2, 7, 1, 16, 16, (1, 1))]
+GLU_BF16_GEOMS = FWD_GEOMS + GLU_BF16_EXTRA
+GLU_BF16_IDS = FWD_IDS + [f"B{g[0]}-T{g[1]}-F{g[2]}-Co{g[4]}-pool{g[5][0]}x{g[5][1]}"
+                          for g in GLU_BF16_EXTRA]
+
+
+@pytest.mark.parametrize("geom", GLU_BF16_GEOMS, ids=GLU_BF16_IDS)
 def test_glu_fwd_plan_bf16_covers_pooled_outputs(geom):
+    """The register kernel's plan where `glu_frag_takes` the shape (and its
+    shared memory fits), else the ring kernel's; either walked through its
+    index maps."""
     B, T, F, _, Co, pool = geom
-    _walk_glu_mma(fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True), B, T, F, Co, pool)
+    p = fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True)
+    assert p.frag or not fc.glu_frag_takes(T, F, Co, pool) or fc._glu_frag_plan(
+        B, T, F, Co, pool) is None
+    (_walk_glu_frag if p.frag else _walk_glu_ring)(p, B, T, F, Co, pool)
+
+
+# small enough for the emulation (and for the plain version on the CPU)
+EMU_GEOMS = [g for g in GLU_BF16_GEOMS if g[0] * g[1] * g[2] * g[4] <= 400_000]
+
+
+@pytest.mark.parametrize("geom", EMU_GEOMS,
+                         ids=[i for g, i in zip(GLU_BF16_GEOMS, GLU_BF16_IDS) if g in EMU_GEOMS])
+@pytest.mark.parametrize("keep", [None, 0.5])
+def test_glu_bf16_emulation_matches_plain(geom, keep):
+    """The bf16 kernel's tile walk in numpy (_emulate_glu_frag, lane by lane,
+    or _emulate_glu_ring: the copies, the A items, the pool's windows in
+    kernel order) against glu_drop_pool_plain in fp32: an index fault of the
+    plan or the kernel's maps shows here before a card runs it."""
+    import torch
+
+    B, T, F, _, Co, pool = geom
+    rng = np.random.default_rng(7)
+    y = rng.standard_normal((B, T, F, Co)).astype(np.float32)
+    sf = (1 + 0.1 * rng.standard_normal(F * Co)).astype(np.float32)
+    bfv = (0.1 * rng.standard_normal(F * Co)).astype(np.float32)
+    wg = (rng.standard_normal((Co, Co)) / np.sqrt(Co)).astype(np.float32)
+    bg = (0.1 * rng.standard_normal(Co)).astype(np.float32)
+    bits = None if keep is None else rng.integers(0, 256, (B, T, F * Co), dtype=np.uint8)
+    kp = 1.0 if keep is None else keep
+    p = fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True)
+    got = (_emulate_glu_frag if p.frag else _emulate_glu_ring)(p, y, sf, bfv, wg, bg, bits,
+                                                                pool, kp)
+    want = fc.glu_drop_pool_plain(
+        torch.from_numpy(y), torch.from_numpy(sf), torch.from_numpy(bfv), torch.from_numpy(wg),
+        torch.from_numpy(bg), None if bits is None else torch.from_numpy(bits), pool=pool,
+        keep_prob=kp).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    assert float(np.abs(got - want).max()) <= 1e-5 * max(1.0, float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("geom", _geoms_2024(60) + _geoms_2024(64) + WIDE[:2],
                          ids=IDS[:14] + FWD_IDS[len(GEOMS):len(GEOMS) + 2])
 def test_fwd_plans_bf16_depend_on_the_shape_alone(geom):
     """Equal shapes give equal bf16 plans; the 2024 shapes keep two blocks of
-    each bf16 forward kernel on an SM (the GLU at Co = 256 one: its tile
-    holds Wg^T of 128 channels by 256)."""
+    the bf16 conv on an SM, and take the GLU's register kernel with >= 32
+    KB of copies an SM in flight behind the tiles its warps work on (two
+    blocks an SM at Co <= 64, one at Co = 128); the 256-channel block takes
+    the ring kernel at two blocks an SM."""
     B, T, F, Ci, Co, pool = geom
     a = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
     g = fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True)
@@ -720,7 +1115,12 @@ def test_fwd_plans_bf16_depend_on_the_shape_alone(geom):
     assert g == fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True)
     assert all(isinstance(v, int) for v in a.ints() + g.ints())
     assert 2 * (a.smem + 1024) <= fc.SMEM_SM
-    assert (2 if Co <= 128 else 1) * (g.smem + 1024) <= fc.SMEM_SM
+    assert bool(g.frag) == (Co <= 128) and g.vec == 1
+    assert g.per_sm == (1 if g.frag and Co == 128 else 2)
+    assert g.per_sm * (g.smem + 1024) <= fc.SMEM_SM
+    if g.frag:
+        lay = fc.glu_frag_layout(Co, F // pool[1] * pool[1], g.tt, g.ff, g.stages)
+        assert g.per_sm * fc.GLU_FRAG_WARPS * (g.stages - 1) * lay["stage"] >= 32 * 1024
 
 
 # the bf16 dW kernels at the 2024 blocks (B=60) and at odd shapes: the

@@ -15,8 +15,8 @@ in eval and train mode (the GLU backward's wide kernel: Co = 192, 200 and
 256, and F * Co lane sums kept in device memory); the bf16 modes of the
 forward kernels at edge shapes (Ci = 1, 3, 5, 12 and 24, Co not a multiple
 of 8 or 16, Co = 256, F * Co not a multiple of 8, T and F not multiples of
-the row tile, pools (1, 1), (2, 2), (1, 2) and others, dropout bits) and a
-bf16 CRNN forward; the bf16 modes of the backward kernels at edge shapes
+the row tile, pools (1, 1), (2, 2), (1, 2) and others, dropout bits; the
+bf16 GLU's two kernels at GLU_BF16_ODD_GEOMS) and a bf16 CRNN forward; the bf16 modes of the backward kernels at edge shapes
 (BF16_BWD_GEOMS) and the bf16 block's autograd path; for the fused
 log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
 hops that do not divide n_fft, both compute dtypes and bitwise reruns.
@@ -493,6 +493,57 @@ def test_glu_drop_pool_bf16_kernel(dev, geom, keep):
         bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
     kp = 1.0 if keep is None else keep
     z = fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp)
+    _close_bf16(z, fused_cnn.glu_drop_pool_plain(y, sf, bf, wg, bg, bits, pool=pool,
+                                                 keep_prob=kp))
+    assert torch.equal(z, fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool,
+                                                  keep_prob=kp))
+
+
+# the bf16 GLU's two kernels at odd shapes. The ring kernel
+# (glu_fwd_ring_kernel): odd T, F % pf != 0, Co = 8, 24, 40, 136 and 256,
+# F * Co not a multiple of 8 (the element-load path: Co 5 and 6), pools
+# (1, 1), (1, 2), (2, 1), (2, 2) and (3, 2), one frequency, frames too wide
+# for one stage (F = 300). The register kernel (glu_fwd_frag_kernel, Co 16,
+# 32, 64 and 128): odd T (a last frame pair of one frame), F % pf != 0, a
+# ragged frequency tile, pools (1, 1), (1, 2), (2, 1) and (2, 2), whole
+# frames of 1, 2 or 4 frequencies in consecutive rows, the first and fourth
+# 2024 blocks at B = 2 and 3
+GLU_BF16_ODD_GEOMS = [  # (B, T, F, Co, pool)
+    (2, 13, 8, 8, (2, 2)), (2, 9, 7, 24, (1, 2)), (3, 11, 5, 40, (2, 1)),
+    (2, 7, 6, 136, (2, 2)), (1, 5, 4, 256, (1, 1)), (2, 9, 5, 5, (1, 2)),
+    (2, 10, 3, 6, (2, 1)), (1, 3, 1, 70, (1, 1)), (1, 300, 2, 12, (1, 1)),
+    (2, 9, 300, 128, (2, 2)), (2, 19, 9, 20, (2, 2)), (1, 15, 11, 48, (3, 2)),
+    (3, 313, 64, 32, (2, 2)), (2, 7, 16, 16, (2, 2)), (2, 9, 24, 32, (1, 2)),
+    (1, 5, 16, 64, (2, 1)), (2, 6, 41, 16, (1, 2)), (1, 4, 8, 32, (1, 1)),
+    (2, 5, 32, 64, (1, 2)), (2, 626, 128, 16, (2, 2)), (2, 4, 8, 128, (1, 1)),
+    (2, 5, 4, 128, (1, 2)), (1, 9, 2, 128, (1, 2)), (1, 6, 3, 64, (1, 2)),
+    (2, 7, 1, 16, (1, 1)), (3, 156, 16, 128, (1, 2)),
+]
+
+
+@pytest.mark.parametrize("geom", GLU_BF16_ODD_GEOMS)
+@pytest.mark.parametrize("keep", [None, 0.5])
+def test_glu_drop_pool_bf16_odd_shapes(dev, geom, keep):
+    """One launch of the kernel its plan names (`frag`: the register kernel,
+    else the ring kernel), within one bf16 step of the plain version (at
+    most 1 % of z differing), bitwise equal on a rerun."""
+    from desed_task_tpu_torch.ops import _build
+
+    B, T, F, Co, pool = geom
+    g = torch.Generator().manual_seed(22)
+    y = _bf16(_rand(g, B, T, F, Co)).to(dev)
+    sf = (1 + _rand(g, F * Co, scale=0.1)).to(dev)
+    bf = _rand(g, F * Co, scale=0.1).to(dev)
+    wg = _bf16(_rand(g, Co, Co, scale=1 / np.sqrt(Co))).to(dev)
+    bg = _bf16(_rand(g, Co, scale=0.1)).to(dev)
+    bits = None
+    if keep is not None:
+        bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
+    kp = 1.0 if keep is None else keep
+    _build.reset_launches()
+    z = fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool, keep_prob=kp)
+    assert _build.LAUNCHES == {"glu_drop_pool.bf16": 1}
+    torch.cuda.synchronize()
     _close_bf16(z, fused_cnn.glu_drop_pool_plain(y, sf, bf, wg, bg, bits, pool=pool,
                                                  keep_prob=kp))
     assert torch.equal(z, fused_cnn.glu_drop_pool(y, sf, bf, wg, bg, bits, pool=pool,
