@@ -53,8 +53,10 @@ Phases (any failure exits non-zero; nothing is caught):
      within one bf16 step (as phase 3b), dscale_f and dbias_f within
      TOL_KERNEL, bitwise reruns; each block's ms, bound, plain ms and
      cuDNN's bf16 conv backward beside row 3, then row 3's seven-block sum
-     beside cuDNN's from the same call; glu_drop_pool_bwd in bf16 also at
-     the 256-channel block (the wide kernel);
+     beside cuDNN's from the same call; the CUDA kernel each block's bf16
+     GLU backward plan picks (glu_bwd_frag_kernel, required at all seven)
+     and row 4b's seven-block sum; glu_drop_pool_bwd in bf16 also at the
+     256-channel block (the wide kernel, glu_bwd_kernel);
   7. training: the 2024 mean-teacher step (crnn_2024() student and teacher
      at full width from a seed, mean_teacher_2024(), 60 ten-second clips with
      768x496 embeddings): the launch counts of one step (14/14/2 forward,
@@ -815,6 +817,15 @@ def glu_bwd_bf16_bound(P: int, co: int, n_bytes: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def glu_bwd_kernel_name(B: int, T: int, F: int, co: int) -> str:
+    """The CUDA kernel that the bf16 glu_drop_pool_bwd's plan picks."""
+    from desed_task_tpu_torch.ops import fused_cnn
+
+    plan = fused_cnn.glu_bwd_plan(B, T, F, co, bf16=True)
+    return ("glu_bwd_frag_kernel" if plan.frag else
+            "glu_bwd_kernel (wide)" if plan.passes > 1 else "glu_bwd_kernel")
+
+
 def check_bwd_kernels_bf16(geoms, gen, report, rows32):
     """Phase 6b: the bf16 modes of rows 3 and 4 against their bf16 plain
     versions at B=60; returns timing rows."""
@@ -865,7 +876,8 @@ def check_bwd_kernels_bf16(geoms, gen, report, rows32):
             + bits.numel()
         args = (y, scale_f, bias_f, wg, bg, bits, gz)
         return dict(
-            geom=[T, Fq, co, *pool], max_abs_err=max(abs_errs), limit_share=max(worsts),
+            geom=[T, Fq, co, *pool], kernel=glu_bwd_kernel_name(B, T, Fq, co),
+            max_abs_err=max(abs_errs), limit_share=max(worsts),
             differ=max(fracs), rel_err=max(errs),
             ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd(*args, pool=pool, keep_prob=0.5)),
             plain_ms=time_ms(lambda: fused_cnn.glu_drop_pool_bwd_plain(
@@ -920,24 +932,30 @@ def check_bwd_kernels_bf16(geoms, gen, report, rows32):
                                                            retain_graph=True)),
             bound=bound_ms(n_bytes, flops + 4 * M * co, PEAK_BF16_FLOPS)))
         del out, x_nchw, x, y, dy, got, want, again
+        require(glu_bwd_kernel_name(B, T, Fq, co) == "glu_bwd_frag_kernel",
+                f"block {i}: the bf16 GLU backward does not take glu_bwd_frag_kernel")
         rows["glu_drop_pool_bwd.bf16"].append(check_glu(T, Fq, co, pool))
         for name, n32 in (("conv_bn_stats_bwd.bf16", "conv_bn_stats_bwd"),
                           ("glu_drop_pool_bwd.bf16", "glu_drop_pool_bwd")):
             r = rows[name][-1]
             lib = (f", cuDNN conv backward bf16 {r['library_ms']:.3f} ms"
                    if r["library_ms"] else "")
-            print(f"{name}  block {i}: {r['ms']:.3f} ms (fp32 {rows32[n32][i]['ms']:.3f}), "
-                  f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} "
-                  f"ms{lib}", flush=True)
+            kern = f" [{r['kernel']}]" if "kernel" in r else ""
+            print(f"{name}  block {i}{kern}: {r['ms']:.3f} ms (fp32 "
+                  f"{rows32[n32][i]['ms']:.3f}), bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), "
+                  f"plain {r['plain_ms']:.3f} ms{lib}", flush=True)
     r3 = rows["conv_bn_stats_bwd.bf16"]
     print(f"conv_bn_stats_bwd.bf16  sum of {len(r3)} blocks: {sum(r['ms'] for r in r3):.3f} ms, "
           f"cuDNN conv backward bf16 {sum(r['library_ms'] for r in r3):.3f} ms (this call), "
           f"bound {sum(r['bound'][0] for r in r3):.3f} ms", flush=True)
     T, Fq, _, co, pool = WIDE_GEOM
-    require(fused_cnn.glu_bwd_plan(B, T, Fq, co).passes > 1,
+    require(glu_bwd_kernel_name(B, T, Fq, co) == "glu_bwd_kernel (wide)",
             "the 256-channel block does not take the wide kernel")
     wide = check_glu(T, Fq, co, pool)
-    print(f"glu_drop_pool_bwd.bf16 at the {co}-channel block (B={B}, wide kernel): "
+    r4 = rows["glu_drop_pool_bwd.bf16"]
+    print(f"glu_drop_pool_bwd.bf16  sum of {len(r4)} blocks: {sum(r['ms'] for r in r4):.3f} ms, "
+          f"bound {sum(r['bound'][0] for r in r4):.3f} ms", flush=True)
+    print(f"glu_drop_pool_bwd.bf16 at the {co}-channel block (B={B}, {wide['kernel']}): "
           f"{wide['ms']:.3f} ms, bound {wide['bound'][0]:.3f} ms ({wide['bound'][1]}), "
           f"plain {wide['plain_ms']:.3f} ms", flush=True)
     report["bf16_bwd_kernel_rows"] = rows

@@ -141,12 +141,24 @@
 //   a product of bf16 values: ~35 GFLOP at the fp32 peak (~0.53 ms) + ~18 at
 //   the bf16 peak, against ~0.9 GB of bf16 y, dy, g and the bits (~0.28
 //   ms): operations.
-//   Design: the fp32 kernel's CUDA-core register tiles on bf16 loads and
-//   stores (`glu_bwd_kernel` with TY = bf16): BN(y) as a multiply, then an
-//   add, its bf16 rounding the operand of lin and of dWg (:312, :347), the
-//   sigmoid of the unrounded value; dy rounded to bf16 (:354); dwg and dbg
-//   rounded once in the final pass (:666-667). Splitting dlin into bf16
-//   terms for the tensor cores is left to a later change.
+//   Design: Co = 16, 32, 64, 128 (every 2024 block): `glu_bwd_frag_kernel`
+//   runs lin, the one product of bf16 values, on mma.sync and keeps the
+//   fp32 kernel's phases C, D, E1 and E2 on the CUDA cores. A tile's raw y
+//   and bits come by 16-byte cp.async into one of two stages, the next
+//   tile's copies in flight behind the whole current tile; each warp
+//   ldmatrix'es the A fragment of its m16 rows, forms BN(y) on it (a
+//   multiply, then an add; its bf16 rounding the operand of lin and of
+//   dWg, :312, :347), keeps the unrounded values of its own k16 steps as
+//   the gates of its accumulators (the sigmoid's argument, :314), takes B
+//   fragments by ldmatrix from Wg^T in bf16 (which D reads too), and
+//   stores bf16(BN(y)), dlin and gu lin s (1 - s) from the accumulators'
+//   layout into the [c][p] buffers the CUDA-core phases read; D reads y
+//   from the stage. Other widths, and Co > 128: the fp32 kernel's
+//   CUDA-core register tiles on bf16 loads and stores (`glu_bwd_kernel`
+//   with TY = bf16). Both: the sigmoid as the fp32 kernel takes it; dy
+//   rounded to bf16 (:354); dwg and dbg rounded once in the final pass
+//   (:666-667). Splitting dlin into bf16 terms for the tensor cores is
+//   left to a later change.
 //
 // The backward passes (the training step's kernels; their bf16 modes above):
 //   conv_bn_stats_bwd <- _conv_stats_bwd_kernel (pallas_cnn.py:186, :443)
@@ -1295,6 +1307,22 @@ struct FastDiv {
   }
 };
 
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 (Granlund and Montgomery's
+// round-up multiplier): with s = ceil(log2 d) and M = 2^32 + m =
+// ceil(2^(32 + s) / d), n / d = (n M / 2^32) >> s, where n M / 2^32 = n +
+// umulhi(m, n) stays below 2^32
+struct FastDiv32 {
+  unsigned m;
+  int s;
+  __device__ explicit FastDiv32(int d) : s(0) {
+    while ((1ll << s) < d) ++s;
+    m = (unsigned)(((1ull << 32) * ((1ull << s) - (unsigned long long)d)) / (unsigned long long)d + 1);
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return (int)((__umulhi(m, (unsigned)n) + (unsigned)n) >> s);
+  }
+};
+
 constexpr int DWT_STAGES = 3;
 constexpr int DWT_MAX_ROWS = 512;
 
@@ -1752,20 +1780,6 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int BN, int VEC>
-cudaError_t launch_dx(const float* dye, const float* wt, float* dx, int B, int T, int F,
-                      int Co, int Ci, int TT, int FF, int smem, cudaStream_t s) {
-  auto kernel = BN >= 64 && FF % 8 == 0 ? conv3x3_kernel<BN, VEC, true, false>
-                                         : conv3x3_kernel<BN, VEC, false, false>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
-  dim3 grid((unsigned)tiles, (unsigned)((Ci + BN - 1) / BN));
-  kernel<<<grid, 256, smem, s>>>(dye, wt, dx, nullptr, nullptr, nullptr, B, T, F, Co, Ci, TT,
-                                 FF);
-  return cudaGetLastError();
-}
-
 // The shared-memory attribute of a kernel, set once per kernel and size:
 // `done` is the kernel's own static, the largest size set so far.
 template <typename Kernel>
@@ -1774,6 +1788,21 @@ cudaError_t ensure_smem(Kernel kernel, int bytes, int& done) {
   const cudaError_t err = set_smem(kernel, bytes);
   if (err == cudaSuccess) done = bytes;
   return err;
+}
+
+template <int BN, int VEC>
+cudaError_t launch_dx(const float* dye, const float* wt, float* dx, int B, int T, int F,
+                      int Co, int Ci, int TT, int FF, int smem, cudaStream_t s) {
+  static int smem_set[2] = {0, 0};  // the two kernels' attributes, set once per size
+  const bool seg = BN >= 64 && FF % 8 == 0;
+  auto kernel = seg ? conv3x3_kernel<BN, VEC, true, false> : conv3x3_kernel<BN, VEC, false, false>;
+  cudaError_t err = ensure_smem(kernel, smem, smem_set[seg]);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * ((T + TT - 1) / TT) * ((F + FF - 1) / FF);
+  dim3 grid((unsigned)tiles, (unsigned)((Ci + BN - 1) / BN));
+  kernel<<<grid, 256, smem, s>>>(dye, wt, dx, nullptr, nullptr, nullptr, B, T, F, Co, Ci, TT,
+                                 FF);
+  return cudaGetLastError();
 }
 
 // conv_bn_stats' conv: conv3x3_kernel with the STATS epilogue
@@ -1899,29 +1928,58 @@ cudaError_t launch_dw_any(int BKO, int BNO, const TX* x, const TX* dye, float* p
 // dlin stays fp32 in both of its products (:341-350 are fp32 x bf16
 // dots, the fp32 operand kept), so they stay on the CUDA cores; dy is
 // rounded to bf16 (:354), the lane sums and dWg stay fp32 partials.
+// glu_bwd_frag_kernel<NI> (bf16, Co = 8 NI = 16 .. 128; glu_bwd_plan's
+// frag): A and B from two cp.async stages of the raw y and bits of a tile
+// on mma.sync (the body's FRAG branch), then C, D, E1 and E2 as above, D
+// reading Wg^T in bf16 and y from the stage. smem: Wg^T [Co][Co + 8] bf16
+// | yt | dt | t2 [Co][P + 4] | y stages [2][P][Co + 8] bf16 | bits stages
+// [2][P][Co + 16] | lanes [3][F*Co] (ops/fused_cnn.py glu_bwd_frag_smem).
 // ---------------------------------------------------------------------------
 
 constexpr int GLU_THREADS = 512;
 
-template <int CT, bool WIDE, typename TY>
-__global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
-    const TY* __restrict__ y, const float* __restrict__ scale_f,
-    const float* __restrict__ bias_f, const TY* __restrict__ wg,
-    const TY* __restrict__ wgt, const TY* __restrict__ bg,
-    const uint8_t* __restrict__ bits, const TY* __restrict__ g, TY* __restrict__ dy,
-    float* __restrict__ part_l, float* __restrict__ part_w, int B, int T, int F, int Co,
-    int pt, int pf, int keep_thresh, float inv_keep, int CP, int P, int PG, int n_tiles,
-    int tiles_per_block, int KS, int lanes_smem, int passes) {
+// BN(y) of the two bf16 values of u with (s_k, s_k+1, b_k, b_k+1): the fp32
+// values into lo, hi, their bf16 rounding back into u
+__device__ __forceinline__ void bn_pair(uint32_t& u, float4 sb, float& lo, float& hi) {
+  lo = __fadd_rn(__fmul_rn(bf_lo(u), sb.x), sb.z);
+  hi = __fadd_rn(__fmul_rn(bf_hi(u), sb.y), sb.w);
+  u = bf_pack(lo, hi);
+}
+
+#define GLU_BWD_PARAMS(TY)                                                                    \
+  const TY *__restrict__ y, const float *__restrict__ scale_f,                                \
+      const float *__restrict__ bias_f, const TY *__restrict__ wg,                            \
+      const TY *__restrict__ wgt, const TY *__restrict__ bg, const uint8_t *__restrict__ bits, \
+      const TY *__restrict__ g, TY *__restrict__ dy, float *__restrict__ part_l,              \
+      float *__restrict__ part_w, int B, int T, int F, int Co, int pt, int pf,                \
+      int keep_thresh, float inv_keep, int CP, int P, int PG, int n_tiles,                    \
+      int tiles_per_block, int KS, int lanes_smem, int passes
+#define GLU_BWD_ARGS                                                                          \
+  y, scale_f, bias_f, wg, wgt, bg, bits, g, dy, part_l, part_w, B, T, F, Co, pt, pf,          \
+      keep_thresh, inv_keep, CP, P, PG, n_tiles, tiles_per_block, KS, lanes_smem, passes
+
+// The body of glu_bwd_kernel (NI = 0) and of glu_bwd_frag_kernel (NI > 0,
+// bf16, Co = 8 NI: phases A and B on the tensor cores, see below).
+template <int CT, bool WIDE, typename TY, int NI>
+__device__ __forceinline__ void glu_bwd_body(GLU_BWD_PARAMS(TY)) {
   constexpr bool BF = std::is_same<TY, bf16>::value;
+  constexpr bool FRAG = NI > 0;
+  // FRAG: the bf16 rows of Wg^T and of the y stage, and the byte rows of the bits stage
+  constexpr int YP = 8 * NI + 8, BP = 8 * NI + 16;
   extern __shared__ __align__(16) float smem[];
   const int L = F * Co;
   const int PS = P + 4;
   float* wg_s = smem;                          // [k][c] (WIDE: the slice [KS][CP])
   float* wgT_s = WIDE ? smem : wg_s + Co * CP;  // [c][k]
-  float* yt = WIDE ? smem + KS * CP : wgT_s + Co * CP;  // [c][p]: BN(y), then dybn
+  bf16* const wgTb = reinterpret_cast<bf16*>(smem);  // FRAG: Wg^T [Co][YP] bf16
+  float* yt = WIDE ? smem + KS * CP : FRAG ? reinterpret_cast<float*>(wgTb + Co * YP)
+                                           : wgT_s + Co * CP;  // [c][p]: BN(y), then dybn
   float* dt = yt + CP * PS;                    // [c][p]: dlin
-  float* lane_s = lanes_smem ? dt + CP * PS    // [3][L]
-                             : part_l + (long long)blockIdx.x * 3 * L;
+  float* t2s = dt + CP * PS;                   // FRAG: [c][p] gu lin s (1 - s)
+  bf16* const ystage = reinterpret_cast<bf16*>(t2s + CP * PS);  // FRAG: [2][P][YP] raw y
+  uint8_t* const bstage = reinterpret_cast<uint8_t*>(ystage + 2 * P * YP);  // FRAG: [2][P][BP]
+  float* lane_s = lanes_smem ? (FRAG ? reinterpret_cast<float*>(bstage + 2 * P * BP) : dt + CP * PS)
+                             : part_l + (long long)blockIdx.x * 3 * L;  // [3][L]
   const int tid = threadIdx.x;
   const int CG = CP / 4;
   const bool prod = tid < CG * (P / 4);
@@ -1941,7 +1999,33 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
   const float inv_w = 1.f / (float)(pt * pf);
   const int nl = min(P, F) * Co;  // the lanes a tile touches: its first min(P, F) frequencies
 
-  if constexpr (!WIDE) {
+  // FRAG: the rows of tile `tile`, y and (where given) the bits, into stage
+  // `sb` (zeros past the last row), 16-byte copies, one commit group
+  auto stage_tile = [&](int tile, int sb) {
+    const int m0 = tile * P;
+    bf16* const ys = ystage + sb * P * YP;
+    for (int q = tid; q < P * NI; q += GLU_THREADS) {
+      const int r = q / NI, c = (q - r * NI) * 8;
+      const bool ok = m0 + r < Ptot;
+      cp_async16(ys + r * YP + c, y + (long long)(ok ? m0 + r : 0) * Co + c, ok);
+    }
+    if (bits != nullptr) {
+      uint8_t* const bs = bstage + sb * P * BP;
+      constexpr int NB = NI > 1 ? NI / 2 : 1;  // 16-byte chunks of a row of bits
+      for (int q = tid; q < P * NB; q += GLU_THREADS) {
+        const int r = q / NB, c = (q - r * NB) * 16;
+        const bool ok = m0 + r < Ptot;
+        cp_async16(bs + r * BP + c, bits + (long long)(ok ? m0 + r : 0) * Co + c, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  if constexpr (FRAG) {  // Wg^T [n][k] in bf16: mma.sync's B fragments and D's rows
+    for (int i = tid; i < Co * Co; i += GLU_THREADS) {
+      const int r = i / Co;
+      wgTb[r * YP + i - r * Co] = wg[(i - r * Co) * Co + r];
+    }
+  } else if constexpr (!WIDE) {
     for (int i = tid; i < Co * CP; i += GLU_THREADS) {
       const int r = i / CP;
       const int c = i - r * CP;
@@ -1959,13 +2043,15 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
                       : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
-  // acc[i][j] += a[p + i][k] w[k][c + j] over the depth rows [k0, k0 + kn)
-  auto product = [&](float (&acc)[4][4], const float* __restrict__ a, const float* __restrict__ w,
+  // acc[i][j] += a[p + i][k] w[k][c + j] over the depth rows [k0, k0 + kn);
+  // w fp32 with rows of CP, or (FRAG) bf16 with rows of YP
+  auto product = [&](float (&acc)[4][4], const float* __restrict__ a, const auto* w,
                      int k0, int kn) {
+    const int wp = std::is_same<decltype(w), const bf16*>::value ? YP : CP;
 #pragma unroll 4
     for (int k = 0; k < kn; ++k) {
       const float4 av4 = *reinterpret_cast<const float4*>(a + (k0 + k) * PS + pg * 4);
-      const float4 wv4 = *reinterpret_cast<const float4*>(w + k * CP + cg * 4);
+      const float4 wv4 = lds4(w + k * wp + cg * 4);
       const float av[4] = {av4.x, av4.y, av4.z, av4.w}, wv[4] = {wv4.x, wv4.y, wv4.z, wv4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -1983,87 +2069,208 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
   const bool has_g = To > 0 && Fo > 0;  // else g is empty and every gradient is 0
   const int tile0 = blockIdx.x * tiles_per_block;
   const int tile1 = min(n_tiles, tile0 + tiles_per_block);
+  // FRAG: a position's (b, t, f) and pooled indices without 32-bit divisions
+  const FastDiv32 div_f(FRAG ? F : 1), div_t(FRAG ? T : 1), div_pt(FRAG ? pt : 1),
+      div_pf(FRAG ? pf : 1);
+  if constexpr (FRAG) {
+    if (tile0 < tile1) stage_tile(tile0, 0);
+  }
   for (int tile = tile0; tile < tile1; ++tile) {
     const int m0 = tile * P;
     const int f_first = m0 % F;
     float gu[4][4], t2[4][4];
-    __syncthreads();  // weights staged / the previous tile's lane pass done
-    if (prod) {  // A: the loads from device memory issued before the first use
-      float4 yq[4], gq[4];
-      uint32_t kb[4];
-      int fl[4];
-      bool ok[4], pooled[4];
-      int m = m0 + pg * 4;  // the position, and its (b, t, f), stepped along
-      int f = m % F, t = (m / F) % T, b = m / F / T;
+    const int sb = (tile - tile0) & 1;  // FRAG: this tile's stage
+    if constexpr (FRAG) {
+      // A + B on the tensor cores. Unit u of the tile (warp w takes u = w,
+      // w + 16): m16 tile mt = u / NG (rows 16 mt .., positions m0 + ..) at
+      // WN n8 tiles from channel n0. Its lane (gq, tq) holds rows gq and
+      // gq + 8 and, per n8 tile, channels 2 tq and 2 tq + 1. Per k16 step the
+      // unit ldmatrix'es the A fragment of its rows from the stage, forms
+      // BN(y) per element (a multiply, then an add; rounded into A,
+      // pallas_cnn.py:312), keeps the fp32 values of its own k16 steps (n0 /
+      // 16 ..) as the gates of its accumulators (:314) and runs mma.sync
+      // against B fragments ldmatrix'ed from Wg^T; lin = A Wg + bg. Then per
+      // accumulator: gu from pooled g, dropout from the staged bits, dlin =
+      // gu s and gu lin s (1 - s), stored with bf16(BN(y)) into yt, dt and
+      // t2s in [c][p] (0 past the last row). Two units a warp (Co = 16):
+      // their loads of g are issued before the barrier that waits for the
+      // stage.
+      constexpr int WN = NI < 4 ? NI : 4, NG = NI / WN, MU = NI == 2 ? 2 : 1, KT = NI / 2;
+      const int lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+      const int units = P / 16 * NG;
+      bool ok[MU][2], pooled[MU][2];
+      int fr[MU][2];
+      uint32_t gw[MU][2][WN];  // g as bf16 pairs
+      auto load_g = [&]() {
 #pragma unroll
-      for (int i = 0; i < 4; ++i, ++m) {
-        if (i > 0 && ++f == F) {
-          f = 0;
-          if (++t == T) {
-            t = 0;
-            ++b;
+        for (int uu = 0; uu < MU; ++uu) {
+          const int u = warp + uu * (GLU_THREADS / 32);
+          const int mt = u / NG, n0 = (u - mt * NG) * WN * 8;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows gq + 8 h: (b, t, f)
+            const int m = m0 + 16 * mt + gq + 8 * h;
+            ok[uu][h] = u < units && m < Ptot;
+            const int mm = ok[uu][h] ? m : 0;
+            const int q = div_f(mm), f = mm - q * F, b = div_t(q), t = q - b * T;
+            pooled[uu][h] = ok[uu][h] && t < To * pt && f < Fo * pf;
+            fr[uu][h] = f * Co;
+            const long long gi =
+                pooled[uu][h] ? ((long long)(b * To + div_pt(t)) * Fo + div_pf(f)) * Co : 0;
+#pragma unroll
+            for (int ni = 0; ni < WN; ++ni)
+              gw[uu][h][ni] = pooled[uu][h]
+                  ? __ldg(reinterpret_cast<const uint32_t*>(g + gi + n0 + ni * 8 + 2 * tq)) : 0u;
           }
         }
-        ok[i] = m < Ptot;
-        const int mm = ok[i] ? m : 0;
-        pooled[i] = ok[i] && t < To * pt && f < Fo * pf;
-        const long long gi = pooled[i] ? ((long long)(b * To + t / pt) * Fo + f / pf) * Co : 0;
-        fl[i] = f * Co;
-        yq[i] = ld4(y + (long long)mm * Co, cg * 4, Co);
-        gq[i] = has_g ? ld4(g + gi, cg * 4, Co) : make_float4(0.f, 0.f, 0.f, 0.f);
-        kb[i] = bits != nullptr ? ld_bytes4(bits + (long long)mm * Co, cg * 4, Co) : 0u;
-      }
+      };
+      if constexpr (MU > 1) load_g();  // two units a warp: both units' loads in flight
+      cp_async_wait<0>();
+      __syncthreads();  // the tile's stage landed; the previous tile's lane pass and D done
+      if (tile + 1 < tile1) stage_tile(tile + 1, sb ^ 1);  // the stage tile - 1 read
+      if constexpr (MU == 1) load_g();
+      const unsigned ys_s = (unsigned)__cvta_generic_to_shared(ystage + sb * P * YP);
+      const unsigned wb_s = (unsigned)__cvta_generic_to_shared(wgTb);
+      const uint8_t* const bst = bstage + sb * P * BP;
+      // ldmatrix rows: A, row lane & 15 of the m16 tile at k chunk lane >> 4;
+      // B, row (lane >> 4) 8 + (lane & 7) of Wg^T (channel n) at k chunk (lane >> 3) & 1
+      const int a_off = (lane & 15) * YP + (lane >> 4) * 8;
+      const int b_off = ((lane >> 4) * 8 + (lane & 7)) * YP + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 sc = ld4(scale_f + fl[i], cg * 4, Co);  // small, cached
-        const float4 bi = ld4(bias_f + fl[i], cg * 4, Co);
-        const float yv[4] = {yq[i].x, yq[i].y, yq[i].z, yq[i].w};
-        const float sv[4] = {sc.x, sc.y, sc.z, sc.w};
-        const float bv[4] = {bi.x, bi.y, bi.z, bi.w};
-        const float gv[4] = {gq[i].x, gq[i].y, gq[i].z, gq[i].w};
+      for (int uu = 0; uu < MU; ++uu) {
+        const int u = warp + uu * (GLU_THREADS / 32);
+        if (u >= units) continue;
+        const int mt = u / NG, n0 = (u - mt * NG) * WN * 8;
+        float acc[WN][4], gv[WN / 2][8];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {  // padded channels load zeros: v = 0, gu = 0
-          float gj = pooled[i] ? gv[j] * inv_w : 0.f;
-          if (bits != nullptr) gj = (int)((kb[i] >> (8 * j)) & 255u) < keep_thresh ? gj * inv_keep : 0.f;
-          const int e = (cg * 4 + j) * PS + pg * 4 + i;
-          if constexpr (BF) {
-            const float v = ok[i] ? __fadd_rn(__fmul_rn(yv[j], sv[j]), bv[j]) : 0.f;
-            yt[e] = rnd<bf16>(v);
-            dt[e] = v;
-          } else {
-            yt[e] = ok[i] ? fmaf(yv[j], sv[j], bv[j]) : 0.f;
+        for (int ni = 0; ni < WN; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KT; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(ys_s + 2u * (unsigned)(16 * mt * YP + ks * 16 + a_off), a[0], a[1], a[2], a[3]);
+          float v[8];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {  // register r: row gq + 8 (r & 1), channels + 8 (r >> 1)
+            const int l = fr[uu][r & 1] + ks * 16 + 8 * (r >> 1) + 2 * tq;
+            const float2 sc = __ldg(reinterpret_cast<const float2*>(scale_f + l));
+            const float2 bi = __ldg(reinterpret_cast<const float2*>(bias_f + l));
+            bn_pair(a[r], make_float4(sc.x, sc.y, bi.x, bi.y), v[2 * r], v[2 * r + 1]);
           }
-          gu[i][j] = gj;
+          if (ks / (WN / 2) == n0 / (8 * WN)) {  // the unit's own k16 steps: the gates
+#pragma unroll
+            for (int e = 0; e < 8; ++e) gv[ks % (WN / 2)][e] = v[e];
+          }
+#pragma unroll
+          for (int ni = 0; ni < WN; ni += 2) {
+            uint32_t b0, b1, b2, b3;
+            ldsm_x4(wb_s + 2u * (unsigned)((n0 + ni * 8) * YP + ks * 16 + b_off), b0, b1, b2, b3);
+            mma_bf16(acc[ni], a, b0, b1);
+            mma_bf16(acc[ni + 1], a, b2, b3);
+          }
+        }
+        // accumulator e of n8 tile ni: row gq + 8 (e >> 1), channel n0 + ni * 8
+        // + 2 tq + (e & 1); its gate is gv[ni / 2][4 (ni % 2) + e]
+#pragma unroll
+        for (int ni = 0; ni < WN; ++ni) {
+          const int c = n0 + ni * 8 + 2 * tq;
+          const float bg0 = to_f(bg[c]), bg1 = to_f(bg[c + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, p = 16 * mt + gq + 8 * h;
+            const float gate = gv[ni >> 1][4 * (ni & 1) + e];
+            const float s = sigmoidf(gate);
+            const float lin = acc[ni][e] + ((e & 1) ? bg1 : bg0);
+            const uint32_t gp = gw[uu][h][ni];
+            float gj = pooled[uu][h] ? ((e & 1) ? bf_hi(gp) : bf_lo(gp)) * inv_w : 0.f;
+            if (bits != nullptr)
+              gj = (int)bst[p * BP + c + (e & 1)] < keep_thresh ? gj * inv_keep : 0.f;
+            const int i = (c + (e & 1)) * PS + p;
+            yt[i] = ok[uu][h] ? rnd<bf16>(gate) : 0.f;
+            dt[i] = gj * s;
+            t2s[i] = gj * lin * s * (1.f - s);
+          }
         }
       }
-    }
-    __syncthreads();
-    float acc[4][4];
+    } else {
+      __syncthreads();  // weights staged / the previous tile's lane pass done
+      if (prod) {  // A: the loads from device memory issued before the first use
+        float4 yq[4], gq[4];
+        uint32_t kb[4];
+        int fl[4];
+        bool ok[4], pooled[4];
+        int m = m0 + pg * 4;  // the position, and its (b, t, f), stepped along
+        int f = m % F, t = (m / F) % T, b = m / F / T;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    if constexpr (WIDE) {  // B over slices of Wg
-      for (int k0 = 0; k0 < Co; k0 += KS) {
-        __syncthreads();  // the previous slice read
-        stage_rows(wg, k0);
-        __syncthreads();
-        if (prod) product(acc, yt, wg_s, k0, min(KS, Co - k0));
-      }
-    } else if (prod) {
-      product(acc, yt, wg_s, 0, Co);
-    }
-    if (prod) {  // B's epilogue
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cg * 4 + j;
-        const float bgc = c < Co ? to_f(bg[c]) : 0.f;
+        for (int i = 0; i < 4; ++i, ++m) {
+          if (i > 0 && ++f == F) {
+            f = 0;
+            if (++t == T) {
+              t = 0;
+              ++b;
+            }
+          }
+          ok[i] = m < Ptot;
+          const int mm = ok[i] ? m : 0;
+          pooled[i] = ok[i] && t < To * pt && f < Fo * pf;
+          const long long gi = pooled[i] ? ((long long)(b * To + t / pt) * Fo + f / pf) * Co : 0;
+          fl[i] = f * Co;
+          yq[i] = ld4(y + (long long)mm * Co, cg * 4, Co);
+          gq[i] = has_g ? ld4(g + gi, cg * 4, Co) : make_float4(0.f, 0.f, 0.f, 0.f);
+          kb[i] = bits != nullptr ? ld_bytes4(bits + (long long)mm * Co, cg * 4, Co) : 0u;
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float s = sigmoidf(BF ? dt[c * PS + pg * 4 + i] : yt[c * PS + pg * 4 + i]);
-          const float lin = acc[i][j] + bgc;
-          dt[c * PS + pg * 4 + i] = gu[i][j] * s;
-          t2[i][j] = gu[i][j] * lin * s * (1.f - s);
+          const float4 sc = ld4(scale_f + fl[i], cg * 4, Co);  // small, cached
+          const float4 bi = ld4(bias_f + fl[i], cg * 4, Co);
+          const float yv[4] = {yq[i].x, yq[i].y, yq[i].z, yq[i].w};
+          const float sv[4] = {sc.x, sc.y, sc.z, sc.w};
+          const float bv[4] = {bi.x, bi.y, bi.z, bi.w};
+          const float gv[4] = {gq[i].x, gq[i].y, gq[i].z, gq[i].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // padded channels load zeros: v = 0, gu = 0
+            float gj = pooled[i] ? gv[j] * inv_w : 0.f;
+            if (bits != nullptr) gj = (int)((kb[i] >> (8 * j)) & 255u) < keep_thresh ? gj * inv_keep : 0.f;
+            const int e = (cg * 4 + j) * PS + pg * 4 + i;
+            if constexpr (BF) {
+              const float v = ok[i] ? __fadd_rn(__fmul_rn(yv[j], sv[j]), bv[j]) : 0.f;
+              yt[e] = rnd<bf16>(v);
+              dt[e] = v;
+            } else {
+              yt[e] = ok[i] ? fmaf(yv[j], sv[j], bv[j]) : 0.f;
+            }
+            gu[i][j] = gj;
+          }
+        }
+      }
+      __syncthreads();
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      if constexpr (WIDE) {  // B over slices of Wg
+        for (int k0 = 0; k0 < Co; k0 += KS) {
+          __syncthreads();  // the previous slice read
+          stage_rows(wg, k0);
+          __syncthreads();
+          if (prod) product(acc, yt, wg_s, k0, min(KS, Co - k0));
+        }
+      } else if (prod) {
+        product(acc, yt, wg_s, 0, Co);
+      }
+      if (prod) {  // B's epilogue
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = cg * 4 + j;
+          const float bgc = c < Co ? to_f(bg[c]) : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float s = sigmoidf(BF ? dt[c * PS + pg * 4 + i] : yt[c * PS + pg * 4 + i]);
+            const float lin = acc[i][j] + bgc;
+            dt[c * PS + pg * 4 + i] = gu[i][j] * s;
+            t2[i][j] = gu[i][j] * lin * s * (1.f - s);
+          }
         }
       }
     }
@@ -2150,16 +2357,23 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
         __syncthreads();
         if (prod) product(acc2, dt, wgT_s, c0, min(KS, Co - c0));
       }
+    } else if constexpr (FRAG) {
+      if (prod) product(acc2, dt, static_cast<const bf16*>(wgTb), 0, Co);
     } else if (prod) {
       product(acc2, dt, wgT_s, 0, Co);
     }
     if (prod) {  // D
-      // y again (from L2), for the lane sums of dybn * y; loaded after the
-      // product, whose registers it would otherwise crowd into spills
+      // y again (FRAG: from the stage; else from L2), for the lane sums of
+      // dybn * y; loaded after the product, whose registers it would
+      // otherwise crowd into spills
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int m = m0 + pg * 4 + i;
-        yq[i] = ld4(y + (long long)(m < Ptot ? m : 0) * Co, cg * 4, Co);
+        if constexpr (FRAG) {
+          yq[i] = lds4(ystage + (sb * P + pg * 4 + i) * YP + cg * 4);
+        } else {
+          const int m = m0 + pg * 4 + i;
+          yq[i] = ld4(y + (long long)(m < Ptot ? m : 0) * Co, cg * 4, Co);
+        }
       }
     }
     __syncthreads();  // yt and dt are read no more
@@ -2170,12 +2384,22 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
         const int m = m0 + p;
         const int f = m % F;
         const float yv[4] = {yq[i].x, yq[i].y, yq[i].z, yq[i].w};
-        float o[4];
+        float o[4], sv[4];
+        if constexpr (FRAG) {  // Co % 16 == 0: the scale of 4 channels in one load
+          const float4 sc = ld4(scale_f + f * Co, cg * 4, Co);
+          sv[0] = sc.x, sv[1] = sc.y, sv[2] = sc.z, sv[3] = sc.w;
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int k = cg * 4 + j;
-          const float dybn = acc2[i][j] + t2[i][j];
-          o[j] = dybn * (k < Co ? scale_f[f * Co + k] : 0.f);
+          float dybn;
+          if constexpr (FRAG) {
+            dybn = acc2[i][j] + t2s[k * PS + p];
+            o[j] = dybn * sv[j];
+          } else {
+            dybn = acc2[i][j] + t2[i][j];
+            o[j] = dybn * (k < Co ? scale_f[f * Co + k] : 0.f);
+          }
           yt[k * PS + p] = dybn;
           dt[k * PS + p] = dybn * yv[j];
         }
@@ -2222,6 +2446,18 @@ __global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(
     for (int q = 0; q < PG; ++q) a += yt[q * CC + e];
     part_w[(long long)blockIdx.x * CC + e] = a;
   }
+}
+
+template <int CT, bool WIDE, typename TY>
+__global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_kernel(GLU_BWD_PARAMS(TY)) {
+  glu_bwd_body<CT, WIDE, TY, 0>(GLU_BWD_ARGS);
+}
+
+// bf16, Co = 8 NI (16, 32, 64 or 128): phases A and B from the staged y on
+// mma.sync, then C, D, E1 and E2 as glu_bwd_kernel runs them
+template <int NI>
+__global__ void __launch_bounds__(GLU_THREADS, 1) glu_bwd_frag_kernel(GLU_BWD_PARAMS(bf16)) {
+  glu_bwd_body<NI == 16 ? 8 : 4, false, bf16, NI>(GLU_BWD_ARGS);
 }
 
 // Lane sums of the blocks' partials, in block order; the dlin lane sums are
@@ -2816,14 +3052,6 @@ cudaError_t launch_glu_fwd_ring(const bf16* y, const float* scale_f, const float
 // ---------------------------------------------------------------------------
 constexpr int GLU_FRAG_THREADS = 256;
 
-// BN(y) of the two bf16 values of u with (s_k, s_k+1, b_k, b_k+1): the fp32
-// values into lo, hi, their bf16 rounding back into u
-__device__ __forceinline__ void bn_pair(uint32_t& u, float4 sb, float& lo, float& hi) {
-  lo = __fadd_rn(__fmul_rn(bf_lo(u), sb.x), sb.z);
-  hi = __fadd_rn(__fmul_rn(bf_hi(u), sb.y), sb.w);
-  u = bf_pack(lo, hi);
-}
-
 // blocks an SM that the registers allow (ops/fused_cnn.py GLU_FRAG_PER_SM)
 constexpr int glu_frag_per_sm(int ni) { return ni == 16 ? 1 : ni == 2 ? 3 : 2; }
 
@@ -3168,16 +3396,33 @@ cudaError_t launch_glu_bwd(const TY* y, const float* scale_f, const float* bias_
                            cudaStream_t stream) {
   const int CP = plan[0], CT = plan[1], P = plan[2], PG = plan[3];
   const int n_tiles = plan[4], tpb = plan[5], n_blocks = plan[6], smem = plan[7];
-  const int ks = plan[8], lanes = plan[9], passes = plan[10];
-  auto kernel = passes > 1 ? glu_bwd_kernel<8, true, TY>
-                : CT == 8  ? glu_bwd_kernel<8, false, TY>
-                           : glu_bwd_kernel<4, false, TY>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(y, scale_f, bias_f, wg, wgt, bg, bits, g, dy,
-                                                  part_l, part_w, B, T, F, Co, pt, pf,
-                                                  keep_thresh, inv_keep, CP, P, PG, n_tiles, tpb,
-                                                  ks, lanes, passes);
+  const int KS = plan[8], lanes_smem = plan[9], passes = plan[10], frag = plan[11];
+  const int tiles_per_block = tpb;
+  // each kernel's shared-memory attribute, set once per size (ensure_smem)
+  static int smem_set[7] = {0, 0, 0, 0, 0, 0, 0};
+  cudaError_t err;
+  bool launched = false;
+  if constexpr (std::is_same<TY, bf16>::value) {
+    if (frag) {  // glu_bwd_frag_kernel<Co / 8>
+      if (Co != 16 && Co != 32 && Co != 64 && Co != 128) return cudaErrorInvalidValue;
+      auto kernel = Co == 16 ? glu_bwd_frag_kernel<2>
+                    : Co == 32 ? glu_bwd_frag_kernel<4>
+                    : Co == 64 ? glu_bwd_frag_kernel<8>
+                               : glu_bwd_frag_kernel<16>;
+      const int slot = Co == 16 ? 3 : Co == 32 ? 4 : Co == 64 ? 5 : 6;
+      if ((err = ensure_smem(kernel, smem, smem_set[slot])) != cudaSuccess) return err;
+      kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(GLU_BWD_ARGS);
+      launched = true;
+    }
+  }
+  if (!launched) {
+    auto kernel = passes > 1 ? glu_bwd_kernel<8, true, TY>
+                  : CT == 8  ? glu_bwd_kernel<8, false, TY>
+                             : glu_bwd_kernel<4, false, TY>;
+    const int slot = passes > 1 ? 0 : CT == 8 ? 1 : 2;
+    if ((err = ensure_smem(kernel, smem, smem_set[slot])) != cudaSuccess) return err;
+    kernel<<<n_blocks, GLU_THREADS, smem, stream>>>(GLU_BWD_ARGS);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int L = F * Co;
   glu_bwd_final_lanes<<<(L + 255) / 256, 256, 0, stream>>>(part_l, dscale_f, dbias_f, L,

@@ -29,6 +29,7 @@ cast once per (config, device, dtype).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -246,8 +247,33 @@ def _chunk_dft_spectrogram(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     return xw_re * xw_re + xw_im * xw_im
 
 
+@contextlib.contextmanager
+def fp32_products(device: torch.device):
+    """Full fp32 GEMMs on the CPU whatever the process-wide setting says:
+    after torch.set_float32_matmul_precision("medium") oneDNN rounds fp32
+    GEMM operands to bf16 on a CPU with AVX512-BF16 (0.16 dB of log-mel),
+    and "high" allows TF32. The front-end's products are fp32, as JAX's on
+    the CPU are; the setting is restored on exit. On the card the caller
+    keeps TF32 off (module docstring)."""
+    mm = getattr(torch.backends.mkldnn, "matmul", None)
+    prev = getattr(mm, "fp32_precision", None)
+    if device.type != "cpu" or prev in (None, "ieee"):
+        yield
+        return
+    mm.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        mm.fp32_precision = prev
+
+
 def spectrogram(audio: torch.Tensor, cfg: MelConfig, backend: str | None = None) -> torch.Tensor:
     """Magnitude (power=1) or power spectrogram: [B, N] -> [B, n_freqs, n_frames]."""
+    with fp32_products(audio.device):
+        return _spectrogram(audio, cfg, backend)
+
+
+def _spectrogram(audio: torch.Tensor, cfg: MelConfig, backend: str | None) -> torch.Tensor:
     backend = backend or cfg.backend
     squeeze = audio.dim() == 1
     if squeeze:
@@ -286,7 +312,8 @@ def mel_spectrogram(audio: torch.Tensor, cfg: MelConfig,
     mel product is fp32 in either compute dtype (frontend.py:327)."""
     spec = spectrogram(audio, cfg, backend)  # [..., n_freqs, T]
     _, fb = _constants(cfg, audio.device, torch.float32)
-    return torch.matmul(spec.transpose(-1, -2), fb).transpose(-1, -2)
+    with fp32_products(audio.device):
+        return torch.matmul(spec.transpose(-1, -2), fb).transpose(-1, -2)
 
 
 def amplitude_to_db(mel: torch.Tensor, cfg: MelConfig) -> torch.Tensor:

@@ -630,7 +630,10 @@ class GluBwdPlan:
     slices staged per product (the wide kernel, Co > 128); lanes: 1 where
     the F*Co lane sums are kept in shared memory, 0 where each block keeps
     them in its partial row in device memory; passes: the wide kernel's
-    passes over the dWg entries (1: dWg in registers)."""
+    passes over the dWg entries (1: dWg in registers); frag: 1 where the
+    bf16 mode runs glu_bwd_frag_kernel (`glu_bwd_frag_takes`: phases A and B
+    on the tensor cores, smem by `glu_bwd_frag_smem`), 0 for
+    glu_bwd_kernel."""
 
     cp: int
     ct: int
@@ -643,6 +646,7 @@ class GluBwdPlan:
     ks: int
     lanes: int
     passes: int
+    frag: int = 0
 
     def ints(self) -> list[int]:
         return [int(getattr(self, f.name)) for f in fields(self)]
@@ -671,14 +675,52 @@ def _glu_bwd_threads(Co: int) -> tuple[int, int, int, int]:
     return cp, ct, max(1, GLU_THREADS // nw), _cdiv(nw, GLU_THREADS)
 
 
+def glu_bwd_frag_takes(Co: int) -> bool:
+    """Widths of glu_bwd_frag_kernel (bf16): Co = 8 NI with NI = 2, 4, 8
+    or 16, whole k16 steps of mma.sync and no padded channel."""
+    return Co in (16, 32, 64, 128)
+
+
+def glu_bwd_frag_units(Co: int) -> tuple[int, int]:
+    """(wn, mu) of glu_bwd_frag_kernel: a warp's unit is an m16 tile at wn
+    n8 tiles (the channels of wn / 2 k16 steps), and a warp takes at most
+    mu units of a tile (csrc WN, MU)."""
+    ni = Co // 8
+    return min(ni, 4), 2 if ni == 2 else 1
+
+
+def glu_bwd_frag_smem(F: int, Co: int, p: int, lanes: int = 1) -> int:
+    """glu_bwd_frag_kernel's shared memory: Wg^T [Co][Co + 8] bf16, the
+    tile's yt, dt and t2 [Co][p + 4] fp32, two stages of y [p][Co + 8] bf16
+    and of the bits [p][Co + 16] uint8, and the lane sums where they are kept
+    in shared memory (lanes 1)."""
+    return (2 * Co * (Co + 8) + 12 * Co * (p + 4) + 2 * (2 * p * (Co + 8) + p * (Co + 16))
+            + (12 * F * Co if lanes else 0))
+
+
+def _glu_bwd_frag_plan(plan: GluBwdPlan, B: int, T: int, F: int, Co: int) -> GluBwdPlan:
+    """The fp32 plan's threads at the frag kernel's tile of p = 16 x 16 mu
+    wn / NI positions (every warp mu units; the fp32 plan's tile at these
+    widths), the lane sums in shared memory where they fit beside it, else
+    in device memory."""
+    wn, mu = glu_bwd_frag_units(Co)
+    p = 16 * GLU_THREADS // 32 * mu * wn // (Co // 8)
+    lanes = int(glu_bwd_frag_smem(F, Co, p) <= SMEM_LIMIT)
+    n_tiles = max(1, _cdiv(B * T * F, p))
+    tpb = _cdiv(n_tiles, min(SM_COUNT, n_tiles))
+    return GluBwdPlan(plan.cp, plan.ct, p, plan.pg, n_tiles, tpb, _cdiv(n_tiles, tpb),
+                      glu_bwd_frag_smem(F, Co, p, lanes), 0, lanes, 1, 1)
+
+
 @functools.lru_cache(maxsize=None)
-def glu_bwd_plan(B: int, T: int, F: int, Co: int) -> GluBwdPlan:
+def glu_bwd_plan(B: int, T: int, F: int, Co: int, bf16: bool = False) -> GluBwdPlan:
     """Up to Co = 128 (one dWg tile a thread at most): Wg and Wg^T staged
     once, the lane sums in shared memory at the largest tile that fits them,
     else in device memory at the full tile. Wider: Wg and Wg^T in slices of
     as many rows as fit beside the tile (and the lane sums, where they fit),
-    dWg in passes through the block's partial in device memory. Computed
-    once per shape."""
+    dWg in passes through the block's partial in device memory. bf16 at
+    the widths of `glu_bwd_frag_takes`: glu_bwd_frag_kernel's plan.
+    Computed once per shape."""
     if Co < 1:
         raise ValueError(f"glu_drop_pool_bwd: Co={Co}")
     cp, ct, pg, passes = _glu_bwd_threads(Co)
@@ -706,8 +748,9 @@ def glu_bwd_plan(B: int, T: int, F: int, Co: int) -> GluBwdPlan:
         raise ValueError(f"glu_drop_pool_bwd: F={F}, Co={Co}: one tile does not fit")
     n_tiles = max(1, _cdiv(B * T * F, p))
     tpb = _cdiv(n_tiles, min(SM_COUNT, n_tiles))
-    return GluBwdPlan(cp, ct, p, pg, n_tiles, tpb, _cdiv(n_tiles, tpb),
+    plan = GluBwdPlan(cp, ct, p, pg, n_tiles, tpb, _cdiv(n_tiles, tpb),
                       glu_smem(F, Co, cp, p, ks, lanes), ks, lanes, passes)
+    return _glu_bwd_frag_plan(plan, B, T, F, Co) if bf16 and glu_bwd_frag_takes(Co) else plan
 
 
 GLU_FWD_THREADS = 256  # glu_drop_pool's block (csrc GLU_FWD_THREADS)
@@ -995,7 +1038,9 @@ def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.
     to GLU_MAX_CP and any F (`glu_bwd_plan`). y, wg, bg, g all float32 or
     all bf16; scale_f, bias_f float32. Deterministic: per-block partial sums
     in a fixed order. bf16: dy, dwg and dbg come back in bf16 (dwg and dbg
-    rounded once from their fp32 totals), dscale_f and dbias_f in fp32.
+    rounded once from their fp32 totals), dscale_f and dbias_f in fp32; at
+    Co = 16, 32, 64 and 128 (`glu_bwd_frag_takes`) lin runs on the tensor
+    cores.
     Launches count under "glu_drop_pool_bwd" (fp32) or
     "glu_drop_pool_bwd.bf16"."""
     dtype = _io_dtype("glu_drop_pool_bwd", y, wg, bg, g)
@@ -1016,7 +1061,7 @@ def glu_drop_pool_bwd(y, scale_f, bias_f, wg, bg, bits, g, *, pool, keep_prob=1.
     if bits is not None and (bits.dtype != torch.uint8 or bits.numel() != y.numel()
                              or not bits.is_contiguous() or bits.device != y.device):
         raise ValueError("glu_drop_pool_bwd: bits must be contiguous uint8 like y")
-    plan = glu_bwd_plan(B, T, F, Co)
+    plan = glu_bwd_plan(B, T, F, Co, bf16=bf)
     y, scale_f, bias_f, g = (_aligned(t) for t in (y, scale_f, bias_f, g))
     bits = None if bits is None else _aligned(bits)
     dev = y.device

@@ -40,6 +40,12 @@ def _log_mel_f64(audio, cfg):
 TOL_F64_DB = 1e-4
 
 
+def _gemm_state():
+    mm = getattr(getattr(torch.backends, "mkldnn", None), "matmul", None)
+    return (f"matmul precision {torch.get_float32_matmul_precision()}, oneDNN fp32 "
+            f"{getattr(mm, 'fp32_precision', 'n/a')}, {torch.get_num_threads()} threads")
+
+
 @pytest.mark.parametrize("kw", [{}, {"n_fft": 1024, "win_length": 1024, "n_mels": 64}])
 def test_log_mel_matches_jax(kw):
     audio = _audio()
@@ -48,10 +54,37 @@ def test_log_mel_matches_jax(kw):
     t = tfe.log_mel_spectrogram(torch.from_numpy(audio), tfe.MelConfig(**kw)).numpy()
     assert t.shape == j.shape == want.shape
     err_t, err_j = float(np.abs(t - want).max()), float(np.abs(j - want).max())
-    assert err_t <= TOL_F64_DB, f"the port is {err_t:.3e} dB from float64"
-    assert err_j <= TOL_F64_DB, f"JAX is {err_j:.3e} dB from float64"
+    # each side's error, their gap and the CPU GEMM's settings, so that a
+    # failure names its side (a float64 reference at fault moves both)
+    state = (f"(port {err_t:.3e}, JAX {err_j:.3e}, gap {float(np.abs(t - j).max()):.3e} dB; "
+             f"{_gemm_state()})")
+    assert err_t <= TOL_F64_DB, f"the port is {err_t:.3e} dB from float64 {state}"
+    assert err_j <= TOL_F64_DB, f"JAX is {err_j:.3e} dB from float64 {state}"
     # so the two sides are within both bounds of each other
     np.testing.assert_allclose(t, j, rtol=0, atol=2 * TOL_F64_DB)
+
+
+@pytest.mark.parametrize("precision", ["medium", "high"])
+def test_log_mel_keeps_fp32_products_under_reduced_matmul_precision(precision):
+    """With the process-wide fp32 matmul precision lowered (as a caller or
+    an earlier test in the same process may leave it), the port's CPU
+    log-mel still meets TOL_F64_DB: `frontend.fp32_products` pins its GEMMs
+    to fp32 (unpinned, "medium" lets oneDNN round the operands to bf16,
+    0.16 dB on a CPU with AVX512-BF16), and the setting is left as it was."""
+    audio = _audio()
+    cfg = tfe.MelConfig()
+    want = _log_mel_f64(audio, cfg)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision(precision)
+        t = tfe.log_mel_spectrogram(torch.from_numpy(audio), cfg).numpy()
+        spec = tfe.spectrogram(torch.from_numpy(audio), cfg)
+        assert torch.get_float32_matmul_precision() == precision
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    err = float(np.abs(t - want).max())
+    assert err <= TOL_F64_DB, f"the port is {err:.3e} dB from float64 ({_gemm_state()})"
+    assert torch.equal(spec, tfe.spectrogram(torch.from_numpy(audio), cfg))
 
 
 def test_filterbank_and_basis_match_jax():

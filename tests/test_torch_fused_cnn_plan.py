@@ -1190,3 +1190,314 @@ def test_dw_taps_takes_every_shape_of_the_first_design():
     for ci, co in [(16, 8), (48, 24), (80, 8), (5, 6), (24, 40), (16, 20)]:
         p = fc.conv_bwd_plan(2, 9, 7, ci, co, bf16=True)
         assert bool(p.dw_cs) == fc.dw_taps_takes(ci, co)
+
+
+# glu_bwd_frag_kernel (the bf16 GLU backward's phases A and B on mma.sync),
+# emulated lane by lane: (B, T, F, Co, pool) at Co = 16, 32, 64 and 128, a
+# ragged last tile, odd T, F % pf != 0, pools 1 x 1, 1 x 2, 2 x 2 and 3 x 4
+BWD_FRAG_GEOMS = [(2, 9, 8, 16, (2, 2)), (1, 7, 6, 32, (2, 2)), (2, 5, 4, 64, (1, 2)),
+                  (1, 11, 3, 128, (1, 2)), (2, 6, 16, 128, (2, 2)), (3, 5, 7, 16, (3, 4)),
+                  (1, 3, 5, 32, (1, 1)), (1, 40, 16, 32, (2, 2))]
+BWD_FRAG_IDS = [f"B{g[0]}-T{g[1]}-F{g[2]}-Co{g[3]}-pool{g[4][0]}x{g[4][1]}"
+                for g in BWD_FRAG_GEOMS]
+
+
+def _bf16(x):
+    """x rounded to bf16 (to nearest, ties to even), back in fp32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+LANES = np.arange(32)
+
+
+def _emulate_glu_bwd_frag(p, y, sf, bfv, wg, bg, g, bits, pool, keep, map_lanes=LANES,
+                          store_lanes=LANES):
+    """yt, dt and t2 [M, Co] of glu_bwd_frag_kernel's phases A and B from its
+    plan, lane by lane: each tile's stages from their 16-byte copies (y in
+    rows of Co + 8 bf16, the bits in rows of Co + 16 bytes, zeros past the
+    last row); per unit (warp w: w, w + 16) and k16 step each lane's A
+    fragment registers from ldmatrix's row addresses (matrix r's row named
+    by lane 8 r + gq), BN(y) per element from scale_f and bias_f at its
+    row's frequency (a multiply, then an add, in fp32), rounded to bf16 for
+    the product, the unit's own k16 steps kept as the gates; the B fragments
+    by ldmatrix from Wg^T [n][k] (bf16 rows of Co + 8) the same way; lin
+    from the fragments in the m16n8k16 layout; gu from pooled g and the
+    staged bits; then the store of each accumulator into [c][p] (stride p +
+    4), each (position, channel) once, each store's 32 words at most 2 to a
+    bank. map_lanes and store_lanes stand for the lane
+    ids from which csrc computes its ldmatrix row offsets (a_off, b_off) and
+    its stores' (gq, tq) (a test swaps their bits)."""
+    B, T, F, Co = y.shape
+    pt, pf = pool
+    To, Fo = T // pt, F // pf
+    ni_, kt, yp, P, PS = Co // 8, Co // 16, Co + 8, p.p, p.p + 4
+    wn, mu = fc.glu_bwd_frag_units(Co)
+    ng = ni_ // wn
+    M = B * T * F
+    assert p.frag == 1 and p.cp == Co and P % 16 == 0
+    assert P // 16 * ng <= mu * fc.GLU_THREADS // 32  # every unit of a tile has a warp
+    bp = Co + 16
+    yf = _bf16(y).reshape(-1)
+    gf = _bf16(g).reshape(-1)
+    bitsf = None if bits is None else bits.reshape(-1)
+    thresh = fc.keep_threshold(keep)
+    gq, tq = LANES >> 2, LANES & 3  # fragment coordinates of each lane
+    a_off = (map_lanes & 15) * yp + (map_lanes >> 4) * 8
+    b_off = ((map_lanes >> 4) * 8 + (map_lanes & 7)) * yp + ((map_lanes >> 3) & 1) * 8
+    sq, st = store_lanes >> 2, store_lanes & 3
+    wt = np.zeros((Co, yp), np.float32)  # Wg^T [n][k] in bf16
+    wt[:, :Co] = _bf16(wg).T
+    wt = wt.reshape(-1)
+    out = {k: np.full((M, Co), np.nan, np.float32) for k in ("yt", "dt", "t2")}
+    for tile in range(p.n_tiles):
+        m0 = tile * P
+        stage = np.full(P * yp, np.nan, np.float32)
+        q = np.arange(P * ni_)
+        r, c = q // ni_, q % ni_ * 8
+        assert np.unique(r * yp + c).size == q.size  # every 16-byte chunk once
+        for e in range(8):
+            src = (m0 + r) * Co + c + e
+            stage[r * yp + c + e] = np.where(m0 + r < M, yf[np.minimum(src, yf.size - 1)], 0.0)
+        bstage = np.full(P * bp, -1, np.int64)
+        if bitsf is not None:
+            q = np.arange(P * (ni_ // 2))
+            r, c = q // (ni_ // 2), q % (ni_ // 2) * 16
+            assert np.unique(r * bp + c).size == q.size and (c + 16 <= Co).all()
+            for e in range(16):
+                src = np.minimum((m0 + r) * Co + c + e, bitsf.size - 1)
+                bstage[r * bp + c + e] = np.where(m0 + r < M, bitsf[src], 0)
+        buf = {k: np.full(Co * PS, np.nan, np.float32) for k in out}
+        for u in range(P // 16 * ng):
+            mt, n0 = u // ng, (u % ng) * wn * 8
+            m = m0 + 16 * mt + gq[None, :] + 8 * np.arange(2)[:, None]  # [h][lane]
+            ok = m < M
+            mm = np.where(ok, m, 0)
+            f, t, b = mm % F, mm // F % T, mm // F // T
+            pooled = ok & (t < To * pt) & (f < Fo * pf)
+            gi = np.where(pooled, ((b * To + t // pt) * Fo + f // pf) * Co, 0)
+            amat = np.full((16, Co), np.nan, np.float64)
+            gv = np.full((wn // 2, 8, 32), np.nan, np.float32)
+            for ks in range(kt):
+                v = np.zeros((8, 32), np.float32)
+                for rr in range(4):  # register rr from matrix rr: rows named by lanes 8 rr + gq
+                    src_lane = 8 * rr + gq
+                    addr = 16 * mt * yp + ks * 16 + a_off[src_lane] + 2 * tq
+                    lane_l = f[rr & 1] * Co + ks * 16 + 8 * (rr >> 1) + 2 * tq
+                    for h in range(2):
+                        val = (stage[addr + h] * sf[lane_l + h]).astype(np.float32) \
+                            + bfv[lane_l + h]
+                        v[2 * rr + h] = val
+                        row = gq + 8 * (rr & 1)
+                        k = ks * 16 + 8 * (rr >> 1) + 2 * tq + h
+                        assert np.isnan(amat[row, k]).all(), "an A element loaded twice"
+                        amat[row, k] = _bf16(val)
+                if ks // (wn // 2) == n0 // (8 * wn):
+                    gv[ks % (wn // 2)] = v
+            bmat = np.full((Co, Co), np.nan, np.float64)  # [k][n], the unit's columns
+            for ks in range(kt):
+                for n2 in range(0, wn, 2):
+                    for rr in range(4):  # register rr from matrix rr: rows named by lanes 8 rr + gq
+                        addr = (n0 + n2 * 8) * yp + ks * 16 + b_off[8 * rr + gq] + 2 * tq
+                        for h in range(2):
+                            k = ks * 16 + 8 * (rr & 1) + 2 * tq + h
+                            n = n0 + (n2 + (rr >> 1)) * 8 + gq
+                            assert np.isnan(bmat[k, n]).all(), "a B element loaded twice"
+                            bmat[k, n] = wt[addr + h]
+            cmat = amat @ bmat
+            for ni in range(wn):
+                for e in range(4):
+                    h = e >> 1
+                    c = n0 + ni * 8 + 2 * tq + (e & 1)
+                    gate = gv[ni >> 1, 4 * (ni & 1) + e]
+                    assert not np.isnan(gate).any(), "a gate of another unit"
+                    s = 1.0 / (1.0 + np.exp(-gate.astype(np.float64)))
+                    lin = cmat[gq + 8 * h, c] + _bf16(bg)[c]
+                    gj = np.where(pooled[h], gf[gi[h] + c] / (pt * pf), 0.0)
+                    if bitsf is not None:
+                        kb = bstage[(16 * mt + gq + 8 * h) * bp + c]
+                        assert (kb >= 0).all(), "bits not staged"
+                        gj = np.where(kb < thresh, gj / keep, 0.0)
+                    i = (n0 + ni * 8 + 2 * st + (e & 1)) * PS + 16 * mt + sq + 8 * h  # one store
+                    words = np.unique(i)
+                    assert words.size == 32, "two lanes store one word"
+                    assert np.bincount(words % 32, minlength=32).max() <= 2, "bank conflict"
+                    for k_, val in (("yt", np.where(ok[h], _bf16(gate), 0.0)),
+                                    ("dt", gj * s), ("t2", gj * lin * s * (1 - s))):
+                        assert np.isnan(buf[k_][i]).all(), "a (position, channel) written twice"
+                        buf[k_][i] = val
+        rows = np.arange(P)
+        live = m0 + rows < M
+        for k_ in out:
+            tb = buf[k_].reshape(Co, PS)[:, :P].T  # [p][c]
+            assert not np.isnan(tb).any(), "a (position, channel) of the tile not written"
+            out[k_][m0 + rows[live]] = tb[live]
+    return out
+
+
+def _bwd_frag_inputs(B, T, F, Co, pool, keep, seed=11):
+    rng = np.random.default_rng(seed)
+    pt, pf = pool
+    y = _bf16(rng.standard_normal((B, T, F, Co)))
+    sf = (1 + 0.1 * rng.standard_normal(F * Co)).astype(np.float32)
+    bfv = (0.1 * rng.standard_normal(F * Co)).astype(np.float32)
+    wg = _bf16(rng.standard_normal((Co, Co)) / np.sqrt(Co))
+    bg = _bf16(0.1 * rng.standard_normal(Co))
+    g = _bf16(rng.standard_normal((B, T // pt, F // pf, Co)))
+    bits = None if keep is None else rng.integers(0, 256, (B, T, F * Co), dtype=np.uint8)
+    return y, sf, bfv, wg, bg, g, bits
+
+
+@pytest.mark.parametrize("geom", BWD_FRAG_GEOMS, ids=BWD_FRAG_IDS)
+@pytest.mark.parametrize("keep", [None, 0.5])
+def test_glu_bwd_frag_emulation_matches_plain(geom, keep):
+    """glu_bwd_frag_kernel's copies, fragments and scatter emulated in numpy:
+    yt is bf16(BN(y)) bit for bit (0 past the last row), dt and t2 are dlin
+    and gu lin s (1 - s) within fp32 rounding; and the unchanged phases C, D
+    and E run on them give glu_drop_pool_bwd_plain's bf16 results within one
+    bf16 step (dy, dwg, dbg) and 1e-5 (dscale_f, dbias_f)."""
+    import torch
+
+    B, T, F, Co, pool = geom
+    kp = 1.0 if keep is None else keep
+    args = _bwd_frag_inputs(B, T, F, Co, pool, keep)
+    p = fc.glu_bwd_plan(B, T, F, Co, bf16=True)
+    _check_bwd_frag(_emulate_glu_bwd_frag(p, *args, pool, kp), *args, pool, kp)
+
+
+def _check_bwd_frag(got, y, sf, bfv, wg, bg, g, bits, pool, kp):
+    import torch
+
+    B, T, F, Co = y.shape
+    pt, pf = pool
+    # the phases' values from their definitions (pallas_cnn.py:312-350)
+    sc, bi = sf.reshape(F, Co), bfv.reshape(F, Co)
+    ybn = (y * sc).astype(np.float32) + bi
+    lin = _bf16(ybn).astype(np.float64) @ wg + bg
+    s = 1.0 / (1.0 + np.exp(-ybn.astype(np.float64)))
+    gu = np.zeros_like(y)
+    gu[:, : T // pt * pt, : F // pf * pf] = np.repeat(np.repeat(g, pt, 1), pf, 2) / (pt * pf)
+    if bits is not None:
+        gu = np.where(bits.reshape(y.shape) < fc.keep_threshold(kp), gu / kp, 0.0)
+    M = B * T * F
+    assert not any(np.isnan(v).any() for v in got.values())
+    np.testing.assert_array_equal(got["yt"], _bf16(ybn).reshape(M, Co))
+    np.testing.assert_allclose(got["dt"], (gu * s).reshape(M, Co), rtol=1e-6, atol=1e-7)
+    scale = float(np.abs(gu).max() * np.abs(lin).max()) + 1e-30
+    np.testing.assert_allclose(got["t2"], (gu * lin * s * (1 - s)).reshape(M, Co), rtol=0,
+                               atol=1e-6 * scale)
+    # C, D and E as the kernel runs them, from the emulated yt, dt, t2
+    yt, dt, t2 = (got[k].astype(np.float64) for k in ("yt", "dt", "t2"))
+    dybn = dt @ wg.T.astype(np.float64) + t2
+    yr = y.reshape(M, Co).astype(np.float64)
+    dy = (dybn.reshape(B, T, F, Co) * sc).reshape(M, Co)
+    dscale = (dybn * yr).reshape(-1, F * Co).sum(0)
+    dbias = dybn.reshape(-1, F * Co).sum(0)
+    dwg, dbg = yt.T @ dt, dt.sum(0)
+    T_ = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+    want = fc.glu_drop_pool_bwd_plain(
+        T_(y), torch.from_numpy(sf), torch.from_numpy(bfv), T_(wg), T_(bg),
+        None if bits is None else torch.from_numpy(bits), T_(g), pool=pool, keep_prob=kp)
+    for name, a, w in (("dy", dy, want[0]), ("dwg", dwg, want[3]), ("dbg", dbg, want[4])):
+        w = w.float().numpy().reshape(a.shape)
+        lim = 2.0 ** -7 * np.abs(w) + 1e-5 * float(np.abs(w).max())
+        assert (np.abs(a - w) <= lim).mean() >= 0.99, name
+        assert float(np.abs(a - w).max()) <= 2.0 ** -6 * float(np.abs(w).max()) + 1e-6, name
+    for name, a, w in (("dscale_f", dscale, want[1]), ("dbias_f", dbias, want[2])):
+        w = w.numpy().astype(np.float64)
+        assert float(np.abs(a - w).max()) <= 1e-5 * max(1.0, float(np.abs(w).max())), name
+
+
+def _swap_bits(lanes, i, j):
+    bi, bj = (lanes >> i) & 1, (lanes >> j) & 1
+    return lanes & ~((1 << i) | (1 << j)) | bi << j | bj << i
+
+
+@pytest.mark.parametrize("where", ["ldmatrix", "store"])
+@pytest.mark.parametrize("swap", [(0, 1), (2, 3), (3, 4), (1, 4), (0, 4)],
+                         ids=lambda s: f"bits{s[0]}-{s[1]}")
+def test_glu_bwd_frag_emulation_fails_a_swapped_lane_bit(where, swap):
+    """The emulation test fails where csrc would compute a lane's ldmatrix
+    row offsets, or its stores' (gq, tq), from a lane id with two bits
+    swapped: the fault shows on the CPU, before a card runs it."""
+    B, T, F, Co, pool = 1, 7, 6, 32, (2, 2)
+    args = _bwd_frag_inputs(B, T, F, Co, pool, 0.5)
+    p = fc.glu_bwd_plan(B, T, F, Co, bf16=True)
+    bad = _swap_bits(LANES, *swap)
+    kw = {"map_lanes" if where == "ldmatrix" else "store_lanes": bad}
+    with pytest.raises(AssertionError):
+        _check_bwd_frag(_emulate_glu_bwd_frag(p, *args, pool, 0.5, **kw), *args, pool, 0.5)
+
+
+@pytest.mark.parametrize("geom", _geoms_2024(60) + _geoms_2024(64) + BWD_GEOMS, ids=IDS)
+def test_glu_bwd_plan_bf16_takes_the_frag_kernel(geom):
+    """The bf16 GLU backward takes glu_bwd_frag_kernel at Co = 16, 32, 64 and
+    128 (every 2024 block, B 60 and 64): the fp32 plan's threads and tiles
+    (so test_glu_bwd_plan_covers_positions walks it too), every warp's
+    units filled, the dWg groups' sums inside yt, dt and t2, 16-byte parts
+    (cp.async destinations and ldmatrix rows), shared memory within the
+    card's limit and the lane sums on chip at the 2024 shapes. Other widths
+    keep glu_bwd_kernel's plan as it is."""
+    B, T, F, _, Co, _ = geom
+    p, q = fc.glu_bwd_plan(B, T, F, Co, bf16=True), fc.glu_bwd_plan(B, T, F, Co)
+    assert q.frag == 0 and fc.glu_bwd_plan(B, T, F, Co, bf16=True) is p
+    if not fc.glu_bwd_frag_takes(Co):
+        assert p == q
+        return
+    assert p.frag == 1 and p.cp == Co and (p.ks, p.passes) == (0, 1)
+    assert (p.cp, p.ct, p.pg) == (q.cp, q.ct, q.pg)
+    if q.lanes:
+        assert (p.p, p.n_tiles, p.tpb, p.n_blocks) == (q.p, q.n_tiles, q.tpb, q.n_blocks)
+    wn, mu = fc.glu_bwd_frag_units(Co)
+    assert wn % 2 == 0 and (Co // 8) % wn == 0
+    assert p.p % 16 == 0 and p.p % (4 * p.pg) == 0
+    assert p.p // 16 * (Co // 8 // wn) == mu * fc.GLU_THREADS // 32  # every warp mu units
+    assert p.pg * Co * Co <= 3 * Co * (p.p + 4)  # the dWg groups inside yt, dt and t2
+    assert p.smem == fc.glu_bwd_frag_smem(F, Co, p.p, p.lanes) <= SMEM_LIMIT
+    # Wg^T, yt / dt / t2, the y stages and the bits stages, and their rows
+    parts = [2 * Co * (Co + 8), 4 * Co * (p.p + 4), 2 * p.p * (Co + 8), p.p * (Co + 16),
+             2 * (Co + 8), Co + 16]
+    assert all(x % 16 == 0 for x in parts)
+    if geom in _geoms_2024(60) + _geoms_2024(64):
+        assert p.lanes == 1 and p.n_blocks <= fc.SM_COUNT
+    # ldmatrix's 8 rows of the stage and of Bs (pitch Co + 8) in 8 bank groups
+    assert len({(r * (Co + 8) * 2 // 16) % 8 for r in range(8)}) == 8
+
+
+@pytest.mark.parametrize("Co", [8, 24, 40, 48, 70, 96, 136, 192, 256])
+def test_glu_bwd_plan_bf16_other_widths_keep_the_cuda_core_kernel(Co):
+    """Widths other than 16, 32, 64 and 128 (odd, wide) keep glu_bwd_kernel:
+    the bf16 plan is the fp32 plan, frag 0."""
+    for B, T, F in ((60, 156, 8), (2, 9, 5)):
+        p = fc.glu_bwd_plan(B, T, F, Co, bf16=True)
+        assert p == fc.glu_bwd_plan(B, T, F, Co) and p.frag == 0
+
+
+def _fast_div32(n, d):
+    """csrc FastDiv32: s = ceil(log2 d), m = 2^32 (2^s - d) // d + 1,
+    (umulhi(m, n) + n) >> s, in 32-bit unsigned arithmetic."""
+    s = 0
+    while (1 << s) < d:
+        s += 1
+    m = ((1 << 32) * ((1 << s) - d)) // d + 1
+    assert 0 <= m < 1 << 32
+    n = np.asarray(n, dtype=np.uint64)
+    t = (n * np.uint64(m)) >> np.uint64(32)
+    assert (t + n < np.uint64(1 << 32)).all()
+    return (t + n) >> np.uint64(s)
+
+
+def test_fast_div32_is_exact():
+    """csrc FastDiv32 is n // d for 0 <= n < 2^31 and 1 <= d < 2^31, as
+    glu_bwd_frag_kernel takes it for a position's (b, t, f) and pooled
+    indices: every n below 2^20 and the largest ones, at divisors small
+    and large, powers of two and their neighbours."""
+    rng = np.random.default_rng(3)
+    n = np.concatenate([np.arange(1 << 20), (1 << 31) - 1 - np.arange(4096),
+                        rng.integers(0, 1 << 31, 1 << 16)])
+    ds = list(range(1, 300)) + [626, 313, 156, 1023, 1025, 4095, 4097, 65535, 65537,
+                                 (1 << 30) - 1, 1 << 30, (1 << 30) + 1, (1 << 31) - 1]
+    ds += [int(x) for x in rng.integers(2, 1 << 31, 40)]
+    for d in ds:
+        assert np.array_equal(_fast_div32(n, d).astype(np.int64), n // d), d

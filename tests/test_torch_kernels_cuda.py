@@ -17,7 +17,8 @@ forward kernels at edge shapes (Ci = 1, 3, 5, 12 and 24, Co not a multiple
 of 8 or 16, Co = 256, F * Co not a multiple of 8, T and F not multiples of
 the row tile, pools (1, 1), (2, 2), (1, 2) and others, dropout bits; the
 bf16 GLU's two kernels at GLU_BF16_ODD_GEOMS) and a bf16 CRNN forward; the bf16 modes of the backward kernels at edge shapes
-(BF16_BWD_GEOMS) and the bf16 block's autograd path; for the fused
+(BF16_BWD_GEOMS; the GLU backward's tensor-core kernel also at
+BWD_FRAG_GEOMS) and the bf16 block's autograd path; for the fused
 log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
 hops that do not divide n_fft, both compute dtypes and bitwise reruns.
 """
@@ -653,6 +654,44 @@ def test_glu_drop_pool_bwd_bf16_kernel(dev, geom, keep):
     for j, (a, b) in enumerate(zip(got, want)):
         if a.dtype == torch.bfloat16:
             (_close_bf16_sum if j == 4 else _close_bf16)(a, b)  # dbg: a per-channel sum
+        else:
+            _close(a, b)
+    again = fused_cnn.glu_drop_pool_bwd(*args, bits, gz, pool=pool, keep_prob=kp)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# glu_bwd_frag_kernel (Co = 16, 32, 64, 128): small shapes with a ragged
+# last tile, odd T and F % pf != 0, and the 2024 blocks 0 and 3 at B = 60
+BWD_FRAG_GEOMS = [(2, 9, 8, 16, (2, 2)), (1, 7, 6, 32, (2, 2)), (2, 5, 4, 64, (1, 2)),
+                  (1, 11, 3, 128, (1, 2)), (3, 5, 7, 16, (3, 4)),
+                  (60, 626, 128, 16, (2, 2)), (60, 156, 16, 128, (1, 2))]
+
+
+@pytest.mark.parametrize("geom", BWD_FRAG_GEOMS)
+@pytest.mark.parametrize("keep", [None, 0.5])
+def test_glu_drop_pool_bwd_bf16_frag_kernel(dev, geom, keep):
+    """The bf16 GLU backward's tensor-core kernel (the plan's frag) against
+    the bf16 plain version: dy, dwg within one bf16 step, dbg one entry
+    aside, dscale_f and dbias_f within TOL; bitwise reruns."""
+    from desed_task_tpu_torch.ops import _build
+
+    B, T, F, Co, pool = geom
+    assert fused_cnn.glu_bwd_plan(B, T, F, Co, bf16=True).frag == 1
+    g = torch.Generator().manual_seed(25)
+    args, gz = _glu_args(g, B, T, F, Co, pool)
+    args = [_bf16(args[0]), args[1], args[2], _bf16(args[3]), _bf16(args[4])]
+    args, gz = [a.to(dev) for a in args], _bf16(gz).to(dev)
+    bits = None
+    if keep is not None:
+        bits = torch.randint(0, 256, (B, T, F * Co), generator=g, dtype=torch.uint8).to(dev)
+    kp = 1.0 if keep is None else keep
+    _build.reset_launches()
+    got = fused_cnn.glu_drop_pool_bwd(*args, bits, gz, pool=pool, keep_prob=kp)
+    assert _build.LAUNCHES == {"glu_drop_pool_bwd.bf16": 1}
+    want = fused_cnn.glu_drop_pool_bwd_plain(*args, bits, gz, pool=pool, keep_prob=kp)
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a.dtype == torch.bfloat16:
+            (_close_bf16_sum if j == 4 else _close_bf16)(a, b)
         else:
             _close(a, b)
     again = fused_cnn.glu_drop_pool_bwd(*args, bits, gz, pool=pool, keep_prob=kp)
