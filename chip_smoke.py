@@ -15,8 +15,10 @@ Phases (any failure exits non-zero; nothing is caught):
   3b. the bf16 modes of conv_bn_stats and glu_drop_pool (eval and with
      bits) at the seven block geometries and at the 256-channel block
      (WIDE_GEOM; not in the sums; glu_drop_pool's ring kernel there, its
-     register kernel at the seven blocks, each line naming the kernel its
-     plan picks) (B=64) against their plain
+     register kernel at the seven blocks; conv_bn_stats' persistent kernels,
+     conv_c1_bf16_kernel at block 0 and conv3x3_bf16_fwd_kernel at the rest
+     and at WIDE_GEOM, required; each line naming the kernel its plan
+     picks, then row 1b's seven-block sum) (B=64) against their plain
      versions in bf16: y and z within one bf16 step (2^-7 |plain|, above a
      floor of 1e-5 max |plain| for fp32 sums that cancel), at most 1 % of
      their elements differing, s and q within TOL_KERNEL, bitwise reruns;
@@ -384,10 +386,14 @@ def check_kernels_bf16(geoms, gen, report, rows32):
         own = max(rel_err(s, yl.sum(0)), rel_err(q, (yl * yl).sum(0)))
         del yl
         same = all(torch.equal(u, v) for u, v in zip((y, s, q), fused_cnn.conv_bn_stats(x, w, b)))
-        print(f"conv_bn_stats.bf16  T={T:3d} F={Fq:3d} {ci:3d}->{co:3d}: y {worst:.3f} of the "
-              f"limit, {frac:.2e} differ; s, q max err {err:.3e} against the plain version, "
-              f"{own:.3e} against the sums of the kernel's y (tol {TOL_KERNEL}); rerun bitwise "
-              f"equal: {same}", flush=True)
+        kernel = fused_cnn.FWD_KERNELS[fused_cnn.conv_fwd_plan(B, T, Fq, ci, co, bf16=True).kernel]
+        print(f"conv_bn_stats.bf16  T={T:3d} F={Fq:3d} {ci:3d}->{co:3d} ({kernel}): y "
+              f"{worst:.3f} of the limit, {frac:.2e} differ; s, q max err {err:.3e} against the "
+              f"plain version, {own:.3e} against the sums of the kernel's y (tol {TOL_KERNEL}); "
+              f"rerun bitwise equal: {same}", flush=True)
+        # the persistent kernels at every 2024 block and at the 256-channel block
+        require(kernel == ("conv_c1_bf16_kernel" if ci == 1 else "conv3x3_bf16_fwd_kernel"),
+                f"conv_bn_stats bf16 takes {kernel} at {ci}->{co}")
         require(ok, "conv_bn_stats bf16 disagrees with its plain version")
         require(max(err, own) <= TOL_KERNEL, "conv_bn_stats bf16 statistics disagree")
         require(same, "conv_bn_stats bf16 is not bitwise repeatable")
@@ -396,7 +402,8 @@ def check_kernels_bf16(geoms, gen, report, rows32):
         flops = 2 * 9 * ci * co * M
         x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
         out["conv_bn_stats.bf16"].append(dict(
-            geom=[T, Fq, ci, co], max_abs_err=float((y.float() - yp.float()).abs().max()),
+            geom=[T, Fq, ci, co], kernel=kernel,
+            max_abs_err=float((y.float() - yp.float()).abs().max()),
             limit_share=worst, differ=frac, stats_err=err,
             ms=time_ms(lambda: fused_cnn.conv_bn_stats(x, w, b)),
             plain_ms=time_ms(lambda: fused_cnn.conv_bn_stats_plain(x, w, b), iters=3),
@@ -446,6 +453,12 @@ def check_kernels_bf16(geoms, gen, report, rows32):
                   f"{r['bound'][0]:.3f} ms ({r['bound'][1]}), plain {r['plain_ms']:.3f} ms{lib}",
                   flush=True)
         del x, y, yp, z, zp, bits
+    r1 = rows["conv_bn_stats.bf16"]
+    print(f"conv_bn_stats.bf16  sum of {len(r1)} blocks (each call: the conv kernel and "
+          f"lane_stats_final_kernel): {sum(r['ms'] for r in r1):.3f} ms, bound "
+          f"{sum(r['bound'][0] for r in r1):.3f} ms, F.conv2d bf16 "
+          f"{sum(r['library_ms'] for r in r1):.3f} ms; kernels "
+          f"{', '.join(r['kernel'] for r in r1)}", flush=True)
     report["bf16_kernel_rows"] = rows
     report["bf16_wide_kernel_rows"] = wide
     return rows

@@ -61,18 +61,30 @@
 //   What bounds it: x (64 M elements) and y (182 M) in bf16 per 2024 forward
 //   at B=64, ~0.49 GB (~0.15 ms at 3.35 TB/s), against ~90 GFLOP of products
 //   (~0.09 ms at the bf16 tensor cores' 989 TFLOP/s): bytes.
-//   Design: Ci > 1 `conv3x3_bf16_kernel`, the halo-tiled implicit GEMM of
-//   conv3x3_kernel with its products on the tensor cores (mma.sync
-//   m16n8k16, fp32 accumulators in registers; A and B fragments by ldmatrix
-//   straight from the staged halo and weight rows, each lane naming the row
-//   of its position + the tap's offset, so no im2col is formed; rows of 16
-//   channels with their two 16-byte halves swapped on rows 4..7 of every 8,
-//   so ldmatrix reads no bank twice). The epilogue adds the bias in fp32,
-//   rounds y to bf16 and takes the lane sums of the rounded y
-//   (pallas_cnn.py:171-178), as the fp32 STATS epilogue does. Ci = 1: the
-//   streaming kernel with bf16 loads and stores (fp32 FMA: a product of two
-//   bf16 values is exact in fp32). wgmma, TMA and swizzled layouts are left
-//   to a later change.
+//   Design: the halo-tiled implicit GEMM of conv3x3_kernel with its
+//   products on the tensor cores (mma.sync m16n8k16, fp32 accumulators in
+//   registers; A and B fragments by ldmatrix straight from the staged halo
+//   and weight rows, each lane naming the row of its position + the tap's
+//   offset, so no im2col is formed; 16-byte chunks XORed by the row, so
+//   ldmatrix reads no bank twice). Where Ci % 16 == 0, Co % 32 == 0 and F
+//   is a power of two (every 2024 block but the first),
+//   `conv3x3_bf16_fwd_kernel`: persistent CTAs walk runs of 256-row tiles
+//   of whole frames, keep each lane's sums in registers over the run (one
+//   partial row per CTA: at most 264 rows a lane, not one per tile), stage
+//   the weights once per CTA where they fit (else per 16-channel slice,
+//   with the halo) in a ring of stages that runs across tiles, read w as
+//   [3, 3, Ci, Co] (ldmatrix.trans: no per-call transpose), and stage the
+//   rounded y as bf16 for 16-byte stores and the sums. Other shapes:
+//   `conv3x3_bf16_kernel`, one tile a block (w as [3, 3, Co, Ci], rows of
+//   16 channels, the halves swapped on rows 4..7 of every 8), one partial
+//   row per (clip, frame tile). The epilogues add the bias in fp32, round y
+//   to bf16 and take the lane sums of the rounded y (pallas_cnn.py:171-178).
+//   Ci = 1: `conv_c1_bf16_kernel` (F % 8 == 0, Co % 8 == 0, F Co <= 2048):
+//   a CTA stages a run of frames' x once, a thread computes 8 channels of
+//   a position (fp32 FMA: a product of two bf16 values is exact in fp32)
+//   and writes them in one 16-byte store; other shapes the streaming
+//   `conv_c1_kernel` with bf16 loads and stores. wgmma and TMA are left to
+//   a later change. Its times on the H100 are in PERF.md.
 // glu_drop_pool bf16
 //   What bounds it: y and z in bf16 and, in training, the uint8 dropout
 //   bits: ~0.48 GB per 2024 forward at B=64 (~0.145 ms at 3.35 TB/s; ~0.19
@@ -3244,6 +3256,322 @@ __global__ void __launch_bounds__(GLU_FRAG_THREADS, glu_frag_per_sm(NI)) glu_fwd
   cp_async_wait<0>();  // the tail's groups are empty; nothing is left in flight
 }
 
+// ---------------------------------------------------------------------------
+// conv_bn_stats in bf16 with Ci % 16 == 0, Co a multiple of 32 and F a
+// power of two (every 2024 block but the first; ops/fused_cnn.py
+// fwd16_takes): conv3x3_bf16_fwd_kernel. The same function as
+// conv3x3_bf16_kernel with STATS (y = bf16(conv3x3(x, w) + bias), the
+// products bf16 x bf16 into fp32, s and q the fp32 lane sums of the rounded
+// y, pallas_cnn.py:171-178), in persistent CTAs. The grid is n_parts CTAs
+// per channel tile of BN channels (blockIdx.y); CTA g walks the contiguous
+// run [g n / G, (g + 1) n / G) of the n = B ceil(T / TT) tiles, a tile TT
+// whole frames of one clip (FWD16_ROWS = TT F rows), in row order. Whole frames
+// make a lane (f, c) the same for every tile, so thread f BN / 8 + ch
+// (F BN / 8 <= 256 of them) keeps the sums of lanes (f, 8 ch .. 8 ch + 7)
+// in registers across the run, adding each tile's frames in frame order
+// from the same 16-byte reads of the staged y that write y out, and
+// writes one partial row at the end: n_parts
+// rows per lane, added in a fixed order by lane_stats_final_kernel (no
+// atomics). A ring of S stages runs across tiles: stage u is slice u % NS
+// of tile u / NS, copied by cp.async S - 1 stages ahead, so the next tile's
+// copies fly during a tile's last products and its epilogue; one barrier a
+// stage. A stage holds the tile's halo, (TT + 2) x (F + 2) positions of KC
+// channels (zeros where the SAME padding lies, so the nine taps are fixed
+// offsets), rows of KC / 8 16-byte chunks XORed by the position
+// (RowSwz). Where [9 Ci][BN] fits and Ci is a power of two (RES;
+// ops/fused_cnn.py fwd16_res_takes), the weights are staged once per CTA
+// and stay for the whole run, and a stage holds all Ci channels (KC = Ci,
+// NS = 1); else a stage holds 16 channels and their weight slice
+// [9][16][BN] (KC = 16 at compile time, NS = Ci / 16). B fragments come by ldmatrix.trans
+// from w as the wrapper has it, [3, 3, Ci, Co] = rows [tap Ci + k] of BN
+// channels (chunks XORed by the row, RowSwz), as glu_fwd_frag_kernel reads Wg; A
+// fragments by ldmatrix from the halo, each lane naming the position of its
+// row plus the tap's offset. 8 warps, each MI = 2 m16 tiles (32 rows) x
+// NI = BN / 8 n8 tiles (all BN channels), fp32 accumulators in registers.
+// Epilogue: + bias in
+// fp32, rounded to bf16 into a [FWD16_ROWS][BN + 8] bf16 tile, one barrier, y out
+// in 16-byte pieces (a frame's rows are contiguous in y) and the lane sums
+// from the same staged rounded values. Rows past T are computed from zero
+// halo rows and neither stored nor summed.
+// ---------------------------------------------------------------------------
+constexpr int FWD16_THREADS = 256;
+constexpr int FWD16_ROWS = 256;  // rows a tile: 8 warps x 32
+constexpr int FWD16_STAGES = 2;  // the ring (three measured no faster on the H100)
+
+// conv3x3_bf16_fwd_kernel's one address rule, for its halo and its weight
+// rows: swz_rows at CG = 2^cg_shift chunks a row, by shifts (a chunk
+// count known only at run time would cost an integer division a call,
+// more than the ldmatrix it addresses). The key (row >> sh) & msk is
+// swz_rows' row & 7 (CG >= 8) or (row / (8 / CG)) & (CG - 1). Valid only
+// for a power-of-two CG: the plan (fwd16_res_takes) and launch_fwd16 hold
+// to it, and tests/test_torch_fused_cnn_plan.py _row_swz mirrors it.
+struct RowSwz {
+  int cg_shift, sh, msk;
+  __host__ __device__ constexpr explicit RowSwz(int cg_shift_)
+      : cg_shift(cg_shift_), sh(cg_shift_ >= 3 ? 0 : 3 - cg_shift_),
+        msk(cg_shift_ >= 3 ? 7 : (1 << cg_shift_) - 1) {}
+  __device__ __forceinline__ int operator()(int row, int c) const {
+    return ((row << cg_shift) + (c ^ ((row >> sh) & msk))) << 3;
+  }
+};
+
+// CTAs an SM that the registers allow (ops/fused_cnn.py fwd16_per_sm): two
+// where a thread keeps 32 accumulators (BN = 32), else one
+constexpr int fwd16_per_sm(int bn) { return bn <= 32 ? 2 : 1; }
+
+template <int BN, bool RES>
+__global__ void __launch_bounds__(FWD16_THREADS, fwd16_per_sm(BN)) conv3x3_bf16_fwd_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
+    bf16* __restrict__ y, float* __restrict__ part_s, float* __restrict__ part_q, int T, int F,
+    int Ci, int Co, int TT, int n_tiles) {
+  constexpr int S = FWD16_STAGES;
+  constexpr bool res = RES;
+  constexpr int MI = 2, NI = BN / 8;
+  static_assert(NI % 2 == 0, "n8 tiles in pairs");
+  constexpr int YS = BN + 8;   // bf16 row pitch of the staged y tile
+  constexpr int CGW = BN / 8;  // 16-byte chunks of a weight row
+  static_assert(CGW == 4 || CGW == 8 || CGW == 16, "weight rows of 4, 8 or 16 chunks");
+  const RowSwz swz_w(CGW == 4 ? 2 : CGW == 8 ? 3 : 4);  // the weight rows' chunks
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = F + 2, NP = (TT + 2) * W;
+  const int KC = res ? Ci : 16, CG = KC / 8, cg_shift = __ffs(CG) - 1, NS = Ci / KC;
+  const int halo = NP * KC, STG = halo + (res ? 0 : 9 * 16 * BN);
+  bf16* const Wr = reinterpret_cast<bf16*>(smem_raw);  // resident weights [9 Ci][BN]
+  bf16* const ring = Wr + (res ? 9 * Ci * BN : 0);      // S stages of STG elements
+  bf16* const ys = ring + S * STG;                       // the rounded y [FWD16_ROWS][YS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.y * BN;
+  const int k0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+  const int k1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  const int U = (k1 - k0) * NS;  // stages of this CTA's run
+  const int nt = (T + TT - 1) / TT, f_shift = __ffs(F) - 1;
+  const FastDiv div_w(W);
+  const RowSwz swz_h(cg_shift);  // the halo rows' chunks
+
+  if (res) {  // the weights of the channel tile, once (in the first stage's group)
+    for (int e = tid; e < 9 * Ci * CGW; e += FWD16_THREADS) {
+      const int row = e / CGW, ch = e % CGW;
+      cp_async16(Wr + swz_w(row, ch), w + (long long)row * Co + n0 + ch * 8, true);
+    }
+  }
+  // stage u: slice j of tile k0 + u / NS into ring slot u % S (an empty
+  // group past the run, so that every thread commits one group a stage)
+  auto issue = [&](int u) {
+    if (u < U) {
+      const int kt = u / NS, j = u - kt * NS;
+      const int tile = k0 + kt, b = tile / nt, t0 = (tile - b * nt) * TT, c0 = j * KC;
+      bf16* const H = ring + (u % S) * STG;
+      for (int e = tid; e < NP * CG; e += FWD16_THREADS) {
+        const int pos = e >> cg_shift, ch = e & (CG - 1);
+        const int jt = div_w(pos);
+        const int t = t0 + jt - 1, f = pos - jt * W - 1;
+        const bool ok = t >= 0 && t < T && f >= 0 && f < F;
+        cp_async16(H + swz_h(pos, ch),
+                   ok ? x + (((long long)b * T + t) * F + f) * Ci + c0 + ch * 8 : x, ok);
+      }
+      if (!res) {
+        bf16* const Ws = H + halo;
+        for (int e = tid; e < 9 * 16 * CGW; e += FWD16_THREADS) {
+          const int row = e / CGW, ch = e % CGW;  // row = tap * 16 + k
+          cp_async16(Ws + swz_w(row, ch),
+                     w + (long long)((row >> 4) * Ci + c0 + (row & 15)) * Co + n0 + ch * 8, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // ldmatrix rows: A, row (lane & 15) of each m16 tile at chunk lane >> 4 of
+  // a k16 step; B (.trans), depth row ((lane >> 3) & 1) 8 + (lane & 7) at
+  // chunk lane >> 4 of an n8 pair
+  int apos[MI];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const int r = warp * 32 + mi * 16 + (lane & 15);
+    apos[mi] = ((r >> f_shift) + 1) * W + (r & (F - 1)) + 1;
+  }
+  const int achunk = lane >> 4;
+  const int brow = ((lane >> 3) & 1) * 8 + (lane & 7), bchunk = lane >> 4;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int L = F * Co;
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  float ls[8], lq[8];  // the sums of lanes (f, 8 ch + j), thread tid = f BN / 8 + ch
+#pragma unroll
+  for (int j = 0; j < 8; ++j) ls[j] = lq[j] = 0.f;
+
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+  const unsigned wr_s = (unsigned)__cvta_generic_to_shared(Wr);
+  const int wk = res ? Ci : 16;  // weight rows a tap
+  for (int u = 0; u < U; ++u) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // stage u landed; every warp is done with stage u - 1's slot
+    issue(u + S - 1);
+    const int kt = u / NS, j = u - kt * NS;
+    const unsigned hs = ring_s + 2u * (unsigned)((u % S) * STG);
+    const unsigned ws = res ? wr_s : hs + 2u * (unsigned)halo;
+#pragma unroll 3
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3 - 1) * W + tap % 3 - 1;
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[MI][4];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          ldsm_x4(hs + 2u * (unsigned)swz_h(apos[mi] + off, 2 * kk + achunk), a[mi][0], a[mi][1],
+                  a[mi][2], a[mi][3]);
+        const int wrow = tap * wk + kk * 16 + brow;
+#pragma unroll
+        for (int ni = 0; ni < NI; ni += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4_t(ws + 2u * (unsigned)swz_w(wrow, bchunk + ni), b0, b1, b2, b3);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_bf16(acc[mi][ni], a[mi], b0, b1);
+            mma_bf16(acc[mi][ni + 1], a[mi], b2, b3);
+          }
+        }
+      }
+    }
+    if (j != NS - 1) continue;
+    // the tile's epilogue: y + bias rounded to bf16 into ys
+    const int tile = k0 + kt, b = tile / nt, t0 = (tile - b * nt) * TT;
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = ni * 8 + 2 * tq;
+      const float b0 = to_f(bias[n0 + n]), b1 = to_f(bias[n0 + n + 1]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int r = warp * 32 + mi * 16 + gq;
+        *reinterpret_cast<uint32_t*>(ys + r * YS + n) =
+            bf_pack(acc[mi][ni][0] + b0, acc[mi][ni][1] + b1);
+        *reinterpret_cast<uint32_t*>(ys + (r + 8) * YS + n) =
+            bf_pack(acc[mi][ni][2] + b0, acc[mi][ni][3] + b1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      }
+    }
+    __syncthreads();
+    // thread (f, ch) < (F, BN / 8): y's 16-byte piece at lanes (f, 8 ch ..
+    // 8 ch + 7) of each frame, in frame order, and those 8 lanes' sums
+    if (tid < F * CGW) {
+      const int frames = min(TT, T - t0);
+      const bf16* src = ys + (tid / CGW) * YS + (tid % CGW) * 8;
+      bf16* dst = y + (((long long)b * T + t0) * F + tid / CGW) * Co + n0 + (tid % CGW) * 8;
+#pragma unroll 4
+      for (int jt = 0; jt < frames; ++jt, src += F * YS, dst += (long long)F * Co) {
+        const uint4 v = *reinterpret_cast<const uint4*>(src);
+        *reinterpret_cast<uint4*>(dst) = v;
+        const uint32_t u4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float v0 = bf_lo(u4[h]), v1 = bf_hi(u4[h]);
+          ls[2 * h] += v0;
+          ls[2 * h + 1] += v1;
+          lq[2 * h] = fmaf(v0, v0, lq[2 * h]);
+          lq[2 * h + 1] = fmaf(v1, v1, lq[2 * h + 1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the tail's groups are empty; nothing is left in flight
+  if (tid < F * CGW) {
+    const long long o = (long long)blockIdx.x * L + (tid / CGW) * Co + n0 + (tid % CGW) * 8;
+    *reinterpret_cast<float4*>(part_s + o) = make_float4(ls[0], ls[1], ls[2], ls[3]);
+    *reinterpret_cast<float4*>(part_s + o + 4) = make_float4(ls[4], ls[5], ls[6], ls[7]);
+    *reinterpret_cast<float4*>(part_q + o) = make_float4(lq[0], lq[1], lq[2], lq[3]);
+    *reinterpret_cast<float4*>(part_q + o + 4) = make_float4(lq[4], lq[5], lq[6], lq[7]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// conv_bn_stats in bf16 at Ci = 1 (the first block; ops/fused_cnn.py
+// c1_bf16_takes: F % 8 == 0, Co % 8 == 0, F Co / 8 <= 256):
+// conv_c1_bf16_kernel. Bound by the bytes of y (2 Co bytes a position
+// against 2 of x). CTA g takes fpc consecutive frames r of the B T (runs
+// cross clips; t = r % T decides the SAME padding in time) and stages their
+// x, with the frame before and the frame after, once, by 16-byte cp.async
+// ([frame][F] bf16). Thread (f, c0) computes the 8 channels c0 .. c0 + 7 of
+// position f in every frame of the run, in order: the 9 x 8 weights and the
+// bias in registers, the nine x values from shared memory, fp32 FMAs (a
+// product of two bf16 values is exact in fp32), + bias, rounded to bf16,
+// one 16-byte store (a warp writes 512 contiguous bytes), and adds the
+// rounded values and their squares into its lanes' sums in frame order; the
+// CTA writes one partial row (pallas_cnn.py:171-178).
+// ---------------------------------------------------------------------------
+constexpr int C1F_THREADS = 256;
+
+__global__ void __launch_bounds__(C1F_THREADS, 2) conv_c1_bf16_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
+    bf16* __restrict__ y, float* __restrict__ part_s, float* __restrict__ part_q, int B, int T,
+    int F, int Co, int fpc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const xs = reinterpret_cast<bf16*>(smem_raw);  // frame r0 - 1 + i in row i
+  const int R = B * T;  // rows fit in an int (the plan checks)
+  const int r0 = blockIdx.x * fpc, r1 = min(R, r0 + fpc);
+  const int g0 = max(r0 - 1, 0), g1 = min(R, r1 + 1);  // the frames staged
+  const int tid = threadIdx.x;
+  {
+    const bf16* const src = x + (long long)g0 * F;
+    bf16* const dst = xs + (g0 - r0 + 1) * F;
+    for (int e = tid; e < (g1 - g0) * F / 8; e += C1F_THREADS)
+      cp_async16(dst + e * 8, src + e * 8, true);
+    cp_async_commit();
+  }
+  const int G = Co / 8;
+  const int f = tid / G, c0 = (tid - f * G) * 8;
+  const bool live = f < F;
+  float wv[9][8], bv[8], s[8], q[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    bv[j] = live ? to_f(bias[c0 + j]) : 0.f;
+    s[j] = q[j] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) wv[tap][j] = live ? to_f(w[tap * Co + c0 + j]) : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!live) return;
+  int t = r0 % T;
+#pragma unroll 2
+  for (int r = r0; r < r1; ++r) {
+    const bf16* const row = xs + (r - r0 + 1) * F + f;
+    float xv[9];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dt = tap / 3 - 1, df = tap % 3 - 1;
+      const bool ok = (dt < 0 ? t > 0 : dt > 0 ? t < T - 1 : true) && f + df >= 0 && f + df < F;
+      xv[tap] = ok ? to_f(row[dt * F + df]) : 0.f;
+    }
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float a = 0.f;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) a = fmaf(xv[tap], wv[tap][j], a);
+      o[j] = rnd<bf16>(a + bv[j]);
+      s[j] += o[j];
+      q[j] = fmaf(o[j], o[j], q[j]);
+    }
+    *reinterpret_cast<uint4*>(y + ((long long)r * F + f) * Co + c0) =
+        make_uint4(bf_pack(o[0], o[1]), bf_pack(o[2], o[3]), bf_pack(o[4], o[5]),
+                   bf_pack(o[6], o[7]));
+    if (++t == T) t = 0;
+  }
+  const long long o = (long long)blockIdx.x * F * Co + f * Co + c0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    part_s[o + j] = s[j];
+    part_q[o + j] = q[j];
+  }
+}
+
 template <int NI>
 cudaError_t launch_glu_fwd_frag(const bf16* y, const float* scale_f, const float* bias_f,
                                 const bf16* wg, const bf16* bg, const uint8_t* bits, bf16* z,
@@ -3305,6 +3633,34 @@ cudaError_t launch_fwd_bf16_bn(int BN, const bf16* x, const bf16* wt, const bf16
     default: return cudaErrorInvalidValue;
   }
 #undef FWD16_ARGS
+}
+
+// conv_bn_stats in bf16: conv3x3_bf16_fwd_kernel at channel tile BN
+template <int BN, bool RES>
+cudaError_t launch_fwd16(const bf16* x, const bf16* w, const bf16* bias, bf16* y, float* part_s,
+                         float* part_q, int B, int T, int F, int Ci, int Co, int TT, int ctas,
+                         int smem, cudaStream_t s) {
+  static int smem_set = 0;
+  auto kernel = conv3x3_bf16_fwd_kernel<BN, RES>;
+  if (Ci % 16 || (RES && (Ci & (Ci - 1)))) return cudaErrorInvalidValue;  // RowSwz's chunks
+  cudaError_t err = ensure_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = B * ((T + TT - 1) / TT);
+  kernel<<<dim3(ctas, Co / BN), FWD16_THREADS, smem, s>>>(x, w, bias, y, part_s, part_q, T, F, Ci,
+                                                          Co, TT, n_tiles);
+  return cudaGetLastError();
+}
+
+// conv_bn_stats in bf16 at Ci = 1: conv_c1_bf16_kernel
+cudaError_t launch_c1_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* y,
+                           float* part_s, float* part_q, int B, int T, int F, int Co, int fpc,
+                           int ctas, int smem, cudaStream_t s) {
+  static int smem_set = 0;
+  cudaError_t err = ensure_smem(conv_c1_bf16_kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  conv_c1_bf16_kernel<<<ctas, C1F_THREADS, smem, s>>>(x, w, bias, y, part_s, part_q, B, T, F,
+                                                      Co, fpc);
+  return cudaGetLastError();
 }
 
 // conv_bn_stats_bwd's dW in bf16 on the tensor cores: conv_dw_taps_kernel
@@ -3484,15 +3840,33 @@ int glu_drop_pool(const float* y, const float* scale_f, const float* bias_f,
 }
 
 // conv_bn_stats in bf16: x [B,T,F,Ci], bias [Co] and y bf16; w bf16 as
-// [3,3,Co,Ci] (Ci > 1) or [3,3,1,Co] (Ci = 1); s, q and the partials fp32.
-// plan: ops/fused_cnn.py ConvFwdPlan for bf16.
+// [3,3,Ci,Co] (conv3x3_bf16_fwd_kernel, plan kernel 1; conv_c1_bf16_kernel,
+// kernel 2; conv_c1_kernel<bf16>, kernel 3) or [3,3,Co,Ci]
+// (conv3x3_bf16_kernel, kernel 0); s, q and the partials fp32. plan:
+// ops/fused_cnn.py ConvFwdPlan for bf16 (FWD_KERNELS names the kernels).
 int conv_bn_stats_bf16(const bf16* x, const bf16* w, const bf16* bias, bf16* y,
                        float* part_s, float* part_q, float* s, float* q, int B, int T, int F,
                        int Ci, int Co, const int* plan, cudaStream_t stream) {
-  const int stream_c1 = plan[0], vec = plan[1], bn = plan[2], tt = plan[3], ff = plan[4];
+  const int vec = plan[1], bn = plan[2], tt = plan[3], ff = plan[4];
   const int smem = plan[6], n_parts = plan[7], rows_per_part = plan[8];
+  const int kernel = plan[9], res = plan[10];
   cudaError_t err;
-  if (stream_c1) {
+  if (kernel == 1) {
+#define FWD16_ARGS x, w, bias, y, part_s, part_q, B, T, F, Ci, Co, tt, n_parts, smem, stream
+    switch (tt * F == FWD16_ROWS ? bn * 2 + res : 0) {
+      case 65: err = launch_fwd16<32, true>(FWD16_ARGS); break;
+      case 64: err = launch_fwd16<32, false>(FWD16_ARGS); break;
+      case 129: err = launch_fwd16<64, true>(FWD16_ARGS); break;
+      case 128: err = launch_fwd16<64, false>(FWD16_ARGS); break;
+      case 257: err = launch_fwd16<128, true>(FWD16_ARGS); break;
+      case 256: err = launch_fwd16<128, false>(FWD16_ARGS); break;
+      default: err = cudaErrorInvalidValue;
+    }
+#undef FWD16_ARGS
+  } else if (kernel == 2) {
+    err = launch_c1_bf16(x, w, bias, y, part_s, part_q, B, T, F, Co, rows_per_part, n_parts, smem,
+                         stream);
+  } else if (kernel == 3) {
     const int G = (Co + 3) / 4;
     dim3 grid((unsigned)((F * G + 255) / 256), (unsigned)n_parts);
     conv_c1_kernel<bf16><<<grid, 256, 0, stream>>>(x, w, bias, y, part_s, part_q, B, T, F, Co,

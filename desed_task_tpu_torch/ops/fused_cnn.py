@@ -211,10 +211,11 @@ def conv_bn_stats(x, w, bias):
 
     x [B, T, F, Ci], w [3, 3, Ci, Co], bias [Co], all float32 or all bf16 ->
     (y [B, T, F, Co] in x's dtype, s [F*Co], q [F*Co] float32), s/q summed
-    over all B*T rows (in bf16 mode: of the rounded y; its kernel runs its
-    products on the tensor cores). Deterministic: per-tile lane partials
-    added in a fixed order (`conv_fwd_plan`). Launches count under
-    "conv_bn_stats" (fp32) or "conv_bn_stats.bf16".
+    over all B*T rows (in bf16 mode: of the rounded y; its kernels run
+    their products on the tensor cores, and take w as it is at every 2024
+    block: `conv_fwd_plan(...).kernel`). Deterministic: lane partials per
+    tile or per CTA, added in a fixed order (`conv_fwd_plan`). Launches
+    count under "conv_bn_stats" (fp32) or "conv_bn_stats.bf16".
     """
     dtype = _io_dtype("conv_bn_stats", x, w, bias)
     if x.device.type == "cpu":
@@ -226,7 +227,7 @@ def conv_bn_stats(x, w, bias):
     if tuple(w.shape) != (3, 3, Ci, Co) or tuple(bias.shape) != (Co,):
         raise ValueError(f"conv_bn_stats: w {tuple(w.shape)}, bias {tuple(bias.shape)}")
     plan = conv_fwd_plan(B, T, F, Ci, Co, bf16=bf)
-    if bf and Ci > 1:  # the tensor-core kernel reads w as [3, 3, Co, Ci]
+    if bf and plan.kernel == 0:  # conv3x3_bf16_kernel reads w as [3, 3, Co, Ci]
         w = w.permute(0, 1, 3, 2).contiguous()
     x, w = _aligned(x), _aligned(w)
     L = F * Co
@@ -543,11 +544,29 @@ class ConvFwdPlan:
     STATS epilogue on tiles of tt frames x ff frequencies (bn output
     channels, seg: three taps a halo read), DX_BC input channels a stage,
     smem bytes; one lane partial per (clip, frame tile), n_parts = B *
-    ceil(T / tt). In bf16, conv3x3_bf16_kernel on the tensor cores: tiles
-    of tt x ff <= bf16_rows(bn) rows, BF16_BK input channels a stage, vec:
-    16-byte copies (Ci % 8 == 0). Ci = 1 (stream): n_parts runs of
-    rows_per_part frames (b, t). Each lane's partials are added in row
-    order, as STATS_RUNS runs of consecutive rows added in run order."""
+    ceil(T / tt). Ci = 1 (stream): n_parts runs of rows_per_part frames
+    (b, t). Each lane's partials are added in row order, as STATS_RUNS runs
+    of consecutive rows added in run order.
+    bf16 (`kernel` names the CUDA kernel, FWD_KERNELS):
+    kernel 1, conv3x3_bf16_fwd_kernel (`fwd16_takes`: Ci % 16 == 0, Co a
+    multiple of 32, F a power of two; every 2024 block but the first):
+    persistent CTAs, n_parts of them per channel tile of bn channels
+    (ceil(Co / bn) tiles), each walking a contiguous run of the B *
+    ceil(T / tt) tiles of tt whole frames (ff = F, FWD16_ROWS = tt F rows),
+    in row order, keeping its lanes' sums on chip and writing one partial
+    row; a ring of FWD16_STAGES stages, each the halo of a tile at all Ci
+    channels with the weights [9 Ci][bn] resident for the whole run (res,
+    Ci a power of two: its halo rows are Ci / 8 chunks, addressed by
+    shifts), or at 16 channels with that slice's weights [9][16][bn] (res
+    0); smem bytes.
+    kernel 2, conv_c1_bf16_kernel (Ci = 1, `c1_bf16_takes`): n_parts CTAs,
+    each rows_per_part consecutive frames of the B * T (runs cross clips),
+    x staged once (smem bytes), a thread 8 channels of a position.
+    kernel 3, conv_c1_kernel<bf16> (other Ci = 1 shapes): the fp32
+    streaming plan (stream 1) with bf16 loads.
+    kernel 0: conv3x3_bf16_kernel on tiles of tt x ff <= bf16_rows(bn)
+    rows, BF16_BK input channels a stage, vec: 16-byte copies (Ci % 8 ==
+    0), one partial per (clip, frame tile)."""
 
     stream: int
     vec: int
@@ -558,6 +577,8 @@ class ConvFwdPlan:
     smem: int
     n_parts: int
     rows_per_part: int
+    kernel: int = 0
+    res: int = 0
 
     def ints(self) -> list[int]:
         return [int(getattr(self, f.name)) for f in fields(self)]
@@ -565,6 +586,9 @@ class ConvFwdPlan:
 
 C1_BLOCKS = 8 * SM_COUNT  # blocks of the Ci = 1 streaming conv
 STATS_RUNS = 32  # runs of partial rows in the lane sums' final pass (csrc STATS_RUNS)
+# the bf16 forward's CUDA kernels by ConvFwdPlan.kernel (chip_smoke.py prints them)
+FWD_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_bf16_fwd_kernel", "conv_c1_bf16_kernel",
+               "conv_c1_kernel<bf16>")
 
 
 def fwd_smem(tt: int, ff: int, bn: int) -> int:
@@ -599,20 +623,122 @@ def _bf16_conv_tiles(T: int, F: int, Cout: int) -> tuple[int, int, int, int]:
     return bn, tt, ff, fwd_bf16_smem(tt, ff, bn)
 
 
+FWD16_RES_MAX = 80 * 1024  # resident weights [9 Ci][bn] of conv3x3_bf16_fwd_kernel at most
+FWD16_LANES = 8 * 256  # F * bn: a thread's 8 lanes each, 256 threads
+FWD16_ROWS = 256  # rows of a tile: 8 warps x 32 (csrc FWD16_ROWS)
+FWD16_STAGES = 2  # its ring of stages (3 measured no faster on the H100, PERF.md)
+
+
+def fwd16_warps(bn: int) -> tuple[int, int]:
+    """(MI, NI) of conv3x3_bf16_fwd_kernel: each of the 8 warps takes MI = 2
+    m16 tiles of rows (32 rows) x NI = bn / 8 n8 tiles (every channel of the
+    tile)."""
+    return 2, bn // 8
+
+
+def fwd16_per_sm(bn: int) -> int:
+    """CTAs an SM that the registers allow (csrc fwd16_per_sm): two where a
+    thread keeps 32 accumulators (bn = 32), else one."""
+    return 2 if bn <= 32 else 1
+
+
+def fwd16_smem(res: bool, Ci: int, F: int, tt: int, bn: int, stages: int) -> int:
+    """conv3x3_bf16_fwd_kernel's shared memory: the resident weights [9 Ci][bn]
+    (res), `stages` stages of the halo [(tt + 2) (F + 2)][kc] (kc = Ci, or
+    16 with the slice's weights [9 16][bn]), the rounded y [FWD16_ROWS][bn +
+    8], all bf16."""
+    kc = Ci if res else 16
+    stage = (tt + 2) * (F + 2) * kc + (0 if res else 9 * 16 * bn)
+    return 2 * ((9 * Ci * bn if res else 0) + stages * stage + FWD16_ROWS * (bn + 8))
+
+
+def fwd16_takes(F: int, Ci: int, Co: int) -> bool:
+    """The shapes of conv3x3_bf16_fwd_kernel: 16-channel depth steps, channel
+    tiles of 32 or more that divide Co, whole frames of a power-of-two F
+    (FWD16_ROWS rows are whole frames) whose lane sums fit a thread's."""
+    return Ci % 16 == 0 and Co % 32 == 0 and F & (F - 1) == 0 and F * 32 <= FWD16_LANES
+
+
+def fwd16_res_takes(Ci: int) -> bool:
+    """Resident weights take a stage of all Ci channels, Ci / 8 16-byte
+    chunks a halo row, which csrc RowSwz addresses by shifts: Ci a power of
+    two. Other Ci take 16-channel stages (2 chunks a row)."""
+    return Ci & (Ci - 1) == 0
+
+
+def _fwd16_plan(B: int, T: int, F: int, Ci: int, Co: int) -> ConvFwdPlan | None:
+    """conv3x3_bf16_fwd_kernel's plan, or None where it does not fit: tiles
+    of FWD16_ROWS rows (whole frames), FWD16_STAGES stages; the weights
+    resident (fwd16_res_takes) at the largest bn of 128, 64 and 32 that
+    divides Co with [9 Ci][bn] <= FWD16_RES_MAX and fits, else 16-channel
+    stages with their
+    weight slices at the largest such bn that fits; as many CTAs per
+    channel tile as fill the card (fwd16_per_sm, two an SM only where
+    shared memory allows), at most one a tile. The choice follows a sweep
+    of these plans on the H100 (PERF.md)."""
+    if not fwd16_takes(F, Ci, Co):
+        return None
+    tt = FWD16_ROWS // F
+    for res in (True, False) if fwd16_res_takes(Ci) else (False,):
+        for bn in (128, 64, 32):
+            if Co % bn or F * bn > FWD16_LANES or (res and 2 * 9 * Ci * bn > FWD16_RES_MAX):
+                continue
+            smem = fwd16_smem(res, Ci, F, tt, bn, FWD16_STAGES)
+            if smem > SMEM_LIMIT:
+                continue
+            per_sm = fwd16_per_sm(bn) if smem <= SMEM_HALF else 1
+            tiles = B * _cdiv(T, tt)
+            ctas = max(1, min(tiles, per_sm * SM_COUNT // (Co // bn)))
+            return ConvFwdPlan(0, 1, bn, tt, F, 0, smem, ctas, 0, kernel=1, res=int(res))
+    return None
+
+
+C1B_CTAS = 2 * SM_COUNT  # CTAs of conv_c1_bf16_kernel (two an SM)
+
+
+def c1_bf16_takes(F: int, Co: int) -> bool:
+    """conv_c1_bf16_kernel's shapes: 16-byte rows of x (F % 8 == 0) and of y
+    (Co % 8 == 0), a thread per 8 channels of a frame's positions in one CTA."""
+    return F % 8 == 0 and Co % 8 == 0 and F * Co // 8 <= 256
+
+
+def c1_fwd_smem(frames: int, F: int) -> int:
+    """conv_c1_bf16_kernel's x: its frames and the two beside them, bf16."""
+    return 2 * (frames + 2) * F
+
+
+def _c1_bf16_plan(B: int, T: int, F: int, Co: int) -> ConvFwdPlan | None:
+    if not c1_bf16_takes(F, Co) or B * T * F >= 2**31:
+        return None
+    frames = B * T
+    fpc = _cdiv(frames, C1B_CTAS)
+    fpc = min(fpc, SMEM_HALF // (2 * F) - 2)
+    if fpc < 1:
+        return None
+    return ConvFwdPlan(1, 1, 0, 0, F, 0, c1_fwd_smem(fpc, F), _cdiv(frames, fpc), fpc, kernel=2)
+
+
 @functools.lru_cache(maxsize=None)
 def conv_fwd_plan(B: int, T: int, F: int, Ci: int, Co: int, bf16: bool = False) -> ConvFwdPlan:
     """conv_bn_stats' plan at a shape, computed once per shape."""
     vec = int(Co % 4 == 0)
-    if bf16 and Ci > 1:  # the tensor-core kernel
+    if bf16 and Ci > 1:  # the tensor-core kernels
+        plan = _fwd16_plan(B, T, F, Ci, Co)
+        if plan is not None:
+            return plan
         bn, tt, ff, smem = _bf16_conv_tiles(T, F, Co)
         return ConvFwdPlan(0, int(Ci % 8 == 0), bn, tt, ff, 0, smem, B * _cdiv(T, tt), 0)
+    if bf16:
+        plan = _c1_bf16_plan(B, T, F, Co)
+        if plan is not None:
+            return plan
     if Ci == 1:  # the streaming kernel: a thread a frequency and 4 channels
         if B * T * F >= 2**31:
             raise ValueError("conv_bn_stats: the Ci=1 kernel counts rows in 32-bit ints")
         lane_blocks = _cdiv(F * _cdiv(Co, 4), 256)
         parts = max(1, min(B * T, C1_BLOCKS // lane_blocks))
         rpp = _cdiv(B * T, parts)
-        return ConvFwdPlan(1, vec, 0, 0, 0, 0, 0, _cdiv(B * T, rpp), rpp)
+        return ConvFwdPlan(1, vec, 0, 0, 0, 0, 0, _cdiv(B * T, rpp), rpp, kernel=3 if bf16 else 0)
     bn = _pow2_tile(Co, 8, 128)
     ff = min(F, 16384 // bn)
     tt, ff = _shrink(min(T, 16384 // bn // ff), ff, lambda a, b: fwd_smem(a, b, bn), SMEM_HALF)

@@ -15,7 +15,9 @@ peaks), the bound's share of the time and the max |kernel - plain| relative
 to max(1, max |plain|); then the sums over the seven blocks. `--library`
 also times F.conv2d (cuDNN, TF32 off) on the same input, the yardstick of
 row 1. `--kernels` adds, per block, each CUDA kernel's device time per call
-(torch.profiler over --iters calls of each wrapper). `--dtype bfloat16`
+(torch.profiler over --iters calls of each wrapper). Each block's line
+names the CUDA kernel its bf16 conv_bn_stats plan picks (`FWD_KERNELS`;
+"n/a" in fp32 and for a tree without it). `--dtype bfloat16`
 times the kernels' bf16 mode (bf16 x, w, y, Wg and z; the bound counts bf16
 bytes and the products at the tensor cores' bf16 peak; F.conv2d in bf16).
 Results also go to chiprun_out/time_conv_fwd.json (one entry per run).
@@ -123,8 +125,11 @@ def main() -> int:
             M = B * T * Fq
             b1 = bound_ms(es * (x.numel() + w.numel() + co + M * co) + 4 * 2 * Fq * co,
                           2 * 9 * ci * co * M + co * M + 3 * M * co, peak)
+            names = getattr(fused_cnn, "FWD_KERNELS", None)  # None in older trees
+            plan = fused_cnn.conv_fwd_plan(B, T, Fq, ci, co, bf16=dt == torch.bfloat16)
+            kernel = names[plan.kernel] if names and dt == torch.bfloat16 else "n/a"
             row = dict(block=i, geom=[T, Fq, ci, co], conv_ms=time_ms(conv), conv_err=err1,
-                       conv_bound=b1)
+                       conv_bound=b1, conv_kernel=kernel)
             if args.library:
                 x_nchw = x.permute(0, 3, 1, 2)
                 w_oihw = w.permute(3, 2, 0, 1).contiguous()
@@ -151,7 +156,7 @@ def main() -> int:
             rows.append(row)
             lib = f", F.conv2d {row['conv2d_ms']:.3f} ms" if "conv2d_ms" in row else ""
             print(f"[{card}] {args.root} {args.dtype} B={B} block {i} T={T} F={Fq} {ci}->{co}: "
-                  f"conv_bn_stats "
+                  f"conv_bn_stats ({kernel}) "
                   f"{row['conv_ms']:.3f} ms (bound {b1[0]:.3f} {b1[1]}, "
                   f"{b1[0] / row['conv_ms']:.0%}{lib}, err {err1:.2e}); glu_drop_pool "
                   f"{row['glu_ms']:.3f} ms (bound {b2[0]:.3f} {b2[1]}, "

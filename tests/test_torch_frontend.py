@@ -46,6 +46,54 @@ def _gemm_state():
             f"{getattr(mm, 'fp32_precision', 'n/a')}, {torch.get_num_threads()} threads")
 
 
+def _cpu_state():
+    """The CPU kernels' dispatch level and the OpenMP and MKL thread counts."""
+    counts = [ln.strip() for ln in torch.__config__.parallel_info().splitlines()
+              if "max_threads" in ln]
+    return f"cpu capability {torch.backends.cpu.get_cpu_capability()}, " + ", ".join(counts)
+
+
+def _stage_report(audio, cfg, t):
+    """Each stage of the port's CPU log-mel (the `matmul` backend) against
+    float64 of the same stage from the port's own fp32 input to it,
+    recomputed at once in this process, the worst dB element of the port's
+    result `t`, the CPU state, and whether a recompute still fails: a
+    failure then names the stage and the state it came from."""
+    x = torch.from_numpy(audio)
+    basis, fb = tfe._constants(cfg, torch.device("cpu"), torch.float32)
+    frames = tfe.frame_signal(x, cfg)
+    frames64 = tfe.frame_signal(x.double(), cfg)
+    with tfe.fp32_products(x.device):
+        reim = torch.matmul(frames, basis)
+    scale = frames64.abs() @ basis.double().abs()  # each output's sum of |terms|
+    dft = ((reim.double() - frames64 @ basis.double()) / scale.clamp(min=1e-30)).abs().max()
+    n = cfg.n_freqs
+    re, im = reim[..., :n], reim[..., n:]
+    mag = torch.sqrt(torch.clamp(re * re + im * im, min=0.0))
+    re64, im64 = re.double(), im.double()
+    mag64 = torch.sqrt(re64 * re64 + im64 * im64)
+    mag_err = ((mag.double() - mag64) / mag64.clamp(min=1e-30)).abs().max()
+    with tfe.fp32_products(x.device):
+        mel = torch.matmul(mag, fb)
+    mel64 = mag.double() @ fb.double()
+    mel_err = ((mel.double() - mel64) / mel64.clamp(min=1e-30)).abs().max()
+    db = tfe.amplitude_to_db(mel.transpose(-1, -2), cfg)
+    db64 = tfe.amplitude_to_db(mel.double().transpose(-1, -2), cfg)
+    db_err = (db.double() - db64).abs().max()
+    want = _log_mel_f64(audio, cfg)
+    diff = np.abs(t - want)
+    worst = np.unravel_index(int(np.argmax(diff)), diff.shape)
+    again = tfe.log_mel_spectrogram(x, cfg).numpy()
+    err_again = float(np.abs(again - want).max())
+    return (f"stages against float64 of the same stage: frames "
+            f"{float((frames.double() - frames64).abs().max()):.3e}, DFT re/im "
+            f"{float(dft):.3e} of the row's sum of |terms|, magnitude {float(mag_err):.3e}, "
+            f"mel GEMM {float(mel_err):.3e} relative, dB {float(db_err):.3e} dB; worst "
+            f"element {tuple(int(i) for i in worst)}: port {float(t[worst]):.6f}, float64 "
+            f"{float(want[worst]):.6f} dB; recomputed now: {err_again:.3e} dB "
+            f"({'still fails' if err_again > TOL_F64_DB else 'passes'}); {_cpu_state()}")
+
+
 @pytest.mark.parametrize("kw", [{}, {"n_fft": 1024, "win_length": 1024, "n_mels": 64}])
 def test_log_mel_matches_jax(kw):
     audio = _audio()
@@ -58,7 +106,8 @@ def test_log_mel_matches_jax(kw):
     # failure names its side (a float64 reference at fault moves both)
     state = (f"(port {err_t:.3e}, JAX {err_j:.3e}, gap {float(np.abs(t - j).max()):.3e} dB; "
              f"{_gemm_state()})")
-    assert err_t <= TOL_F64_DB, f"the port is {err_t:.3e} dB from float64 {state}"
+    assert err_t <= TOL_F64_DB, (f"the port is {err_t:.3e} dB from float64 {state}; "
+                                 f"{_stage_report(audio, tfe.MelConfig(**kw), t)}")
     assert err_j <= TOL_F64_DB, f"JAX is {err_j:.3e} dB from float64 {state}"
     # so the two sides are within both bounds of each other
     np.testing.assert_allclose(t, j, rtol=0, atol=2 * TOL_F64_DB)

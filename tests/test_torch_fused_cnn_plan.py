@@ -12,8 +12,11 @@ backward plan also at widths past 128 channels and at F * Co lane sums past
 shared memory.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from desed_task_tpu_torch.ops import fused_cnn as fc
 
@@ -777,14 +780,37 @@ def test_fwd_plans_depend_on_the_shape_alone(geom):
 
 @pytest.mark.parametrize("geom", FWD_GEOMS, ids=FWD_IDS)
 def test_conv_fwd_plan_bf16_covers_outputs_and_lanes(geom):
-    """The bf16 plan: Ci = 1 the fp32 streaming plan; else the tensor-core
+    """The bf16 plan. conv_c1_bf16_kernel (Ci = 1 where it takes the
+    shape): runs of frames that cover the B T rows once, one partial row
+    per CTA; other Ci = 1 shapes the fp32 streaming plan
+    (conv_c1_kernel<bf16>, kernel 3).
+    conv3x3_bf16_fwd_kernel: the CTAs' runs cover the tiles once, in
+    order, each tile's rows and each channel tile once, one partial row
+    per CTA and lane, at most 2 SM_COUNT of them. Else the tensor-core
     kernel's warp tiles and ldmatrix rows (_walk_bf16_conv), every row and
     channel once, and each (clip, frame tile) one lane partial row, as the
     fp32 STATS epilogue writes them."""
     B, T, F, Ci, Co, _ = geom
     p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    if p.kernel == 2:
+        fpc = p.rows_per_part
+        r = np.arange(p.n_parts)[:, None] * fpc + np.arange(fpc)[None, :]
+        _once(np.bincount(r[r < B * T], minlength=B * T), "frames")
+        assert p.n_parts == -(-B * T // fpc) and p.smem == fc.c1_fwd_smem(fpc, F)
+        return
     if Ci == 1:
-        assert p == fc.conv_fwd_plan(B, T, F, Ci, Co)
+        assert p.kernel == 3 and dataclasses.replace(p, kernel=0) == fc.conv_fwd_plan(
+            B, T, F, Ci, Co)
+        return
+    if p.kernel == 1:
+        nt = -(-T // p.tt)
+        runs = [(k0, k1) for _, k0, k1 in _fwd16_walk(p, B, T)]
+        assert runs[0][0] == 0 and runs[-1][1] == B * nt and p.n_parts <= 2 * fc.SM_COUNT
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(runs, runs[1:] + [(B * nt, 0)]))
+        assert p.ff == F and p.tt * F == fc.FWD16_ROWS and Co % p.bn == 0
+        _rows_once(B, T, F, p.tt, F, B * nt)
+        assert fc.fwd16_smem(bool(p.res), Ci, F, p.tt, p.bn, fc.FWD16_STAGES) == p.smem
+        assert p.smem <= fc.SMEM_LIMIT
         return
     _walk_bf16_conv(p, B, T, F, Ci, Co)
     nt, nf = -(-T // p.tt), -(-F // p.ff)
@@ -1103,8 +1129,10 @@ def test_glu_bf16_emulation_matches_plain(geom, keep):
 @pytest.mark.parametrize("geom", _geoms_2024(60) + _geoms_2024(64) + WIDE[:2],
                          ids=IDS[:14] + FWD_IDS[len(GEOMS):len(GEOMS) + 2])
 def test_fwd_plans_bf16_depend_on_the_shape_alone(geom):
-    """Equal shapes give equal bf16 plans; the 2024 shapes keep two blocks of
-    the bf16 conv on an SM, and take the GLU's register kernel with >= 32
+    """Equal shapes give equal bf16 plans; the 2024 shapes fit the bf16
+    conv's CTAs an SM in shared memory (two of conv_c1_bf16_kernel, and of
+    conv3x3_bf16_fwd_kernel where registers and shared memory allow, else
+    one), and take the GLU's register kernel with >= 32
     KB of copies an SM in flight behind the tiles its warps work on (two
     blocks an SM at Co <= 64, one at Co = 128); the 256-channel block takes
     the ring kernel at two blocks an SM."""
@@ -1114,7 +1142,9 @@ def test_fwd_plans_bf16_depend_on_the_shape_alone(geom):
     assert a == fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
     assert g == fc.glu_fwd_plan(B, T, F, Co, pool, bf16=True)
     assert all(isinstance(v, int) for v in a.ints() + g.ints())
-    assert 2 * (a.smem + 1024) <= fc.SMEM_SM
+    per_sm = 2 if a.kernel == 2 or (a.smem <= fc.SMEM_HALF
+                                    and fc.fwd16_per_sm(a.bn) == 2) else 1
+    assert per_sm * (a.smem + 1024) <= fc.SMEM_SM
     assert bool(g.frag) == (Co <= 128) and g.vec == 1
     assert g.per_sm == (1 if g.frag and Co == 128 else 2)
     assert g.per_sm * (g.smem + 1024) <= fc.SMEM_SM
@@ -1501,3 +1531,404 @@ def test_fast_div32_is_exact():
     ds += [int(x) for x in rng.integers(2, 1 << 31, 40)]
     for d in ds:
         assert np.array_equal(_fast_div32(n, d).astype(np.int64), n // d), d
+
+
+# --------------------------------------------------------------------------
+# conv_bn_stats in bf16 since the persistent kernels: conv3x3_bf16_fwd_kernel
+# (blocks 1-6) and conv_c1_bf16_kernel (block 0), emulated in numpy from
+# their plans, copy by copy and lane by lane
+# --------------------------------------------------------------------------
+
+
+def _fwd16_walk(p, B, T):
+    """(channel tile, CTA, first tile, end tile) of conv3x3_bf16_fwd_kernel's
+    persistent grid: CTA g of each channel tile walks [g n / G, (g + 1) n /
+    G) of the n = B ceil(T / tt) tiles."""
+    n_tiles, G = B * -(-T // p.tt), p.n_parts
+    for g in range(G):
+        yield g, g * n_tiles // G, (g + 1) * n_tiles // G
+
+
+def _row_swz(row, c, cg):
+    """csrc RowSwz, conv3x3_bf16_fwd_kernel's address rule for its halo and
+    weight rows, by the kernel's own shifts: cg_shift = __ffs(cg) - 1 (the
+    lowest set bit, so it equals _swz_rows only where cg is a power of
+    two)."""
+    cg_shift = (cg & -cg).bit_length() - 1
+    sh, msk = (0, 7) if cg_shift >= 3 else (3 - cg_shift, (1 << cg_shift) - 1)
+    return ((row << cg_shift) + (c ^ ((row >> sh) & msk))) << 3
+
+
+def _emulate_fwd16(p, x, w, bias, a_lanes=LANES, b_lanes=LANES):
+    """y, s, q of conv3x3_bf16_fwd_kernel from its plan (fp32 values, so the
+    result is held to the fp32 plain version): the resident weights' and
+    each stage's 16-byte copies (halo rows of kc channels and weight rows of
+    bn channels, chunks XORed as csrc RowSwz: _row_swz), each stage in ring slot u %
+    S, written only over the stage S before it; per warp and k16 step each
+    lane's ldmatrix A row (the halo position of its row plus the tap's
+    offset) and ldmatrix.trans B row ([tap kc + k][n] weight rows), every B
+    matrix's 8 rows in 8 bank groups (one wavefront), the fragments as
+    m16n8k16 takes them; the epilogue's bf16 tile (each element once); then
+    thread f bn / 8 + ch writes y's 16-byte piece (f, 8 ch ..) of each
+    frame and adds it into its 8 lanes' sums, frames in increasing row
+    order over the CTA's run; y once, one partial row per CTA. a_lanes, b_lanes: the lane ids from
+    which csrc computes its ldmatrix A and B rows (a test swaps their bits)."""
+    B, T, F, Ci = x.shape
+    Co = w.shape[-1]
+    assert p.kernel == 1 and p.ff == F and fc.fwd16_takes(F, Ci, Co)
+    bn, R, tt, S, res = p.bn, fc.FWD16_ROWS, p.tt, fc.FWD16_STAGES, p.res
+    mi_, ni_ = fc.fwd16_warps(bn)
+    wm_, wn_ = 8, 1  # 8 warps of 32 rows, each every channel of the tile
+    assert mi_ == 2 and ni_ % 2 == 0 and R == tt * F == 32 * wm_ == fc.FWD16_ROWS
+    kc = Ci if res else 16
+    cg, ns, cgw = kc // 8, Ci // kc, bn // 8
+    Wd, NP = F + 2, (tt + 2) * (F + 2)
+    halo = NP * kc
+    stg = halo + (0 if res else 9 * 16 * bn)
+    wres = 9 * Ci * bn if res else 0
+    yp = bn + 8
+    assert 2 * (wres + S * stg + R * yp) == p.smem <= fc.SMEM_LIMIT and S in (2, 3)
+    assert p.n_parts <= 2 * fc.SM_COUNT and Co % bn == 0 and F * bn <= fc.FWD16_LANES
+    nt = -(-T // tt)
+    L = F * Co
+    M = B * T * F
+    xf, wf = x.reshape(-1), w.reshape(9 * Ci, Co)
+    y = np.full((M, Co), np.nan)
+    ycount = np.zeros((M, Co), np.int64)
+    part_s, part_q = np.full((p.n_parts, L), np.nan), np.full((p.n_parts, L), np.nan)
+    pcount = np.zeros((p.n_parts, L), np.int64)
+    gq, tq = LANES >> 2, LANES & 3
+    warps = np.arange(8)
+    wm, wn = warps % wm_, warps // wm_
+    a_row, achunk = a_lanes & 15, a_lanes >> 4
+    brow = ((b_lanes >> 3) & 1) * 8 + (b_lanes & 7)
+    bchunk = wn[:, None] * ni_ + (b_lanes >> 4)[None, :]
+    r_a = wm[:, None, None] * 32 + np.arange(mi_)[None, :, None] * 16 + a_row[None, None, :]
+    apos = (r_a // F + 1) * Wd + r_a % F + 1  # [warp][mi][lane]
+    tid = np.arange(256)
+    for cy in range(Co // bn):
+        n0 = cy * bn
+        for g, k0, k1 in _fwd16_walk(p, B, T):
+            U = (k1 - k0) * ns
+            sm = np.full(wres + S * stg, np.nan)
+            if res:
+                rows, ch = np.meshgrid(np.arange(9 * Ci), np.arange(cgw), indexing="ij")
+                dst = _row_swz(rows, ch, cgw)
+                assert np.unique(dst).size == dst.size
+                for e in range(8):
+                    sm[dst + e] = wf[rows, n0 + ch * 8 + e]
+            slot_of = [-1] * S
+
+            def issue(u):
+                if u >= U:
+                    return
+                kt, j = divmod(u, ns)
+                b, jt0 = divmod(k0 + kt, nt)
+                t0, c0, slot = jt0 * tt, j * kc, u % S
+                assert slot_of[slot] == (u - S if u >= S else -1), "a slot still in use"
+                slot_of[slot] = u
+                base = wres + slot * stg
+                e = np.arange(NP * cg)
+                cg_shift = (cg & -cg).bit_length() - 1  # csrc __ffs(CG) - 1
+                pos, ch = e >> cg_shift, e & (cg - 1)
+                _once(np.bincount(pos * cg + ch, minlength=NP * cg), "halo chunks")
+                jt = _fast_div(pos, Wd).astype(np.int64)
+                t, f = t0 + jt - 1, pos - jt * Wd - 1
+                ok = (t >= 0) & (t < T) & (f >= 0) & (f < F)
+                dst = base + _row_swz(pos, ch, cg)
+                assert np.unique(dst).size == dst.size
+                src = np.where(ok, ((b * T + t) * F + f) * Ci + c0 + ch * 8, 0)
+                for e8 in range(8):
+                    sm[dst + e8] = np.where(ok, xf[src + e8], 0.0)
+                if not res:
+                    rows, ch = np.meshgrid(np.arange(9 * 16), np.arange(cgw), indexing="ij")
+                    dst = base + halo + _row_swz(rows, ch, cgw)
+                    assert np.unique(dst).size == dst.size
+                    for e8 in range(8):
+                        sm[dst + e8] = wf[(rows >> 4) * Ci + c0 + (rows & 15), n0 + ch * 8 + e8]
+
+            for s in range(S - 1):
+                issue(s)
+            acc = np.zeros((8, mi_, ni_, 32, 4))
+            # thread tid < F bn / 8: lanes (tid // cgw, 8 (tid % cgw) + j), j < 8
+            owner = tid[tid < F * cgw]
+            fl, c = (owner // cgw)[:, None], (owner % cgw * 8)[:, None] + np.arange(8)[None, :]
+            ls, lq = np.zeros(c.shape), np.zeros(c.shape)
+            last = -1
+            for u in range(U):
+                issue(u + S - 1)
+                assert slot_of[u % S] == u
+                kt, j = divmod(u, ns)
+                hs = wres + (u % S) * stg
+                ws = 0 if res else hs + halo
+                wk = Ci if res else 16
+                for tap in range(9):
+                    off = (tap // 3 - 1) * Wd + tap % 3 - 1
+                    for kk in range(kc // 16):
+                        amat = np.full((8, mi_, 16, 16), np.nan)
+                        for mi in range(mi_):
+                            addr = hs + _row_swz(apos[:, mi, :] + off,
+                                                 2 * kk + achunk[None, :], cg)
+                            for q in range(4):  # register q: matrix q, rows named by lanes 8 q + gq
+                                for h in range(2):
+                                    amat[:, mi, gq + 8 * (q & 1), 2 * tq + h + 8 * (q >> 1)] = \
+                                        sm[addr[:, 8 * q + gq] + 2 * tq + h]
+                        for ni in range(0, ni_, 2):
+                            addr = ws + _row_swz(tap * wk + kk * 16 + brow[None, :],
+                                                 bchunk + ni, cgw)
+                            for q in range(4):
+                                groups = (2 * addr[:, 8 * q: 8 * q + 8] // 16) % 8
+                                assert all(np.unique(gr).size == 8 for gr in groups), \
+                                    "a B matrix in more than one wavefront"
+                            bmat = np.full((8, 16, 16), np.nan)
+                            for q in range(4):  # .trans: lane's k pair of column gq
+                                for h in range(2):
+                                    bmat[:, 2 * tq + h + 8 * (q & 1), 8 * (q >> 1) + gq] = \
+                                        sm[addr[:, 8 * q + 2 * tq + h] + gq]
+                            cm = np.einsum("wmrk,wkn->wmrn", amat, bmat)
+                            assert not np.isnan(cm).any(), "a fragment read an unwritten element"
+                            for h2 in range(2):
+                                for e in range(4):
+                                    acc[:, :, ni + h2, :, e] += \
+                                        cm[:, :, gq + 8 * (e >> 1), 8 * h2 + 2 * tq + (e & 1)]
+                if j != ns - 1:
+                    continue
+                b, jt0 = divmod(k0 + kt, nt)
+                t0 = jt0 * tt
+                ys = np.full(R * yp, np.nan)
+                cnt = np.zeros(R * yp, np.int64)
+                for mi in range(mi_):
+                    for ni in range(ni_):
+                        for e in range(4):
+                            r = wm[:, None] * 32 + mi * 16 + gq[None, :] + 8 * (e >> 1)
+                            col = wn[:, None] * ni_ * 8 + ni * 8 + 2 * tq[None, :] + (e & 1)
+                            ys[r * yp + col] = acc[:, mi, ni, :, e] + bias[n0 + col]
+                            np.add.at(cnt, r * yp + col, 1)
+                assert cnt.reshape(R, yp)[:, :bn].min() == 1 and cnt.max() == 1
+                acc[:] = 0
+                frames = min(tt, T - t0)
+                for jt in range(frames):  # each owner: one 16-byte piece a frame, in order
+                    row = b * T + t0 + jt
+                    assert last < row, "a lane's frames out of order"
+                    last = row
+                    v = ys[(jt * F + fl) * yp + c]
+                    y[row * F + fl, n0 + c] = v
+                    np.add.at(ycount, (row * F + fl, n0 + c), 1)
+                    ls += v
+                    lq += v * v
+            col = fl * Co + n0 + c
+            part_s[g, col] = ls
+            part_q[g, col] = lq
+            np.add.at(pcount, (g, col), 1)
+    _once(ycount.ravel(), "y (row, channel)")
+    _once(pcount.ravel(), "lane partials")
+    return y.reshape(B, T, F, Co), part_s.sum(0), part_q.sum(0)
+
+
+def _emulate_c1_bf16(p, x, w, bias):
+    """y, s, q of conv_c1_bf16_kernel from its plan (fp32 values): CTA g
+    stages frames r0 - 1 .. r1 of the B T (16-byte copies, each slot once)
+    and thread (f, c0) = (tid / (Co / 8), 8 (tid % (Co / 8))) computes 8
+    channels of position f in its frames in order, the SAME padding from t
+    = r % T; each y element once, each lane's partial once per CTA."""
+    B, T, F, _ = x.shape
+    Co = w.shape[-1]
+    assert p.kernel == 2 and fc.c1_bf16_takes(F, Co)
+    fpc, Rn = p.rows_per_part, B * T
+    assert p.n_parts == -(-Rn // fpc) and p.smem == fc.c1_fwd_smem(fpc, F) <= fc.SMEM_HALF
+    xf, wf = x.reshape(Rn, F), w.reshape(9, Co)
+    G = Co // 8
+    tid = np.arange(256)
+    f, c0 = tid // G, (tid % G) * 8
+    live = f < F
+    f, c0 = f[live], c0[live]
+    assert np.unique(f * Co + c0).size == f.size == F * G  # every (position, 8 channels) once
+    y = np.full((Rn, F, Co), np.nan)
+    ycount = np.zeros((Rn, F, Co), np.int64)
+    part_s, part_q = np.full((p.n_parts, F * Co), np.nan), np.full((p.n_parts, F * Co), np.nan)
+    pcount = np.zeros((p.n_parts, F * Co), np.int64)
+    for g in range(p.n_parts):
+        r0, r1 = g * fpc, min(Rn, g * fpc + fpc)
+        g0, g1 = max(r0 - 1, 0), min(Rn, r1 + 1)
+        xs = np.full(((fpc + 2) * F), np.nan)
+        e = np.arange((g1 - g0) * F // 8)
+        dst = (g0 - r0 + 1) * F + e * 8
+        assert dst.min() >= 0 and dst.max() + 8 <= xs.size
+        for e8 in range(8):
+            xs[dst + e8] = xf.reshape(-1)[g0 * F + e * 8 + e8]
+        s = np.zeros((f.size, 8))
+        q = np.zeros((f.size, 8))
+        for r in range(r0, r1):
+            t = r % T
+            o = np.zeros((f.size, 8)) + bias[c0[:, None] + np.arange(8)]
+            for tap in range(9):
+                dt, df = tap // 3 - 1, tap % 3 - 1
+                ok = (t + dt >= 0) & (t + dt < T) & (f + df >= 0) & (f + df < F)
+                xv = np.where(ok, xs[np.where(ok, (r - r0 + 1 + dt) * F + f + df, 0)], 0.0)
+                assert not np.isnan(xv).any(), "x read outside the staged frames"
+                o += xv[:, None] * wf[tap, c0[:, None] + np.arange(8)]
+            for j in range(8):
+                y[r, f, c0 + j] = o[:, j]
+                np.add.at(ycount, (r, f, c0 + j), 1)
+            s += o
+            q += o * o
+        for j in range(8):
+            part_s[g, f * Co + c0 + j] = s[:, j]
+            part_q[g, f * Co + c0 + j] = q[:, j]
+            np.add.at(pcount, (g, f * Co + c0 + j), 1)
+    _once(ycount.ravel(), "y (row, channel)")
+    _once(pcount.ravel(), "lane partials")
+    return y.reshape(B, T, F, Co), part_s.sum(0), part_q.sum(0)
+
+
+# small shapes of both kernels: resident weights (Ci 16, 32, 64; bn 32, 64),
+# 16-channel stages with their weight slices (Ci 128: bn 128, rows 128 and
+# 256; Ci 48 and 96, not powers of two), two channel tiles, ragged last
+# tiles, F 2 to 16, several tiles a CTA; Ci = 1 at Co 8 to 24, runs across
+# clips
+EMU_FWD_GEOMS = [(2, 5, 16, 16, 32), (1, 40, 8, 32, 64), (2, 3, 4, 64, 128), (1, 35, 8, 128, 128),
+                 (1, 2, 2, 128, 128), (1, 3, 8, 64, 96), (2, 9, 8, 48, 64), (2, 9, 8, 96, 64)]
+EMU_C1_GEOMS = [(2, 9, 16, 1, 16), (3, 5, 8, 1, 24), (1, 40, 8, 1, 8)]
+
+
+def _fwd_inputs(B, T, F, Ci, Co, seed=5):
+    rng = np.random.default_rng(seed)
+    return (_bf16(rng.standard_normal((B, T, F, Ci))).astype(np.float32),
+            _bf16(rng.standard_normal((3, 3, Ci, Co)) / np.sqrt(9 * Ci)).astype(np.float32),
+            _bf16(rng.standard_normal(Co) * 0.1).astype(np.float32))
+
+
+def _fewer_ctas(p, B, T, F):
+    """The plan on fewer CTAs, so that small shapes walk several tiles (or
+    frames) a CTA, as the 2024 blocks do: a third of the tiles, or runs of 7
+    frames."""
+    if p.kernel == 1:
+        return dataclasses.replace(p, n_parts=max(1, B * -(-T // p.tt) // 3))
+    return dataclasses.replace(p, rows_per_part=7, n_parts=-(-B * T // 7),
+                               smem=fc.c1_fwd_smem(7, F))
+
+
+def _check_fwd_emulation(got, x, w, bias):
+    want = fc.conv_bn_stats_plain(*(torch.from_numpy(a) for a in (x, w, bias)))
+    for name, a, b in zip(("y", "s", "q"), got, want):
+        b = b.numpy().astype(np.float64)
+        err = float(np.abs(a - b).max())
+        assert err <= 1e-5 * max(1.0, float(np.abs(b).max())), f"{name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("geom", EMU_FWD_GEOMS + EMU_C1_GEOMS,
+                         ids=[f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}"
+                              for g in EMU_FWD_GEOMS + EMU_C1_GEOMS])
+def test_fwd_bf16_emulation_matches_plain(geom):
+    """conv3x3_bf16_fwd_kernel (_emulate_fwd16) and conv_c1_bf16_kernel
+    (_emulate_c1_bf16), run from their plans in numpy, give
+    conv_bn_stats_plain's y, s and q (fp32), on the plan's grid and on
+    fewer CTAs (several tiles a CTA: the ring across tiles, the lane sums
+    over a run)."""
+    B, T, F, Ci, Co = geom
+    args = _fwd_inputs(B, T, F, Ci, Co)
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    for plan in (p, _fewer_ctas(p, B, T, F)):
+        got = _emulate_c1_bf16(plan, *args) if Ci == 1 else _emulate_fwd16(plan, *args)
+        _check_fwd_emulation(got, *args)
+
+
+@pytest.mark.parametrize("where", ["A", "B"])
+@pytest.mark.parametrize("swap", [(0, 1), (2, 3), (3, 4), (1, 4), (0, 4)],
+                         ids=lambda s: f"bits{s[0]}-{s[1]}")
+def test_fwd16_emulation_fails_a_swapped_lane_bit(where, swap):
+    """The emulation fails where csrc would compute a lane's ldmatrix A row
+    (halo position, chunk) or ldmatrix.trans B row (weight row, chunk) from a
+    lane id with two bits swapped: the fault shows on the CPU."""
+    B, T, F, Ci, Co = 1, 3, 8, 32, 64
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    args = _fwd_inputs(B, T, F, Ci, Co)
+    bad = _swap_bits(LANES, *swap)
+    kw = {"a_lanes" if where == "A" else "b_lanes": bad}
+    with pytest.raises(AssertionError):
+        _check_fwd_emulation(_emulate_fwd16(p, *args, **kw), *args)
+
+
+def test_fwd16_emulation_fails_resident_weights_at_a_ci_not_a_power_of_two():
+    """The emulation computes the halo's copies with the kernel's shifts
+    (RowSwz, cg_shift = __ffs(CG) - 1): resident weights at Ci = 48 (6
+    chunks a halo row, which the plan never picks) leave chunks uncopied,
+    and the emulation says so."""
+    B, T, F, Ci, Co = 2, 9, 8, 48, 64
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert p.kernel == 1 and not p.res
+    forced = dataclasses.replace(p, res=1, smem=fc.fwd16_smem(True, Ci, F, p.tt, p.bn,
+                                                              fc.FWD16_STAGES))
+    with pytest.raises(AssertionError, match="halo chunks"):
+        _emulate_fwd16(forced, *_fwd_inputs(B, T, F, Ci, Co))
+
+
+@pytest.mark.parametrize("cg", [1, 2, 4, 8, 16, 32])
+def test_row_swz_is_swz_rows_at_a_power_of_two(cg):
+    """RowSwz's shifts give swz_rows' offsets wherever the chunk count is a
+    power of two, the only counts conv3x3_bf16_fwd_kernel is given: each
+    (row, chunk) at its own offset, any 8 consecutive rows of a chunk in 8
+    bank groups."""
+    row, c = np.meshgrid(np.arange(64), np.arange(cg), indexing="ij")
+    got = _row_swz(row, c, cg)
+    np.testing.assert_array_equal(got, _swz_rows(row, c, cg))
+    assert np.unique(got).size == got.size
+    for r0 in range(0, 64 - 8, 3):
+        groups = (2 * got[r0:r0 + 8] // 16) % 8
+        assert all(np.unique(groups[:, k]).size == 8 for k in range(cg))
+
+
+@pytest.mark.parametrize("geom", [(2, 9, 8, 16, 32), (2, 9, 8, 32, 64), (2, 9, 8, 64, 64),
+                                  (2, 9, 8, 48, 64), (2, 9, 8, 80, 64), (2, 9, 8, 96, 64),
+                                  (2, 9, 8, 112, 32), (2, 9, 4, 192, 128)],
+                         ids=lambda g: f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}")
+def test_conv_fwd_plan_bf16_resident_weights_only_at_a_power_of_two_ci(geom):
+    """conv3x3_bf16_fwd_kernel takes every Ci % 16 == 0, but keeps its
+    weights resident (a stage of all Ci channels, Ci / 8 chunks a halo row)
+    only where Ci is a power of two; other Ci take 16-channel stages."""
+    B, T, F, Ci, Co = geom
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert p.kernel == 1 and fc.fwd16_takes(F, Ci, Co)
+    assert fc.fwd16_res_takes(Ci) == (Ci & (Ci - 1) == 0)
+    if not fc.fwd16_res_takes(Ci):
+        assert p.res == 0
+    else:
+        assert p.res == int(2 * 9 * Ci * p.bn <= fc.FWD16_RES_MAX)
+    assert p.smem == fc.fwd16_smem(bool(p.res), Ci, F, p.tt, p.bn, fc.FWD16_STAGES)
+
+
+@pytest.mark.parametrize("geom", _geoms_2024(64) + _geoms_2024(60), ids=IDS[7:14] + IDS[:7])
+def test_conv_fwd_plan_bf16_takes_the_persistent_kernels(geom):
+    """Every 2024 block at B = 64 and 60 takes the persistent kernels:
+    conv_c1_bf16_kernel at block 0, conv3x3_bf16_fwd_kernel at blocks 1-6,
+    with at most 2 SM_COUNT lane partial rows per channel tile, w as the
+    wrapper has it, and shared memory and registers for its CTAs an SM."""
+    B, T, F, Ci, Co, _ = geom
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert fc.FWD_KERNELS[p.kernel] == ("conv_c1_bf16_kernel" if Ci == 1
+                                        else "conv3x3_bf16_fwd_kernel")
+    assert p.n_parts <= 2 * fc.SM_COUNT
+    if Ci > 1:
+        per_sm = fc.fwd16_per_sm(p.bn) if p.smem <= fc.SMEM_HALF else 1
+        assert per_sm * (p.smem + 1024) <= fc.SMEM_SM
+        assert p.n_parts * (Co // p.bn) <= per_sm * fc.SM_COUNT
+        assert p.tt * F == fc.FWD16_ROWS
+
+
+@pytest.mark.parametrize("geom", [(2, 9, 5, 16, 32), (2, 9, 8, 24, 32), (2, 9, 8, 16, 40),
+                                  (1, 7, 256, 32, 32), (2, 9, 6, 64, 128), (2, 9, 5, 1, 16),
+                                  (2, 9, 8, 1, 12), (1, 5, 130, 1, 24)],
+                         ids=lambda g: f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}")
+def test_conv_fwd_plan_bf16_other_shapes_keep_the_earlier_kernels(geom):
+    """Shapes the persistent kernels do not take (F not a power of two, Ci
+    not a multiple of 16, Co not a multiple of 32, F * 32 lanes past a
+    thread's 8 sums; at Ci = 1, F or Co not a multiple of 8) keep
+    conv3x3_bf16_kernel or conv_c1_kernel<bf16> and their plans."""
+    B, T, F, Ci, Co = geom
+    p = fc.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert fc.FWD_KERNELS[p.kernel] == ("conv_c1_kernel<bf16>" if Ci == 1
+                                        else "conv3x3_bf16_kernel")
+    if Ci == 1:
+        assert dataclasses.replace(p, kernel=0) == fc.conv_fwd_plan(B, T, F, Ci, Co)
+    else:
+        assert (p.bn, p.tt, p.ff, p.smem) == fc._bf16_conv_tiles(T, F, Co)

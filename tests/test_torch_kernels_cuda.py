@@ -444,6 +444,17 @@ BF16_GEOMS = [
     (3, 23, 3, 5, 6, (1, 2)),       # Ci, Co odd-sized; F * Co = 18
     (2, 156, 2, 128, 128, (1, 2)),  # the last 2024 block, T not a multiple of its tile
     (2, 313, 64, 16, 32, (2, 2)),   # the second 2024 block
+    # the other 2024 blocks at B = 2 (conv_c1_bf16_kernel at the first,
+    # conv3x3_bf16_fwd_kernel at the rest)
+    (2, 626, 128, 1, 16, (2, 2)),
+    (2, 156, 32, 32, 64, (2, 2)),
+    (2, 156, 16, 64, 128, (1, 2)),
+    (2, 156, 8, 128, 128, (1, 2)),
+    (2, 156, 4, 128, 128, (1, 2)),
+    # conv3x3_bf16_fwd_kernel at a Ci that is not a power of two
+    # (16-channel stages, never resident weights)
+    (2, 9, 8, 48, 64, (1, 2)),
+    (2, 9, 8, 96, 64, (1, 2)),
 ]
 
 
@@ -464,7 +475,16 @@ def test_conv_bn_stats_bf16_kernel(dev, geom):
     y, s, q = fused_cnn.conv_bn_stats(x, w, b)
     assert _build.LAUNCHES == {"conv_bn_stats.bf16": 1}
     assert y.dtype == torch.bfloat16 and s.dtype == q.dtype == torch.float32
-    yp, sp, qp = fused_cnn.conv_bn_stats_plain(x, w, b)
+    _close_conv_bf16((y, s, q), fused_cnn.conv_bn_stats_plain(x, w, b))
+    assert all(torch.equal(a, c) for a, c in zip((y, s, q), fused_cnn.conv_bn_stats(x, w, b)))
+
+
+def _close_conv_bf16(got, plain):
+    """y within one bf16 step of the plain version's; s and q the sums of
+    the kernel's own rounded y, and within the plain version's sums plus
+    what the flipped roundings move."""
+    (y, s, q), (yp, sp, qp) = got, plain
+    B, T, F, Co = y.shape
     _close_bf16(y, yp)
     # s and q are the sums of the kernel's own rounded y (fp32 sums in
     # another order); against the plain version's they may also differ by
@@ -476,7 +496,36 @@ def test_conv_bn_stats_bf16_kernel(dev, geom):
     tol_q = TOL * max(1.0, float(qp.abs().max()))
     assert bool(((s - sp).abs() <= (yl - ypl).abs().sum(0) + tol_s).all())
     assert bool(((q - qp).abs() <= (yl * yl - ypl * ypl).abs().sum(0) + tol_q).all())
-    assert all(torch.equal(a, c) for a, c in zip((y, s, q), fused_cnn.conv_bn_stats(x, w, b)))
+
+
+def _geoms_2024(B):
+    T, F, ci, out = 626, 128, 1, []
+    for co, pool in zip([16, 32, 64, 128, 128, 128, 128], [(2, 2), (2, 2)] + [(1, 2)] * 5):
+        out.append((B, T, F, ci, co))
+        T, F, ci = T // pool[0], F // pool[1], co
+    return out
+
+
+@pytest.mark.parametrize("geom", _geoms_2024(16) + [(16, 156, 8, 128, 256)],
+                         ids=lambda g: f"B{g[0]}-T{g[1]}-F{g[2]}-{g[3]}to{g[4]}")
+def test_conv_bn_stats_bf16_persistent_kernels_rerun_bitwise(dev, geom):
+    """The persistent kernels at the 2024 blocks (B = 16: several tiles or
+    frames a CTA) and at a 256-channel block: the plan picks them, y, s
+    and q are bitwise equal over three reruns, y is within one bf16 step of
+    the plain version, and s and q (summed over each CTA's run) are held
+    to the plain version's as in test_conv_bn_stats_bf16_kernel."""
+    B, T, F, Ci, Co = geom
+    plan = fused_cnn.conv_fwd_plan(B, T, F, Ci, Co, bf16=True)
+    assert fused_cnn.FWD_KERNELS[plan.kernel] == (
+        "conv_c1_bf16_kernel" if Ci == 1 else "conv3x3_bf16_fwd_kernel")
+    g = torch.Generator().manual_seed(21)
+    x = _bf16(_rand(g, B, T, F, Ci)).to(dev)
+    w = _bf16(_rand(g, 3, 3, Ci, Co, scale=1 / np.sqrt(9 * Ci))).to(dev)
+    b = _bf16(_rand(g, Co, scale=0.1)).to(dev)
+    first = fused_cnn.conv_bn_stats(x, w, b)
+    for _ in range(3):
+        assert all(torch.equal(a, c) for a, c in zip(first, fused_cnn.conv_bn_stats(x, w, b)))
+    _close_conv_bf16(first, fused_cnn.conv_bn_stats_plain(x, w, b))
 
 
 @pytest.mark.parametrize("geom", BF16_GEOMS)
