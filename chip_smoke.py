@@ -83,14 +83,17 @@ Phases (any failure exits non-zero; nothing is caught):
      second clips (one launch), then at B=64 and B=60, fp32 and bf16: the
      kernel against its plain version and against the GEMM front-end
      (`log_mel_spectrogram`, same compute dtype), bitwise-equal reruns, one
-     launch per call; the serving scores from `fused_log_mel` features
-     against `pipe.forward`; timings of the kernel, its plain version and
-     the GEMM front-end (the yardstick: no single PyTorch call computes
-     this function).
+     launch per call, the plan that `fused_log_mel_plan` picks (the wgmma
+     kernel, plan 3, required in bf16); the serving scores from
+     `fused_log_mel` features against `pipe.forward`; timings of the kernel,
+     its plain version and the GEMM front-end (the yardstick: no single
+     PyTorch call computes this function).
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
-4, launches from the bf16 train step), the nvidia-smi line, and the result
+4, launches from the bf16 train step; row 7 in fp32 and, as
+`fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
+path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -162,6 +165,8 @@ N_CPU_CLIPS = 8
 # because an fp32 sum ran in another order moves an entry by a whole bf16
 # step, so the largest entry is no finer measure)
 BF16_CPU_SLOTS = (2, 1, 1, 2, 4)
+# the fused log-mel's kernels by plan (csrc/fused_mel.cu fused_log_mel_plan)
+MEL_KERNELS = {1: "fused_log_mel_kernel", 3: "fused_log_mel_wg_kernel"}
 
 
 def card_line() -> str:
@@ -1226,18 +1231,25 @@ def frontend(gen, pipe, report):
     require(tuple(out.shape) == (BATCH, 128, 626) and bool(torch.isfinite(out).all()),
             "fused_log_mel: bad shape or non-finite values")
 
+    plan_fn = _build.function("fused_mel", "fused_log_mel_plan", [_build.I] * 4)
     rows = []
     for B, audio in clips.items():
         for dtype in ("float32", "bfloat16"):
             cfg = MelConfig(compute_dtype=dtype)
+            bf16 = dtype == "bfloat16"
+            name = "fused_log_mel.bf16" if bf16 else "fused_log_mel"
+            plan = plan_fn(cfg.n_fft, cfg.hop_length, cfg.n_mels, int(bf16))
+            kernel = MEL_KERNELS.get(plan, "none")
+            print(f"fused_log_mel  B={B} {dtype}: plan {plan} ({kernel})", flush=True)
+            require(plan == (3 if bf16 else 1), f"fused_log_mel {dtype} took plan {plan}")
             _build.reset_launches()
             got = fused_log_mel(audio, cfg)
             again = fused_log_mel(audio, cfg)
-            require(dict(_build.LAUNCHES) == {"fused_log_mel": 2},
+            require(dict(_build.LAUNCHES) == {name: 2},
                     "fused_log_mel did not launch once per call")
             plain = fused_log_mel_plain(audio, cfg)
             gemm = log_mel_spectrogram(audio, cfg)
-            require(dict(_build.LAUNCHES) == {"fused_log_mel": 2},
+            require(dict(_build.LAUNCHES) == {name: 2},
                     "a plain front-end launched a kernel")
             err, abs_err = rel_err(got, plain), float((got - plain).abs().max())
             gemm_db = float((got - gemm).abs().max())
@@ -1258,7 +1270,8 @@ def frontend(gen, pipe, report):
             n_bytes = 4 * audio.numel() + esize * (cfg.n_fft * 2 * nf + nf * nm) + 4 * got.numel()
             peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
             rows.append(dict(
-                B=B, dtype=dtype, max_abs_err=abs_err, rel_err=err, gemm_db=gemm_db,
+                B=B, dtype=dtype, plan=plan, kernel=kernel, max_abs_err=abs_err, rel_err=err,
+                gemm_db=gemm_db,
                 ms=time_ms(lambda: fused_log_mel(audio, cfg)),
                 plain_ms=time_ms(lambda: fused_log_mel_plain(audio, cfg), iters=3),
                 yardstick_ms=time_ms(lambda: log_mel_spectrogram(audio, cfg)),
@@ -1321,8 +1334,10 @@ def main() -> int:
     train_launches, train_ctx = train(gen, report)
     train16_launches = train_bf16(train_ctx, report)
     fe_launches, fe_rows = frontend(gen, pipe, report)
-    # the kernels line's row 7 is the entry point's call: B=64, fp32
+    # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
     rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
+    rows["fused_log_mel.bf16"] = [r for r in fe_rows
+                                  if r["B"] == BATCH and r["dtype"] == "bfloat16"]
 
     fw = report["forward"]
     print(f"[{card}] device forward, batch {BATCH}: {fw['forward_ms']:.3f} ms "
@@ -1343,7 +1358,8 @@ def main() -> int:
           f"fp32 {tr['step_ms']:.3f} ms, {tr['clips_per_s']:.1f} clips/s)", flush=True)
     for r in fe_rows:
         b_ms, by = r["bound"]
-        print(f"[{card}] fused_log_mel B={r['B']} {r['dtype']}: {r['ms']:.3f} ms per call "
+        print(f"[{card}] fused_log_mel B={r['B']} {r['dtype']} (plan {r['plan']}, "
+              f"{r['kernel']}): {r['ms']:.3f} ms per call "
               f"({r['gflop']:.1f} GFLOP), bound {b_ms:.3f} ms ({by}), plain "
               f"{r['plain_ms']:.3f} ms, GEMM front-end (yardstick) {r['yardstick_ms']:.3f} ms",
               flush=True)
@@ -1361,6 +1377,8 @@ def main() -> int:
         "bigru_bwd": (gru_cu, "desed_task_tpu/ops/pallas_gru.py:58"),
         "fused_log_mel": ("desed_task_tpu_torch/csrc/fused_mel.cu",
                           "desed_task_tpu/ops/pallas_mel.py:96"),
+        "fused_log_mel.bf16": ("desed_task_tpu_torch/csrc/fused_mel.cu",
+                               "desed_task_tpu/ops/pallas_mel.py:96 (bf16 mode)"),
     }
     kernels = []
     for name, rs in rows.items():
@@ -1372,7 +1390,7 @@ def main() -> int:
                    "train_step": train_launches.get(name, 0),
                    "train_step_bf16": train16_launches.get(name, 0),
                    "frontend": fe_launches.get(name, 0)}
-        main_path = ("frontend" if name in fe_launches
+        main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")
         entry = dict(
@@ -1387,20 +1405,21 @@ def main() -> int:
             r0 = rs[0]
             entry.update(plan=r0["plan"], C=r0["C"], BT=r0["BT"],
                          us_per_step=r0["ms"] / r0["steps"] * 1e3)
-        if name == "fused_log_mel":
+        if name.startswith("fused_log_mel"):
+            entry.update(plan=rs[0]["plan"], kernel=rs[0]["kernel"])
             entry["yardstick_ms"] = rs[0]["yardstick_ms"]
             entry["yardstick"] = ("log_mel_spectrogram, the GEMM front-end (several "
                                   "calls: no single PyTorch call computes this function)")
         kernels.append(entry)
         lib_s = "n/a" if entry["library_ms"] is None else f"{entry['library_ms']:.3f} ms"
-        if name in fe_launches:
-            per = f"per call ({len(rs)} call at B={BATCH}, fp32)"
+        if name.startswith("fused_log_mel"):
+            per = f"per call ({len(rs)} call at B={BATCH}, {rs[0]['dtype']})"
         elif name in serve_launches or name in serve16_launches:
             per = f"per forward ({len(rs)} call(s) at B={BATCH})"
         else:
             per = f"per train step ({len(rs)} call(s) at B={TRAIN_BATCH})"
         gru_s = (f", {entry['plan']} C={entry['C']} BT={entry['BT']}, "
-                 f"{entry['us_per_step']:.2f} us/step" if "plan" in entry else "")
+                 f"{entry['us_per_step']:.2f} us/step" if "C" in entry else "")
         print(f"[{card}] {name}: {entry['ms']:.3f} ms {per}, bound {b_ms:.3f} ms "
               f"({entry['bound_by']}), plain {entry['plain_ms']:.3f} ms, "
               f"library {lib_s}{gru_s}", flush=True)

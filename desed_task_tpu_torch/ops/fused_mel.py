@@ -5,9 +5,11 @@ Counterpart of desed_task_tpu/ops/pallas_mel.py. A hand-written CUDA kernel
 front-end (ops/frontend.py) materializes in device memory, and writes only
 the log-mel [B, n_mels, n_frames]. It replaces the inner `kernel` of
 `pallas_log_mel` (pallas_mel.py:96, called at :147). The source holds two
-kernels of one design, and `fused_log_mel_plan` there picks one per shape:
-fp32 FMAs on the CUDA cores, or, in bf16 mode with hop % 8 == 0 and at most
-128 mels, the tensor cores; the wrapper lays the constants out for it.
+kernels, and `fused_log_mel_plan` there picks one per shape: fp32 FMAs on
+the CUDA cores (plan 1), or, in bf16 mode with hop % 8 == 0 and at most 128
+mels, `wgmma` on the tensor cores fed by a TMA ring, the frequency tiles
+split between the two blocks of a cluster (plan 3); the wrapper lays the
+constants out for it.
 
 `MelConfig.compute_dtype` selects the mode, as it does for the TPU kernel
 (pallas_mel.py:77): fp32, or "bfloat16", where the frame samples, the
@@ -20,7 +22,8 @@ a dB.
 Nothing reroutes the serving or train paths here: they call
 `log_mel_spectrogram`, as the JAX package's do. `fused_log_mel` takes its
 plain PyTorch version (`fused_log_mel_plain`, beside it) only for CPU
-tensors; for CUDA tensors it launches the kernel or raises. Unlike the TPU
+tensors; for CUDA tensors it launches the kernel or raises. Launches count
+as "fused_log_mel" in fp32 and "fused_log_mel.bf16" in bf16. Unlike the TPU
 kernel it pads neither batch nor time and takes any frame count.
 """
 
@@ -34,10 +37,12 @@ import torch
 from . import _build
 from .frontend import MelConfig, _constants, center_pad, compute_dtype
 
-TF = 128  # frequencies per tile of the kernels' basis layouts (fused_mel.cu)
+TF = 128  # frequencies per tile of the CUDA-core kernel's basis layout (fused_mel.cu)
 BK = 32  # samples per staged basis slice, CUDA-core kernel (fused_mel.cu)
-TC_BK = 32  # the same, tensor-core kernel (fused_mel.cu)
-TC_MELS = 128  # mels of the tensor-core kernel's filterbank layout (fused_mel.cu)
+# the tensor-core kernel (fused_mel.cu WG_*): frames per cluster, samples per
+# basis item, frequencies per tile, mels (rows) of the filterbank item, ring
+# stages, and blocks per cluster (each a share of the frequency tiles)
+WG_TT, WG_TK, WG_TF, WG_MELS, WG_STAGES, WG_SPLIT = 128, 64, 64, 128, 4, 2
 LOG10E = math.log10(math.e)
 
 
@@ -84,29 +89,35 @@ def _kernel_constants(cfg: MelConfig, device: torch.device, dtype: torch.dtype, 
 
     plan 1 (CUDA cores): basis [n_tiles, KP, 2, TF], one contiguous BK-row
     slice after another, cos then -sin of TF frequencies per row; filterbank
-    [n_tiles * TF, MP]. plan 2 (tensor cores): basis [n_tiles, KP / TC_BK,
-    2, TF, TC_BK], each slice column by column; filterbank transposed,
-    [n_tiles, TC_MELS, TF]. Returns (basis, filterbank, slice depth, number
-    of frequencies f_hi - f_lo)."""
+    [n_tiles * TF, MP]. plan 3 (tensor cores): one sequence of ring items
+    [n_tiles, n_chunks + 1, 2 * WG_TF, WG_TK] (n_chunks = KP / WG_TK), per
+    tile of WG_TF frequencies n_chunks basis items, row j cos and row
+    WG_TF + j -sin of frequency j over WG_TK samples (K-major), then the
+    filterbank item, row m holding fb[tile frequencies, m] for m < WG_MELS;
+    its filterbank is a view of those items. Returns (basis, filterbank,
+    slice depth, number of frequencies f_hi - f_lo)."""
     basis, fb = _constants(cfg, device, dtype)
     used = torch.nonzero(fb.ne(0).any(1)).flatten().tolist() or [0]
     f_lo, f_hi = used[0], used[-1] + 1
     n_fft, nf, nm = cfg.n_fft, f_hi - f_lo, cfg.n_mels
-    n_tiles = -(-nf // TF)
-    bk = TC_BK if plan == 2 else BK
+    tf, bk = (WG_TF, WG_TK) if plan == 3 else (TF, BK)
+    n_tiles = -(-nf // tf)
     kp = -(-n_fft // bk) * bk
-    kb = torch.zeros((kp, 2, n_tiles * TF), dtype=dtype, device=device)
+    kb = torch.zeros((kp, 2, n_tiles * tf), dtype=dtype, device=device)
     kb[:n_fft, 0, :nf] = basis[:, f_lo:f_hi]
     kb[:n_fft, 1, :nf] = basis[:, cfg.n_freqs + f_lo : cfg.n_freqs + f_hi]
-    if plan == 2:
-        kb = kb.view(kp // bk, bk, 2, n_tiles, TF).permute(3, 0, 2, 4, 1)
-        kfb = torch.zeros((n_tiles * TF, TC_MELS), dtype=dtype, device=device)
-        kfb[:nf, :nm] = fb[f_lo:f_hi]
-        kfb = kfb.view(n_tiles, TF, TC_MELS).transpose(1, 2)
-    else:
-        kb = kb.view(kp, 2, n_tiles, TF).permute(2, 0, 1, 3)
-        kfb = torch.zeros((n_tiles * TF, -(-nm // 4) * 4), dtype=dtype, device=device)
-        kfb[:nf, :nm] = fb[f_lo:f_hi]
+    if plan == 3:
+        n_chunks = kp // bk
+        items = torch.zeros((n_tiles, n_chunks + 1, 2 * tf, bk), dtype=dtype, device=device)
+        items[:, :n_chunks] = kb.view(n_chunks, bk, 2, n_tiles, tf).permute(3, 0, 2, 4, 1).reshape(
+            n_tiles, n_chunks, 2 * tf, bk)
+        fbp = torch.zeros((n_tiles * tf, WG_MELS), dtype=dtype, device=device)
+        fbp[:nf, :nm] = fb[f_lo:f_hi]
+        items[:, n_chunks] = fbp.view(n_tiles, tf, WG_MELS).transpose(1, 2)
+        return items, items[:, n_chunks], bk, nf
+    kb = kb.view(kp, 2, n_tiles, tf).permute(2, 0, 1, 3)
+    kfb = torch.zeros((n_tiles * tf, -(-nm // 4) * 4), dtype=dtype, device=device)
+    kfb[:nf, :nm] = fb[f_lo:f_hi]
     return kb.contiguous(), kfb.contiguous(), bk, nf
 
 
@@ -131,7 +142,7 @@ def fused_log_mel(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
                          f"n_mels={cfg.n_mels} do not fit the kernels' shared memory")
     cdt = compute_dtype(cfg)
     kb, kfb, bk, n_freqs = _kernel_constants(cfg, audio.device, cdt, plan)
-    _build.require_cuda("fused_log_mel", cdt, kb, kfb)
+    _build.require_cuda("fused_log_mel", cdt, kb, *([] if plan == 3 else [kfb]))
     x = center_pad(audio, cfg)
     B, n_pad = x.shape
     T = cfg.num_frames(audio.shape[1])
@@ -141,8 +152,9 @@ def fused_log_mel(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     fn = _build.function("fused_mel", "fused_log_mel",
                          [_build.P] * 4 + [_build.I] * 10 + [_build.Fl] * 4 + [_build.P])
     err = fn(x.data_ptr(), kb.data_ptr(), kfb.data_ptr(), out.data_ptr(), B, n_pad, T,
-             cfg.n_fft, cfg.hop_length, n_freqs, cfg.n_mels, int(bf16), TF, bk,
+             cfg.n_fft, cfg.hop_length, n_freqs, cfg.n_mels, int(bf16),
+             WG_TF if plan == 3 else TF, bk,
              cfg.amin, 20.0 * math.log10(max(cfg.amin, 1.0)), lo, hi, _build.stream_ptr(x))
     _build.check(err, "fused_log_mel")
-    _build.count_launch("fused_log_mel")
+    _build.count_launch("fused_log_mel.bf16" if bf16 else "fused_log_mel")
     return out

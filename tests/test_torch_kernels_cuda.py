@@ -19,8 +19,10 @@ the row tile, pools (1, 1), (2, 2), (1, 2) and others, dropout bits; the
 bf16 GLU's two kernels at GLU_BF16_ODD_GEOMS) and a bf16 CRNN forward; the bf16 modes of the backward kernels at edge shapes
 (BF16_BWD_GEOMS; the GLU backward's tensor-core kernel also at
 BWD_FRAG_GEOMS) and the bf16 block's autograd path; for the fused
-log-mel B=1 and 3, 1-s and 10-s clips, n_fft 512 to 2048, 40 to 128 mels,
-hops that do not divide n_fft, both compute dtypes and bitwise reruns.
+log-mel B=1, 2, 3 and 64, 1-s to 10-s clips, n_fft 400 to 2048, 40 to 160
+mels, hops that do not divide n_fft, ragged frame tiles, both compute dtypes,
+the plan each shape takes (the wgmma kernel in bf16 wherever it fits) and
+bitwise reruns.
 """
 
 import numpy as np
@@ -379,6 +381,9 @@ MEL_CASES = [  # (B, N, n_fft, hop, n_mels)
     (2, 16000, 1024, 200, 64),  # hop does not divide n_fft
     (2, 20000, 512, 128, 42),  # 257 frequencies: a ragged last tile; 42 mels
     (1, 16000, 2048, 256, 160),  # over 128 mels: bf16 on the CUDA cores too
+    (64, 160000, 2048, 256, 128),  # the 2024 config at B=64: 320 frame tiles of 128
+    (2, 40000, 2048, 256, 128),  # 157 frames: a ragged last frame tile of 29
+    (2, 16000, 400, 160, 40),  # n_fft 400 (7 items of 64 samples), hop 160, 40 mels
 ]
 # bf16: one bf16 step of a magnitude (2^-7 relative) at most, 0.068 dB
 TOL_MEL_BF16_DB = 0.07
@@ -416,6 +421,22 @@ def test_fused_log_mel_kernel_band_limited(dev, dtype):
         _close(got, want)
     else:
         assert float((got - want).abs().max()) <= TOL_MEL_BF16_DB
+
+
+def test_fused_log_mel_plans(dev):
+    """bf16 with hop % 8 == 0 and at most 128 mels takes the wgmma kernel
+    (plan 3), the 2024 config among them; fp32 and the other bf16 shapes take
+    the CUDA-core kernel (plan 1)."""
+    from desed_task_tpu_torch.ops import _build
+
+    plan = _build.function("fused_mel", "fused_log_mel_plan", [_build.I] * 4)
+    for n_fft, hop, n_mels in [(2048, 256, 128), (1024, 256, 64), (1024, 200, 64),
+                               (512, 128, 42), (400, 160, 40), (2048, 320, 128)]:
+        assert plan(n_fft, hop, n_mels, 1) == 3, (n_fft, hop, n_mels)
+        assert plan(n_fft, hop, n_mels, 0) == 1, (n_fft, hop, n_mels)
+    assert plan(2048, 256, 160, 1) == 1  # over 128 mels
+    assert plan(2048, 300, 128, 1) == 1  # hop not a multiple of 8
+    assert plan(2048, 512, 128, 1) == 1  # 128 frames' span does not fit beside the ring
 
 
 def test_fused_log_mel_raises_on_inputs_the_kernel_does_not_take(dev):
