@@ -87,11 +87,29 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel, plan 3, required in bf16); the serving scores from
      `fused_log_mel` features against `pipe.forward`; timings of the kernel,
      its plain version and the GEMM front-end (the yardstick: no single
-     PyTorch call computes this function).
+     PyTorch call computes this function);
+  10. the eval path (training/evaluate.py): crnn_2024() student and teacher
+     from a seed, EVAL_CLIPS seeded ten-second clips with 768x496 embeddings
+     in a DeviceEvalCache of batches of EVAL_BATCH, seeded DESED ground
+     truth as column tables; one SEDValidator pass (weak and synth sets from
+     the cache, student and teacher, MEDIAN_2024, the intersection
+     objective, a 50-point PSDS1 trajectory) and run_test at 50
+     thresholds: launches 7/7/1 per batch per model pass; the same on the
+     plain model (no launch); the median-filtered scores within TOL_SCORES
+     of the plain model's, events at 0.5 differing only at frames within
+     TOL_SCORES of 0.5 (counted), raw and weak scores within TOL_SCORES,
+     the cache's scores equal to the host-dataset branch's; every metric
+     finite and in [0, 1]; run_test on crnn_2024(compute_dtype=bf16) with
+     the bf16 front-end (launches conv_bn_stats.bf16 and glu_drop_pool.bf16
+     7, bigru 1 per batch; its scores on N_CPU_CLIPS clips nearer the plain
+     bf16 CRNN on the CPU than the fp32 run's, as phase 4b); no host
+     synchronisation inside the cache's loop; the forward's clips/s and the
+     wall time of a validator pass and of run_test.
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
-4, launches from the bf16 train step; row 7 in fp32 and, as
+4, launches from the bf16 train step; `launches_by_path` with each path's
+counts, "eval" and "eval_bf16" among them; row 7 in fp32 and, as
 `fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
 path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
@@ -121,6 +139,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TOL_KERNEL = 1e-4  # max |kernel - plain| / max(1, max |plain|), fp32 sums
 TOL_SCORES = 1e-4  # max |kernel forward - plain forward| on sigmoid scores
 TRAIN_BATCH = 60  # mean_teacher_2024(): slots [12, 6, 6, 12, 24]
+EVAL_BATCH = 24  # batch_size_val of the 2024 recipe (confs/pretrained.yaml:12)
+EVAL_CLIPS = 4 * EVAL_BATCH
 # train step, kernels against plain versions: losses relative; each gradient
 # max |kernel - plain| / max(max |plain|, 1e-3) (the conv biases' exact
 # gradient is 0 under train-mode BatchNorm: both sides give fp32 noise)
@@ -1295,6 +1315,232 @@ def frontend(gen, pipe, report):
     return launches, rows
 
 
+def eval_items(enc, rng):
+    """EVAL_CLIPS seeded ten-second clips (int16-valued, as the cache stores
+    them), 768x496 embeddings, DESED ground truth as column tables."""
+    from desed_task_tpu_torch.utils.classes_dict import CLASSES_DESED
+
+    desed = list(CLASSES_DESED)
+    items, rows = [], []
+    for i in range(EVAL_CLIPS):
+        name = f"eval_{i:03d}.wav"
+        events = []
+        for _ in range(rng.integers(1, 4)):
+            on = round(float(rng.uniform(0, 9)), 3)
+            events.append((desed[rng.integers(len(desed))], on,
+                           round(min(10.0, on + float(rng.uniform(0.3, 4))), 3)))
+        rows += [(name, on, off, lab) for lab, on, off in events]
+        audio = np.clip(np.round(rng.standard_normal(160000) * 3277), -32768, 32767) / 32768
+        items.append({"audio": audio.astype(np.float32),
+                      "labels": enc.encode_strong(events).T.astype(np.float32),
+                      "embeddings": rng.standard_normal((768, 496), np.float32),
+                      "filename": name})
+    gt = {"filename": np.asarray([r[0] for r in rows], object),
+          "onset": np.asarray([r[1] for r in rows]), "offset": np.asarray([r[2] for r in rows]),
+          "event_label": np.asarray([r[3] for r in rows], object)}
+    dur = {"filename": np.asarray([it["filename"] for it in items], object),
+           "duration": np.full(EVAL_CLIPS, 10.0)}
+    return items, gt, dur
+
+
+def evaluate(gen, card, report):
+    """Phase 10: the eval path (training/evaluate.py) on a DeviceEvalCache."""
+    import warnings
+
+    import torch
+
+    from desed_task_tpu_torch.data.device_cache import DeviceEvalCache
+    from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
+    from desed_task_tpu_torch.ops.median import classwise_median_filter
+    from desed_task_tpu_torch.ops.scaler import ScalerConfig, apply_scaler
+    from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024
+    from desed_task_tpu_torch.training.evaluate import SEDValidator, predict_dataset, run_test
+    from desed_task_tpu_torch.training.mean_teacher import MeanTeacherState, make_predict_step
+    from desed_task_tpu_torch.utils.classes_dict import CLASSES_DESED, CLASSES_MAESTRO_REAL
+
+    t_phase = time.perf_counter()
+    classes = list(CLASSES_DESED) + [c for c in CLASSES_MAESTRO_REAL if c not in CLASSES_DESED]
+    enc = ManyHotEncoder(classes, 10, 2048, 256, 4, 16000)
+    items, gt, dur = eval_items(enc, np.random.default_rng(3))
+    student, teacher = randomize(crnn_2024(), gen), randomize(crnn_2024(), gen)
+
+    def make_state(**over):
+        s, t = crnn_2024(**over), crnn_2024(**over)
+        s.load_state_dict(student.state_dict())
+        t.load_state_dict(teacher.state_dict())
+        return MeanTeacherState(step=0, student=s.cuda().eval(), teacher=t.cuda().eval(),
+                                opt_state={})
+
+    state, plain = make_state(), make_state(fused_blocks=False, rnn_kernel=False)
+    cache = DeviceEvalCache(items, EVAL_BATCH)
+    cache.upload()
+    n_batches = cache.n_pad // EVAL_BATCH
+    predict = make_predict_step()
+    validator = SEDValidator(predict, enc, weak_set=cache, synth_set=cache, synth_gt=gt,
+                             synth_dur=dur, batch_size=EVAL_BATCH, median_filter=MEDIAN_2024,
+                             obj_metric_synth_type="intersection", trajectory_psds=50)
+    test_kw = dict(batch_size=EVAL_BATCH, n_thresholds=50, median_filter=MEDIAN_2024)
+
+    def run(st, pred=predict):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        v = validator(st, 0) if pred is predict else None
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = run_test(pred, st, cache, enc, gt, dur, **test_kw)
+        t2 = time.perf_counter()
+        return v, r, dict(_build.LAUNCHES), t1 - t0, t2 - t1
+
+    (obj, scalars), res, launches, val_s, test_s = run(state)
+    # the validator: weak and synth sets, student and teacher (4 passes);
+    # run_test: 1 pass
+    passes = 5 * n_batches
+    want = {"conv_bn_stats": 7 * passes, "glu_drop_pool": 7 * passes, "bigru": passes}
+    print(f"eval: {EVAL_CLIPS} clips in a DeviceEvalCache of {n_batches} batches of "
+          f"{EVAL_BATCH}; SEDValidator (weak + synth, student + teacher) and run_test: "
+          f"launches {launches}, expected {want}", flush=True)
+    require(launches == want, "the eval path did not go through every kernel")
+    _, p_res, p_launches, _, _ = run(plain)
+    require(p_launches == {}, "the plain model's eval launched a kernel")
+
+    names = [it["filename"][:-4] for it in items]
+    post = np.stack([res["scores_postprocessed"][k].values for k in names])
+    post_p = np.stack([p_res["scores_postprocessed"][k].values for k in names])
+    require(post.shape == (EVAL_CLIPS, 156, 27) and bool(np.isfinite(post).all()),
+            "eval: bad shape or non-finite scores")
+    s_err = float(np.abs(post - post_p).max())
+    flips = (post > 0.5) != (post_p > 0.5)
+    near = bool((np.abs(post_p[flips] - 0.5) <= TOL_SCORES).all())
+    print(f"eval: median-filtered scores against the plain model's: max err {s_err:.3e} "
+          f"(tol {TOL_SCORES}); frames whose activity at 0.5 differs: {int(flips.sum())}, "
+          f"each within {TOL_SCORES} of 0.5: {near}", flush=True)
+    require(s_err <= TOL_SCORES, "eval scores disagree with the plain model's")
+    require(near, "an event at 0.5 differs from the plain model's away from the threshold")
+    if not flips.any():
+        t05, p05 = res["prediction_dfs"][0.5], p_res["prediction_dfs"][0.5]
+        require(all(list(t05[c]) == list(p05[c]) for c in t05),
+                "the events at 0.5 differ from the plain model's")
+
+    # raw and weak scores: the cache's loop against the plain model's and
+    # against the same model over the host-dataset branch
+    kw = dict(median_filter=MEDIAN_2024, as_arrays=True, want_events=False)
+    c_raw, c_post, _, c_weak, _ = predict_dataset(predict, state.student, cache, enc, EVAL_BATCH,
+                                                  **kw)
+    h_raw, h_post, _, h_weak, _ = predict_dataset(predict, state.student, items, enc, EVAL_BATCH,
+                                                  **kw)
+    p_raw, _, _, p_weak, _ = predict_dataset(predict, plain.student, cache, enc, EVAL_BATCH, **kw)
+    raw = lambda d: np.stack([d[k].values for k in names])
+    raw_err = max(float(np.abs(raw(c_raw) - raw(p_raw)).max()),
+                  float(np.abs(c_weak - p_weak).max()))
+    same_host = (np.array_equal(raw(c_raw), raw(h_raw)) and np.array_equal(raw(c_post), raw(h_post))
+                 and np.array_equal(c_weak, h_weak))
+    print(f"eval: raw strong and weak scores against the plain model's: max err {raw_err:.3e} "
+          f"(tol {TOL_SCORES}); the cache's scores equal the host-dataset branch's: {same_host}",
+          flush=True)
+    require(raw_err <= TOL_SCORES, "eval raw scores disagree with the plain model's")
+    require(same_host, "the cache's scores differ from the host-dataset branch's")
+
+    numbers = {k: v for k, v in res.items() if k not in ("scores_postprocessed", "prediction_dfs")}
+    metrics = {**{k: v for k, v in scalars.items() if not k.endswith("obj_metric")}, **numbers}
+    print(f"[{card}] eval metrics (random weights): "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(metrics.items())), flush=True)
+    require(len(metrics) == 12 and all(math.isfinite(v) and 0 <= v <= 1
+                                       for v in metrics.values()),
+            "an eval metric is not finite or not in [0, 1]")
+    p_metrics = {k: v for k, v in p_res.items() if k in numbers}
+    print(f"eval: plain model's run_test metrics: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(p_metrics.items())), flush=True)
+
+    # bf16: run_test on crnn_2024(compute_dtype=bf16) with the bf16 front-end
+    mel16 = MelConfig(compute_dtype="bfloat16")
+    state16 = make_state(compute_dtype=torch.bfloat16)
+    _, res16, launches16, _, test16_s = run(state16, make_predict_step(mel16))
+    want16 = {"conv_bn_stats.bf16": 7 * n_batches, "glu_drop_pool.bf16": 7 * n_batches,
+              "bigru": n_batches}
+    print(f"eval bf16: run_test launches {launches16}, expected {want16}", flush=True)
+    require(launches16 == want16, "the bf16 eval did not go through every bf16 kernel")
+    post16 = np.stack([res16["scores_postprocessed"][k].values for k in names])
+    require(bool(np.isfinite(post16).all()) and all(
+        math.isfinite(v) and 0 <= v <= 1 for k, v in res16.items() if k in numbers),
+        "bf16 eval: non-finite scores or a metric outside [0, 1]")
+    # on N_CPU_CLIPS clips, from the card's bf16 features, the median-filtered
+    # scores nearer the same bf16 CRNN through the plain versions on the CPU
+    # than the fp32 run's (the limit of phase 4b)
+    cpu16 = crnn_2024(compute_dtype=torch.bfloat16)
+    cpu16.load_state_dict(student.state_dict())
+    cpu16.eval()
+    audio = torch.as_tensor(np.stack([it["audio"] for it in items[:N_CPU_CLIPS]]), device="cuda")
+    emb = np.stack([it["embeddings"] for it in items[:N_CPU_CLIPS]])
+    with torch.inference_mode():
+        feats = apply_scaler(log_mel_spectrogram(audio, mel16), ScalerConfig()).cpu()
+        s_cpu = classwise_median_filter(cpu16(feats, embeddings=torch.from_numpy(emb))[0],
+                                        MEDIAN_2024, class_axis=-2).float().numpy()
+    card16 = post16[:N_CPU_CLIPS].transpose(0, 2, 1)
+    gap_cpu = float(np.abs(card16 - s_cpu).max())
+    gap_fp32 = float(np.abs(card16 - post[:N_CPU_CLIPS].transpose(0, 2, 1)).max())
+    share = gap_cpu / max(gap_fp32, 1e-30)
+    print(f"eval bf16 on {N_CPU_CLIPS} clips: scores max |diff| {gap_cpu:.3e} from the plain "
+          f"bf16 CRNN on the CPU, {gap_fp32:.3e} from the fp32 run (share {share:.3f}, "
+          f"limit {BF16_NEARER:.1f})", flush=True)
+    require(gap_fp32 > 0 and share < BF16_NEARER,
+            "bf16 eval scores are no nearer the plain bf16 forward than the fp32 ones")
+
+    # the forward alone: the cache's loop with no fetch, and no host
+    # synchronisation inside it
+    def loop():
+        outs = []
+        for start in range(0, cache.n_pad, EVAL_BATCH):
+            audio_b, emb_b = cache.batch(start)
+            strong, weak = predict(state.student, audio_b, embeddings=emb_b)
+            outs.append((classwise_median_filter(strong, MEDIAN_2024, class_axis=-2), weak))
+        return outs
+
+    def syncs_in(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+
+    loop()
+    torch.cuda.synchronize()
+    syncs = syncs_in(loop)
+    control = syncs_in(lambda: torch.ones(1, device="cuda").item())
+    print(f"eval: host synchronisations inside the cache's loop: {len(syncs)}"
+          + (f" (first: {syncs[0][:200]})" if syncs else "")
+          + f"; a .item() in the same watch: {len(control)}", flush=True)
+    require(len(control) == 1, "the synchronisation watch does not see a .item()")
+    require(not syncs, "the cache's loop synchronises with the host")
+    fwd_ms = time_ms(loop, iters=5, warmup=1)
+    plain_fwd_ms = time_ms(lambda: predict_dataset(predict, plain.student, cache, enc, EVAL_BATCH,
+                                                   want_raw=False, want_post=False,
+                                                   want_events=False), iters=2, warmup=1)
+    t_val = time.perf_counter()
+    validator(state, 1)
+    val2_s = time.perf_counter() - t_val
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{card}] eval forward alone ({EVAL_CLIPS} clips, {n_batches} batches of "
+          f"{EVAL_BATCH}, median filter on the card): {fwd_ms:.3f} ms, "
+          f"{EVAL_CLIPS / fwd_ms * 1e3:.1f} clips/s (plain model, with the fetch: "
+          f"{plain_fwd_ms:.3f} ms)", flush=True)
+    print(f"[{card}] eval wall time: SEDValidator pass {val_s:.3f} s (again: {val2_s:.3f} s), "
+          f"run_test {test_s:.3f} s, bf16 run_test {test16_s:.3f} s; phase 10 {phase_s:.1f} s",
+          flush=True)
+    report["eval"] = dict(clips=EVAL_CLIPS, batches=n_batches, launches=launches,
+                          launches_bf16=launches16, score_err=s_err, raw_err=raw_err,
+                          flips_at_05=int(flips.sum()), same_as_host=same_host, metrics=metrics,
+                          plain_metrics=p_metrics, bf16_share=share, forward_ms=fwd_ms,
+                          clips_per_s=EVAL_CLIPS / fwd_ms * 1e3, validator_s=val_s,
+                          validator_again_s=val2_s, run_test_s=test_s, run_test_bf16_s=test16_s,
+                          phase_s=phase_s)
+    return launches, launches16
+
+
 def main() -> int:
     import torch
 
@@ -1334,6 +1580,7 @@ def main() -> int:
     train_launches, train_ctx = train(gen, report)
     train16_launches = train_bf16(train_ctx, report)
     fe_launches, fe_rows = frontend(gen, pipe, report)
+    eval_launches, eval16_launches = evaluate(gen, card, report)
     # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
     rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
     rows["fused_log_mel.bf16"] = [r for r in fe_rows
@@ -1389,7 +1636,9 @@ def main() -> int:
                    "serving_bf16": serve16_launches.get(name, 0),
                    "train_step": train_launches.get(name, 0),
                    "train_step_bf16": train16_launches.get(name, 0),
-                   "frontend": fe_launches.get(name, 0)}
+                   "frontend": fe_launches.get(name, 0),
+                   "eval": eval_launches.get(name, 0),
+                   "eval_bf16": eval16_launches.get(name, 0)}
         main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")

@@ -1,1 +1,1 @@
-"""Host-side audio I/O."""
+"""Host-side audio I/O, batch assembly and the device-resident eval cache."""

@@ -1,1 +1,1 @@
-"""Serving pipeline."""
+"""Serving pipeline, decoding, MAESTRO scoring and score files."""

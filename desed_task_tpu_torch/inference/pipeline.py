@@ -27,8 +27,7 @@ from ..labels.events import find_contiguous_regions
 from ..ops.frontend import MelConfig, log_mel_spectrogram
 from ..ops.median import classwise_median_filter
 from ..ops.scaler import ScalerConfig, apply_scaler
-
-EVENT_COLUMNS = ("event_label", "onset", "offset", "filename")
+from ..utils.table import EVENT_COLUMNS
 
 
 class InferencePipeline:

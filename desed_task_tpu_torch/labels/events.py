@@ -17,3 +17,17 @@ def find_contiguous_regions(activity: np.ndarray) -> np.ndarray:
     if activity.size and activity[-1]:
         offsets = np.concatenate((offsets, [activity.size]))
     return np.stack([onsets, offsets], axis=1) if onsets.size else np.zeros((0, 2), int)
+
+
+def decode_strong_array(activity: np.ndarray, labels: list[str], frame_to_time=None) -> list[list]:
+    """[T, C] thresholded activity -> [[label, onset, offset], ...], class by
+    class; frame_to_time maps a frame index to seconds (identity if None),
+    offsets at the exclusive frame boundary."""
+    out = []
+    act = np.asarray(activity)
+    for c in range(act.shape[1]):
+        for onset, offset in find_contiguous_regions(act[:, c]):
+            if frame_to_time is not None:
+                onset, offset = frame_to_time(onset), frame_to_time(offset)
+            out.append([labels[c], float(onset), float(offset)])
+    return out

@@ -267,8 +267,25 @@ def fp32_products(device: torch.device):
         mm.fp32_precision = prev
 
 
+@functools.lru_cache(maxsize=1)
+def settle_cpu_vector_math() -> None:
+    """Make the process's first calls of torch's CPU sqrt, log and log10 on
+    one thread. On the CPU these go through MKL's vector math library, whose
+    first call in a process, made by several OpenMP threads at once on a
+    large tensor, has computed some threads' shares of the elements to about
+    12 bits (up to 3.2e-4 relative: 1.6e-3 dB of log-mel, eight times the CPU
+    parity tests' bound) in a few percent of processes started together;
+    later calls are exact (scripts/probe_cpu_vector_math.py). A call on a
+    one-element tensor runs on the calling thread alone."""
+    for dt in (torch.float32, torch.float64):
+        x = torch.ones(1, dtype=dt)
+        torch.sqrt(x), torch.log(x), torch.log10(x)
+
+
 def spectrogram(audio: torch.Tensor, cfg: MelConfig, backend: str | None = None) -> torch.Tensor:
     """Magnitude (power=1) or power spectrogram: [B, N] -> [B, n_freqs, n_frames]."""
+    if audio.device.type == "cpu":
+        settle_cpu_vector_math()
     with fp32_products(audio.device):
         return _spectrogram(audio, cfg, backend)
 
@@ -318,6 +335,8 @@ def mel_spectrogram(audio: torch.Tensor, cfg: MelConfig,
 
 def amplitude_to_db(mel: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """torchaudio AmplitudeToDB(stype='amplitude', amin=1e-5) + clamp [-50, 80]."""
+    if mel.device.type == "cpu":
+        settle_cpu_vector_math()
     multiplier = 10.0 if cfg.power == 2.0 else 20.0
     db = multiplier * torch.log10(torch.clamp(mel, min=cfg.amin))
     db = db - multiplier * math.log10(max(cfg.amin, 1.0))

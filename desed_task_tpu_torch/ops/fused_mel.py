@@ -35,7 +35,8 @@ import math
 import torch
 
 from . import _build
-from .frontend import MelConfig, _constants, center_pad, compute_dtype
+from .frontend import (MelConfig, _constants, center_pad, compute_dtype, fp32_products,
+                       settle_cpu_vector_math)
 
 TF = 128  # frequencies per tile of the CUDA-core kernel's basis layout (fused_mel.cu)
 BK = 32  # samples per staged basis slice, CUDA-core kernel (fused_mel.cu)
@@ -69,13 +70,17 @@ def fused_log_mel_plain(audio: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """[B, N] waveform -> [B, n_mels, n_frames] log-mel dB, step by step as
     the TPU kernel computes it, rounding to bf16 where it does."""
     _refuse(cfg)
+    if audio.device.type == "cpu":
+        settle_cpu_vector_math()
     cdt = compute_dtype(cfg)
     frames = center_pad(audio.float(), cfg).unfold(-1, cfg.n_fft, cfg.hop_length)
     basis, fb = _constants(cfg, audio.device, cdt)
-    reim = torch.matmul(frames.to(cdt).float(), basis.float())  # [B, T, 2 * n_freqs]
+    with fp32_products(audio.device):  # fp32 GEMMs whatever the process-wide setting
+        reim = torch.matmul(frames.to(cdt).float(), basis.float())  # [B, T, 2 * n_freqs]
     re, im = reim[..., : cfg.n_freqs], reim[..., cfg.n_freqs :]
     mag = torch.sqrt(re * re + im * im)
-    mel = torch.matmul(mag.to(cdt).float(), fb.float())  # [B, T, n_mels]
+    with fp32_products(audio.device):
+        mel = torch.matmul(mag.to(cdt).float(), fb.float())  # [B, T, n_mels]
     return _db(mel, cfg).transpose(1, 2).contiguous()
 
 

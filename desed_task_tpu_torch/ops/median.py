@@ -90,3 +90,16 @@ def classwise_median_filter_np(
         win = np.lib.stride_tricks.sliding_window_view(xp, k, axis=-1)
         out[..., sel, :] = np.median(win, axis=-1)
     return np.moveaxis(out, (-2, -1), (ca, ta))
+
+
+class ClassWiseMedianFilter:
+    """Callable of the reference API (postprocess.py): [T, C] scores (numpy)
+    -> [T, C] numpy, each class smoothed with its own window."""
+
+    def __init__(self, filter_lens=(1, 1, 1)):
+        self.filter_lens = tuple(int(f) for f in filter_lens)
+
+    def __call__(self, x, **kwargs):
+        x = torch.as_tensor(np.asarray(x, np.float32))
+        out = classwise_median_filter(x, self.filter_lens, class_axis=-1, time_axis=-2)
+        return out.numpy()

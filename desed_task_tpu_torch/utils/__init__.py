@@ -1,1 +1,1 @@
-"""Label vocabularies."""
+"""Label vocabularies and column tables."""

@@ -47,6 +47,36 @@ def test_fused_log_mel_matches_pallas(config, dtype, B):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
 
 
+def _log_mel_f64(audio, cfg):
+    """The plain version's chain in float64 numpy."""
+    frames = np.asarray(tfe.center_pad(torch.from_numpy(audio).double(), cfg)
+                        .unfold(-1, cfg.n_fft, cfg.hop_length))
+    reim = frames @ np.concatenate(tfe._dft_basis(cfg), axis=1)
+    n = cfg.n_freqs
+    mel = np.sqrt(reim[..., :n] ** 2 + reim[..., n:] ** 2) @ tfe.mel_filterbank(cfg)
+    db = 20.0 * np.log10(np.maximum(mel, cfg.amin))
+    return np.clip(db, cfg.db_clamp_min, cfg.db_clamp_max).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("precision", ["medium", "high"])
+def test_fused_log_mel_plain_keeps_fp32_products_under_reduced_matmul_precision(precision):
+    """With the process-wide fp32 matmul precision lowered (as a caller or an
+    earlier test in the same process may leave it), the plain version's two
+    GEMMs stay fp32 (`frontend.fp32_products`): within TOL_FP32_DB of float64,
+    and the setting is left as it was."""
+    audio = _audio(5, 2, 16000)
+    cfg = tfe.MelConfig()
+    want = _log_mel_f64(audio, cfg)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision(precision)
+        got = fused_log_mel_plain(torch.from_numpy(audio), cfg).numpy()
+        assert torch.get_float32_matmul_precision() == precision
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL_FP32_DB)
+
+
 def test_fused_log_mel_matches_gemm_front_end_in_fp32():
     audio = torch.from_numpy(_audio(7, 2, 23456))
     cfg = tfe.MelConfig()

@@ -22,7 +22,8 @@ BWD_FRAG_GEOMS) and the bf16 block's autograd path; for the fused
 log-mel B=1, 2, 3 and 64, 1-s to 10-s clips, n_fft 400 to 2048, 40 to 160
 mels, hops that do not divide n_fft, ragged frame tiles, both compute dtypes,
 the plan each shape takes (the wgmma kernel in bf16 wherever it fits) and
-bitwise reruns.
+bitwise reruns; the eval path's cache loop on a narrow CRNN (launches per
+batch and pass, fp32 and bf16, scores equal to the host-dataset branch's).
 """
 
 import numpy as np
@@ -844,3 +845,82 @@ def test_crnn_bf16_forward_on_the_card(dev):
     assert _build.LAUNCHES == {"conv_bn_stats.bf16": 3, "glu_drop_pool.bf16": 3, "bigru": 2}
     for a, b, c in zip(got, want, ref32):
         assert float((a.cpu() - b).abs().max()) <= float((b - c).abs().max()) / 8
+
+
+EVAL_NET = dict(nclass=4, n_RNN_cell=16, n_layers_RNN=1, kernel_size=[3, 3, 3],
+                padding=[1, 1, 1], stride=[1, 1, 1], nb_filters=[8, 16, 32],
+                pooling=[[2, 2], [2, 2], [1, 2]], n_mels=32)
+
+
+def _eval_world(dtype):
+    """A narrow CRNN (3 blocks, one BiGRU layer), 10 one-second clips with
+    int16-valued audio, their ground truth, and the model's eval pieces."""
+    from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
+    from desed_task_tpu_torch.models.crnn import CRNN, init_weights
+    from desed_task_tpu_torch.training.mean_teacher import MeanTeacherState, make_predict_step
+
+    classes = ["A", "B", "C", "D"]
+    enc = ManyHotEncoder(classes, 1.0, 512, 256, 4, 16000)
+    r = np.random.default_rng(5)
+    items, rows = [], []
+    for i in range(10):
+        on = float(r.uniform(0, 0.5))
+        ev = [(classes[i % 4], on, on + 0.4)]
+        rows.append((f"c{i}.wav", on, on + 0.4, classes[i % 4]))
+        items.append({"audio": (np.round(r.standard_normal(16000) * 3000) / 32768).astype(np.float32),
+                      "labels": enc.encode_strong(ev).T.astype(np.float32),
+                      "filename": f"c{i}.wav"})
+    gt = {k: np.asarray([row[j] for row in rows], object if k in ("filename", "event_label") else None)
+          for j, k in enumerate(("filename", "onset", "offset", "event_label"))}
+    dur = {"filename": gt["filename"], "duration": np.ones(10)}
+    g = torch.Generator().manual_seed(6)
+    kw = {} if dtype == "float32" else dict(compute_dtype=torch.bfloat16)
+    model = init_weights(CRNN(**EVAL_NET, **kw), g).to("cuda").eval()
+    plain = CRNN(**EVAL_NET, **kw, fused_blocks=False, rnn_kernel=False).to("cuda").eval()
+    plain.load_state_dict(model.state_dict())
+    mel = MelConfig(n_fft=512, win_length=512, hop_length=256, n_mels=32,
+                    compute_dtype=dtype)
+    state = MeanTeacherState(step=0, student=model, teacher=model, opt_state={})
+    return dict(enc=enc, items=items, gt=gt, dur=dur, model=model, plain=plain, state=state,
+                predict=make_predict_step(mel))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_cache_loop_on_the_card(dev, dtype):
+    """predict_dataset over a DeviceEvalCache on the card: 3/3/1 launches per
+    batch (the .bf16 modes in bf16), the same scores as the host-dataset
+    branch, fp32 within TOL of the plain model's; then SEDValidator (weak
+    and synth, student and teacher: 4 passes) and run_test (1 pass)."""
+    from desed_task_tpu_torch.data.device_cache import DeviceEvalCache
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.training.evaluate import SEDValidator, predict_dataset, run_test
+
+    w = _eval_world(dtype)
+    cache = DeviceEvalCache(w["items"], 4)
+    cache.upload()
+    assert cache.stores["audio"].is_cuda and cache.n_pad == 12
+    suffix = "" if dtype == "float32" else ".bf16"
+    per_pass = {f"conv_bn_stats{suffix}": 9, f"glu_drop_pool{suffix}": 9, "bigru": 3}
+    kw = dict(median_filter=[3, 5, 1, 7], as_arrays=True, thresholds=(0.5,))
+    _build.reset_launches()
+    c = predict_dataset(w["predict"], w["model"], cache, w["enc"], 4, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == per_pass
+    h = predict_dataset(w["predict"], w["model"], w["items"], w["enc"], 4, **kw)
+    _build.reset_launches()
+    p = predict_dataset(w["predict"], w["plain"], cache, w["enc"], 4, **kw)
+    assert _build.LAUNCHES == {}
+    for k in (0, 1):
+        for name in c[k]:
+            np.testing.assert_array_equal(c[k][name].values, h[k][name].values)
+            if dtype == "float32":
+                np.testing.assert_allclose(c[k][name].values, p[k][name].values, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(c[3], h[3])
+    _build.reset_launches()
+    SEDValidator(w["predict"], w["enc"], weak_set=cache, synth_set=cache, synth_gt=w["gt"],
+                 synth_dur=w["dur"], batch_size=4, median_filter=[3, 5, 1, 7])(w["state"], 0)
+    res = run_test(w["predict"], w["state"], cache, w["enc"], w["gt"], w["dur"], batch_size=4,
+                   median_filter=[3, 5, 1, 7])
+    assert _build.LAUNCHES == {k: 5 * v for k, v in per_pass.items()}
+    assert all(np.isfinite(v) and 0 <= v <= 1 for k, v in res.items()
+               if k not in ("scores_postprocessed", "prediction_dfs"))
