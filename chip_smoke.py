@@ -104,12 +104,39 @@ Phases (any failure exits non-zero; nothing is caught):
      7, bigru 1 per batch; its scores on N_CPU_CLIPS clips nearer the plain
      bf16 CRNN on the CPU than the fp32 run's, as phase 4b); no host
      synchronisation inside the cache's loop; the forward's clips/s and the
-     wall time of a validator pass and of run_test.
+     wall time of a validator pass and of run_test;
+  11. the 2024 recipe (training/single_run.py) on a seeded corpus of 202
+     ten-second PCM16 clips (MAESTRO 5 scenes x 3 files x 3 windows and 10
+     validation windows; synth 12, strong 12, weak 27, unlabeled 48,
+     synth_val 24, test 24), a float16 768x496 frame-embedding store per
+     split (HDF5 where h5py can be imported, else InMemoryEmbeddings, said
+     on a line of its own), the conf of recipe_config() (pretrained.yaml
+     at full width, only the data paths changed; every step's metrics
+     logged): run (a), bf16 (the CLI's default), fast_dev_run: 2 epochs of
+     2 steps through the device train store, validation each epoch
+     (student and teacher: weak, synth and MAESTRO sets from eval caches),
+     best and last checkpoints, the test battery at 2 thresholds with
+     MAESTRO; launches exactly those of phase 8b a step and 7/7/1 a batch
+     per model pass, metrics.csv names RECIPE_NAMES (and the step's), 4
+     finite losses, metrics in [0, 1]; the best checkpoint into a fresh
+     state bitwise (state dicts, Adam moments, the generator); a gathered
+     batch and a cached step bitwise equal to the host path's from a copy
+     of the state; one more epoch through the loop with one blocking host
+     synchronisation a step; the label-free eval dump from run (a)'s
+     checkpoint (a score file a clip); run (b), fp32, the test battery
+     from run (a)'s best checkpoint (launches 7/7/1 a batch), its first
+     test batch's scores within TOL_RECIPE of the plain versions' on the
+     restored weights and equal to a recomputation; timings of each epoch
+     (train seconds, steps/s, busy share), validation pass and test
+     battery, the store's upload, the analytic MMACs and the energy
+     estimate's range.
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
 4, launches from the bf16 train step; `launches_by_path` with each path's
-counts, "eval" and "eval_bf16" among them; row 7 in fp32 and, as
+counts, "eval" and "eval_bf16" among them, and "recipe" and
+"recipe_bf16", each {"train_step": launches a train step, "eval_batch":
+launches an eval batch per model pass} from phase 11; row 7 in fp32 and, as
 `fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
 path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
@@ -1345,8 +1372,6 @@ def eval_items(enc, rng):
 
 def evaluate(gen, card, report):
     """Phase 10: the eval path (training/evaluate.py) on a DeviceEvalCache."""
-    import warnings
-
     import torch
 
     from desed_task_tpu_torch.data.device_cache import DeviceEvalCache
@@ -1497,20 +1522,10 @@ def evaluate(gen, card, report):
             outs.append((classwise_median_filter(strong, MEDIAN_2024, class_axis=-2), weak))
         return outs
 
-    def syncs_in(fn):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
-
     loop()
     torch.cuda.synchronize()
-    syncs = syncs_in(loop)
-    control = syncs_in(lambda: torch.ones(1, device="cuda").item())
+    _, syncs = syncs_in(loop)
+    _, control = syncs_in(lambda: torch.ones(1, device="cuda").item())
     print(f"eval: host synchronisations inside the cache's loop: {len(syncs)}"
           + (f" (first: {syncs[0][:200]})" if syncs else "")
           + f"; a .item() in the same watch: {len(control)}", flush=True)
@@ -1539,6 +1554,499 @@ def evaluate(gen, card, report):
                           validator_again_s=val2_s, run_test_s=test_s, run_test_bf16_s=test16_s,
                           phase_s=phase_s)
     return launches, launches16
+
+
+# phase 11: the 2024 recipe (training/single_run.py) end to end
+RECIPE_SCENES = ("cafe_restaurant", "city_center", "grocery_store", "metro_station",
+                 "residential_area")
+# clips of each split of the phase's corpus (ten seconds, PCM16, 16 kHz):
+# MAESTRO 5 scenes x 3 files x 3 windows (30 train, 15 validate under the
+# 0.9 per-scene split), 10 MAESTRO validation windows
+RECIPE_CLIPS = dict(synth=12, strong=12, weak=27, unlabeled=48, synth_val=24, test=24)
+# the fp32 kernels against their plain versions on the restored weights'
+# test scores: the CRNN tests' tolerance
+TOL_RECIPE = 2e-6
+# epochs of the loop on host batches in phase 11 (2 steps each)
+HOST_EPOCHS = 4
+# the metrics.csv names of JAX's single_run on this layout with fast_dev_run
+# (tests/test_torch_single_run.py holds the list to a JAX run); phase 11
+# also logs every step's metrics (training.log_every 1)
+RECIPE_NAMES = (
+    ["train/epoch", "train/epoch_seconds", "train/steps_per_sec"]
+    + [f"val/{s}/{tag}/{m}" for tag in ("student", "teacher")
+       for s, m in (("weak", "macro_F1"), ("synth", "intersection_f1_macro"),
+                    ("maestro", "segment_f1_best"), ("maestro", "segment_mpauc"))]
+    + ["val/teacher/obj_metric", "val/obj_metric", "train/energy_kwh_estimate"]
+    + [f"test/student/{m}" for m in ("psds1", "psds2", "intersection_f1_macro",
+                                     "event_f1_macro")]
+)
+
+
+def recipe_config(root: Path) -> dict:
+    """recipes/dcase2024_task4_baseline/confs/pretrained.yaml as a dict, every
+    value as there but the data paths, which point into `root` (the phase's
+    corpus; the label-free eval folder is its test folder)."""
+    r = lambda *p: str(root.joinpath(*p))
+    return {
+        "pretrained": {"model": "beats", "e2e": False, "freezed": True,
+                       "extracted_embeddings_dir": r("embeddings")},
+        "training": {
+            "batch_size": [12, 6, 6, 12, 24], "batch_size_val": 24, "const_max": 2,
+            "n_epochs_warmup": 50, "epoch_decay": 100, "num_workers": 6, "n_epochs": 300,
+            "early_stop_patience": 200, "accumulate_batches": 1, "gradient_clip": 5.0,
+            "val_thresholds": [0.5], "n_test_thresholds": 50, "ema_factor": 0.999,
+            "self_sup_loss": "mse", "validation_interval": 10, "weak_split": 0.9,
+            "maestro_split": 0.9, "seed": 42, "mixup": "soft", "mixup_prob": 0.5,
+            "obj_metric_synth_type": "intersection", "obj_metric_maestro_type": "fmo",
+        },
+        "scaler": {"statistic": "instance", "normtype": "minmax", "dims": [1, 2]},
+        "data": {
+            "synth_folder": r("synth"), "synth_tsv": r("meta", "synth.tsv"),
+            "strong_folder": r("strong"), "strong_tsv": r("meta", "strong.tsv"),
+            "real_maestro_train_folder": r("maestro_train"),
+            "real_maestro_train_tsv": r("meta", "maestro_real_train.tsv"),
+            "real_maestro_val_folder": r("maestro_val"),
+            "real_maestro_val_tsv": r("meta", "maestro_real_validation.tsv"),
+            "real_maestro_val_dur": r("meta", "maestro_real_durations.tsv"),
+            "weak_folder": r("weak"), "weak_tsv": r("meta", "weak.tsv"),
+            "unlabeled_folder": r("unlabeled"),
+            "synth_val_folder": r("synth_val"), "synth_val_tsv": r("meta", "synth_val.tsv"),
+            "synth_val_dur": r("meta", "synth_val_durations.tsv"),
+            "test_folder": r("test"), "test_tsv": r("meta", "test.tsv"),
+            "test_dur": r("meta", "test_durations.tsv"),
+            "eval_folder": r("test"),
+            "audio_max_len": 10, "fs": 16000, "net_subsample": 4,
+        },
+        "opt": {"lr": 0.001},
+        "feats": {"n_mels": 128, "n_filters": 2048, "hop_length": 256, "n_window": 2048,
+                  "sample_rate": 16000, "f_min": 0, "f_max": 8000},
+        "net": {
+            "dropout": 0.2, "rnn_layers": 1, "n_in_channel": 1, "nclass": 27,
+            "attention": True, "n_RNN_cell": 192, "activation": "glu", "rnn_type": "BGRU",
+            "kernel_size": [3] * 7, "padding": [1] * 7, "stride": [1] * 7,
+            "nb_filters": [16, 32, 64, 128, 128, 128, 128],
+            "pooling": [[2, 2], [2, 2], [1, 2], [1, 2], [1, 2], [1, 2], [1, 2]],
+            "dropstep_recurrent": 0.3, "dropstep_recurrent_len": 16, "use_embeddings": True,
+            "embedding_size": 768, "embedding_type": "frame", "aggregation_type": "pool1d",
+            "specaugm_t_p": 0.0, "specaugm_t_l": 5, "specaugm_f_p": 0.0, "specaugm_f_l": 10,
+            "median_filter": [3, 9, 9, 5, 5, 5, 9, 7, 11, 9, 7, 3, 9, 13, 7, 1, 13, 3, 13, 7,
+                              5, 5, 1, 13, 17, 13, 15],
+        },
+    }
+
+
+class InMemoryEmbeddings:
+    """The interface of the datasets' HDF5 embedding store (`index`,
+    `get(stem)`) over arrays held in this process, keyed by the store's
+    path: phase 11's stand-in where h5py cannot be imported."""
+
+    rows: dict = {}  # path -> {stem: float16 [768, 496]}
+
+    def __init__(self, path, embedding_type):
+        self.table = self.rows[str(path)]
+        self.index = {stem: i for i, stem in enumerate(self.table)}
+
+    def get(self, stem: str) -> np.ndarray:
+        return self.table[stem]
+
+
+def write_recipe_corpus(root: Path, rng) -> tuple[int, int, bool]:
+    """The phase's corpus under `root`: wavs, tsv files (csv), and one
+    float16 768x496 frame-embedding store per split, in HDF5 where h5py can
+    be imported, else in InMemoryEmbeddings.rows (empty placeholder files
+    mark the stores' paths). Returns (clips, wav bytes, h5py used)."""
+    import csv
+
+    from desed_task_tpu_torch.data.audio_io import write_wav
+    from desed_task_tpu_torch.utils.classes_dict import (
+        CLASSES_DESED, CLASSES_MAESTRO_REAL, CLASSES_MAESTRO_REAL_EVAL)
+
+    desed, maestro = list(CLASSES_DESED), list(CLASSES_MAESTRO_REAL)
+    maestro_eval = sorted(CLASSES_MAESTRO_REAL_EVAL)
+    meta = root / "meta"
+    meta.mkdir(parents=True)
+    stems: dict = {}  # folder -> stems
+
+    def wavs(folder, names):
+        (root / folder).mkdir()
+        for name in names:
+            audio = np.clip(np.round(rng.standard_normal(160000) * 3277), -32768, 32767)
+            write_wav(root / folder / name, (audio / 32768).astype(np.float32), 16000)
+        stems[folder] = [n[:-4] for n in names]
+
+    def tsv(name, header, rows):
+        with open(meta / name, "w", newline="") as f:
+            w = csv.writer(f, delimiter="\t", lineterminator="\n")
+            w.writerow(header)
+            w.writerows(rows)
+
+    def events(names, labels, conf=False, k=(1, 4)):
+        """Seeded events; with conf, a confidence each, and a first event
+        of every window in MAESTRO's 11 evaluated classes at 0.9, so that
+        every validation file has ground truth."""
+        rows = []
+        for name in names:
+            for j in range(rng.integers(*k)):
+                on = round(float(rng.uniform(0, 9)), 3)
+                off = round(min(10.0, on + float(rng.uniform(0.3, 4))), 3)
+                pool = maestro_eval if conf and j == 0 else labels
+                row = [name, on, off, pool[rng.integers(len(pool))]]
+                c = 0.9 if j == 0 else round(float(rng.uniform(0.2, 1.0)), 3)
+                rows.append(row + [c] if conf else row)
+        return rows
+
+    head = ["filename", "onset", "offset", "event_label"]
+    m_train = [f"{s}_{f:02d}-{w * 1000:06d}-{w * 1000 + 1000:06d}.wav"
+               for s in RECIPE_SCENES for f in range(3) for w in range(3)]
+    m_val = [f"{RECIPE_SCENES[i % 5]}_{10 + i:02d}-000000-001000.wav" for i in range(10)]
+    wavs("maestro_train", m_train)
+    wavs("maestro_val", m_val)
+    tsv("maestro_real_train.tsv", head + ["confidence"], events(m_train, maestro, True, (2, 5)))
+    tsv("maestro_real_validation.tsv", head + ["confidence"], events(m_val, maestro, True))
+    tsv("maestro_real_durations.tsv", ["filename", "duration"], [(n, 10.0) for n in m_val])
+    for split, n in RECIPE_CLIPS.items():
+        names = [f"{split}_{i:03d}.wav" for i in range(n)]
+        wavs(split, names)
+        if split in ("synth", "strong", "synth_val", "test"):
+            tsv(f"{split}.tsv", head, events(names, desed))
+        if split in ("synth_val", "test"):
+            tsv(f"{split}_durations.tsv", ["filename", "duration"], [(x, 10.0) for x in names])
+        if split == "weak":
+            tsv("weak.tsv", ["filename", "event_labels"],
+                [(x, ",".join(sorted(set(rng.choice(desed, rng.integers(1, 4)))))) for x in names])
+    # the stores single_run reads (training/single_run.py _emb_file)
+    splits = dict(maestro_real_train="maestro_train", maestro_real_val="maestro_val",
+                  synth_train="synth", strong_train="strong", weak_train="weak",
+                  unlabeled_train="unlabeled", synth_val="synth_val", devtest="test",
+                  eval="test")
+    emb_dir = root / "embeddings" / "beats"
+    emb_dir.mkdir(parents=True)
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    made = {}
+    for split, folder in splits.items():
+        if folder not in made:
+            made[folder] = {s: rng.standard_normal((768, 496), np.float32).astype(np.float16)
+                            for s in stems[folder]}
+        path = emb_dir / f"{split}.hdf5"
+        if h5py is None:
+            path.touch()
+            InMemoryEmbeddings.rows[str(path)] = made[folder]
+            continue
+        with h5py.File(path, "w") as f:
+            f["filenames"] = np.asarray([s.encode() for s in made[folder]])
+            f["frame_embeddings"] = np.stack(list(made[folder].values()))
+    n = sum(len(v) for v in stems.values())
+    return n, n * (160000 * 2 + 44), h5py is not None
+
+
+def syncs_in(fn):
+    """Run fn with the CUDA sync debug mode on "warn"; returns (fn's result,
+    the messages of the blocking host synchronisations it made)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def recipe(card, report, step16_launches):
+    """Phase 11: the 2024 recipe through single_run on the card, bf16 (the
+    CLI's default) then fp32 from its checkpoint."""
+    import copy
+    import csv
+
+    import torch
+
+    from desed_task_tpu_torch.data import datasets
+    from desed_task_tpu_torch.data.batcher import MultiSourceBatcher, collate
+    from desed_task_tpu_torch.obs.checkpoint import CheckpointManager
+    from desed_task_tpu_torch.obs.logging import MetricsLogger
+    from desed_task_tpu_torch.obs.macs import forward_macs
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.training import create_state, make_optimizer
+    from desed_task_tpu_torch.training.evaluate import predict_dataset
+    from desed_task_tpu_torch.training.loop import TrainLoop
+    from desed_task_tpu_torch.training.single_run import _emb_file, build_model, single_run
+    from desed_task_tpu_torch.utils import table as tbl
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="recipe_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        n_clips, wav_bytes, with_h5py = write_recipe_corpus(root, np.random.default_rng(17))
+        corpus_s = time.perf_counter() - t0
+        if not with_h5py:
+            print("embedding store: in-memory stand-in (no h5py here)", flush=True)
+            datasets._EmbeddingStore = InMemoryEmbeddings
+        print(f"recipe: corpus of {n_clips} ten-second clips ({wav_bytes / 1e6:.1f} MB of "
+              f"wavs, 768x496 float16 embeddings each) written in {corpus_s:.2f} s", flush=True)
+        config = recipe_config(root)
+        config["training"]["log_every"] = 1  # every step's losses in metrics.csv
+        bs_val = config["training"]["batch_size_val"]
+        batches = lambda n: -(-n // bs_val)
+
+        # run (a): bf16 (the CLI's default), fast_dev_run
+        info = {}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state, res = single_run(config, str(root / "run_a"), fast_dev_run=True, fast=True,
+                                run_info=info)
+        run_a_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        cache, loop, batcher = info["cache"], info["loop"], info["batcher"]
+        require(cache is not None, "recipe: the device train store did not switch on")
+        steps = sum(h["steps"] for h in loop.history)
+        vals = sum(h["val_s"] is not None for h in loop.history)
+        weak_val = RECIPE_CLIPS["weak"] - int(RECIPE_CLIPS["weak"] * 0.9)
+        maestro_val = 5 * (3 - int(3 * 0.9)) * 3  # a file a scene, 3 windows each
+        val_batches = batches(weak_val) + batches(RECIPE_CLIPS["synth_val"]) + batches(maestro_val)
+        test_batches = batches(RECIPE_CLIPS["test"]) + batches(10)
+        evals = 2 * vals * val_batches + test_batches  # student and teacher
+        expect_eval16 = {"conv_bn_stats.bf16": 7, "glu_drop_pool.bf16": 7, "bigru": 1}
+        want = {k: steps * v + evals * expect_eval16.get(k, 0)
+                for k, v in step16_launches.items()}
+        print(f"recipe bf16: {steps} steps, {vals} validations, {evals} eval batches (24 a "
+              f"batch, per model pass); launches {launches}, expected {want}", flush=True)
+        require(steps == 4 and vals == 2, "recipe: not 2 epochs of 2 steps with validation")
+        require(launches == want, "recipe: the bf16 run did not launch the expected kernels")
+        with open(root / "run_a" / "metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        names = list(dict.fromkeys(r["name"] for r in rows))
+        step_names = [f"train/{k}" for k in ("loss", "loss_strong", "loss_weak",
+                                             "strong_self_sup_loss", "weak_self_sup_loss",
+                                             "tot_self_loss", "weight", "lr", "grad_norm")]
+        losses = [float(r["value"]) for r in rows if r["name"] == "train/loss"]
+        print(f"recipe bf16: losses {losses}; metrics.csv names {len(names)}", flush=True)
+        require(set(names) == set(RECIPE_NAMES) | set(step_names),
+                f"recipe: metrics.csv names {sorted(set(names) ^ set(RECIPE_NAMES))}")
+        require(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+                "recipe: the losses are not 4 finite values")
+        ckpt_dir = root / "run_a" / "checkpoints"
+        require((ckpt_dir / "best").is_file() and (ckpt_dir / "last").is_file(),
+                "recipe: best and last checkpoints not written")
+        numbers = {k: v for k, v in res.items() if isinstance(v, float)}
+        print(f"recipe bf16 test battery (2 thresholds, MAESTRO): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(numbers.items())), flush=True)
+        require(all(0 <= v <= 1 for v in numbers.values()),
+                "recipe: a test metric is not in [0, 1]")
+
+        # the best checkpoint (which single_run restored into `state`) into a
+        # fresh state
+        tx, _ = make_optimizer(1e-3, 1)
+        fresh = create_state(build_model(config, fast=True), None, tx)
+        g_fresh = torch.Generator(device="cuda")
+        CheckpointManager(ckpt_dir).restore("best", fresh, generator=g_fresh)
+        payload = torch.load(ckpt_dir / "best", map_location="cpu", weights_only=True)
+        sd_eq = lambda m, sd: all(torch.equal(v.cpu(), sd[k]) for k, v in m.state_dict().items())
+        same_ckpt = (sd_eq(fresh.student, payload["student"])
+                     and sd_eq(fresh.teacher, payload["teacher"])
+                     and sd_eq(state.student, payload["student"])
+                     and all(torch.equal(a.cpu(), b) for k in ("mu", "nu")
+                             for a, b in zip(fresh.opt_state[k], payload["opt_state"][k]))
+                     and fresh.step == payload["step"]
+                     and torch.equal(g_fresh.get_state(), payload["generator"]))
+        print(f"recipe bf16: the best checkpoint (step {payload['step']}) reloads into a fresh "
+              f"state bitwise (state dicts, Adam moments, generator): {same_ckpt}", flush=True)
+        require(same_ckpt, "recipe: the best checkpoint does not reload bitwise")
+
+        # the store's gather and the cached step against the host path
+        idx = next(batcher.epoch_indices(steps=1))
+        flat = cache.flat_index(idx)
+        gathered = cache.batch_builder(batcher.batch_sizes)(cache.stores,
+                                                            cache.index_to_device(flat))
+        host = {s: collate([batcher.datasets[s][int(i)] for i in idx[s]]) for s in idx}
+        same_gather = all(
+            np.array_equal(gathered[s][k].cpu().numpy(), np.asarray(host[s][k]))
+            and gathered[s][k].cpu().numpy().dtype == np.asarray(host[s][k]).dtype
+            for s in idx for k in ("audio", "labels", "embeddings", "class_mask"))
+        st_c, st_h = copy.deepcopy(state), copy.deepcopy(state)
+        gen = lambda: torch.Generator(device="cuda").manual_seed(1234)
+        m_c = info["step_fn"](st_c, cache.index_to_device(flat), gen())
+        m_h = info["train_step"](st_h, host, gen())
+        same_step = all(torch.equal(m_c[k], m_h[k]) for k in m_c) and all(
+            torch.equal(a, b) for a, b in zip(st_c.student.state_dict().values(),
+                                              st_h.student.state_dict().values()))
+        print(f"recipe bf16: a gathered batch bitwise equal to the host-collated one: "
+              f"{same_gather}; the cached step's metrics and student bitwise equal to the "
+              f"host-batch step's: {same_step}", flush=True)
+        require(same_gather, "recipe: the store's gather differs from the host batch")
+        require(same_step, "recipe: the cached step differs from the host-batch step")
+
+        # one more epoch through the loop (it trains `state` on): launches
+        # per step, one blocking host synchronisation per step
+        sync_loop = TrainLoop(info["step_fn"], state, batcher, n_epochs=1,
+                              logger=MetricsLogger(root / "sync"), rng=loop.rng,
+                              index_cache=cache, log_every=2)
+        _build.reset_launches()
+        _, syncs = syncs_in(sync_loop.run)
+        n_sync_steps = sync_loop.history[0]["steps"]
+        per_step = {k: v // n_sync_steps if v % n_sync_steps == 0 else v / n_sync_steps
+                    for k, v in _build.LAUNCHES.items()}
+        _, control = syncs_in(lambda: torch.ones(1, device="cuda").item())
+        print(f"recipe bf16: launches per train step {per_step} (phase 8b: {step16_launches}); "
+              f"blocking host synchronisations in {n_sync_steps} steps of the loop: "
+              f"{len(syncs)}" + "".join(f"\n  {m[:300]}" for m in syncs[:6])
+              + f"; a .item() in the same watch: {len(control)}", flush=True)
+        require(len(control) == 1, "the synchronisation watch does not see a .item()")
+        require(per_step == step16_launches, "recipe: launches per step differ from phase 8b")
+        require(len(syncs) == n_sync_steps, "recipe: not one host synchronisation a step")
+        # run (a)'s launches less its steps' (at the per-step counts just
+        # read) are its eval batches' (per model pass)
+        per_eval16 = {}
+        for k in sorted(set(launches) | set(per_step)):
+            rest = launches.get(k, 0) - steps * per_step.get(k, 0)
+            if rest:
+                per_eval16[k] = rest // evals if rest % evals == 0 else rest / evals
+        print(f"recipe bf16: launches per eval batch per model pass {per_eval16}", flush=True)
+        require(per_eval16 == expect_eval16,
+                "recipe: the bf16 eval batches' launches differ from 7/7/1")
+
+        # the label-free eval dump from run (a)'s checkpoint (--eval_from_checkpoint)
+        _, none = single_run(config, str(root / "run_eval"), fast_dev_run=True, fast=True,
+                             test_from_checkpoint=str(ckpt_dir), evaluation=True)
+        dumped = {k: len(list((root / "run_eval" / "eval_scores" / "student" / k).glob("*.tsv")))
+                  for k in ("raw", "postprocessed")}
+        print(f"recipe bf16: eval score files {dumped}", flush=True)
+        require(none is None and dumped == {"raw": 24, "postprocessed": 24},
+                "recipe: the eval score dump is not one file a clip")
+
+        # run (b): fp32, the test battery from run (a)'s checkpoint
+        info_b = {}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state_b, res_b = single_run(config, str(root / "run_b"), fast_dev_run=True, fast=False,
+                                    test_from_checkpoint=str(ckpt_dir), run_info=info_b)
+        run_b_s = time.perf_counter() - t0
+        launches_b = dict(_build.LAUNCHES)
+        expect_eval = {"conv_bn_stats": 7, "glu_drop_pool": 7, "bigru": 1}
+        want_b = {k: v * test_batches for k, v in expect_eval.items()}
+        per_eval = {k: v // test_batches for k, v in launches_b.items()}
+        print(f"recipe fp32 (test from the bf16 run's best checkpoint): launches {launches_b}, "
+              f"expected {want_b}", flush=True)
+        require(launches_b == want_b, "recipe: the fp32 test battery did not launch the kernels")
+        require(all(v % test_batches == 0 for v in launches_b.values()),
+                "recipe: the fp32 launches are not a whole number per test batch")
+        require(all(torch.equal(a.cpu(), payload["student"][k])
+                    for k, a in state_b.student.state_dict().items()),
+                "recipe: run (b) did not restore the best checkpoint")
+        enc = info_b["encoder"]
+        median = config["net"]["median_filter"]
+        test_set = datasets.StronglyAnnotatedSet(
+            config["data"]["test_folder"], tbl.read_tsv(config["data"]["test_tsv"]), enc,
+            pad_to=10, fs=16000, test=True, return_filename=True,
+            embeddings_hdf5_file=_emb_file(config, "devtest"), embedding_type="frame")
+        items = [test_set[i] for i in range(bs_val)]
+        plain_cfg = copy.deepcopy(config)
+        plain_cfg["net"].update(fused_blocks=False, rnn_kernel=False)
+        plain = build_model(plain_cfg).cuda()
+        plain.load_state_dict(state_b.student.state_dict())
+        kw = dict(median_filter=median, as_arrays=True, want_events=False)
+        k_raw, k_post, _, k_weak, _ = predict_dataset(info_b["predict_fn"], state_b.student,
+                                                      items, enc, bs_val, **kw)
+        p_raw, p_post, _, p_weak, _ = predict_dataset(info_b["predict_fn"], plain, items, enc,
+                                                      bs_val, **kw)
+        stems = [Path(it["filename"]).stem for it in items]
+        arr = lambda d: np.stack([d[s].values for s in stems])
+        run_post = arr(res_b["scores_postprocessed"])
+        err = max(float(np.abs(arr(k_raw) - arr(p_raw)).max()),
+                  float(np.abs(arr(k_post) - arr(p_post)).max()),
+                  float(np.abs(k_weak - p_weak).max()),
+                  float(np.abs(run_post - arr(p_post)).max()))
+        same_run = np.array_equal(run_post, arr(k_post))
+        print(f"recipe fp32: the first test batch ({bs_val} clips) from the restored weights: "
+              f"scores (raw, median-filtered, weak, and run (b)'s own) against the plain "
+              f"versions' max err {err:.3e} (tol {TOL_RECIPE}); run (b)'s scores equal the "
+              f"kernels' recomputation: {same_run}", flush=True)
+        require(bool(np.isfinite(run_post).all()), "recipe: non-finite fp32 test scores")
+        require(err <= TOL_RECIPE, "recipe: fp32 test scores disagree with the plain versions")
+        require(same_run, "recipe: run (b)'s scores differ from a recomputation")
+
+        # run (c): the path of a run at the conf's scale, where auto mode
+        # leaves the train store off (fits_device_cache is false above
+        # device_cache_max_bytes): steps take host batches (wav reads,
+        # collate, a copy to the card) and validation reads host datasets.
+        # Then HOST_EPOCHS more epochs of the loop on host batches from the
+        # conf's num_workers threads.
+        config_c = copy.deepcopy(config)
+        config_c["training"]["device_cache"] = False
+        info_c = {}
+        _build.reset_launches()
+        state_c, res_c = single_run(config_c, str(root / "run_c"), fast_dev_run=True, fast=True,
+                                    run_info=info_c)
+        launches_c = dict(_build.LAUNCHES)
+        loop_c = info_c["loop"]
+        print(f"recipe bf16 host path: launches {launches_c}", flush=True)
+        require(info_c["cache"] is None, "recipe: run (c) built the train store")
+        require(sum(h["steps"] for h in loop_c.history) == steps
+                and sum(h["val_s"] is not None for h in loop_c.history) == vals,
+                "recipe: run (c) is not 2 epochs of 2 steps with validation")
+        require(launches_c == want, "recipe: the host-path run did not launch the kernels")
+        require(all(0 <= v <= 1 for v in res_c.values() if isinstance(v, float)),
+                "recipe: a host-path test metric is not in [0, 1]")
+        host_batcher = MultiSourceBatcher(info_c["batcher"].datasets, info_c["batcher"].batch_sizes,
+                                          seed=7, num_workers=config["training"]["num_workers"])
+        host_loop = TrainLoop(info_c["step_fn"], state_c, host_batcher, n_epochs=HOST_EPOCHS,
+                              logger=MetricsLogger(root / "host"), rng=loop_c.rng, log_every=2)
+        _build.reset_launches()
+        host_loop.run()
+        host_steps = sum(h["steps"] for h in host_loop.history)
+        require(dict(_build.LAUNCHES) == {k: host_steps * v for k, v in per_step.items()},
+                "recipe: the host-batch loop did not launch the kernels a step")
+        with open(root / "host" / "metrics.csv") as f:
+            host_losses = [float(r["value"]) for r in csv.DictReader(f)
+                           if r["name"] == "train/loss"]
+        require(len(host_losses) == host_steps // 2
+                and all(math.isfinite(x) for x in host_losses),
+                "recipe: the host-batch loop's losses are not finite")
+
+        macs = forward_macs(build_model(config), 626, 128, 496)
+        energy = json.loads((root / "run_a" / "energy_train.json").read_text())
+        phase_s = time.perf_counter() - t_phase
+        for h in loop.history:
+            print(f"[{card}] recipe bf16 epoch {h['epoch']}: train {h['seconds']:.3f} s, "
+                  f"{h['steps'] / h['seconds']:.2f} steps/s, busy share "
+                  f"{h['busy_s'] / h['seconds']:.3f}; validation {h['val_s']:.3f} s",
+                  flush=True)
+        for h in loop_c.history:
+            print(f"[{card}] recipe bf16 host path epoch {h['epoch']} (1 worker): train "
+                  f"{h['seconds']:.3f} s, {h['steps'] / h['seconds']:.2f} steps/s; validation "
+                  f"from host datasets {h['val_s']:.3f} s", flush=True)
+        for h in host_loop.history:
+            print(f"[{card}] recipe bf16 host batches, {host_batcher.num_workers} workers, epoch "
+                  f"{h['epoch']}: {h['steps']} steps in {h['seconds']:.3f} s, "
+                  f"{h['steps'] / h['seconds']:.2f} steps/s, busy share "
+                  f"{h['busy_s'] / h['seconds']:.3f}", flush=True)
+        print(f"[{card}] recipe: train store {cache.nbytes / 1e6:.1f} MB uploaded in "
+              f"{cache.upload_seconds:.3f} s; test battery {info['test_seconds']:.3f} s (bf16), "
+              f"{info_b['test_seconds']:.3f} s (fp32); run (a) {run_a_s:.1f} s, run (b) "
+              f"{run_b_s:.1f} s; analytic forward {macs['macs'] / 1e6:.3f} MMACs a clip; "
+              f"energy estimate {energy['estimated_kwh_range'][0]:.3e}-"
+              f"{energy['estimated_kwh_range'][1]:.3e} kWh ({energy['card']}, "
+              f"{energy['power_limit_w']} W limit); phase 11 {phase_s:.1f} s", flush=True)
+        report["recipe"] = dict(
+            clips=n_clips, h5py=with_h5py, corpus_s=corpus_s, steps=steps,
+            launches_bf16=launches, per_step_bf16=per_step, launches_fp32=launches_b,
+            syncs_per_step=len(syncs) / n_sync_steps, losses=losses, metrics_bf16=numbers,
+            metrics_fp32={k: v for k, v in res_b.items() if isinstance(v, float)},
+            fp32_score_err=err, epochs=loop.history, store_bytes=cache.nbytes,
+            upload_s=cache.upload_seconds, test_s_bf16=info["test_seconds"],
+            test_s_fp32=info_b["test_seconds"], run_a_s=run_a_s, run_b_s=run_b_s,
+            mmacs=macs["macs"] / 1e6, energy=energy, phase_s=phase_s,
+            host_path=dict(launches=launches_c, epochs=loop_c.history,
+                           test_s=info_c["test_seconds"], workers=host_batcher.num_workers,
+                           host_epochs=host_loop.history))
+    return ({"eval_batch": per_eval, "train_step": {}},
+            {"eval_batch": per_eval16, "train_step": per_step})
 
 
 def main() -> int:
@@ -1581,6 +2089,7 @@ def main() -> int:
     train16_launches = train_bf16(train_ctx, report)
     fe_launches, fe_rows = frontend(gen, pipe, report)
     eval_launches, eval16_launches = evaluate(gen, card, report)
+    recipe_launches, recipe16_launches = recipe(card, report, train16_launches)
     # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
     rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
     rows["fused_log_mel.bf16"] = [r for r in fe_rows
@@ -1638,7 +2147,9 @@ def main() -> int:
                    "train_step_bf16": train16_launches.get(name, 0),
                    "frontend": fe_launches.get(name, 0),
                    "eval": eval_launches.get(name, 0),
-                   "eval_bf16": eval16_launches.get(name, 0)}
+                   "eval_bf16": eval16_launches.get(name, 0),
+                   "recipe": {k: v.get(name, 0) for k, v in recipe_launches.items()},
+                   "recipe_bf16": {k: v.get(name, 0) for k, v in recipe16_launches.items()}}
         main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")

@@ -14,6 +14,11 @@ state_dict for `models.crnn.CRNN`:
 
 Every leaf is used: a leaf no rule maps raises, and loading the result with
 `load_state_dict(strict=True)` raises for a missing or extra key.
+
+`convert_crnn_state_dict(state_dict)` loads a reference DESED_task PyTorch
+CRNN checkpoint straight into the port's names (counterpart of
+desed_task_tpu/models/torch_convert.py:47, with `convert_gru_state_dict`,
+:364), with no detour through the flax names.
 """
 
 from __future__ import annotations
@@ -75,3 +80,55 @@ def from_jax_params(params: Mapping, batch_stats: Mapping | None = None) -> dict
                 raise ValueError(f"two JAX leaves map to {key}")
             state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state
+
+
+# reference DESED_task CRNN (desed_task/nnet/CRNN.py) state_dict -> the port's
+_REF_PREFIX = (("cnn.cnn.", "cnn."), ("rnn.rnn.", "rnn."), ("shrink_emb.0.", "shrink_emb_dense."),
+               ("shrink_emb.1.", "shrink_emb_ln."), ("frame_embs_encoder.", "frame_embs_encoder."),
+               ("cat_tf.", "cat_tf."))
+_REF_SKIP = re.compile(r"cnn\.cnn\.(dropout|pooling|relu)\d*\.|.*num_batches_tracked$")
+_REF_CNN = re.compile(r"cnn\.(conv|batchnorm|glu)\d+\.")
+_REF_HEAD = re.compile(r"(dense|dense_softmax)\.(?:(\d+)\.)?(weight|bias)$")
+
+
+def _tensor(t) -> torch.Tensor:
+    t = t.detach().cpu() if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
+    return t.to(torch.float32).clone()
+
+
+def convert_crnn_state_dict(state_dict: Mapping) -> dict:
+    """A reference DESED_task CRNN state_dict (cnn.cnn.conv{i}.*,
+    cnn.cnn.batchnorm{i}.*, cnn.cnn.glu{i}.linear.*, rnn.rnn.*_l{k}[_reverse],
+    dense[.{i}].*, dense_softmax[.{i}].*, cat_tf.*, shrink_emb.{0,1}.*,
+    frame_embs_encoder.*) -> the port's CRNN state_dict, float32.
+
+    Layouts already agree (torch on both sides): conv [Co, Ci, 3, 3],
+    Linear [out, in], GRU weights by torch.nn.GRU's names. Dropout, pooling
+    and num_batches_tracked entries are dropped; a key no rule maps (the
+    reference's layernorm or context-gating blocks, which the port's CNN
+    does not have) raises KeyError."""
+    out = {}
+    for key, val in state_dict.items():
+        if _REF_SKIP.match(key):
+            continue
+        name = None
+        head = _REF_HEAD.fullmatch(key)
+        if head:
+            mod, idx, leaf = head.groups()
+            name = f"{mod}{'' if idx is None else '_' + idx}.{leaf}"
+        else:
+            for src, dst in _REF_PREFIX:
+                if key.startswith(src):
+                    name = dst + key[len(src):]
+                    break
+        if name is None or (name.startswith("cnn.") and not _REF_CNN.match(name)):
+            raise KeyError(f"unrecognized CRNN param {key!r}")
+        out[name] = _tensor(val)
+    return out
+
+
+def convert_gru_state_dict(state_dict: Mapping, prefix: str = "") -> dict:
+    """A torch.nn.GRU state_dict (keys under `prefix`) -> the state_dict of
+    models.rnn.BidirectionalGRU (the same names)."""
+    return {key[len(prefix):]: _tensor(val) for key, val in state_dict.items()
+            if key.startswith(prefix)}

@@ -20,7 +20,7 @@ with the class-wise median filter on the card and one fetch of the stacked
 scores at the end: no host synchronisation inside the loop (the JAX
 package's `lax.scan` in one dispatch). Event and score tables need no pandas
 (utils/table.py); only `run_test(save_dir=...)` imports matplotlib, for the
-PSD-ROC plots.
+PSD-ROC plots, and writes the rest without it.
 """
 
 from __future__ import annotations
@@ -342,7 +342,9 @@ def run_test(
     optionally MAESTRO's overlap-added segment metrics (on_test_epoch_end
     :1192-1222). test_gt, test_dur: event and duration tables.
     `scores_postprocessed` comes back as ScoreCurve tuples; with save_dir,
-    the PSD-ROC plots (matplotlib) and the per-threshold prediction files."""
+    the per-threshold prediction files and, where matplotlib can be
+    imported, the two PSD-ROC plots (else one printed line says that they
+    were not written, and why)."""
     model = state.teacher if use_teacher else state.student
     thresholds = list(np.arange(1 / (n_thresholds * 2), 1, 1 / n_thresholds)) + [0.5]
     _, post, tables, _, _ = predict_dataset(
@@ -355,14 +357,20 @@ def run_test(
         ops, test_gt, test_dur, dtc_threshold=0.1, gtc_threshold=0.1, cttc_threshold=0.3,
         alpha_ct=0.5, alpha_st=1)
     if save_dir is not None:
-        from ..metrics.psds import plot_psd_roc
-
         d = Path(save_dir)
         d.mkdir(parents=True, exist_ok=True)
-        plot_psd_roc(ev1, ops, 0, 1, filename=d / "PSDS_scenario1_roc.png",
-                     title=f"PSDS scenario 1 = {psds1:.4f}")
-        plot_psd_roc(ev2, ops, 0.5, 1, filename=d / "PSDS_scenario2_roc.png",
-                     title=f"PSDS scenario 2 = {psds2:.4f}")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            print(f"run_test: the two PSD-ROC plots were not written to {d}: matplotlib "
+                  f"cannot be imported ({e})", flush=True)
+        else:
+            from ..metrics.psds import plot_psd_roc
+
+            plot_psd_roc(ev1, ops, 0, 1, filename=d / "PSDS_scenario1_roc.png",
+                         title=f"PSDS scenario 1 = {psds1:.4f}")
+            plot_psd_roc(ev2, ops, 0.5, 1, filename=d / "PSDS_scenario2_roc.png",
+                         title=f"PSDS scenario 2 = {psds2:.4f}")
         # per-threshold prediction files, reference layout
         # (evaluation_measures.py:232-245)
         for dtc, gtc, cttc in ((0.7, 0.7, 0.3), (0.1, 0.1, 0.3)):

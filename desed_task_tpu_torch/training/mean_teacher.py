@@ -26,8 +26,9 @@ drawn on the host from a numpy Generator seeded with the generator's
 initial seed and the step (as JAX folds the step into its key), so the step
 never waits for the card to hand over a seed.
 
-Not ported yet (they raise NotImplementedError): `accumulate > 1`, the
-`axis_name` / sharded data-parallel step and the in-graph `embedder`.
+Gradient accumulation (`accumulate > 1`) runs the micro-batches in turn
+before one optimizer step. Not ported yet (they raise NotImplementedError):
+the `axis_name` / sharded data-parallel step and the in-graph `embedder`.
 """
 
 from __future__ import annotations
@@ -223,14 +224,28 @@ def _concat_batch(cfg: MeanTeacherConfig, batch: dict, device: torch.device):
     return audio, labels, emb, torch.cat(masks)
 
 
+def _micro_batch(batch: dict, i: int) -> dict:
+    """Micro-batch i of a batch whose leaves carry a leading micro axis."""
+    return {slot: {k: v[i] for k, v in leaves.items()} for slot, leaves in batch.items()}
+
+
 def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: ExponentialWarmup,
                     mel_cfg: MelConfig = MelConfig(), scaler_cfg: ScalerConfig = ScalerConfig(),
                     embedder=None, axis_name: str | None = None, accumulate: int = 1):
     """Build train_step(state, batch, generator) -> metrics, which updates
     `state` in place. `generator` is a torch.Generator on the state's
-    device; metrics are 0-d tensors with the keys of mean_teacher.py:439-443."""
-    if accumulate != 1:
-        raise NotImplementedError("gradient accumulation (accumulate > 1) is not ported yet")
+    device; metrics are 0-d tensors with the keys of mean_teacher.py:439-443.
+
+    accumulate: micro-batches per optimizer step (Lightning's
+    accumulate_grad_batches, as mean_teacher.py:381-410). With accumulate > 1
+    every batch leaf carries a leading axis of that size; the micro-batches
+    run in turn, both models' BatchNorm running statistics chaining from one
+    to the next, the gradients and the losses summed and scaled by
+    1 / accumulate, then one clip + Adam step and one EMA update, so that
+    `state.step` counts optimizer steps. Micro-batch i's host draws (mixup
+    gate and coefficients) are seeded by [initial seed, step, i]."""
+    if accumulate < 1:
+        raise ValueError(f"accumulate must be >= 1, got {accumulate}")
     if axis_name is not None:
         raise NotImplementedError("the sharded data-parallel step is not ported yet")
     if embedder is not None:
@@ -245,17 +260,11 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
         return model(apply_scaler(x, scaler_cfg, scaler), classes_mask=cmask,
                      embeddings=emb, generator=generator)
 
-    def train_step(state: MeanTeacherState, batch: dict, generator: torch.Generator):
-        dev = next(state.student.parameters()).device
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, state on {dev}")
-        step = state.step
-        host = np.random.default_rng([generator.initial_seed(), step])
-
-        weight = cfg.const_max * schedule.scaling_factor(step)
-        if cfg.decay_steps is not None and step >= cfg.decay_steps:
-            weight = torch.tensor(cfg.const_max, dtype=torch.float32)
-
+    def micro_step(state: MeanTeacherState, batch: dict, generator: torch.Generator,
+                   host: np.random.Generator, weight, dev: torch.device) -> dict:
+        """Forward and backward of one micro-batch: the student's gradients
+        add into its parameters' .grad, both models' BN buffers update;
+        returns the losses."""
         audio, labels, emb, cmask = _concat_batch(cfg, batch, dev)
         features = mel_spectrogram(audio, mel_cfg)  # linear mel (power=1)
         if cfg.frame_shift_std > 0:
@@ -299,9 +308,7 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
         with torch.no_grad():  # teacher: train mode, its own BN buffers update
             t_strong, t_weak = detect(state.teacher, x, emb, cmask, state.scaler, generator)
 
-        student = state.student
-        student.zero_grad(set_to_none=True)
-        s_strong, s_weak = detect(student, x, emb, cmask, state.scaler, generator)
+        s_strong, s_weak = detect(state.student, x, emb, cmask, state.scaler, generator)
         loss_strong = bce(s_strong[sa:sb], labels[sa:sb])
         loss_weak = bce(s_weak[wa:wb], labels_weak)
         strong_self = selfsup(s_strong[ca:cb], t_strong[ca:cb])
@@ -309,8 +316,42 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
         tot_self = (strong_self + weak_self) * weight
         total = loss_strong + loss_weak + tot_self
         total.backward()
+        return {
+            "loss": total.detach(),
+            "loss_strong": loss_strong.detach(),
+            "loss_weak": loss_weak.detach(),
+            "strong_self_sup_loss": strong_self.detach(),
+            "weak_self_sup_loss": weak_self.detach(),
+            "tot_self_loss": tot_self.detach(),
+        }
 
+    def train_step(state: MeanTeacherState, batch: dict, generator: torch.Generator):
+        dev = next(state.student.parameters()).device
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, state on {dev}")
+        step = state.step
+        seed = generator.initial_seed()
+
+        weight = cfg.const_max * schedule.scaling_factor(step)
+        if cfg.decay_steps is not None and step >= cfg.decay_steps:
+            weight = torch.tensor(cfg.const_max, dtype=torch.float32)
+
+        student = state.student
+        student.zero_grad(set_to_none=True)
         params = list(student.parameters())
+        if accumulate == 1:
+            losses = micro_step(state, batch, generator, np.random.default_rng([seed, step]),
+                                weight, dev)
+        else:
+            sums = None
+            for i in range(accumulate):
+                host = np.random.default_rng([seed, step, i])
+                got = micro_step(state, _micro_batch(batch, i), generator, host, weight, dev)
+                sums = got if sums is None else {k: sums[k] + got[k] for k in sums}
+            inv = 1.0 / accumulate
+            losses = {k: v * inv for k, v in sums.items()}
+            # .grad holds the averaged gradients, what the optimizer sees
+            torch._foreach_mul_([p.grad for p in params], inv)
         grad_norm = optimizer.step(params, [p.grad for p in params], state.opt_state)
 
         # EMA teacher on the UPDATED student (float32, as mean_teacher.py:421-427);
@@ -323,17 +364,7 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
             torch._foreach_add_(teacher, torch._foreach_mul(params, float(np.float32(1) - alpha)))
         state.step = step + 1
 
-        return {
-            "loss": total.detach(),
-            "loss_strong": loss_strong.detach(),
-            "loss_weak": loss_weak.detach(),
-            "strong_self_sup_loss": strong_self.detach(),
-            "weak_self_sup_loss": weak_self.detach(),
-            "tot_self_loss": tot_self.detach(),
-            "weight": weight,
-            "lr": schedule(step),
-            "grad_norm": grad_norm,
-        }
+        return {**losses, "weight": weight, "lr": schedule(step), "grad_norm": grad_norm}
 
     return train_step
 

@@ -79,3 +79,61 @@ def concat(tables) -> dict:
         return event_table()
     return event_table(**{c: np.concatenate([column(t, c) for t in tables])
                           for c in EVENT_COLUMNS})
+
+
+# columns the recipes read, with the type pandas.read_csv(sep="\t") gives them
+STRING_COLUMNS = ("filename", "event_label", "event_labels")
+FLOAT_COLUMNS = ("onset", "offset", "confidence", "duration")
+
+
+def _parse(name: str, values: list[str]) -> np.ndarray:
+    """One tsv column: float64 (NaN for an empty field) for the numeric
+    columns and for any other column whose fields all parse as numbers;
+    else strings, NaN for an empty field."""
+    if name not in STRING_COLUMNS:
+        try:
+            return np.asarray([float(v) if v != "" else np.nan for v in values], np.float64)
+        except ValueError:
+            if name in FLOAT_COLUMNS:
+                raise
+    return np.asarray([v if v != "" else np.nan for v in values] or [], dtype=object)
+
+
+def read_tsv(path) -> dict:
+    """A tab-separated file with a header row -> a column table, read with
+    csv, as pd.read_csv(path, sep="\\t") reads the recipes' columns (blank
+    lines skipped)."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f, delimiter="\t") if r]
+    header, body = rows[0], rows[1:]
+    return {name: _parse(name, [r[j] if j < len(r) else "" for r in body])
+            for j, name in enumerate(header)}
+
+
+def as_columns(table) -> dict:
+    """Any table (a dict of sequences or a DataFrame) -> a dict of numpy
+    arrays."""
+    return {c: column(table, c) for c in columns(table)}
+
+
+def take(table, rows) -> dict:
+    """The rows at the given positions, in that order (DataFrame.iloc)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    return {c: column(table, c)[rows] for c in columns(table)}
+
+
+def _missing(col: np.ndarray) -> np.ndarray:
+    if col.dtype.kind == "f":
+        return np.isnan(col)
+    return np.fromiter((is_missing(v) for v in col), bool, len(col))
+
+
+def dropna(table) -> dict:
+    """The rows with no missing field (DataFrame.dropna())."""
+    t = as_columns(table)
+    keep = np.ones(n_rows(t), bool)
+    for col in t.values():
+        keep &= ~_missing(col)
+    return take(t, np.flatnonzero(keep))
