@@ -110,8 +110,8 @@ Phases (any failure exits non-zero; nothing is caught):
      validation windows; synth 12, strong 12, weak 27, unlabeled 48,
      synth_val 24, test 24), a float16 768x496 frame-embedding store per
      split (HDF5 where h5py can be imported, else InMemoryEmbeddings, said
-     on a line of its own), the conf of recipe_config() (pretrained.yaml
-     at full width, only the data paths changed; every step's metrics
+     on a line of its own), the conf of year_config() on pretrained.yaml
+     (at full width, only the data paths changed; every step's metrics
      logged): run (a), bf16 (the CLI's default), fast_dev_run: 2 epochs of
      2 steps through the device train store, validation each epoch
      (student and teacher: weak, synth and MAESTRO sets from eval caches),
@@ -129,14 +129,43 @@ Phases (any failure exits non-zero; nothing is caught):
      restored weights and equal to a recomputation; timings of each epoch
      (train seconds, steps/s, busy share), validation pass and test
      battery, the store's upload, the analytic MMACs and the energy
-     estimate's range.
+     estimate's range;
+  12. the 2021-2023 recipes: first the fine-tune's kernels at its shapes,
+     the fused conv block of crnn_2023() in eval-mode BatchNorm with
+     gradients (the multisrc CRNN's freeze_bn) at B=384 (96 clips x 4
+     sources), forward and backward, and the 2-layer H=128 BiGRU (cluster
+     plan, ragged last CTA) at B=96 and 384, each against the plain
+     versions within TOL_KERNEL, bitwise reruns; then, on a seeded corpus
+     of 159 ten-second PCM16 clips (YEAR_CLIPS; a float16 768x1214 AST
+     frame-embedding store per split) and the year confs of year_config()
+     (the yaml files, only data.* changed), through the entry points:
+     (a) dcase2023_train_sed --fast_dev_run --strong_real (default.yaml,
+     bf16), (b) dcase2022_train_pretrained on pretrained_ast.yaml (the
+     frame BiGRU at H=512: the stream kernels at B=96, T=1214), each with
+     its launches read around each train step of the run (StepLaunches)
+     and an eval batch's from the rest, each equal to the model's count
+     (YEAR_STEP16 / AST_STEP16 a step, YEAR_EVAL16 / AST_EVAL16 an eval
+     batch), and its test metrics finite in [0, 1];
+     (c) dcase2021_pretrain_separation, TDCNPP() at full width, 2 epochs of
+     2 steps of 16 four-second segments with SI-SNRi, no kernel launched;
+     the separator on a ten-second clip against its CPU forward within
+     TOL_SEP, with the process allowing TF32 (PyTorch's default for
+     cuDNN; the separator keeps it off itself); (d) dcase2021_run_separation --backend torch over the
+     corpus's folders; (e) dcase2021_finetune_on_separated --fast_dev_run
+     from (a)'s checkpoint with the test battery (launches read as in
+     (a): FINETUNE_STEP a step, FINETUNE_EVAL an eval batch); then one fine-tune step on a
+     host batch of 96 clips x 4 sources: its launches exact, its metrics
+     and gradients against the plain-version step, a bitwise rerun, its ms,
+     the plain step's, the host batch's read and collate time, and 3
+     loop epochs on host batches from 6 workers with their busy share.
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
 4, launches from the bf16 train step; `launches_by_path` with each path's
 counts, "eval" and "eval_bf16" among them, and "recipe" and
 "recipe_bf16", each {"train_step": launches a train step, "eval_batch":
-launches an eval batch per model pass} from phase 11; row 7 in fp32 and, as
+launches an eval batch per model pass} from phase 11, and "recipe_2023_bf16",
+"recipe_2022_ast_bf16" and "finetune" the same from phase 12; row 7 in fp32 and, as
 `fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
 path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
@@ -1582,65 +1611,43 @@ RECIPE_NAMES = (
 )
 
 
-def recipe_config(root: Path) -> dict:
-    """recipes/dcase2024_task4_baseline/confs/pretrained.yaml as a dict, every
-    value as there but the data paths, which point into `root` (the phase's
-    corpus; the label-free eval folder is its test folder)."""
+def year_config(path: Path, root: Path) -> dict:
+    """A recipe conf (yaml) as a dict, every value as there but the data
+    paths, which point into `root` (the phase's corpus; strong_folder and
+    strong_tsv added, read where --strong_real asks for them; the MAESTRO
+    paths where the conf has them; the label-free eval folder is the test
+    folder), and the embedding directory."""
+    import yaml
+
+    config = yaml.safe_load(Path(path).read_text())
     r = lambda *p: str(root.joinpath(*p))
-    return {
-        "pretrained": {"model": "beats", "e2e": False, "freezed": True,
-                       "extracted_embeddings_dir": r("embeddings")},
-        "training": {
-            "batch_size": [12, 6, 6, 12, 24], "batch_size_val": 24, "const_max": 2,
-            "n_epochs_warmup": 50, "epoch_decay": 100, "num_workers": 6, "n_epochs": 300,
-            "early_stop_patience": 200, "accumulate_batches": 1, "gradient_clip": 5.0,
-            "val_thresholds": [0.5], "n_test_thresholds": 50, "ema_factor": 0.999,
-            "self_sup_loss": "mse", "validation_interval": 10, "weak_split": 0.9,
-            "maestro_split": 0.9, "seed": 42, "mixup": "soft", "mixup_prob": 0.5,
-            "obj_metric_synth_type": "intersection", "obj_metric_maestro_type": "fmo",
-        },
-        "scaler": {"statistic": "instance", "normtype": "minmax", "dims": [1, 2]},
-        "data": {
-            "synth_folder": r("synth"), "synth_tsv": r("meta", "synth.tsv"),
-            "strong_folder": r("strong"), "strong_tsv": r("meta", "strong.tsv"),
-            "real_maestro_train_folder": r("maestro_train"),
-            "real_maestro_train_tsv": r("meta", "maestro_real_train.tsv"),
-            "real_maestro_val_folder": r("maestro_val"),
-            "real_maestro_val_tsv": r("meta", "maestro_real_validation.tsv"),
-            "real_maestro_val_dur": r("meta", "maestro_real_durations.tsv"),
-            "weak_folder": r("weak"), "weak_tsv": r("meta", "weak.tsv"),
-            "unlabeled_folder": r("unlabeled"),
-            "synth_val_folder": r("synth_val"), "synth_val_tsv": r("meta", "synth_val.tsv"),
-            "synth_val_dur": r("meta", "synth_val_durations.tsv"),
-            "test_folder": r("test"), "test_tsv": r("meta", "test.tsv"),
-            "test_dur": r("meta", "test_durations.tsv"),
-            "eval_folder": r("test"),
-            "audio_max_len": 10, "fs": 16000, "net_subsample": 4,
-        },
-        "opt": {"lr": 0.001},
-        "feats": {"n_mels": 128, "n_filters": 2048, "hop_length": 256, "n_window": 2048,
-                  "sample_rate": 16000, "f_min": 0, "f_max": 8000},
-        "net": {
-            "dropout": 0.2, "rnn_layers": 1, "n_in_channel": 1, "nclass": 27,
-            "attention": True, "n_RNN_cell": 192, "activation": "glu", "rnn_type": "BGRU",
-            "kernel_size": [3] * 7, "padding": [1] * 7, "stride": [1] * 7,
-            "nb_filters": [16, 32, 64, 128, 128, 128, 128],
-            "pooling": [[2, 2], [2, 2], [1, 2], [1, 2], [1, 2], [1, 2], [1, 2]],
-            "dropstep_recurrent": 0.3, "dropstep_recurrent_len": 16, "use_embeddings": True,
-            "embedding_size": 768, "embedding_type": "frame", "aggregation_type": "pool1d",
-            "specaugm_t_p": 0.0, "specaugm_t_l": 5, "specaugm_f_p": 0.0, "specaugm_f_l": 10,
-            "median_filter": [3, 9, 9, 5, 5, 5, 9, 7, 11, 9, 7, 3, 9, 13, 7, 1, 13, 3, 13, 7,
-                              5, 5, 1, 13, 17, 13, 15],
-        },
-    }
+    config["data"].update(
+        synth_folder=r("synth"), synth_tsv=r("meta", "synth.tsv"),
+        strong_folder=r("strong"), strong_tsv=r("meta", "strong.tsv"),
+        weak_folder=r("weak"), weak_tsv=r("meta", "weak.tsv"),
+        unlabeled_folder=r("unlabeled"),
+        synth_val_folder=r("synth_val"), synth_val_tsv=r("meta", "synth_val.tsv"),
+        synth_val_dur=r("meta", "synth_val_durations.tsv"),
+        test_folder=r("test"), test_tsv=r("meta", "test.tsv"),
+        test_dur=r("meta", "test_durations.tsv"))
+    maestro = dict(
+        real_maestro_train_folder=r("maestro_train"),
+        real_maestro_train_tsv=r("meta", "maestro_real_train.tsv"),
+        real_maestro_val_folder=r("maestro_val"),
+        real_maestro_val_tsv=r("meta", "maestro_real_validation.tsv"),
+        real_maestro_val_dur=r("meta", "maestro_real_durations.tsv"), eval_folder=r("test"))
+    config["data"].update({k: v for k, v in maestro.items() if k in config["data"]})
+    if "pretrained" in config:
+        config["pretrained"]["extracted_embeddings_dir"] = r("embeddings")
+    return config
 
 
 class InMemoryEmbeddings:
     """The interface of the datasets' HDF5 embedding store (`index`,
     `get(stem)`) over arrays held in this process, keyed by the store's
-    path: phase 11's stand-in where h5py cannot be imported."""
+    path: phases 11 and 12's stand-in where h5py cannot be imported."""
 
-    rows: dict = {}  # path -> {stem: float16 [768, 496]}
+    rows: dict = {}  # path -> {stem: float16 [768, frames]}
 
     def __init__(self, path, embedding_type):
         self.table = self.rows[str(path)]
@@ -1650,18 +1657,22 @@ class InMemoryEmbeddings:
         return self.table[stem]
 
 
-def write_recipe_corpus(root: Path, rng) -> tuple[int, int, bool]:
-    """The phase's corpus under `root`: wavs, tsv files (csv), and one
-    float16 768x496 frame-embedding store per split, in HDF5 where h5py can
-    be imported, else in InMemoryEmbeddings.rows (empty placeholder files
-    mark the stores' paths). Returns (clips, wav bytes, h5py used)."""
+def write_corpus(root: Path, rng, clips: dict, emb_model: str, frames: int,
+                 maestro: bool) -> tuple[int, int, bool]:
+    """A phase's corpus under `root`: the DESED splits of `clips` (wavs,
+    tsv files as csv), with `maestro` also the MAESTRO splits and the
+    label-free eval store (the 2024 layout), and one float16 768 x `frames`
+    frame-embedding store per split under embeddings/<emb_model>, in HDF5
+    where h5py can be imported, else in InMemoryEmbeddings.rows (empty
+    placeholder files mark the stores' paths). Returns (clips, wav bytes,
+    h5py used)."""
     import csv
 
     from desed_task_tpu_torch.data.audio_io import write_wav
     from desed_task_tpu_torch.utils.classes_dict import (
         CLASSES_DESED, CLASSES_MAESTRO_REAL, CLASSES_MAESTRO_REAL_EVAL)
 
-    desed, maestro = list(CLASSES_DESED), list(CLASSES_MAESTRO_REAL)
+    desed, maestro_labels = list(CLASSES_DESED), list(CLASSES_MAESTRO_REAL)
     maestro_eval = sorted(CLASSES_MAESTRO_REAL_EVAL)
     meta = root / "meta"
     meta.mkdir(parents=True)
@@ -1696,15 +1707,23 @@ def write_recipe_corpus(root: Path, rng) -> tuple[int, int, bool]:
         return rows
 
     head = ["filename", "onset", "offset", "event_label"]
-    m_train = [f"{s}_{f:02d}-{w * 1000:06d}-{w * 1000 + 1000:06d}.wav"
-               for s in RECIPE_SCENES for f in range(3) for w in range(3)]
-    m_val = [f"{RECIPE_SCENES[i % 5]}_{10 + i:02d}-000000-001000.wav" for i in range(10)]
-    wavs("maestro_train", m_train)
-    wavs("maestro_val", m_val)
-    tsv("maestro_real_train.tsv", head + ["confidence"], events(m_train, maestro, True, (2, 5)))
-    tsv("maestro_real_validation.tsv", head + ["confidence"], events(m_val, maestro, True))
-    tsv("maestro_real_durations.tsv", ["filename", "duration"], [(n, 10.0) for n in m_val])
-    for split, n in RECIPE_CLIPS.items():
+    # the stores single_run reads (training/single_run.py _emb_file)
+    splits = dict(synth_train="synth", strong_train="strong", weak_train="weak",
+                  unlabeled_train="unlabeled", synth_val="synth_val", devtest="test")
+    if maestro:
+        m_train = [f"{s}_{f:02d}-{w * 1000:06d}-{w * 1000 + 1000:06d}.wav"
+                   for s in RECIPE_SCENES for f in range(3) for w in range(3)]
+        m_val = [f"{RECIPE_SCENES[i % 5]}_{10 + i:02d}-000000-001000.wav" for i in range(10)]
+        wavs("maestro_train", m_train)
+        wavs("maestro_val", m_val)
+        tsv("maestro_real_train.tsv", head + ["confidence"],
+            events(m_train, maestro_labels, True, (2, 5)))
+        tsv("maestro_real_validation.tsv", head + ["confidence"],
+            events(m_val, maestro_labels, True))
+        tsv("maestro_real_durations.tsv", ["filename", "duration"], [(n, 10.0) for n in m_val])
+        splits = dict(maestro_real_train="maestro_train", maestro_real_val="maestro_val",
+                      **splits, eval="test")
+    for split, n in clips.items():
         names = [f"{split}_{i:03d}.wav" for i in range(n)]
         wavs(split, names)
         if split in ("synth", "strong", "synth_val", "test"):
@@ -1714,12 +1733,7 @@ def write_recipe_corpus(root: Path, rng) -> tuple[int, int, bool]:
         if split == "weak":
             tsv("weak.tsv", ["filename", "event_labels"],
                 [(x, ",".join(sorted(set(rng.choice(desed, rng.integers(1, 4)))))) for x in names])
-    # the stores single_run reads (training/single_run.py _emb_file)
-    splits = dict(maestro_real_train="maestro_train", maestro_real_val="maestro_val",
-                  synth_train="synth", strong_train="strong", weak_train="weak",
-                  unlabeled_train="unlabeled", synth_val="synth_val", devtest="test",
-                  eval="test")
-    emb_dir = root / "embeddings" / "beats"
+    emb_dir = root / "embeddings" / emb_model
     emb_dir.mkdir(parents=True)
     try:
         import h5py
@@ -1728,7 +1742,7 @@ def write_recipe_corpus(root: Path, rng) -> tuple[int, int, bool]:
     made = {}
     for split, folder in splits.items():
         if folder not in made:
-            made[folder] = {s: rng.standard_normal((768, 496), np.float32).astype(np.float16)
+            made[folder] = {s: rng.standard_normal((768, frames), np.float32).astype(np.float16)
                             for s in stems[folder]}
         path = emb_dir / f"{split}.hdf5"
         if h5py is None:
@@ -1783,14 +1797,16 @@ def recipe(card, report, step16_launches):
     with tempfile.TemporaryDirectory(prefix="recipe_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        n_clips, wav_bytes, with_h5py = write_recipe_corpus(root, np.random.default_rng(17))
+        n_clips, wav_bytes, with_h5py = write_corpus(root, np.random.default_rng(17),
+                                                     RECIPE_CLIPS, "beats", 496, maestro=True)
         corpus_s = time.perf_counter() - t0
         if not with_h5py:
             print("embedding store: in-memory stand-in (no h5py here)", flush=True)
             datasets._EmbeddingStore = InMemoryEmbeddings
         print(f"recipe: corpus of {n_clips} ten-second clips ({wav_bytes / 1e6:.1f} MB of "
               f"wavs, 768x496 float16 embeddings each) written in {corpus_s:.2f} s", flush=True)
-        config = recipe_config(root)
+        config = year_config(ROOT / "recipes" / "dcase2024_task4_baseline" / "confs"
+                             / "pretrained.yaml", root)
         config["training"]["log_every"] = 1  # every step's losses in metrics.csv
         bs_val = config["training"]["batch_size_val"]
         batches = lambda n: -(-n // bs_val)
@@ -2049,6 +2065,492 @@ def recipe(card, report, step16_launches):
             {"eval_batch": per_eval16, "train_step": per_step})
 
 
+# phase 12: the 2021-2023 recipes (crnn_2023 and the year CLIs, the 2021
+# separation recipe)
+# clips of each split of the phase's corpus (ten seconds, PCM16, 16 kHz):
+# one step an epoch at the confs' batch [24, 24, 48] (the weak split keeps
+# 24 of 27; --strong_real adds the 12 strong clips to the 24 synth ones)
+YEAR_CLIPS = dict(synth=24, strong=12, weak=27, unlabeled=48, synth_val=24, test=24)
+# AST's frame tokens over 10 s (2 + 12 x 101 patches, desed_task_tpu/models/ast.py)
+AST_FRAMES = 1214
+N_SRC = 4
+# the separator on the card against its CPU forward, TF32 off: sources ~0.1
+TOL_SEP = 1e-4
+# what the launches read from each phase-12 path's run must equal, per
+# train step and per eval batch (a model pass), from the models' structure:
+# the 2021-2023 CRNN has 7 blocks and a 2-layer
+# BiGRU; the 2022 AST conf adds the frame-embedding BiGRU (one layer, H=512);
+# the fine-tune's ensemble runs the multisrc CRNN (over the 4 sources of
+# each clip) and the frozen monaural one in every forward, and takes
+# gradients through the multisrc one only
+YEAR_STEP16 = {"conv_bn_stats.bf16": 14, "glu_drop_pool.bf16": 14, "bigru": 4,
+               "conv_bn_stats_bwd.bf16": 7, "glu_drop_pool_bwd.bf16": 7, "bigru_bwd": 2}
+YEAR_EVAL16 = {"conv_bn_stats.bf16": 7, "glu_drop_pool.bf16": 7, "bigru": 2}
+AST_STEP16 = dict(YEAR_STEP16, bigru=6, bigru_bwd=3)
+AST_EVAL16 = dict(YEAR_EVAL16, bigru=3)
+FINETUNE_STEP = {"conv_bn_stats": 28, "glu_drop_pool": 28, "bigru": 8,
+                 "conv_bn_stats_bwd": 7, "glu_drop_pool_bwd": 7, "bigru_bwd": 2}
+FINETUNE_EVAL = {"conv_bn_stats": 14, "glu_drop_pool": 14, "bigru": 4}
+# the fine-tune step against the plain step: the multisrc CRNN's strong-head
+# bias lowered so that the sums of its 4 per-source sigmoids stay below the
+# ensemble's clamp at 1 and gradients reach the conv stack and the BiGRU
+FINETUNE_HEAD_SHIFT = 4.0
+
+
+def frozen_bn_blocks(gen, geoms, B: int) -> dict:
+    """The fused conv block in eval-mode BatchNorm with gradients (the
+    fine-tune's multisrc CNN: freeze_bn) at batch B, forward and backward,
+    against the same block through the plain versions: z and every gradient
+    within TOL_KERNEL of max(1, max |plain|), bitwise reruns; ms of each."""
+    import torch
+
+    from desed_task_tpu_torch.ops import fused_cnn
+
+    dev = torch.device("cuda")
+    rows = []
+    for i, (T, Fq, ci, co, pool) in enumerate(geoms):
+        x = torch.randn(B, T, Fq, ci, generator=gen).to(dev).requires_grad_(i > 0)
+        prm = [(torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev),
+               (torch.randn(co, generator=gen) * 0.05).to(dev),
+               (1.0 + 0.1 * torch.randn(co, generator=gen)).to(dev),
+               (0.1 * torch.randn(co, generator=gen)).to(dev),
+               (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev),
+               (0.1 * torch.randn(co, generator=gen)).to(dev)]
+        for p in prm:
+            p.requires_grad_()
+        ra_mean = (torch.randn(co, generator=gen) * 0.1).to(dev)
+        ra_var = (1.0 + torch.rand(co, generator=gen)).to(dev)
+        g = torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen).to(dev)
+        inputs = prm + ([x] if i > 0 else [])
+
+        def kernel_block():
+            w, b, gamma, beta, wg, bg = prm
+            z, _, _ = fused_cnn.fused_glu_block(x, w, b, gamma, beta, ra_mean, ra_var, wg, bg,
+                                                pool=pool, train=False)
+            return (z.detach(), *torch.autograd.grad(z, inputs, g))
+
+        def plain_block():
+            w, b, gamma, beta, wg, bg = prm
+            y, _, _ = fused_cnn.conv_bn_stats_plain(x, w, b)
+            scale = gamma * torch.rsqrt(ra_var + 1e-3)
+            shift = beta - ra_mean * scale
+            z = fused_cnn.glu_drop_pool_plain(y, scale.repeat(Fq), shift.repeat(Fq), wg, bg,
+                                              None, pool=pool)
+            return (z.detach(), *torch.autograd.grad(z, inputs, g))
+
+        got, want = kernel_block(), plain_block()
+        err = max(rel_err(a, b) for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, kernel_block()))
+        print(f"frozen-BN block {i} B={B} T={T:3d} F={Fq:3d} {ci:3d}->{co:3d}: z and "
+              f"gradients max err {err:.3e} (tol {TOL_KERNEL}); rerun bitwise equal: {same}",
+              flush=True)
+        require(err <= TOL_KERNEL, "the frozen-BN block disagrees with its plain version")
+        require(same, "the frozen-BN block is not bitwise repeatable")
+        rows.append(dict(geom=[B, T, Fq, ci, co], err=err,
+                         ms=time_ms(kernel_block, iters=3, warmup=1),
+                         plain_ms=time_ms(plain_block, iters=2, warmup=1)))
+        del x, g, got, want, inputs
+        torch.cuda.empty_cache()
+    return dict(blocks=rows, ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows), err=max(r["err"] for r in rows))
+
+
+def bigru_two_layers(gen, B: int, T: int = 156) -> dict:
+    """The 2021-2023 CRNN's BiGRU (2 layers, H=128, on the 128 features of
+    the conv stack) at batch B, forward and backward, through the kernels
+    (the cluster plan: a ragged last CTA) against the plain versions."""
+    import torch
+
+    from desed_task_tpu_torch.models.rnn import BidirectionalGRU
+
+    H = 128
+    plan = gru_plan(B, T, H)
+    require(plan["plan"] == "cluster", f"H={H} does not take the cluster kernels")
+    dev = torch.device("cuda")
+    k = BidirectionalGRU(128, H, 2, kernel=True).to(dev)
+    p = BidirectionalGRU(128, H, 2, kernel=False).to(dev)
+    with torch.no_grad():
+        for a in k.parameters():
+            a.copy_(((torch.rand(a.shape, generator=gen) * 2 - 1) / math.sqrt(H)).to(dev))
+    p.load_state_dict(k.state_dict())
+    x = torch.randn(B, T, 128, generator=gen).to(dev).requires_grad_()
+    g = torch.randn(B, T, 2 * H, generator=gen).to(dev)
+
+    def run(m):
+        out = m(x, train=False)
+        return (out.detach(), *torch.autograd.grad(out, [x, *m.parameters()], g))
+
+    got, want = run(k), run(p)
+    err = max(rel_err(a, b) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, run(k)))
+    print(f"bigru 2 layers B={B} T={T} H={H} {plan}: forward and gradients max err "
+          f"{err:.3e} (tol {TOL_KERNEL}); rerun bitwise equal: {same}", flush=True)
+    require(err <= TOL_KERNEL, "the 2-layer BiGRU disagrees with its plain version")
+    require(same, "the 2-layer BiGRU is not bitwise repeatable")
+    return dict(B=B, T=T, H=H, **plan, err=err, ms=time_ms(lambda: run(k), iters=5),
+                plain_ms=time_ms(lambda: run(p), iters=2, warmup=1))
+
+
+class StepLaunches(dict):
+    """A run_info for an entry point that reads the kernel launches of each
+    train step of the run itself: as the run hands over its TrainLoop, the
+    loop's step function is wrapped to count around each call (`steps`, a
+    dict of launches a step)."""
+
+    def __init__(self):
+        super().__init__()
+        self.steps = []
+
+    def update(self, *args, **kw):
+        super().update(*args, **kw)
+        loop = self.get("loop")
+        if loop is None or getattr(loop.step_fn, "counts_launches", False):
+            return
+        from desed_task_tpu_torch.ops import _build
+
+        inner = loop.step_fn
+
+        def step(*a):
+            before = dict(_build.LAUNCHES)
+            out = inner(*a)
+            self.steps.append({k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                               if v != before.get(k, 0)})
+            return out
+
+        step.counts_launches = True
+        loop.step_fn = step
+
+
+def ensemble_state(config: dict, ckpt_dir: Path, kernels: bool, head_shift: float = 0.0):
+    """The fine-tune's state from a SED checkpoint, as sepsed_single_run
+    builds it, through the kernels or (kernels=False) the plain versions;
+    the multisrc CRNN's strong-head bias lowered by head_shift."""
+    import torch
+
+    from desed_task_tpu_torch.training import create_state, make_optimizer
+    from desed_task_tpu_torch.training.sepsed_run import build_ensemble
+
+    if not kernels:
+        config = dict(config, net=dict(config["net"], fused_blocks=False, rnn_kernel=False))
+    model = build_ensemble(config, str(ckpt_dir))
+    with torch.no_grad():
+        model.multisrc_crnn.dense.bias -= head_shift
+    tx, sched = make_optimizer(config["opt"]["lr"], 3)
+    return create_state(model, None, tx), tx, sched
+
+
+def recipes_2021_2023(card, report):
+    """Phase 12: the 2021-2023 recipes through their entry points on the
+    card at full width, and the fine-tune's kernels at its shapes."""
+    import csv
+
+    import torch
+    import yaml
+
+    from desed_task_tpu_torch.data import datasets
+    from desed_task_tpu_torch.data.audio_io import read_wav
+    from desed_task_tpu_torch.models.tdcn import TDCNPP
+    from desed_task_tpu_torch.obs.logging import MetricsLogger
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig
+    from desed_task_tpu_torch.recipes import (
+        dcase2021_finetune_on_separated, dcase2021_pretrain_separation,
+        dcase2021_run_separation, dcase2022_train_pretrained, dcase2023_train_sed)
+    from desed_task_tpu_torch.recipes_config import crnn_2023
+    from desed_task_tpu_torch.tools.separation import TorchSeparationModel
+    from desed_task_tpu_torch.training.loop import TrainLoop
+    from desed_task_tpu_torch.training.mean_teacher import MeanTeacherConfig, SlotSpec
+    from desed_task_tpu_torch.training.sepsed import make_sepsed_train_step
+
+    out = {}
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(12)
+    geoms = block_geometries(crnn_2023(), MelConfig(), 160000)
+    out["frozen_bn_384"] = frozen_bn_blocks(gen, geoms, 4 * 96)
+    out["bigru_2layer"] = [bigru_two_layers(gen, B) for B in (96, 4 * 96)]
+
+    confs = ROOT / "recipes"
+    with tempfile.TemporaryDirectory(prefix="years_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        n_clips, _, with_h5py = write_corpus(root, np.random.default_rng(18), YEAR_CLIPS, "ast",
+                                             AST_FRAMES, maestro=False)
+        out["corpus_s"] = time.perf_counter() - t0
+        if not with_h5py:
+            print("embedding store: in-memory stand-in (no h5py here)", flush=True)
+            datasets._EmbeddingStore = InMemoryEmbeddings
+        print(f"years: corpus of {n_clips} ten-second clips, 768x{AST_FRAMES} float16 AST "
+              f"embeddings each, written in {out['corpus_s']:.2f} s", flush=True)
+
+        def conf(rel, name):
+            path = root / name
+            path.write_text(yaml.safe_dump(year_config(confs / rel, root)))
+            return path
+
+        def epochs(log):
+            with open(log / "metrics.csv") as f:
+                rows = list(csv.DictReader(f))
+            return ([float(r["value"]) for r in rows if r["name"] == "train/epoch_seconds"],
+                    [float(r["value"]) for r in rows if r["name"] == "train/loss"])
+
+        def path_launches(tag, info, launches, evals, step, ev):
+            """A path's launches a train step, read around each step of its
+            run (StepLaunches), and a model pass of an eval batch: the rest
+            of the run's launches over its `evals` eval batches. Each is
+            held to the model's count."""
+            per_step = info.steps[0] if info.steps else {}
+            rest = {k: launches.get(k, 0) - len(info.steps) * per_step.get(k, 0)
+                    for k in set(launches) | set(per_step)}
+            per_eval = {k: v // evals if v % evals == 0 else v / evals
+                        for k, v in sorted(rest.items()) if v}
+            print(f"{tag}: launches {launches} in {len(info.steps)} steps and {evals} eval "
+                  f"batches: a step {info.steps}, expected {step}; an eval batch (a model "
+                  f"pass) {per_eval}, expected {ev}", flush=True)
+            require(len(info.steps) == 2 and all(x == step for x in info.steps),
+                    f"{tag}: a train step's launches differ from the model's")
+            require(per_eval == ev, f"{tag}: an eval batch's launches differ from the model's")
+            return {"train_step": per_step, "eval_batch": per_eval}
+
+        def check_scores(tag, res):
+            numbers = {k: v for k, v in res.items() if isinstance(v, float)}
+            print(f"{tag} test battery: " + ", ".join(
+                f"{k} {v:.6f}" for k, v in sorted(numbers.items())), flush=True)
+            require(all(math.isfinite(v) and 0 <= v <= 1 for v in numbers.values()),
+                    f"{tag}: a test metric is not finite in [0, 1]")
+            return numbers
+
+        # (a) 2023 SED recipe, bf16 (the CLI's default), --strong_real
+        conf_a = conf("dcase2023_task4_baseline/confs/default.yaml", "2023_default.yaml")
+        info_a = StepLaunches()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        _, res_a = dcase2023_train_sed.main(["--conf_file", str(conf_a), "--log_dir",
+                                             str(root / "run_a"), "--fast_dev_run",
+                                             "--strong_real"], run_info=info_a)
+        run_a_s = time.perf_counter() - t0
+        # an epoch: one step; validation: weak (3 clips) and synth_val (24)
+        # for student and teacher; the test battery: 24 clips, student
+        by_path = {"recipe_2023_bf16": path_launches(
+            "recipe 2023 bf16 (a)", info_a, dict(_build.LAUNCHES), 2 * 4 + 1, YEAR_STEP16,
+            YEAR_EVAL16)}
+        ep_a, losses_a = epochs(root / "run_a")
+        out["run_a"] = dict(s=run_a_s, epoch_s=ep_a, metrics=check_scores("recipe 2023 (a)",
+                                                                          res_a))
+        require((root / "run_a" / "checkpoints" / "best").is_file(), "(a): no best checkpoint")
+
+        # (b) 2022 pretrained, AST frame embeddings through the frame BiGRU
+        conf_b = conf("dcase2022_task4_baseline/confs/pretrained_ast.yaml", "2022_ast.yaml")
+        require(gru_plan(96, AST_FRAMES, 512)["plan"] == "stream",
+                "the AST frame encoder does not take the stream kernels")
+        info_b = StepLaunches()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        _, res_b = dcase2022_train_pretrained.main(["--conf_file", str(conf_b), "--log_dir",
+                                                    str(root / "run_b"), "--fast_dev_run"],
+                                                   run_info=info_b)
+        run_b_s = time.perf_counter() - t0
+        by_path["recipe_2022_ast_bf16"] = path_launches(
+            "recipe 2022 AST bf16 (b)", info_b, dict(_build.LAUNCHES), 2 * 4 + 1, AST_STEP16,
+            AST_EVAL16)
+        ep_b, _ = epochs(root / "run_b")
+        out["run_b"] = dict(s=run_b_s, epoch_s=ep_b, metrics=check_scores("recipe 2022 AST (b)",
+                                                                          res_b))
+
+        # (c) MixIT pretraining of the full-width separator: 2 epochs of 2
+        # steps of 16 four-second segments, SI-SNRi on 32 pairs each epoch
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        model_c, best = dcase2021_pretrain_separation.main([
+            "--train_folders", str(root / "unlabeled"), "--val_folders", str(root / "synth_val"),
+            "--log_dir", str(root / "mixit"), "--epochs", "2", "--steps_per_epoch", "2"])
+        run_c_s = time.perf_counter() - t0
+        with open(root / "mixit" / "metrics.csv") as f:
+            rows_c = list(csv.DictReader(f))
+        mixit = {n: [float(r["value"]) for r in rows_c if r["name"] == n]
+                 for n in ("train/mixit_loss", "val/si_snri_db", "train/epoch_seconds")}
+        n_params = sum(p.numel() for p in model_c.parameters())
+        print(f"mixit (c): TDCNPP() {n_params} parameters, losses {mixit['train/mixit_loss']}, "
+              f"SI-SNRi {mixit['val/si_snri_db']} dB, epochs {mixit['train/epoch_seconds']} s; "
+              f"launches {dict(_build.LAUNCHES)} (none: no Pallas kernel in the TDCN)",
+              flush=True)
+        require(best.is_file() and all(math.isfinite(v) for vs in mixit.values() for v in vs),
+                "(c): no best checkpoint or non-finite MixIT metrics")
+        require(not _build.LAUNCHES, "(c): a CRNN kernel launched")
+        out["run_c"] = dict(s=run_c_s, **mixit, params=n_params)
+
+        # the separator on the card against its CPU forward (TF32 off)
+        sep = TorchSeparationModel(str(best))
+        cpu = TDCNPP(**torch.load(best, weights_only=True)["config"])
+        cpu.load_state_dict(torch.load(best, weights_only=True)["state_dict"])
+        clip, _ = read_wav(root / "test" / "test_000.wav")
+        padded = np.zeros(1 << 18, np.float32)
+        padded[: len(clip)] = clip
+        x_sep = torch.as_tensor(padded, device="cuda")[None]
+        # as a user's process runs it: TF32 allowed (PyTorch's default for
+        # cuDNN; main turns it off for the plain versions), which the
+        # separator turns off itself; _separate is its forward without that
+        flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+        for f in flags:
+            f.allow_tf32 = True
+        try:
+            got = sep.separate(clip)
+            with torch.no_grad():
+                tf32 = sep.model._separate(x_sep)[0, :, : len(clip)].cpu().numpy()
+        finally:
+            for f in flags:
+                f.allow_tf32 = False
+        with torch.no_grad():
+            want = cpu(torch.from_numpy(padded)[None])[0, :, : len(clip)].numpy()
+        sep_err = float(np.abs(got - want).max())
+        tf32_err = float(np.abs(tf32 - want).max())
+        mix_err = float(np.abs(got.sum(0) - clip).max())
+        print(f"separator (c): a ten-second clip on the card against the CPU forward, TF32 "
+              f"allowed in the process, max err {sep_err:.3e} (tol {TOL_SEP}; sources up to "
+              f"{np.abs(want).max():.3f}; the forward without its fp32 pin {tf32_err:.3e}); the "
+              f"sources sum to the clip within {mix_err:.3e}", flush=True)
+        require(sep_err <= TOL_SEP, "the separator on the card disagrees with the CPU")
+        with torch.no_grad():
+            sep_ms = time_ms(lambda: sep.model(x_sep), iters=5)
+        out["separator"] = dict(err=sep_err, tf32_err=tf32_err, mix_err=mix_err, clip_ms=sep_ms)
+
+        # (d) separation of the corpus's folders with (c)'s checkpoint
+        folders = [str(root / s) for s in ("synth", "weak", "unlabeled", "synth_val", "test")]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        counts = dcase2021_run_separation.main(["--backend", "torch", "--checkpoint", str(best),
+                                                "--folders", *folders])
+        run_d_s = time.perf_counter() - t0
+        n_sep = sum(counts.values())
+        written = sum(len(list(Path(f + "_separated").glob("*_src*.wav"))) for f in folders)
+        print(f"separation (d): {n_sep} clips, {written} source files in {run_d_s:.2f} s "
+              f"({run_d_s / n_sep * 1e3:.1f} ms a clip; one clip's forward alone "
+              f"{sep_ms:.2f} ms)", flush=True)
+        require(written == N_SRC * n_sep and not _build.LAUNCHES, "(d): sources not written")
+        out["run_d"] = dict(s=run_d_s, clips=n_sep)
+
+        # (e) the separation-ensemble fine-tune from (a)'s checkpoint, fp32
+        conf_e = conf("dcase2021_task4_baseline/confs/sep+sed.yaml", "2021_sep_sed.yaml")
+        info = StepLaunches()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state_e, res_e = dcase2021_finetune_on_separated.main(
+            ["--conf_file", str(conf_e), "--sed_checkpoint", str(root / "run_a" / "checkpoints"),
+             "--log_dir", str(root / "run_e"), "--fast_dev_run"], run_info=info)
+        run_e_s = time.perf_counter() - t0
+        by_path["finetune"] = path_launches("fine-tune fp32 (e)", info, dict(_build.LAUNCHES),
+                                            2 * 4 + 1, FINETUNE_STEP, FINETUNE_EVAL)
+        ep_e, _ = epochs(root / "run_e")
+        out["run_e"] = dict(s=run_e_s, epoch_s=ep_e, q=float(torch.sigmoid(
+            state_e.teacher.q_logit)), metrics=check_scores("fine-tune (e)", res_e))
+
+        # the fine-tune step at the conf's batch: 96 clips x 4 sources
+        config_e = yaml.safe_load(conf_e.read_text())
+        batcher = info["batcher"]
+        t0 = time.perf_counter()
+        batch = next(iter(batcher.epoch(steps=1)))
+        host_batch_s = time.perf_counter() - t0
+        nbytes = sum(v.nbytes for s in batch.values() for k, v in s.items()
+                     if isinstance(v, np.ndarray))
+        dev_batch = {s: {k: torch.as_tensor(v, device="cuda") for k, v in d.items()
+                         if k in ("audio", "labels")} for s, d in batch.items()}
+        cfg = MeanTeacherConfig(slots=tuple(SlotSpec(n, len(batch[n]["audio"]), r) for n, r in
+                                            (("synth", "strong"), ("weak", "weak"),
+                                             ("unlabeled", "unlabeled"))),
+                                mixup=None, rampup_steps=3, weak_labels_post_mixup=False)
+        require(cfg.batch_size == 96, "the fine-tune batch is not 96 clips")
+        ckpt_a = root / "run_a" / "checkpoints"
+
+        def run(kernels, seed=7, shift=FINETUNE_HEAD_SHIFT):
+            st, tx, sched = ensemble_state(config_e, ckpt_a, kernels, shift)
+            step = make_sepsed_train_step(cfg, tx, sched)
+            m = step(st, dev_batch, torch.Generator(device="cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            return st, step, {k: float(v) for k, v in m.items()}, [
+                p.grad.clone() for p in st.student.parameters()]
+
+        # from (a)'s weights as they are, every frame's sum over the 4
+        # sources is clamped at 1, and the clamp passes no gradient to the
+        # multisrc CRNN
+        st_raw, _, _, g_raw = run(True, shift=0.0)
+        names = [n for n, _ in st_raw.student.named_parameters()]
+        cnn_max = lambda gs: max(float(g.abs().max()) for n, g in zip(names, gs)
+                                 if n.startswith("multisrc_crnn.cnn."))
+        raw_cnn = cnn_max(g_raw)
+        del st_raw, g_raw
+        _build.reset_launches()
+        st_k, step_k, m_k, g_k = run(True)
+        per_step = dict(_build.LAUNCHES)
+        print(f"fine-tune step (96 clips x {N_SRC} sources): launches {per_step}, expected "
+              f"{FINETUNE_STEP}", flush=True)
+        require(per_step == FINETUNE_STEP, "the fine-tune step's launches differ")
+        st_p, step_p, m_p, g_p = run(False)
+        require(dict(_build.LAUNCHES) == per_step, "the plain fine-tune step launched a kernel")
+        loss_err = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-6) for k in m_k)
+        grad_errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+                     for n, a, b in zip(names, g_k, g_p)}
+        worst = max(grad_errs, key=grad_errs.get)
+        _, _, m_k2, g_k2 = run(True)
+        same = m_k2 == m_k and all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+        print("fine-tune step metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in m_k.items())
+              + f"; against the plain step: metrics max rel err {loss_err:.3e} (tol {TOL_LOSS}), "
+              f"gradients max err {grad_errs[worst]:.3e} at {worst} (tol {TOL_GRAD}), q_logit's "
+              f"{grad_errs['q_logit']:.3e}; rerun bitwise equal: {same}", flush=True)
+        require(all(math.isfinite(v) for v in m_k.values()), "non-finite fine-tune metrics")
+        require(loss_err <= TOL_LOSS, "fine-tune metrics disagree with the plain step")
+        require(grad_errs[worst] <= TOL_GRAD, "fine-tune gradients disagree with the plain step")
+        require(same, "the fine-tune step is not bitwise repeatable")
+        k_cnn = cnn_max(g_k)
+        print(f"fine-tune step: largest conv-stack gradient {k_cnn:.3e} with the multisrc head's "
+              f"bias lowered by {FINETUNE_HEAD_SHIFT} ({raw_cnn:.3e} from (a)'s weights as they "
+              f"are)", flush=True)
+        require(k_cnn > 0, "no gradient reached the multisrc conv stack")
+        gen_t = torch.Generator(device="cuda").manual_seed(11)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: step_k(st_k, dev_batch, gen_t), iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        plain_ms = time_ms(lambda: step_p(st_p, dev_batch, gen_t), iters=2, warmup=1)
+        del st_p, g_p
+        # host batches: 3 more epochs of the loop from the conf's 6 workers
+        host_loop = TrainLoop(step_k, st_k, type(batcher)(
+            batcher.datasets, batcher.batch_sizes, seed=5,
+            num_workers=config_e["training"]["num_workers"]),
+            n_epochs=3, logger=MetricsLogger(root / "host_e"),
+            rng=torch.Generator(device="cuda").manual_seed(3))
+        host_loop.run()
+        busy = [h["busy_s"] / h["seconds"] for h in host_loop.history]
+        print(f"[{card}] fine-tune step, 96 clips x {N_SRC} sources (B={4 * 96} through the "
+              f"multisrc CRNN), fp32: {step_ms:.3f} ms ({96 / step_ms * 1e3:.1f} clips/s; plain "
+              f"versions {plain_ms:.3f} ms; peak memory {peak / 2**30:.2f} GiB); a host batch "
+              f"({nbytes / 1e6:.1f} MB) read and collated in {host_batch_s:.3f} s on 1 thread; "
+              f"host-batch epochs of one step (6 workers): "
+              + ", ".join(f"{h['seconds']:.3f} s" for h in host_loop.history)
+              + f", busy share {', '.join(f'{b:.3f}' for b in busy)}", flush=True)
+        out["finetune_step"] = dict(
+            launches=per_step, metrics=m_k, plain_metrics=m_p, metric_rel_err=loss_err,
+            cnn_grad_max=k_cnn, cnn_grad_max_unshifted=raw_cnn,
+            grad_errs=grad_errs, bitwise_repeat=same, step_ms=step_ms, plain_step_ms=plain_ms,
+            peak_bytes=peak, host_batch_s=host_batch_s, host_batch_bytes=nbytes,
+            host_epochs=host_loop.history)
+        del st_k, g_k, g_k2, dev_batch, batch, host_loop
+        torch.cuda.empty_cache()
+
+    fb = out["frozen_bn_384"]
+    g96, g384 = out["bigru_2layer"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] frozen-BN conv stack, B={4 * 96}, forward and backward, seven blocks: "
+          f"{fb['ms']:.3f} ms (plain versions {fb['plain_ms']:.3f} ms); 2-layer BiGRU H=128 "
+          f"forward and backward: B=96 {g96['ms']:.3f} ms (plain {g96['plain_ms']:.3f}), "
+          f"B=384 {g384['ms']:.3f} ms (plain {g384['plain_ms']:.3f})", flush=True)
+    print(f"[{card}] years: (a) 2023 SED bf16 {out['run_a']['s']:.1f} s (epochs "
+          f"{out['run_a']['epoch_s']}), (b) 2022 AST bf16 {out['run_b']['s']:.1f} s (epochs "
+          f"{out['run_b']['epoch_s']}), (c) MixIT {out['run_c']['s']:.1f} s, (d) separation "
+          f"{out['run_d']['s']:.1f} s, (e) fine-tune {out['run_e']['s']:.1f} s (epochs "
+          f"{out['run_e']['epoch_s']}); phase 12 {out['phase_s']:.1f} s", flush=True)
+    out["launches_by_path"] = by_path
+    report["years"] = out
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -2090,6 +2592,7 @@ def main() -> int:
     fe_launches, fe_rows = frontend(gen, pipe, report)
     eval_launches, eval16_launches = evaluate(gen, card, report)
     recipe_launches, recipe16_launches = recipe(card, report, train16_launches)
+    year_launches = recipes_2021_2023(card, report)
     # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
     rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
     rows["fused_log_mel.bf16"] = [r for r in fe_rows
@@ -2149,7 +2652,9 @@ def main() -> int:
                    "eval": eval_launches.get(name, 0),
                    "eval_bf16": eval16_launches.get(name, 0),
                    "recipe": {k: v.get(name, 0) for k, v in recipe_launches.items()},
-                   "recipe_bf16": {k: v.get(name, 0) for k, v in recipe16_launches.items()}}
+                   "recipe_bf16": {k: v.get(name, 0) for k, v in recipe16_launches.items()},
+                   **{path: {k: v.get(name, 0) for k, v in counts.items()}
+                      for path, counts in year_launches.items()}}
         main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")

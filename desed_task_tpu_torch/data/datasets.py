@@ -209,3 +209,43 @@ class ConcatSet:
                 return p[item]
             item -= len(p)
         raise IndexError(item)
+
+
+class SeparatedSet(_BaseSet):
+    """Clips with pre-separated sources (the 2021 separation recipe): for
+    each base clip `X.wav` the separation runner (tools/separation.py
+    `separate_folder`) writes `X_src{i}.wav`; items are the base clip's item
+    plus "sources" [n_src, N] (zeros for a missing source file). With
+    `sources_as_audio`, "audio" is the sources too, as the ensemble's train
+    and predict steps read it (training/sepsed.py)."""
+
+    def __init__(self, separated_folder, base_dataset: _BaseSet, n_src: int = 4,
+                 sources_as_audio: bool = False):
+        self.base = base_dataset
+        self.separated_folder = Path(separated_folder)
+        self.n_src = n_src
+        self.sources_as_audio = sources_as_audio
+        self.encoder = base_dataset.encoder
+        self.fs = base_dataset.fs
+        self.pad_to = base_dataset.pad_to
+        self.test = base_dataset.test
+        self.examples_list = base_dataset.examples_list
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, item):
+        out = dict(self.base[item])
+        stem = Path(self.base.examples[self.base.examples_list[item]]["path"]).stem
+        sources = []
+        for i in range(self.n_src):
+            src_path = self.separated_folder / f"{stem}_src{i}.wav"
+            if src_path.exists():
+                audio, *_ = read_audio(str(src_path), pad_to=self.pad_to, test=True)
+            else:
+                audio = np.zeros(self.pad_to, np.float32)
+            sources.append(audio)
+        out["sources"] = np.stack(sources)  # [n_src, N]
+        if self.sources_as_audio:
+            out["audio"] = out["sources"]
+        return out

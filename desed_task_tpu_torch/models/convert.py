@@ -15,6 +15,10 @@ state_dict for `models.crnn.CRNN`:
 Every leaf is used: a leaf no rule maps raises, and loading the result with
 `load_state_dict(strict=True)` raises for a missing or extra key.
 
+`from_jax_tdcn_params(variables)` does the same for the 2021 separator
+(models/tdcn.py) and `from_jax_ensemble_params(params, batch_stats)` for
+the separation ensemble (models/ensemble.py).
+
 `convert_crnn_state_dict(state_dict)` loads a reference DESED_task PyTorch
 CRNN checkpoint straight into the port's names (counterpart of
 desed_task_tpu/models/torch_convert.py:47, with `convert_gru_state_dict`,
@@ -79,6 +83,64 @@ def from_jax_params(params: Mapping, batch_stats: Mapping | None = None) -> dict
             if key in state:
                 raise ValueError(f"two JAX leaves map to {key}")
             state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return state
+
+
+_PRELU = re.compile(r"PReLU_(\d+)")
+
+
+def _tdcn_leaf(path: tuple[str, ...], value: np.ndarray):
+    *mods, leaf = path
+    names = []
+    for m in mods:
+        prelu = _PRELU.fullmatch(m)
+        if prelu:
+            names.append(f"prelu{prelu.group(1)}")
+        elif m != "LayerNorm_0":
+            names.append("blocks." + m if m.startswith("block_") else m)
+    name = None
+    if leaf == "kernel" and mods == ["decoder"]:
+        # ConvTranspose [win, enc, 1] -> conv_transpose1d [enc, 1, win], flipped
+        name, value = "weight", value.transpose(1, 2, 0)[..., ::-1]
+    elif leaf == "kernel" and value.ndim == 3 and value.shape[0] == 1 and mods[-1] != "dconv":
+        name, value = "weight", value[0].T  # a 1x1 conv: Linear [out, in]
+    elif leaf == "kernel" and value.ndim == 3:
+        name, value = "weight", value.transpose(2, 1, 0)  # conv1d [Co, Ci / groups, k]
+    elif leaf in ("negative_slope", "res_scale", "bias"):
+        name = leaf
+    elif leaf == "scale" and mods[-1:] == ["LayerNorm_0"]:
+        name = "weight"
+    if name is None:
+        raise ValueError(f"no rule maps the JAX TDCN leaf {'/'.join(path)}")
+    return ".".join(names + [name]), value
+
+
+def from_jax_tdcn_params(variables: Mapping) -> dict:
+    """Flax variables (or params) of the JAX TDCNPP -> the port's state_dict
+    (models/tdcn.py): 1x1 convs to Linear [out, in], the depthwise and
+    encoder kernels to [Co, Ci / groups, k], the decoder's ConvTranspose
+    kernel to conv_transpose1d's [enc, 1, win] with the taps reversed,
+    LayerNorm scale to weight. Every leaf is used."""
+    params = variables.get("params", variables)
+    state = {}
+    for path, value in _leaves(params):
+        key, value = _tdcn_leaf(path, value)
+        if key in state:
+            raise ValueError(f"two JAX leaves map to {key}")
+        state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return state
+
+
+def from_jax_ensemble_params(params: Mapping, batch_stats: Mapping | None = None) -> dict:
+    """Flax params (+ batch_stats) of the JAX EnsembleModel -> the port's
+    state_dict of models/ensemble.EnsembleModel: the `multisrc_crnn`
+    subtree through from_jax_params, and `q_logit`. Every leaf is used."""
+    extra = set(params) - {"multisrc_crnn", "q_logit"}
+    if extra or set(batch_stats or {}) - {"multisrc_crnn"}:
+        raise ValueError(f"no rule maps the JAX ensemble subtrees {sorted(extra)}")
+    sub = from_jax_params(params["multisrc_crnn"], (batch_stats or {}).get("multisrc_crnn"))
+    state = {f"multisrc_crnn.{k}": v for k, v in sub.items()}
+    state["q_logit"] = torch.tensor(float(np.asarray(params["q_logit"])), dtype=torch.float32)
     return state
 
 

@@ -105,8 +105,11 @@ class CheckpointManager:
         """Load checkpoint `name` into `state` (a MeanTeacherState of the same
         model) in place, and into `generator` when one is given; returns
         the state."""
-        payload = torch.load(self.directory / name, map_location="cpu", weights_only=True)
-        return load_payload(payload, state, generator)
+        return load_payload(self.load(name), state, generator)
+
+    def load(self, name: str) -> dict:
+        """Checkpoint `name`'s contents (state_payload's dict, on the host)."""
+        return torch.load(self.directory / name, map_location="cpu", weights_only=True)
 
     def metadata(self, name: str = "last") -> dict:
         p = self.directory / f"{name}.meta.json"

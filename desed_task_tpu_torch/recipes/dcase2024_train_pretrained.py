@@ -22,9 +22,10 @@ DEFAULT_CONF = (Path(__file__).resolve().parents[2] / "recipes" / "dcase2024_tas
                 / "confs" / "pretrained.yaml")
 
 
-def main(argv=None):
+def main(argv=None, run_info: dict | None = None):
     return train_cli("Training a SED system for DESED + MAESTRO", default_conf=str(DEFAULT_CONF),
-                     default_log_dir="./exp/2024_baseline", argv=argv)
+                     default_log_dir="./exp/2024_baseline", argv=argv,
+                     run_info=run_info)
 
 
 if __name__ == "__main__":

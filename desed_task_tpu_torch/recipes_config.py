@@ -32,6 +32,23 @@ CRNN_2024_NET = dict(
     specaugm_f_l=10,
 )
 
+# the 2021-2023 CRNN, no embeddings (recipes/dcase2023_task4_baseline/confs/default.yaml net;
+# recipes/dcase2021_task4_baseline/confs/sed.yaml has the same)
+CRNN_2023_NET = dict(
+    nclass=10,
+    attention=True,
+    activation="glu",
+    dropout=0.5,
+    n_RNN_cell=128,
+    n_layers_RNN=2,
+    n_in_channel=1,
+    kernel_size=[3] * 7,
+    padding=[1] * 7,
+    stride=[1] * 7,
+    nb_filters=[16, 32, 64, 128, 128, 128, 128],
+    pooling=[[2, 2], [2, 2], [1, 2], [1, 2], [1, 2], [1, 2], [1, 2]],
+)
+
 # 2024 per-class median filter windows (pretrained.yaml:110)
 MEDIAN_2024 = [3, 9, 9, 5, 5, 5, 9, 7, 11, 9, 7, 3, 9, 13, 7, 1, 13, 3, 13, 7,
                5, 5, 1, 13, 17, 13, 15]
@@ -41,6 +58,14 @@ def crnn_2024(**over) -> CRNN:
     """The 2024 flagship CRNN (128 mels, 768-d BEATs frame embeddings fused
     by pool1d), with `over` replacing any configuration key."""
     cfg = dict(CRNN_2024_NET)
+    cfg.update(over)
+    return CRNN(**cfg)
+
+
+def crnn_2023(**over) -> CRNN:
+    """The 2021-2023 baseline CRNN (128 mels, a 2-layer BiGRU of 128 cells,
+    10 DESED classes), with `over` replacing any configuration key."""
+    cfg = dict(CRNN_2023_NET)
     cfg.update(over)
     return CRNN(**cfg)
 

@@ -14,9 +14,9 @@ import argparse
 
 
 def train_cli(description: str, default_conf: str, default_log_dir: str,
-              strong_real: bool = False, argv=None):
+              strong_real: bool = False, argv=None, run_info: dict | None = None):
     """Parse the shared train-CLI arguments and run single_run. Returns
-    (state, test results)."""
+    (state, test results). `run_info` goes to single_run."""
     parser = argparse.ArgumentParser(description)
     parser.add_argument("--conf_file", default=default_conf)
     parser.add_argument("--log_dir", default=default_log_dir)
@@ -50,6 +50,7 @@ def train_cli(description: str, default_conf: str, default_log_dir: str,
         evaluation=evaluation,
         fast=not args.no_fast_math,
         strong_real=getattr(args, "strong_real", False),
+        run_info=run_info,
     )
     if results is not None:
         print("==== dev-test results ====")

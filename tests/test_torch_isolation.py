@@ -109,3 +109,32 @@ def test_kernel_build_keys_on_source_hash(tmp_path, monkeypatch):
         _build.nvcc_path()
     with pytest.raises(ValueError, match="CUDA"):
         _build.require_cuda_f32("k", torch.zeros(2))
+
+
+def test_the_2021_2023_modules_are_scanned():
+    for name in ("models.tdcn", "models.ensemble", "training.mixit", "training.sepsed",
+                 "training.sepsed_run", "training.separation_pretrain", "tools.separation",
+                 "metrics.separation", "recipes.dcase2021_train_sed",
+                 "recipes.dcase2022_train_sed", "recipes.dcase2022_train_pretrained",
+                 "recipes.dcase2023_train_sed", "recipes.dcase2023_train_pretrained",
+                 "recipes.dcase2021_pretrain_separation", "recipes.dcase2021_run_separation",
+                 "recipes.dcase2021_finetune_on_separated"):
+        assert f"desed_task_tpu_torch.{name}" in MODULES, name
+
+
+def test_separation_entry_points_without_cpu_raise_when_no_cuda(monkeypatch, tmp_path):
+    from desed_task_tpu_torch.tools.separation import TorchSeparationModel
+    from desed_task_tpu_torch.training.separation_pretrain import pretrain_separator
+    from desed_task_tpu_torch.training.sepsed_run import sepsed_single_run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchSeparationModel(None, n_src=2, enc_dim=8, win=16, bn_dim=8, h_dim=8, n_blocks=1,
+                             n_repeats=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pretrain_separator([tmp_path], [tmp_path], tmp_path / "log")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sepsed_single_run({"training": {}, "data": {}}, str(tmp_path / "run"), str(tmp_path))
+    sep = TorchSeparationModel(None, n_src=2, device="cpu", enc_dim=8, win=16, bn_dim=8,
+                               h_dim=8, n_blocks=1, n_repeats=1)
+    assert next(sep.model.parameters()).device.type == "cpu"

@@ -215,7 +215,7 @@ def _chip_smoke():
 
 def test_chip_smoke_recipe_config_equals_the_yaml(tmp_path):
     want = yaml.safe_load(recipe.DEFAULT_CONF.read_text())
-    got = _chip_smoke().recipe_config(tmp_path)
+    got = _chip_smoke().year_config(recipe.DEFAULT_CONF, tmp_path)
     assert got.keys() == want.keys()
     for section in want:
         if section == "data":
