@@ -157,7 +157,29 @@ Phases (any failure exits non-zero; nothing is caught):
      host batch of 96 clips x 4 sources: its launches exact, its metrics
      and gradients against the plain-version step, a bitwise rerun, its ms,
      the plain step's, the host batch's read and collate time, and 3
-     loop epochs on host batches from 6 workers with their busy share.
+     loop epochs on host batches from 6 workers with their busy share;
+  13. the embedders at full width on seeded weights written as facsimiles
+     of the released files and loaded through the released-layout loaders
+     (`build_embedder`): (a) BEATs on 60 ten-second clips (frame [60, 768,
+     496]), its forward on N_CMP clips within TOL_EMB of the same module on
+     the CPU with TF32 allowed in the process, ms and bound; (b) Cnn14_16k
+     on 16 clips ([16, 2048, 125]) and AST on 8 spectrograms ([8, 768,
+     1214]), held the same way (AST on the same fbank on both sides); (c)
+     `extract_splits` over two folders of seeded wavs and an empty one (the
+     h5py seam: MemoryH5 where h5py cannot be imported, said on a line),
+     rows within TOL_STORE of the forward of the same batches, the float16
+     stores equal to the fp32 stores' cast, then the 2024 recipe's corpus
+     extracted (float16) and single_run (fast_dev_run, bf16) trained from
+     those stores; (d) the 2024 train step with BEATs inside
+     (`embedder=frame_embedder(beats)`, the batch without embeddings), fp32
+     and bf16: launches STEP_LAUNCHES / STEP16_LAUNCHES, gradients bitwise
+     on a rerun, BEATs' weights bitwise unchanged, the fp32 step within
+     TOL_LOSS / TOL_GRAD of the plain step, step ms; (e) serving the 130
+     wavs with BEATs inside the forward: 7/7/1 a batch, scores within
+     TOL_SCORES of the plain forward; (f) pretrain_beats at the full config
+     (batch 8, PRETRAIN_STEPS steps, 32 wavs: finite losses, 298 of 496
+     tokens masked a clip, step ms), finetune_beats_weak 2 steps, the saved
+     file loaded through build_embedder.
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
@@ -165,8 +187,9 @@ entries of their own, launches from the bf16 serving run, and of rows 3 and
 counts, "eval" and "eval_bf16" among them, and "recipe" and
 "recipe_bf16", each {"train_step": launches a train step, "eval_batch":
 launches an eval batch per model pass} from phase 11, and "recipe_2023_bf16",
-"recipe_2022_ast_bf16" and "finetune" the same from phase 12; row 7 in fp32 and, as
-`fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
+"recipe_2022_ast_bf16" and "finetune" the same from phase 12, "e2e_beats" and
+"e2e_beats_bf16" (launches a step) and "serve_beats" (a batch) from phase 13;
+row 7 in fp32 and, as `fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
 path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
 
@@ -202,6 +225,11 @@ EVAL_CLIPS = 4 * EVAL_BATCH
 # gradient is 0 under train-mode BatchNorm: both sides give fp32 noise)
 TOL_LOSS = 1e-4
 TOL_GRAD = 2e-3
+# launches of one 2024 train step (phases 8 and 8b, and 13's e2e step)
+STEP_LAUNCHES = {"conv_bn_stats": 14, "glu_drop_pool": 14, "bigru": 2,
+                 "conv_bn_stats_bwd": 7, "glu_drop_pool_bwd": 7, "bigru_bwd": 1}
+STEP16_LAUNCHES = {"conv_bn_stats.bf16": 14, "glu_drop_pool.bf16": 14, "bigru": 2,
+                   "conv_bn_stats_bwd.bf16": 7, "glu_drop_pool_bwd.bf16": 7, "bigru_bwd": 1}
 # fused log-mel in bf16 (dB, absolute): against its plain version a
 # magnitude can round one bf16 step (2^-7 relative) the other way; against
 # the GEMM front-end, which keeps magnitudes and filterbank in fp32, each is
@@ -1137,8 +1165,7 @@ def train(gen, report):
     _build.reset_launches()
     metrics, grads = run(state)
     launches = dict(_build.LAUNCHES)
-    want = {"conv_bn_stats": 14, "glu_drop_pool": 14, "bigru": 2,
-            "conv_bn_stats_bwd": 7, "glu_drop_pool_bwd": 7, "bigru_bwd": 1}
+    want = STEP_LAUNCHES
     print(f"train step: launches {launches}, expected {want}", flush=True)
     require(launches == want, "the train step did not go through every kernel")
     print("train step metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()),
@@ -1222,8 +1249,7 @@ def train_bf16(ctx, report):
     _build.reset_launches()
     metrics, grads = run(state, step, batch, "cuda")
     launches = dict(_build.LAUNCHES)
-    want = {"conv_bn_stats.bf16": 14, "glu_drop_pool.bf16": 14, "bigru": 2,
-            "conv_bn_stats_bwd.bf16": 7, "glu_drop_pool_bwd.bf16": 7, "bigru_bwd": 1}
+    want = STEP16_LAUNCHES
     print(f"train step bf16: launches {launches}, expected {want}", flush=True)
     require(launches == want, "the bf16 train step did not go through every bf16 kernel")
     print("train step bf16 metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()),
@@ -2551,6 +2577,482 @@ def recipes_2021_2023(card, report):
     return by_path
 
 
+# phase 13: the embedders (BEATs, PANNs, AST), their extraction, BEATs inside
+# the train step and the serving forward, BEATs pretraining
+EMB_CLIPS = 60  # the 2024 train batch
+PANNS_CLIPS, AST_CLIPS = 16, 8
+N_CMP = 4  # clips of each embedder's forward held to the same module on the CPU
+TOL_EMB = 1e-4  # card against CPU, of max(1, max |CPU|), TF32 allowed in the process
+TOL_STORE = 1e-6  # extracted rows against the forward of the same batches
+EXTRACT_BATCH = 8
+SPLIT_WAVS = {"split_a": 12, "split_b": 7}  # the last batch of each is padded
+PRETRAIN_WAVS, PRETRAIN_STEPS, FINETUNE_STEPS = 32, 4, 2
+
+
+def beats_flops(cfg, tokens: int) -> float:
+    """FLOPs of one clip's BEATs forward (2 a MAC; the fbank's FFT left out)."""
+    d, f, p = cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.input_patch_size
+    macs = tokens * (p * p * cfg.embed_dim + cfg.embed_dim * d)  # patch conv, projection
+    macs += tokens * d * (d // cfg.conv_pos_groups) * cfg.conv_pos  # positional conv
+    macs += cfg.encoder_layers * (4 * tokens * d * d + 2 * tokens * d * f
+                                  + 2 * tokens * tokens * d)
+    return 2.0 * macs
+
+
+def panns_flops(frames: int) -> float:
+    """FLOPs of one clip's Cnn14_16k conv stack (3x3 convs, 2 a MAC)."""
+    macs, t, f, ci = 0, frames, 64, 1
+    for i, co in enumerate((64, 128, 256, 512, 1024, 2048)):
+        macs += t * f * 9 * (ci * co + co * co)
+        ci = co
+        if i < 5:
+            t, f = t // 2, f // 2
+    return 2.0 * macs
+
+
+def ast_flops(cfg) -> float:
+    """FLOPs of one spectrogram's AST forward (2 a MAC)."""
+    n, d = 2 + cfg.num_patches, cfg.embed_dim
+    macs = cfg.num_patches * cfg.patch_size ** 2 * d
+    macs += cfg.depth * (4 * n * d * d + 2 * n * d * int(d * cfg.mlp_ratio) + 2 * n * n * d)
+    return 2.0 * macs
+
+
+class MemoryH5:
+    """The h5py calls of tools/embeddings.extract_folder, into this process:
+    each store's arrays in `files`, its frame rows also in
+    InMemoryEmbeddings.rows (the datasets' stand-in store), and an empty
+    placeholder file at its path. Phase 13's stand-in where h5py cannot be
+    imported."""
+
+    files: dict = {}
+
+    @staticmethod
+    def string_dtype():
+        return object
+
+    class File(dict):
+        def __init__(self, path, mode):
+            super().__init__()
+            self.path = str(path)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            if exc[0] is None:
+                MemoryH5.files[self.path] = dict(self)
+                InMemoryEmbeddings.rows[self.path] = dict(
+                    zip(self["filenames"], self["frame_embeddings"]))
+                Path(self.path).touch()
+            return False
+
+        def create_dataset(self, name, shape, dtype):
+            self[name] = np.zeros(shape, dtype)
+            return self[name]
+
+
+def read_store(path, h5) -> dict:
+    """An extracted store's arrays (filenames as str)."""
+    if h5 is MemoryH5:
+        data = MemoryH5.files[str(path)]
+        return {**data, "filenames": [str(s) for s in data["filenames"]]}
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {"global_embeddings": f["global_embeddings"][:],
+                "frame_embeddings": f["frame_embeddings"][:],
+                "filenames": [s.decode() for s in f["filenames"][:]]}
+
+
+def embedders(card, report):
+    """Phase 13: BEATs, PANNs and AST at full width on seeded weights loaded
+    through the released-layout loaders; extraction and a 2024 recipe run
+    from its stores; BEATs inside the train step and the serving forward;
+    BEATs pretraining and fine-tuning."""
+    import copy
+    import csv
+    import dataclasses
+
+    import torch
+
+    from desed_task_tpu_torch.data import datasets
+    from desed_task_tpu_torch.data.audio_io import read_audio, write_wav
+    from desed_task_tpu_torch.inference.pipeline import InferencePipeline
+    from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
+    from desed_task_tpu_torch.models.ast import ASTModel, init_ast
+    from desed_task_tpu_torch.models.beats import BEATsConfig, BEATsModel, init_beats
+    from desed_task_tpu_torch.models.convert import (to_reference_ast, to_reference_beats,
+                                                     to_reference_panns)
+    from desed_task_tpu_torch.models.panns import Cnn14_16k, init_panns
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig
+    from desed_task_tpu_torch.ops.kaldi import ast_preprocess
+    from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024, mean_teacher_2024
+    from desed_task_tpu_torch.tools.embeddings import (build_embedder, extract_splits,
+                                                       frame_embedder)
+    from desed_task_tpu_torch.training import create_state, make_optimizer, make_train_step
+    from desed_task_tpu_torch.training.beats_pretrain import (BEATsPretrainConfig,
+                                                              finetune_beats_weak, n_tokens_for,
+                                                              pretrain_beats)
+    from desed_task_tpu_torch.training.single_run import single_run
+    from desed_task_tpu_torch.utils.classes_dict import CLASSES_DESED, CLASSES_MAESTRO_REAL
+    from desed_task_tpu_torch.utils.cli import EXTRACT_SPLITS
+
+    out = {}
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(13)
+    rng = np.random.default_rng(13)
+    try:
+        import h5py  # noqa: F401
+
+        h5 = None
+    except ImportError:
+        h5 = MemoryH5
+        print("embedding stores: in-memory stand-in (no h5py here)", flush=True)
+        datasets._EmbeddingStore = InMemoryEmbeddings
+
+    def hold(name, model, x, flops, n_bytes):
+        """The card's forward on N_CMP inputs against the same module on the
+        CPU, with TF32 allowed in the process; ms of the whole batch."""
+        flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+        prev = [f.allow_tf32 for f in flags]
+        for f in flags:
+            f.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                card_out = model(x[:N_CMP])
+                cpu_out = copy.deepcopy(model).cpu()(x[:N_CMP].cpu())
+        finally:
+            for f, p in zip(flags, prev):
+                f.allow_tf32 = p
+        errs = {k: rel_err(card_out[k].cpu(), cpu_out[k]) for k in ("frame", "global")}
+        with torch.inference_mode():
+            ms = time_ms(lambda: model(x), iters=5, warmup=1)
+        b_ms, by = bound_ms(n_bytes, flops)
+        print(f"[{card}] {name}: {ms:.3f} ms a batch of {x.shape[0]} "
+              f"({flops / 1e12:.3f} TFLOP), "
+              f"bound {b_ms:.3f} ms ({by}); card against the CPU on {N_CMP} with TF32 allowed: "
+              f"frame {errs['frame']:.3e}, global {errs['global']:.3e} (tol {TOL_EMB})",
+              flush=True)
+        require(max(errs.values()) <= TOL_EMB, f"{name}: the card's forward is not the CPU's")
+        return dict(ms=ms, bound_ms=b_ms, bound_by=by, tflop=flops / 1e12, cpu_errs=errs)
+
+    with tempfile.TemporaryDirectory(prefix="embedders_") as tmp:
+        root = Path(tmp)
+        # facsimiles of the released files, written from seeded modules
+        cfg_b = BEATsConfig()
+        beats_w = init_beats(BEATsModel(cfg_b), gen)
+        sd = to_reference_beats(beats_w.encoder.state_dict(), cfg_b.encoder_layers)
+        sd["predictor.weight"] = 0.02 * torch.randn(527, 768, generator=gen)
+        sd["predictor.bias"] = torch.zeros(527)
+        beats_file = root / "BEATs_iter3_plus_AS2M_facsimile.pt"
+        torch.save({"cfg": {**dataclasses.asdict(cfg_b), "finetuned_model": True,
+                            "predictor_class": 527, "dropout": 0.1}, "model": sd}, beats_file)
+        panns_w = init_panns(Cnn14_16k(), gen)
+        panns_file = root / "Cnn14_16k_facsimile.pth"
+        torch.save({"model": to_reference_panns(panns_w.state_dict())}, panns_file)
+        ast_w = init_ast(ASTModel(), gen)
+        ast_file = root / "audioset_10_10_0.4593_facsimile.pth"
+        torch.save(to_reference_ast(ast_w.state_dict()), ast_file)
+        beats = build_embedder("beats", beats_file)
+        panns = build_embedder("panns", panns_file)
+        ast = build_embedder("ast", ast_file)
+        same = all(all(torch.equal(a.cpu(), b) for a, b in zip(m.state_dict().values(),
+                                                               w.state_dict().values()))
+                   for m, w in ((beats, beats_w), (panns, panns_w), (ast, ast_w)))
+        print(f"embedders: BEATs, PANNs and AST facsimiles (released layouts) load through "
+              f"build_embedder to the weights they were written from: {same}", flush=True)
+        require(same, "a facsimile did not load back to its weights")
+        del beats_w, panns_w, ast_w
+
+        # (a) BEATs on 60 ten-second clips
+        audio = torch.as_tensor(rng.standard_normal((EMB_CLIPS, 160000), np.float32) * 0.1,
+                                device="cuda")
+        with torch.inference_mode():
+            emb = beats(audio)
+        tokens = n_tokens_for(cfg_b, 160000)
+        require(tuple(emb["frame"].shape) == (EMB_CLIPS, 768, tokens) == (60, 768, 496)
+                and tuple(emb["global"].shape) == (EMB_CLIPS, 768)
+                and bool(torch.isfinite(emb["frame"]).all()), "BEATs: bad output")
+        w_bytes = 4 * sum(p.numel() for p in beats.parameters())
+        out["beats"] = hold("BEATs", beats, audio, EMB_CLIPS * beats_flops(cfg_b, tokens),
+                            audio.numel() * 4 + w_bytes + emb["frame"].numel() * 4)
+        del emb
+        # (b) PANNs on 16 clips, AST on 8 spectrograms
+        a16 = audio[:PANNS_CLIPS]
+        with torch.inference_mode():
+            p_out = panns(a16)
+        require(tuple(p_out["frame"].shape) == (PANNS_CLIPS, 2048, 125)
+                and tuple(p_out["global"].shape) == (PANNS_CLIPS, 2048)
+                and bool(torch.isfinite(p_out["frame"]).all()), "PANNs: bad output")
+        out["panns"] = hold("PANNs Cnn14_16k", panns, a16, PANNS_CLIPS * panns_flops(1001),
+                            a16.numel() * 4 + 4 * sum(p.numel() for p in panns.parameters())
+                            + p_out["frame"].numel() * 4)
+        spec = ast_preprocess(audio[:AST_CLIPS].cpu()).cuda()
+        with torch.inference_mode():
+            a_out = ast(spec)
+        require(tuple(a_out["frame"].shape) == (AST_CLIPS, 768, 1214)
+                and bool(torch.isfinite(a_out["frame"]).all()), "AST: bad output")
+        out["ast"] = hold("AST", ast, spec, AST_CLIPS * ast_flops(ast.cfg),
+                          spec.numel() * 4 + 4 * sum(p.numel() for p in ast.parameters())
+                          + a_out["frame"].numel() * 4)
+        del panns, ast, p_out, a_out, spec
+
+        # (c) extraction: two folders (and an empty one, skipped), fp32 and float16
+        folders = {"empty": root / "empty"}
+        folders["empty"].mkdir()
+        for split, n in SPLIT_WAVS.items():
+            folders[split] = root / split
+            folders[split].mkdir()
+            for i in range(n):
+                write_wav(folders[split] / f"{split}_{i:03d}.wav",
+                          rng.standard_normal(160000).astype(np.float32) * 0.1, 16000)
+        t0 = time.perf_counter()
+        res32 = extract_splits("beats", beats_file, {k: str(v) for k, v in folders.items()},
+                               str(root / "emb32"), batch_size=EXTRACT_BATCH, h5py=h5)
+        extract_s = time.perf_counter() - t0
+        res16 = extract_splits("beats", beats_file, {k: str(v) for k, v in folders.items()},
+                               str(root / "emb16"), batch_size=EXTRACT_BATCH, dtype="float16",
+                               h5py=h5)
+        require(set(res32) == set(res16) == set(SPLIT_WAVS), "extraction: splits not as asked")
+        store_err, half_same = 0.0, True
+        for split in SPLIT_WAVS:
+            rows, half = read_store(res32[split], h5), read_store(res16[split], h5)
+            wavs = sorted(folders[split].glob("*.wav"))
+            require(rows["filenames"] == [w.stem for w in wavs], "extraction: filenames")
+            for start in range(0, len(wavs), EXTRACT_BATCH):
+                chunk = wavs[start : start + EXTRACT_BATCH]
+                x = np.zeros((EXTRACT_BATCH, 160000), np.float32)
+                x[: len(chunk)] = [read_audio(w, pad_to=160000, test=True)[0] for w in chunk]
+                with torch.inference_mode():
+                    ref = beats(torch.as_tensor(x, device="cuda"))
+                for key in ("frame", "global"):
+                    got = torch.as_tensor(rows[f"{key}_embeddings"][start : start + len(chunk)])
+                    store_err = max(store_err, rel_err(got, ref[key][: len(chunk)].cpu()))
+            for key in ("frame_embeddings", "global_embeddings"):
+                half_same &= half[key].dtype == np.float16 and np.array_equal(
+                    half[key], rows[key].astype(np.float16))
+        print(f"extraction: {sum(SPLIT_WAVS.values())} clips in {len(SPLIT_WAVS)} splits (an "
+              f"empty folder skipped) at batch {EXTRACT_BATCH} in {extract_s:.2f} s; rows "
+              f"against the forward of the same batches {store_err:.3e} (tol {TOL_STORE}); "
+              f"the float16 stores equal the fp32 stores' cast: {half_same}", flush=True)
+        require(store_err <= TOL_STORE, "extraction: stored rows differ from the forward")
+        require(half_same, "extraction: the float16 store is not the fp32 store's cast")
+        out["extraction"] = dict(clips=sum(SPLIT_WAVS.values()), s=extract_s,
+                                 store_err=store_err, float16_cast=half_same)
+
+        # the 2024 recipe (bf16, fast_dev_run) from stores extracted here
+        corpus = root / "corpus"
+        write_corpus(corpus, np.random.default_rng(19), RECIPE_CLIPS, "beats", 496, maestro=True)
+        config = year_config(ROOT / "recipes" / "dcase2024_task4_baseline" / "confs"
+                             / "pretrained.yaml", corpus)
+        config["training"]["log_every"] = 1  # every step's loss in metrics.csv
+        data = config["data"]
+        splits = {split: data[key] for split, key in EXTRACT_SPLITS if data.get(key)}
+        probe = corpus / "embeddings" / "beats" / "weak_train.hdf5"
+        t0 = time.perf_counter()
+        stores = extract_splits("beats", beats_file, splits, str(corpus / "embeddings"),
+                                batch_size=32, dtype="float16", h5py=h5)
+        corpus_extract_s = time.perf_counter() - t0
+        require(set(stores) == set(splits) and str(probe) in stores.values(),
+                "extraction: the recipe's stores were not all written")
+        weak = read_store(probe, h5)
+        first = sorted((corpus / "weak").glob("*.wav"))[0]
+        with torch.inference_mode():
+            ref = beats(torch.as_tensor(read_audio(first, pad_to=160000, test=True)[0][None],
+                                        device="cuda"))["frame"][0].cpu().numpy()
+        row = weak["frame_embeddings"][weak["filenames"].index(first.stem)].astype(np.float32)
+        row_err = float(np.abs(row - ref).max()) / max(1.0, float(np.abs(ref).max()))
+        info = {}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        _, res = single_run(config, str(corpus / "run"), fast_dev_run=True, fast=True,
+                            run_info=info)
+        run_s = time.perf_counter() - t0
+        with open(corpus / "run" / "metrics.csv") as f:
+            losses = [float(r["value"]) for r in csv.DictReader(f) if r["name"] == "train/loss"]
+        steps = sum(h["steps"] for h in info["loop"].history)
+        numbers = {k: v for k, v in res.items() if isinstance(v, float)}
+        n_rows = sum(len(read_store(p, h5)["filenames"]) for p in stores.values())
+        print(f"recipe from extracted stores: {len(stores)} stores ({n_rows} rows, float16) in "
+              f"{corpus_extract_s:.2f} s; a weak clip's stored row against "
+              f"its forward alone {row_err:.3e} (float16); single_run fast_dev_run bf16: "
+              f"{steps} steps, losses {losses}, {run_s:.1f} s", flush=True)
+        require(row_err <= 2.0 ** -10, "extraction: a stored row is not its clip's embedding")
+        require(steps > 0 and len(losses) == steps and all(math.isfinite(v) for v in losses),
+                "recipe from extracted stores: not finite losses")
+        require(all(0 <= v <= 1 for v in numbers.values()), "recipe: a metric not in [0, 1]")
+        out["recipe"] = dict(stores=len(stores), extract_s=corpus_extract_s, row_err=row_err,
+                             steps=steps, losses=losses, run_s=run_s)
+
+        del weak
+        if h5 is MemoryH5:
+            MemoryH5.files.clear()
+
+        # (d) BEATs inside the 2024 train step, fp32 and bf16
+        cfg = mean_teacher_2024()
+        batch = {}
+        for sl in cfg.slots:
+            batch[sl.name] = {
+                "audio": torch.as_tensor(rng.standard_normal((sl.size, 160000), np.float32)
+                                         * 0.05, device="cuda"),
+                "labels": torch.as_tensor((rng.random((sl.size, 27, 156)) > 0.95)
+                                          .astype(np.float32), device="cuda"),
+                "class_mask": torch.ones((sl.size, 27), dtype=torch.bool, device="cuda")}
+        init = {k: v.clone() for k, v in randomize(crnn_2024(), gen).state_dict().items()}
+        tx, sched = make_optimizer(lr=1e-3, rampup_steps=1000)
+        embed = frame_embedder(beats)
+        frozen = {k: v.clone() for k, v in beats.state_dict().items()}
+        e2e = {}
+        for mode, want in (("fp32", STEP_LAUNCHES), ("bf16", STEP16_LAUNCHES)):
+            bf16 = mode == "bf16"
+            step = make_train_step(cfg, tx, sched, embedder=embed, mel_cfg=MelConfig(
+                compute_dtype="bfloat16" if bf16 else "float32"))
+
+            def fresh(kernels=True):
+                kw = {"compute_dtype": torch.bfloat16} if bf16 else {}
+                model = crnn_2024(**kw) if kernels else crnn_2024(
+                    fused_blocks=False, rnn_kernel=False, **kw)
+                model.load_state_dict(init)
+                return create_state(model, cfg, tx, device="cuda")
+
+            def run(state, seed=7):
+                metrics = step(state, batch, torch.Generator(device="cuda").manual_seed(seed))
+                torch.cuda.synchronize()
+                return ({k: float(v) for k, v in metrics.items()},
+                        [p.grad.clone() for p in state.student.parameters()])
+
+            state = fresh()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            metrics, grads = run(state)
+            launches = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            _, grads2 = run(fresh())
+            same = all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            unchanged = all(torch.equal(v, frozen[k]) for k, v in beats.state_dict().items())
+            no_grad = all(p.grad is None for p in beats.parameters())
+            print(f"e2e step {mode} (BEATs in the step, 60 clips, no embeddings in the batch): "
+                  f"launches {launches}, expected {want}; rerun gradients bitwise equal: "
+                  f"{same}; BEATs weights bitwise unchanged, no gradient: "
+                  f"{unchanged and no_grad}",
+                  flush=True)
+            require(launches == want, f"e2e step {mode}: launches differ from phase 8's")
+            require(all(math.isfinite(v) for v in metrics.values()), f"e2e {mode}: non-finite")
+            require(same, f"e2e step {mode}: gradients not bitwise repeatable")
+            require(unchanged and no_grad, f"e2e step {mode}: the embedder's weights moved")
+            row = dict(launches=launches, metrics=metrics, bitwise_repeat=same, peak_bytes=peak)
+            if not bf16:  # against the same step through the plain versions (phase 8's limits)
+                p_metrics, p_grads = run(fresh(kernels=False))
+                loss_err = max(abs(metrics[k] - p_metrics[k]) / max(abs(p_metrics[k]), 1e-6)
+                               for k in metrics)
+                grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+                               for a, b in zip(grads, p_grads))
+                print(f"e2e step fp32 vs the plain step: metrics {loss_err:.3e} "
+                      f"(tol {TOL_LOSS}), gradients {grad_err:.3e} (tol {TOL_GRAD})", flush=True)
+                require(loss_err <= TOL_LOSS and grad_err <= TOL_GRAD,
+                        "e2e step fp32: disagrees with the plain step")
+                row.update(metric_rel_err=loss_err, grad_err=grad_err)
+            gen_t = torch.Generator(device="cuda").manual_seed(11)
+            row["step_ms"] = time_ms(lambda: step(state, batch, gen_t), iters=3, warmup=1)
+            print(f"[{card}] e2e step {mode}, {EMB_CLIPS} clips, BEATs in the step: "
+                  f"{row['step_ms']:.3f} ms ({EMB_CLIPS / row['step_ms'] * 1e3:.1f} clips/s; "
+                  f"peak memory {peak / 2**30:.2f} GiB)", flush=True)
+            e2e[mode] = row
+            del state
+        out["e2e"] = e2e
+        del batch
+        torch.cuda.empty_cache()
+
+        # (e) serving with BEATs inside the forward
+        classes = list(CLASSES_DESED) + [c for c in CLASSES_MAESTRO_REAL
+                                         if c not in CLASSES_DESED]
+        enc = ManyHotEncoder(classes, 10, 2048, 256, 4, 16000)
+        thresholds = tuple(np.arange(1 / 100, 1, 1 / 50))
+        model = randomize(crnn_2024(), gen)
+        plain = crnn_2024(fused_blocks=False, rnn_kernel=False)
+        plain.load_state_dict(model.state_dict())
+        kw = dict(median_filter=MEDIAN_2024, thresholds=thresholds, batch_size=BATCH,
+                  embedder=embed)
+        pipe = InferencePipeline(model, None, enc, **kw)
+        pipe_plain = InferencePipeline(plain, None, enc, **kw)
+        serve_dir = root / "serve"
+        serve_dir.mkdir()
+        wavs = []
+        for i in range(N_CLIPS):
+            wavs.append(serve_dir / f"clip_{i:04d}.wav")
+            write_wav(wavs[-1], rng.standard_normal(160000).astype(np.float32) * 0.1, 16000)
+        n_batches = -(-N_CLIPS // BATCH)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        scores, weak_s, _ = pipe.run(wavs)
+        serve_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        per_batch = {k: v // n_batches for k, v in launches.items()}
+        scores_p, _, _ = pipe_plain.run(wavs)
+        s_err = max(float(np.abs(scores[k] - scores_p[k]).max()) for k in scores)
+        print(f"serving with BEATs inside: {N_CLIPS} clips in {n_batches} batches, "
+              f"{serve_s:.3f} s wall; launches {launches} ({per_batch} a batch); scores "
+              f"against the plain forward {s_err:.3e} (tol {TOL_SCORES})", flush=True)
+        require(launches == {"conv_bn_stats": 7 * n_batches, "glu_drop_pool": 7 * n_batches,
+                             "bigru": n_batches}, "serving with BEATs: launches")
+        require(s_err <= TOL_SCORES, "serving with BEATs: scores differ from the plain forward")
+        a64 = audio[:BATCH] if BATCH <= EMB_CLIPS else torch.cat([audio, audio])[:BATCH]
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: pipe.forward(a64), iters=3, warmup=1)
+        print(f"[{card}] serving forward with BEATs, batch {BATCH}: {fwd_ms:.3f} ms", flush=True)
+        out["serving"] = dict(launches=launches, per_batch=per_batch, score_err=s_err,
+                              wall_s=serve_s, forward_ms=fwd_ms)
+        del pipe, pipe_plain, model, plain
+
+        # (f) BEATs pretraining at the full config, then the weak fine-tune
+        pre_dir = root / "pretrain"
+        pre_dir.mkdir()
+        pre_wavs = []
+        for i in range(PRETRAIN_WAVS):
+            pre_wavs.append(pre_dir / f"p_{i:03d}.wav")
+            write_wav(pre_wavs[-1], rng.standard_normal(160000).astype(np.float32) * 0.1, 16000)
+        pcfg = BEATsPretrainConfig(batch_size=8, steps=PRETRAIN_STEPS, warmup_steps=2)
+        info = {}
+        t0 = time.perf_counter()
+        pre = pretrain_beats(pre_wavs, root / "beats_pretrained.pt", pcfg, verbose=False,
+                             run_info=info)
+        pre_s = time.perf_counter() - t0
+        count = round(pcfg.mask_ratio * tokens)
+        masks_ok = all(c == count for row in info["masked"] for c in row)
+        labels = (rng.random((PRETRAIN_WAVS, 10)) > 0.7).astype(np.float32)
+        info_f = {}
+        fine = finetune_beats_weak(pre_wavs, labels, root / "beats_finetuned.pt", pre,
+                                   dataclasses.replace(pcfg, steps=FINETUNE_STEPS),
+                                   verbose=False, run_info=info_f)
+        loaded = build_embedder("beats", fine)
+        with torch.inference_mode():
+            e = loaded(audio[:2])["frame"]
+        step_ms = 1e3 * float(np.median(info["step_s"][1:]))
+        print(f"[{card}] BEATs pretraining, full config, batch 8: losses {info['losses']}, "
+              f"{count} of {tokens} tokens masked a clip in every step: {masks_ok}; "
+              f"{step_ms:.3f} ms a step (median after the first; {pre_s:.1f} s with the "
+              f"decode); fine-tune losses {info_f['losses']}; the saved file loads through "
+              f"build_embedder and embeds {tuple(e.shape)}", flush=True)
+        require(all(math.isfinite(v) for v in info["losses"] + info_f["losses"]),
+                "pretraining: non-finite loss")
+        require(masks_ok, "pretraining: the mask did not take round(0.6 n) tokens a clip")
+        require(tuple(e.shape) == (2, 768, 496) and bool(torch.isfinite(e).all()),
+                "pretraining: the saved encoder does not embed")
+        out["pretrain"] = dict(losses=info["losses"], step_ms=step_ms, s=pre_s,
+                               finetune_losses=info_f["losses"], masked=count)
+        del loaded, beats, audio
+        torch.cuda.empty_cache()
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 13 {out['phase_s']:.1f} s", flush=True)
+    report["embedders"] = out
+    return {"e2e_beats": out["e2e"]["fp32"]["launches"],
+            "e2e_beats_bf16": out["e2e"]["bf16"]["launches"],
+            "serve_beats": out["serving"]["per_batch"]}
+
+
 def main() -> int:
     import torch
 
@@ -2593,6 +3095,7 @@ def main() -> int:
     eval_launches, eval16_launches = evaluate(gen, card, report)
     recipe_launches, recipe16_launches = recipe(card, report, train16_launches)
     year_launches = recipes_2021_2023(card, report)
+    emb_launches = embedders(card, report)
     # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
     rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
     rows["fused_log_mel.bf16"] = [r for r in fe_rows
@@ -2654,7 +3157,8 @@ def main() -> int:
                    "recipe": {k: v.get(name, 0) for k, v in recipe_launches.items()},
                    "recipe_bf16": {k: v.get(name, 0) for k, v in recipe16_launches.items()},
                    **{path: {k: v.get(name, 0) for k, v in counts.items()}
-                      for path, counts in year_launches.items()}}
+                      for path, counts in year_launches.items()},
+                   **{path: counts.get(name, 0) for path, counts in emb_launches.items()}}
         main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")

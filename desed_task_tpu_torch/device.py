@@ -1,6 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the fp32 pin."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -17,3 +19,20 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """TF32 off for cuDNN's convolutions and cuBLAS's products inside the
+    block; the process's settings are restored on exit. PyTorch lets cuDNN
+    take TF32 by default, so a module whose JAX counterpart computes in fp32
+    (the TDCN, the embedders) runs its forward under this pin."""
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    prev = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, p in zip(flags, prev):
+            f.allow_tf32 = p

@@ -36,7 +36,8 @@ class InferencePipeline:
     model: a CRNN (moved to `device` and put in eval mode); variables: an
     optional state_dict loaded into it; embedder: an optional callable
     audio [B, N] -> frame embeddings [B, E, T_e] run on the device when no
-    precomputed embeddings are given. `device` defaults to "cuda".
+    precomputed embeddings are given (a BEATs model through
+    tools/embeddings.frame_embedder). `device` defaults to "cuda".
     """
 
     def __init__(

@@ -25,7 +25,7 @@ are XLA's, not Pallas kernels; here they are `F.conv1d` and
   * PReLU slopes start at 0.01, LayerNorm eps is 1e-6.
 
 The products and convolutions are full fp32, as JAX's on the CPU are:
-`fp32_math` keeps TF32 off around the forward (and the MixIT step's
+`device.fp32_math` keeps TF32 off around the forward (and the MixIT step's
 backward), whatever the process allows; PyTorch lets cuDNN's convolutions
 take TF32 by default.
 
@@ -34,7 +34,6 @@ Shapes: forward(audio [B, N]) -> sources [B, n_src, N], float32.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
@@ -42,27 +41,14 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..device import fp32_math
+
 
 def same_padding(length: int, kernel: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
     """(low, high) padding of lax's "SAME" for one spatial axis."""
     out = -(-length // stride)
     total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - length, 0)
     return total // 2, total - total // 2
-
-
-@contextlib.contextmanager
-def fp32_math():
-    """TF32 off for cuDNN's convolutions and cuBLAS's products inside the
-    block; the process's settings are restored on exit."""
-    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
-    prev = [f.allow_tf32 for f in flags]
-    for f in flags:
-        f.allow_tf32 = False
-    try:
-        yield
-    finally:
-        for f, p in zip(flags, prev):
-            f.allow_tf32 = p
 
 
 def _decoder_offset(kernel: int, stride: int) -> int:

@@ -27,8 +27,11 @@ initial seed and the step (as JAX folds the step into its key), so the step
 never waits for the card to hand over a seed.
 
 Gradient accumulation (`accumulate > 1`) runs the micro-batches in turn
-before one optimizer step. Not ported yet (they raise NotImplementedError):
-the `axis_name` / sharded data-parallel step and the in-graph `embedder`.
+before one optimizer step. An in-graph `embedder` (a frozen BEATs, say,
+through tools/embeddings.frame_embedder) computes the frame embeddings
+from the batch audio when the batch carries none, under no_grad, before
+mixup, per micro-batch. Not ported yet (it raises NotImplementedError): the
+`axis_name` / sharded data-parallel step.
 """
 
 from __future__ import annotations
@@ -243,13 +246,18 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
     to the next, the gradients and the losses summed and scaled by
     1 / accumulate, then one clip + Adam step and one EMA update, so that
     `state.step` counts optimizer steps. Micro-batch i's host draws (mixup
-    gate and coefficients) are seeded by [initial seed, step, i]."""
+    gate and coefficients) are seeded by [initial seed, step, i].
+
+    embedder: an optional callable audio [B, N] -> frame embeddings [B, E,
+    T_e] (tools/embeddings.frame_embedder(model)), run when a batch carries
+    no embeddings: on the concatenated batch audio, under no_grad, before
+    mixup, which then mixes them with the features' draw (as
+    mean_teacher.py:277-279). The embedder is frozen and outside the state:
+    no gradient, Adam moment, EMA entry or checkpoint entry."""
     if accumulate < 1:
         raise ValueError(f"accumulate must be >= 1, got {accumulate}")
     if axis_name is not None:
         raise NotImplementedError("the sharded data-parallel step is not ported yet")
-    if embedder is not None:
-        raise NotImplementedError("the in-graph embedder is not ported yet")
     selfsup = SELF_SUP_LOSSES[cfg.self_sup_loss]
     sa, sb = cfg.role_range("strong")
     wa, wb = cfg.role_range("weak")
@@ -266,6 +274,9 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
         add into its parameters' .grad, both models' BN buffers update;
         returns the losses."""
         audio, labels, emb, cmask = _concat_batch(cfg, batch, dev)
+        if embedder is not None and emb is None:
+            with torch.no_grad():
+                emb = embedder(audio)
         features = mel_spectrogram(audio, mel_cfg)  # linear mel (power=1)
         if cfg.frame_shift_std > 0:
             features, labels = frame_shift(generator, features, labels, cfg.net_pooling,

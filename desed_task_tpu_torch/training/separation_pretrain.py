@@ -25,9 +25,9 @@ import numpy as np
 import torch
 
 from ..data.audio_io import read_wav, to_mono
-from ..device import resolve_device
+from ..device import fp32_math, resolve_device
 from ..metrics.separation import si_snr_improvement
-from ..models.tdcn import TDCNPP, fp32_math, init_tdcn
+from ..models.tdcn import TDCNPP, init_tdcn
 from ..obs.logging import MetricsLogger
 from .mean_teacher import ClipAdam
 from .mixit import mixit_loss, mixture_of_mixtures

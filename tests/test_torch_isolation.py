@@ -86,10 +86,10 @@ def test_train_step_refuses_unported_options():
 
     cfg = mean_teacher_2021()
     tx, sched = make_optimizer(1e-3, 10)
-    for kw in (dict(axis_name="data"), dict(embedder=object())):
-        with pytest.raises(NotImplementedError):
-            make_train_step(cfg, tx, sched, **kw)
+    with pytest.raises(NotImplementedError):
+        make_train_step(cfg, tx, sched, axis_name="data")
     make_train_step(cfg, tx, sched, accumulate=2)  # ported: builds
+    make_train_step(cfg, tx, sched, embedder=lambda audio: audio)  # ported: builds
 
 
 def test_kernel_build_keys_on_source_hash(tmp_path, monkeypatch):
@@ -138,3 +138,38 @@ def test_separation_entry_points_without_cpu_raise_when_no_cuda(monkeypatch, tmp
     sep = TorchSeparationModel(None, n_src=2, device="cpu", enc_dim=8, win=16, bn_dim=8,
                                h_dim=8, n_blocks=1, n_repeats=1)
     assert next(sep.model.parameters()).device.type == "cpu"
+
+
+def test_the_embedder_modules_are_scanned():
+    for name in ("ops.kaldi", "models.beats", "models.panns", "models.ast", "models.convert",
+                 "tools.embeddings", "training.beats_pretrain",
+                 "recipes.dcase2022_extract_embeddings", "recipes.dcase2023_extract_embeddings",
+                 "recipes.dcase2024_extract_embeddings"):
+        assert f"desed_task_tpu_torch.{name}" in MODULES, name
+
+
+def test_embedder_entry_points_without_cpu_raise_when_no_cuda(monkeypatch, tmp_path):
+    from desed_task_tpu_torch.models.beats import BEATsConfig, BEATsModel
+    from desed_task_tpu_torch.recipes import dcase2024_extract_embeddings
+    from desed_task_tpu_torch.tools.embeddings import (build_embedder, extract_folder,
+                                                       extract_splits)
+    from desed_task_tpu_torch.training.beats_pretrain import (finetune_beats_weak,
+                                                              pretrain_beats)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = BEATsModel(BEATsConfig(encoder_layers=1, encoder_embed_dim=16, embed_dim=16,
+                                  encoder_ffn_embed_dim=16, encoder_attention_heads=2,
+                                  conv_pos=4, conv_pos_groups=2, num_buckets=8, max_distance=16))
+    wav = tmp_path / "a.wav"
+    conf = tmp_path / "conf.yaml"
+    conf.write_text("data: {fs: 16000, audio_max_len: 1}\n")
+    calls = [lambda: build_embedder("beats"),
+             lambda: extract_folder(tiny, [wav], str(tmp_path / "x.hdf5"), h5py=object()),
+             lambda: extract_splits("beats", None, {}, str(tmp_path)),
+             lambda: pretrain_beats([wav], tmp_path / "p.pt"),
+             lambda: finetune_beats_weak([wav], [[1.0]], tmp_path / "f.pt"),
+             lambda: dcase2024_extract_embeddings.main(["--conf_file", str(conf)])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert next(build_embedder("panns", device="cpu").parameters()).device.type == "cpu"
