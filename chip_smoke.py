@@ -179,7 +179,29 @@ Phases (any failure exits non-zero; nothing is caught):
      TOL_SCORES of the plain forward; (f) pretrain_beats at the full config
      (batch 8, PRETRAIN_STEPS steps, 32 wavs: finite losses, 298 of 496
      tokens masked a clip, step ms), finetune_beats_weak 2 steps, the saved
-     file loaded through build_embedder.
+     file loaded through build_embedder;
+  14. parallelism (desed_task_tpu_torch/parallel): (a) in this process,
+     one NCCL rank: make_train_step_sharded on {"data": 1} from phase 8's
+     state and batch bitwise equal to make_train_step over 2 steps
+     (metrics, gradients, student, teacher, BN statistics, Adam moments);
+     then PAR_RANKS gloo ranks sharing cuda:0 (NCCL refuses two ranks on
+     one device; one spawn, joined within 120 s): (b) the 2024 step on 30
+     clips a rank, fp32 and bf16, 2 steps: each rank's launches a step
+     STEP_LAUNCHES / STEP16_LAUNCHES, replicas bitwise equal after each
+     step, the fp32 step without dropout, dropstep or mixup within TOL_LOSS
+     / TOL_GRAD of the same 2-rank step through the plain versions; step
+     ms, the three all-reduces' bytes and ms; (c) phase 10's 96 clips in a
+     cache row-sharded over the ranks, gathered to rank 0 bitwise equal to
+     the single-card cache's scores, 7/7/1 a batch a model pass on each
+     rank; (d) BEATsConfig() tensor-parallel over (data=1, model=2) on
+     phase 13's seeded weights, within TOL_TP of the full forward on
+     TP_CLIPS clips, and the e2e fp32 step with it inside (launches
+     STEP_LAUNCHES) within TOL_LOSS / TOL_GRAD of the same step with the
+     full BEATs from the same state; (e) single_run fast_dev_run (bf16) on
+     phase 11's corpus on both ranks: 4 finite losses, replicas equal,
+     rank 0 alone writes and tests, the best checkpoint reloads bitwise.
+     Two ranks on one card measure correctness and the collectives' cost,
+     not scaling.
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
@@ -188,7 +210,9 @@ counts, "eval" and "eval_bf16" among them, and "recipe" and
 "recipe_bf16", each {"train_step": launches a train step, "eval_batch":
 launches an eval batch per model pass} from phase 11, and "recipe_2023_bf16",
 "recipe_2022_ast_bf16" and "finetune" the same from phase 12, "e2e_beats" and
-"e2e_beats_bf16" (launches a step) and "serve_beats" (a batch) from phase 13;
+"e2e_beats_bf16" (launches a step) and "serve_beats" (a batch) from phase 13,
+"sharded_step", "sharded_step_bf16" and "tp_e2e_beats" (rank 0's launches a
+step) and "sharded_eval" (a batch a model pass) from phase 14;
 row 7 in fp32 and, as `fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
 path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
@@ -1122,6 +1146,27 @@ def check_gru_stream(gen) -> dict:
     return dict(geom=[B, T, H], fwd_err=err_f, bwd_err=err_b)
 
 
+def train_batch(cfg, rng, embeddings: bool = True) -> dict:
+    """A seeded global batch of `cfg`'s slots as numpy arrays: ten-second
+    clips, labels at 5 %, 768x496 embeddings (phase 7's with rng seed 1)."""
+    batch = {}
+    for s in cfg.slots:
+        batch[s.name] = {
+            "audio": rng.standard_normal((s.size, 160000), np.float32) * 0.05,
+            "labels": (rng.random((s.size, 27, 156)) > 0.95).astype(np.float32)}
+        if embeddings:
+            batch[s.name]["embeddings"] = rng.standard_normal((s.size, 768, 496), np.float32)
+        batch[s.name]["class_mask"] = np.ones((s.size, 27), bool)
+    return batch
+
+
+def to_card(batch: dict, dev="cuda") -> dict:
+    import torch
+
+    return {k: to_card(v, dev) if isinstance(v, dict) else torch.as_tensor(v, device=dev)
+            for k, v in batch.items()}
+
+
 def train(gen, report):
     """Phases 7 and 8a: the 2024 mean-teacher step on the card."""
     import torch
@@ -1132,20 +1177,7 @@ def train(gen, report):
 
     cfg = mean_teacher_2024()
     require(cfg.batch_size == TRAIN_BATCH, "mean_teacher_2024() is not 60 clips")
-    n_class, t_lab = 27, 156
-    rng = np.random.default_rng(1)
-    dev = torch.device("cuda")
-    batch = {}
-    for s in cfg.slots:
-        batch[s.name] = {
-            "audio": torch.as_tensor(rng.standard_normal((s.size, 160000), np.float32) * 0.05,
-                                     device=dev),
-            "labels": torch.as_tensor((rng.random((s.size, n_class, t_lab)) > 0.95)
-                                      .astype(np.float32), device=dev),
-            "embeddings": torch.as_tensor(rng.standard_normal((s.size, 768, 496), np.float32),
-                                          device=dev),
-            "class_mask": torch.ones((s.size, n_class), dtype=torch.bool, device=dev),
-        }
+    batch = to_card(train_batch(cfg, np.random.default_rng(1)))
     init = {k: v.clone() for k, v in randomize(crnn_2024(), gen).state_dict().items()}
     tx, sched = make_optimizer(lr=1e-3, rampup_steps=1000)
     step = make_train_step(cfg, tx, sched)
@@ -3053,6 +3085,455 @@ def embedders(card, report):
             "serve_beats": out["serving"]["per_batch"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: parallelism on the card (desed_task_tpu_torch/parallel). The
+# card's machine has one card: the multi-rank paths run as ranks that share
+# cuda:0 over gloo (NCCL refuses two ranks on one device), so they measure
+# correctness and the collectives' cost, not scaling; NCCL runs with one rank.
+PAR_RANKS = 2
+TP_CLIPS = 8  # clips of the tensor-parallel BEATs' forward against the full one
+TOL_TP = 1e-5  # TP BEATs against the full forward, of max(1, max |full|)
+EVAL_LAUNCHES = {"conv_bn_stats": 7, "glu_drop_pool": 7, "bigru": 1}  # a batch a pass
+
+
+def state_digest(state) -> str:
+    """sha256 over both models' state dicts (parameters and BN statistics)
+    and the Adam moments: equal digests are bitwise-equal replicas."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in (state.student, state.teacher):
+        for v in m.state_dict().values():
+            h.update(v.detach().cpu().numpy().tobytes())
+    for t in state.opt_state["mu"] + state.opt_state["nu"]:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_errors(metrics, grads, ref_metrics, ref_grads) -> tuple[float, float]:
+    """Phase 7's measures: metrics relative, each gradient of max(max |ref|, 1e-3)."""
+    loss_err = max(abs(metrics[k] - ref_metrics[k]) / max(abs(ref_metrics[k]), 1e-6)
+                   for k in metrics)
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+                   for a, b in zip(grads, ref_grads))
+    return loss_err, grad_err
+
+
+def world_one(ctx, report):
+    """Phase 14 (a): make_train_step_sharded on {"data": 1} over NCCL, from
+    phase 8's state and batch, against make_train_step: two steps, bitwise."""
+    import torch
+    import torch.distributed as dist
+
+    from desed_task_tpu_torch.parallel import init_distributed, make_mesh
+    from desed_task_tpu_torch.recipes_config import crnn_2024
+    from desed_task_tpu_torch.training import create_state, make_train_step, make_train_step_sharded
+
+    cfg, tx, sched, batch, init = (ctx[k] for k in ("cfg", "tx", "sched", "batch", "init"))
+    with tempfile.TemporaryDirectory(prefix="nccl_") as tmp:
+        init_distributed("nccl", (Path(tmp) / "rendezvous").as_uri(), rank=0, world_size=1,
+                         timeout_s=120)
+        try:
+            mesh = make_mesh({"data": 1})
+            runs = []
+            for step in (make_train_step(cfg, tx, sched),
+                         make_train_step_sharded(cfg, tx, sched, mesh, batch)):
+                model = crnn_2024()
+                model.load_state_dict(init)
+                state = create_state(model, cfg, tx, device="cuda")
+                gen = torch.Generator(device="cuda").manual_seed(7)
+                got = []
+                for _ in range(2):
+                    metrics = step(state, batch, gen)
+                    got.append(({k: float(v) for k, v in metrics.items()},
+                                [p.grad.clone() for p in state.student.parameters()],
+                                state_digest(state)))
+                runs.append(got)
+        finally:
+            dist.destroy_process_group()
+    same = all(m0 == m1 and d0 == d1 and all(torch.equal(a, b) for a, b in zip(g0, g1))
+               for (m0, g0, d0), (m1, g1, d1) in zip(*runs))
+    print(f"parallel (a): make_train_step_sharded on (data=1) over NCCL against "
+          f"make_train_step, 2 steps: metrics, gradients, student, teacher, BN statistics "
+          f"and Adam moments bitwise equal: {same}", flush=True)
+    require(same, "parallel (a): the one-rank sharded step is not make_train_step bitwise")
+    report["parallel"] = {"world_one_bitwise": same}
+
+
+def _rank_step(rank, world, spec):
+    """(b): the 2024 step on the rank's half of phase 7's batch, fp32 and
+    bf16, 2 steps each; launches and digests a step, step ms; the three
+    all-reduces' sizes timed alone; the fp32 step without its random parts
+    against the same step through the plain versions."""
+    import dataclasses
+
+    import torch
+
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig
+    from desed_task_tpu_torch.parallel import all_reduce_mean, make_mesh, rank_seed, replicate
+    from desed_task_tpu_torch.parallel import shard_batch
+    from desed_task_tpu_torch.recipes_config import crnn_2024, mean_teacher_2024
+    from desed_task_tpu_torch.training import create_state, make_optimizer, make_train_step_sharded
+
+    mesh = make_mesh({"data": world})
+    cfg = mean_teacher_2024()
+    batch = train_batch(cfg, np.random.default_rng(1))
+    shard = to_card(shard_batch(batch, mesh))
+    tx, sched = make_optimizer(lr=1e-3, rampup_steps=1000)
+
+    def fresh(config, **kw):
+        model = crnn_2024(**kw)
+        model.load_state_dict(spec["train_init"])
+        state = create_state(model, config, tx, device="cuda")
+        replicate([state.student, state.teacher], mesh)
+        return state
+
+    out = {}
+    for mode in ("fp32", "bf16"):
+        bf16 = mode == "bf16"
+        state = fresh(cfg, **({"compute_dtype": torch.bfloat16} if bf16 else {}))
+        step = make_train_step_sharded(cfg, tx, sched, mesh, batch, mel_cfg=MelConfig(
+            compute_dtype="bfloat16" if bf16 else "float32"))
+        gen = torch.Generator(device="cuda").manual_seed(rank_seed(7, rank, world))
+        launches, digests, losses = [], [], []
+        for _ in range(2):
+            _build.reset_launches()
+            metrics = step(state, shard, gen)
+            torch.cuda.synchronize()
+            launches.append(dict(_build.LAUNCHES))
+            digests.append(state_digest(state))
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            metrics = step(state, shard, gen)
+            float(metrics["loss"])  # the loop's one fetch a step
+        torch.cuda.synchronize()
+        out[mode] = dict(launches=launches, digests=digests, losses=losses,
+                         step_ms=(time.perf_counter() - t0) / 5 * 1e3)
+        if not bf16:
+            n_params = sum(p.numel() for p in state.student.parameters())
+            n_stats = sum(b.numel() for m in (state.student, state.teacher)
+                          for b in m.buffers() if b.is_floating_point())
+        del state
+
+    # the three all-reduces of a step at their sizes, timed alone
+    group = mesh.groups["data"]
+    flats = [torch.zeros(n, device="cuda") for n in (n_params, n_stats, 6)]
+    for _ in range(2):
+        for f in flats:
+            all_reduce_mean([f], group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for f in flats:
+            all_reduce_mean([f], group)
+    torch.cuda.synchronize()
+    out["allreduce"] = dict(ms=(time.perf_counter() - t0) / 10 * 1e3,
+                            bytes=4 * (n_params + n_stats + 6), n_params=n_params,
+                            n_stats=n_stats)
+
+    # without dropout, dropstep and mixup: kernels against plain versions
+    quiet_cfg = dataclasses.replace(cfg, mixup=None)
+    quiet = dict(dropout=0.0, dropstep_recurrent=0.0)
+    step = make_train_step_sharded(quiet_cfg, tx, sched, mesh, batch)
+    got = []
+    for kw in (quiet, dict(quiet, fused_blocks=False, rnn_kernel=False)):
+        state = fresh(quiet_cfg, **kw)
+        _build.reset_launches()
+        metrics = step(state, shard, torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        got.append(({k: float(v) for k, v in metrics.items()},
+                    [p.grad.clone() for p in state.student.parameters()],
+                    dict(_build.LAUNCHES)))
+        del state
+    out["errs"] = step_errors(got[0][0], got[0][1], got[1][0], got[1][1])
+    out["plain_launches"] = got[1][2]
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_eval(rank, world, spec):
+    """(c): phase 10's clips in a cache row-sharded over the ranks, gathered
+    to rank 0; launches of one model pass, its ms."""
+    import torch
+
+    from desed_task_tpu_torch.data.device_cache import DeviceEvalCache
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.parallel import make_mesh
+    from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024
+    from desed_task_tpu_torch.training.evaluate import _predict_cache_all
+    from desed_task_tpu_torch.training.mean_teacher import make_predict_step
+
+    mesh = make_mesh({"data": world})
+    items, _, _ = eval_items(eval_encoder(), np.random.default_rng(3))
+    model = crnn_2024()
+    model.load_state_dict(spec["eval_init"])
+    model = model.cuda().eval()
+    cache = DeviceEvalCache(items, EVAL_BATCH, n_shards=world)
+    cache.upload(mesh=mesh)
+    predict = make_predict_step()
+    _build.reset_launches()
+    scores = _predict_cache_all(predict, model, cache, None, MEDIAN_2024, want_raw=True)
+    launches = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _predict_cache_all(predict, model, cache, None, MEDIAN_2024, want_raw=True)
+    torch.cuda.synchronize()
+    return dict(scores=scores, launches=launches, batches=cache.rows // EVAL_BATCH,
+                pass_ms=(time.perf_counter() - t0) / 3 * 1e3)
+
+
+def _rank_tp(rank, world, spec):
+    """(d): BEATs tensor-parallel over (data=1, model=2) on phase 13's
+    facsimile weights against its full forward on TP_CLIPS clips; then the
+    e2e fp32 step with it inside against the same step with the full BEATs
+    (phase 13's e2e step) from the same state."""
+    import torch
+
+    from desed_task_tpu_torch.models.beats import BEATsConfig, BEATsModel, init_beats
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.parallel import make_mesh, shard_batch
+    from desed_task_tpu_torch.parallel.tp import shard_beats
+    from desed_task_tpu_torch.recipes_config import crnn_2024, mean_teacher_2024
+    from desed_task_tpu_torch.tools.embeddings import frame_embedder
+    from desed_task_tpu_torch.training import (create_state, make_optimizer, make_train_step,
+                                               make_train_step_sharded)
+
+    mesh = make_mesh({"data": 1, "model": world})
+    full = init_beats(BEATsModel(BEATsConfig()), torch.Generator().manual_seed(13)).cuda()
+    rng = np.random.default_rng(14)
+    audio = torch.as_tensor(rng.standard_normal((TP_CLIPS, 160000), np.float32) * 0.05,
+                            device="cuda")
+    tp = shard_beats(full, mesh)
+    with torch.no_grad():
+        ref, got = full(audio)["frame"], tp(audio)["frame"]
+        err = float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+        full_ms = time_ms(lambda: full(audio), iters=3, warmup=1)
+        tp_ms = time_ms(lambda: tp(audio), iters=3, warmup=1)
+
+    cfg = mean_teacher_2024()
+    batch = to_card(train_batch(cfg, rng, embeddings=False))
+    init = randomize(crnn_2024(), torch.Generator().manual_seed(14)).state_dict()
+    tx, sched = make_optimizer(lr=1e-3, rampup_steps=1000)
+    runs = []
+    for step in (make_train_step(cfg, tx, sched, embedder=frame_embedder(full)),
+                 make_train_step_sharded(cfg, tx, sched, mesh, batch,
+                                         embedder=frame_embedder(tp))):
+        model = crnn_2024()
+        model.load_state_dict(init)
+        state = create_state(model, cfg, tx, device="cuda")
+        _build.reset_launches()
+        metrics = step(state, shard_batch(batch, mesh) if runs else batch,
+                       torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     [p.grad.clone() for p in state.student.parameters()],
+                     dict(_build.LAUNCHES), state_digest(state)))
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        step_ms = time_ms(lambda: step(state, batch, gen), iters=2, warmup=1)
+        del state
+    del full, tp
+    torch.cuda.empty_cache()
+    return dict(err=err, full_ms=full_ms, tp_ms=tp_ms, launches=runs[1][2],
+                errs=step_errors(runs[1][0], runs[1][1], runs[0][0], runs[0][1]),
+                digest=runs[1][3], step_ms=step_ms, heads=BEATsConfig().encoder_attention_heads)
+
+
+def _rank_recipe(rank, world, spec):
+    """(e): single_run, fast_dev_run, bf16, on phase 11's corpus (each rank
+    writes it from the same seed into a directory of its own), both ranks
+    into one log directory; on rank 0 the best checkpoint into a fresh
+    state and metrics.csv's losses."""
+    import csv
+
+    import torch
+
+    from desed_task_tpu_torch.data import datasets
+    from desed_task_tpu_torch.obs.checkpoint import CheckpointManager
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.training import create_state, make_optimizer
+    from desed_task_tpu_torch.training.single_run import build_model, single_run
+
+    log = Path(spec["recipe_log"])
+    with tempfile.TemporaryDirectory(prefix=f"recipe_rank{rank}_") as tmp:
+        root = Path(tmp)
+        if not write_corpus(root, np.random.default_rng(17), RECIPE_CLIPS, "beats", 496,
+                            maestro=True)[2]:
+            datasets._EmbeddingStore = InMemoryEmbeddings
+        config = year_config(ROOT / "recipes" / "dcase2024_task4_baseline" / "confs"
+                             / "pretrained.yaml", root)
+        config["training"]["log_every"] = 1
+        info = {}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state, res = single_run(config, str(log), fast_dev_run=True, fast=True,
+                                device="cuda:0", run_info=info)
+        run_s = time.perf_counter() - t0
+    out = dict(digest=state_digest(state), run_s=run_s, launches=dict(_build.LAUNCHES),
+               steps=sum(h["steps"] for h in info["loop"].history),
+               results=None if res is None else {k: v for k, v in res.items()
+                                                 if isinstance(v, float)})
+    if rank == 0:
+        tx, _ = make_optimizer(1e-3, 1)
+        fresh = create_state(build_model(config, fast=True), None, tx, device="cuda:0")
+        CheckpointManager(log / "checkpoints").restore("best", fresh)
+        out["reload_bitwise"] = state_digest(fresh) == out["digest"]
+        with open(log / "metrics.csv") as f:
+            out["losses"] = [float(r["value"]) for r in csv.DictReader(f)
+                             if r["name"] == "train/loss"]
+        out["files"] = sorted(p.name for p in (log / "checkpoints").iterdir())
+    return out
+
+
+def _parallel_rank(rank, world, spec):
+    """One rank of phase 14 (b)-(e) on cuda:0, in the order the phase reads them."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    out, t0 = {}, time.perf_counter()
+    for name, part in (("step", _rank_step), ("eval", _rank_eval), ("tp", _rank_tp),
+                       ("recipe", _rank_recipe)):
+        out[name] = part(rank, world, spec)
+        if rank == 0:
+            print(f"parallel: rank 0 done with {name} at {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    return out
+
+
+def eval_encoder():
+    from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
+    from desed_task_tpu_torch.utils.classes_dict import CLASSES_DESED, CLASSES_MAESTRO_REAL
+
+    classes = list(CLASSES_DESED) + [c for c in CLASSES_MAESTRO_REAL if c not in CLASSES_DESED]
+    return ManyHotEncoder(classes, 10, 2048, 256, 4, 16000)
+
+
+def parallelism(card, report, ctx):
+    """Phase 14: (a) in this process over NCCL, (b)-(e) on PAR_RANKS gloo ranks
+    that share cuda:0 (parallel/launch.spawn_ranks, 120-s deadline)."""
+    import torch
+
+    from desed_task_tpu_torch.data.device_cache import DeviceEvalCache
+    from desed_task_tpu_torch.parallel.launch import spawn_ranks
+    from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024
+    from desed_task_tpu_torch.training.evaluate import _predict_cache_all
+    from desed_task_tpu_torch.training.mean_teacher import make_predict_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    world_one(ctx, report)
+    eval_model = randomize(crnn_2024(), torch.Generator().manual_seed(10))
+    spec = dict(train_init=ctx["init"], eval_init=eval_model.state_dict())
+    with tempfile.TemporaryDirectory(prefix="parallel_recipe_") as log:
+        spec["recipe_log"] = log
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_parallel_rank, PAR_RANKS, args=(spec,), timeout_s=120)
+        ranks_s = time.perf_counter() - t0
+    out = report["parallel"]
+    out["ranks_s"] = ranks_s
+
+    # (b) the data-parallel step
+    st = [r["step"] for r in ranks]
+    for mode, want in (("fp32", STEP_LAUNCHES), ("bf16", STEP16_LAUNCHES)):
+        launches = [x for r in st for x in r[mode]["launches"]]
+        same = all(st[0][mode]["digests"] == r[mode]["digests"] for r in st)
+        losses = [r[mode]["losses"] for r in st]
+        print(f"parallel (b) {mode}: {PAR_RANKS} ranks x {TRAIN_BATCH // PAR_RANKS} clips, "
+              f"2 steps: launches a step on each rank {launches}, expected {want}; replicas "
+              f"(student, teacher, BN statistics, Adam moments) bitwise equal after each step: "
+              f"{same}; losses {losses}", flush=True)
+        require(all(x == want for x in launches), f"parallel (b) {mode}: launches differ")
+        require(same, f"parallel (b) {mode}: the replicas differ")
+        require(all(math.isfinite(v) for r in losses for v in r), f"parallel (b) {mode}: loss")
+    loss_err, grad_err = st[0]["errs"]
+    print(f"parallel (b) fp32 without dropout, dropstep and mixup, against the same 2-rank "
+          f"step through the plain versions: metrics {loss_err:.3e} (tol {TOL_LOSS}), "
+          f"gradients {grad_err:.3e} (tol {TOL_GRAD}); the plain step launched "
+          f"{st[0]['plain_launches']}", flush=True)
+    require(loss_err <= TOL_LOSS and grad_err <= TOL_GRAD,
+            "parallel (b): the sharded step disagrees with its plain version")
+    require(all(r["plain_launches"] == {} for r in st), "parallel (b): the plain step launched")
+    ar = st[0]["allreduce"]
+    print(f"[{card}] parallel (b): step {st[0]['fp32']['step_ms']:.3f} ms fp32, "
+          f"{st[0]['bf16']['step_ms']:.3f} ms bf16 ({PAR_RANKS} ranks on one card, "
+          f"{TRAIN_BATCH // PAR_RANKS} clips each); the step's three all-reduces "
+          f"({ar['bytes']} bytes a rank: {ar['n_params']} gradients, {ar['n_stats']} BN "
+          f"statistics, 6 losses; gloo on CUDA tensors) {ar['ms']:.3f} ms alone", flush=True)
+    out["step"] = {k: st[0][k] for k in ("fp32", "bf16", "allreduce", "errs")}
+
+    # (c) the sharded eval against the single-card cache
+    items, _, _ = eval_items(eval_encoder(), np.random.default_rng(3))
+    cache = DeviceEvalCache(items, EVAL_BATCH)
+    cache.upload()
+    single = _predict_cache_all(make_predict_step(), eval_model.cuda().eval(), cache, None,
+                                MEDIAN_2024, want_raw=True)
+    ev = [r["eval"] for r in ranks]
+    same = all(np.array_equal(a, b) for a, b in zip(ev[0]["scores"], single))
+    per_batch = [{k: v // r["batches"] for k, v in r["launches"].items()} for r in ev]
+    exact = all(r["launches"] == {k: v * r["batches"] for k, v in EVAL_LAUNCHES.items()}
+                for r in ev)
+    print(f"parallel (c): {EVAL_CLIPS} clips in a cache row-sharded over {PAR_RANKS} ranks "
+          f"({ev[0]['batches']} batches of {EVAL_BATCH} each), gathered to rank 0: raw, "
+          f"median-filtered and weak scores bitwise equal to the single-card cache's: {same}; "
+          f"launches a batch a model pass {per_batch} (expected {EVAL_LAUNCHES}); rank 1 "
+          f"received no scores: {ev[1]['scores'] is None}", flush=True)
+    require(same, "parallel (c): the gathered scores differ from the single-card cache's")
+    require(exact and ev[1]["scores"] is None, "parallel (c): launches or the gather differ")
+    print(f"[{card}] parallel (c): a model pass over the sharded cache {ev[0]['pass_ms']:.3f} ms "
+          f"(with the gather)", flush=True)
+    out["eval"] = dict(bitwise=same, launches_per_batch=per_batch[0], pass_ms=ev[0]["pass_ms"])
+
+    # (d) the tensor-parallel BEATs
+    tp = [r["tp"] for r in ranks]
+    print(f"parallel (d): BEATsConfig() ({tp[0]['heads']} heads, 768 wide, 12 layers) over "
+          f"(data=1, model={PAR_RANKS}) on {TP_CLIPS} clips: frame embeddings against the full "
+          f"forward {[r['err'] for r in tp]} of max(1, max |full|) (tol {TOL_TP}); e2e fp32 "
+          f"step with it inside: launches {[r['launches'] for r in tp]} (expected "
+          f"{STEP_LAUNCHES}), against the step with the full BEATs from the same state: "
+          f"metrics {tp[0]['errs'][0]:.3e} (tol {TOL_LOSS}), gradients {tp[0]['errs'][1]:.3e} "
+          f"(tol {TOL_GRAD}); replicas equal: {tp[0]['digest'] == tp[1]['digest']}", flush=True)
+    require(all(r["err"] <= TOL_TP for r in tp), "parallel (d): TP BEATs is not the full one")
+    require(all(r["launches"] == STEP_LAUNCHES for r in tp), "parallel (d): launches differ")
+    require(tp[0]["errs"][0] <= TOL_LOSS and tp[0]["errs"][1] <= TOL_GRAD,
+            "parallel (d): the e2e step with TP BEATs disagrees with the full one's")
+    require(tp[0]["digest"] == tp[1]["digest"], "parallel (d): the replicas differ")
+    print(f"[{card}] parallel (d): BEATs on {TP_CLIPS} clips {tp[0]['full_ms']:.3f} ms whole, "
+          f"{tp[0]['tp_ms']:.3f} ms a rank tensor-parallel ({PAR_RANKS} ranks on one card); "
+          f"the e2e step with it {tp[0]['step_ms']:.3f} ms", flush=True)
+    out["tp"] = {k: tp[0][k] for k in ("err", "full_ms", "tp_ms", "errs", "step_ms")}
+
+    # (e) the recipe on two ranks
+    rc = [r["recipe"] for r in ranks]
+    r0 = rc[0]
+    same = all(r["digest"] == r0["digest"] for r in rc)
+    print(f"parallel (e): single_run fast_dev_run bf16 on {PAR_RANKS} ranks: {r0['steps']} steps "
+          f"a rank, losses {r0['losses']}, replicas equal {same}, rank 0 alone got test "
+          f"results: {r0['results'] is not None and all(r['results'] is None for r in rc[1:])}; "
+          f"checkpoint files {r0['files']}, the best reloads bitwise: {r0['reload_bitwise']}; "
+          f"launches a rank {[r['launches'] for r in rc]}", flush=True)
+    require(len(r0["losses"]) == 4 and all(math.isfinite(v) for v in r0["losses"]),
+            "parallel (e): not 4 finite losses")
+    require(same and r0["reload_bitwise"], "parallel (e): replicas or the reload differ")
+    require(r0["results"] is not None and all(r["results"] is None for r in rc[1:]),
+            "parallel (e): the test results are not rank 0's alone")
+    require(r0["files"] == ["best", "best.meta.json", "last", "last.meta.json", "manager.json"],
+            "parallel (e): checkpoint files")
+    print(f"[{card}] parallel (e): single_run {[round(r['run_s'], 3) for r in rc]} s a rank; "
+          f"ranks {ranks_s:.1f} s from spawn to join; phase 14 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out["recipe"] = dict(run_s=[r["run_s"] for r in rc], losses=r0["losses"],
+                         launches=r0["launches"], steps=r0["steps"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    return {"sharded_step": st[0]["fp32"]["launches"][0],
+            "sharded_step_bf16": st[0]["bf16"]["launches"][0],
+            "sharded_eval": per_batch[0], "tp_e2e_beats": tp[0]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3096,6 +3577,7 @@ def main() -> int:
     recipe_launches, recipe16_launches = recipe(card, report, train16_launches)
     year_launches = recipes_2021_2023(card, report)
     emb_launches = embedders(card, report)
+    par_launches = parallelism(card, report, train_ctx)
     # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
     rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
     rows["fused_log_mel.bf16"] = [r for r in fe_rows
@@ -3158,7 +3640,8 @@ def main() -> int:
                    "recipe_bf16": {k: v.get(name, 0) for k, v in recipe16_launches.items()},
                    **{path: {k: v.get(name, 0) for k, v in counts.items()}
                       for path, counts in year_launches.items()},
-                   **{path: counts.get(name, 0) for path, counts in emb_launches.items()}}
+                   **{path: counts.get(name, 0) for path, counts in emb_launches.items()},
+                   **{path: counts.get(name, 0) for path, counts in par_launches.items()}}
         main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")

@@ -22,8 +22,11 @@ Both scale an item's float audio to int16 on a copy: the JAX package's
 stores scale a float32 item's own array in place (device_cache.py:181-182
 and :313 there); these leave the item as it was.
 
-One device only: the mesh arguments raise NotImplementedError (the sharded
-stores of the JAX package are a later slice of the port).
+On a mesh (parallel.make_mesh), the eval stores are row-sharded over the
+data axis as the JAX package's are (device_cache.py:279-292, :327-360):
+each rank keeps only its block of whole batches on its card, and
+training/evaluate.py gathers the scores to the axis's first rank. The train
+store stays off under a mesh, as there (single_run.py:383).
 """
 
 from __future__ import annotations
@@ -52,11 +55,6 @@ def _to_device(arr: np.ndarray, device: torch.device, chunk_bytes: int) -> torch
     for i in range(0, len(arr), rows):
         out[i : i + rows].copy_(torch.from_numpy(arr[i : i + rows]))
     return out
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the port's eval cache lives on one device")
 
 
 def wav_data_samples(path) -> int | None:
@@ -247,15 +245,16 @@ class DeviceEvalCache:
 
     Decodes the dataset once; `upload()` puts audio [n_pad, N] int16 and
     embeddings [n_pad, ...] on `device` (default "cuda"), n_pad the length
-    rounded up to whole batches, zero rows past the end.
+    rounded up to whole batches (to batch_size * n_shards, so that a data
+    axis of n_shards ranks can take equal blocks of whole batches), zero
+    rows past the end. Sharded (`upload(mesh=...)`), a rank keeps rows
+    [r n_pad / k, (r + 1) n_pad / k) of data index r of k.
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4, n_shards: int = 1,
                  device: str | torch.device | None = None):
         from concurrent.futures import ThreadPoolExecutor
 
-        if n_shards != 1:
-            raise NotImplementedError("the port's eval cache lives on one device")
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         n = len(dataset)
@@ -264,7 +263,10 @@ class DeviceEvalCache:
         if first["audio"].ndim != 1:
             raise ValueError("eval cache supports mono [N] audio only")
         self.n = n
-        self.n_pad = -(-n // self.batch_size) * self.batch_size
+        chunk = self.batch_size * max(int(n_shards), 1)
+        self.n_pad = -(-n // chunk) * chunk
+        self.rows = self.n_pad  # resident rows on this rank
+        self.mesh = self.mesh_axis = None
         self._audio = np.zeros((self.n_pad, audio_len), np.int16)
         self._emb = None
         if "embeddings" in first:
@@ -292,20 +294,33 @@ class DeviceEvalCache:
     def upload(self, chunk_bytes: int = 64 << 20, verbose: bool = False, mesh=None,
                mesh_axis: str = "data"):
         """Copy the stores to the device (in chunks of about chunk_bytes) and
-        drop the host copies; returns {"audio", "embeddings"}."""
-        del mesh_axis
-        _refuse_mesh(mesh)
-        emb = None if self._emb is None else _to_device(self._emb, self.device, chunk_bytes)
-        self.stores = {"audio": _to_device(self._audio, self.device, chunk_bytes),
-                       "embeddings": emb}
+        drop the host copies; returns {"audio", "embeddings"}. With a `mesh`
+        whose `mesh_axis` has k > 1 ranks, only this rank's block of n_pad / k
+        rows goes to its card (the cache must be built with n_shards=k)."""
+        audio, emb = self._audio, self._emb
+        if mesh is not None and mesh.shape[mesh_axis] > 1:
+            k, r = mesh.shape[mesh_axis], mesh.index[mesh_axis]
+            if self.n_pad % (self.batch_size * k):
+                raise ValueError(f"n_pad={self.n_pad} does not split into {k} blocks of whole "
+                                 f"batches of {self.batch_size}; build the cache with "
+                                 f"n_shards={k}")
+            self.rows = self.n_pad // k
+            audio = audio[r * self.rows:(r + 1) * self.rows]
+            emb = None if emb is None else emb[r * self.rows:(r + 1) * self.rows]
+            self.mesh, self.mesh_axis = mesh, mesh_axis
+        self.stores = {"audio": _to_device(audio, self.device, chunk_bytes),
+                       "embeddings": None if emb is None else _to_device(emb, self.device,
+                                                                         chunk_bytes)}
         self._audio = self._emb = None
         if verbose:
-            print(f"[device-cache] eval upload: {self.nbytes / 1e6:.0f} MB", flush=True)
+            shards = "" if self.mesh is None else f" (sharded x{mesh.shape[mesh_axis]})"
+            print(f"[device-cache] eval upload{shards}: {self.nbytes / 1e6:.0f} MB", flush=True)
         return self.stores
 
     def batch(self, start: int):
         """(audio [bs, N] float32, embeddings [bs, ...] | None) of the resident
-        rows start .. start + batch_size, on the device."""
+        rows start .. start + batch_size (rows of this rank's block when
+        sharded), on the device."""
         audio = self.stores["audio"][start : start + self.batch_size].float() / AUDIO_SCALE
         emb = self.stores["embeddings"]
         return audio, None if emb is None else emb[start : start + self.batch_size]
@@ -315,6 +330,9 @@ class DeviceEvalCache:
         batch; audio and embeddings are device tensors."""
         if self.stores is None:
             raise RuntimeError("call upload() first")
+        if self.mesh is not None:
+            raise RuntimeError("a sharded cache is predicted by training/evaluate.py's loop, "
+                               "which gathers its scores; it has no host batches")
         for start in range(0, self.n, self.batch_size):
             n_real = min(self.batch_size, self.n - start)
             audio, emb = self.batch(start)
@@ -327,16 +345,16 @@ def build_eval_caches(eval_sets, batch_size: int, max_bytes: int = 2 << 30,
                       device: str | torch.device | None = None) -> dict:
     """DeviceEvalCache wrappers for eval datasets on `device` (default
     "cuda"). None and empty sets pass through; oversize or incompatible sets
-    stay host-side."""
-    del mesh_axis
-    _refuse_mesh(mesh)
+    stay host-side. With a `mesh`, the stores are row-sharded over its
+    `mesh_axis` (its size, mesh.shape[mesh_axis], not the mesh's)."""
+    n_shards = 1 if mesh is None else mesh.shape[mesh_axis]
     out = {}
     for name, ds in eval_sets.items():
         if ds is None or len(ds) == 0:
             out[name] = ds
             continue
         try:
-            cache = DeviceEvalCache(ds, batch_size, device=device)
+            cache = DeviceEvalCache(ds, batch_size, n_shards=n_shards, device=device)
         except (ValueError, KeyError) as e:
             if verbose:
                 print(f"[device-cache] eval {name!r} stays host-side: {e}", flush=True)
@@ -345,7 +363,7 @@ def build_eval_caches(eval_sets, batch_size: int, max_bytes: int = 2 << 30,
         if cache.nbytes > max_bytes:
             out[name] = ds
             continue
-        cache.upload()
+        cache.upload(mesh=mesh, mesh_axis=mesh_axis)
         if verbose:
             print(f"[device-cache] eval {name!r}: {len(ds)} clips, "
                   f"{cache.nbytes / 1e6:.0f} MB on device", flush=True)

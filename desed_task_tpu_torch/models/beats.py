@@ -154,7 +154,7 @@ class BEATsSelfAttention(nn.Module):
     def __init__(self, cfg: BEATsConfig, has_relative_attention_bias: bool):
         super().__init__()
         d, h = cfg.encoder_embed_dim, cfg.encoder_attention_heads
-        self.cfg, self.heads = cfg, h
+        self.cfg, self.heads, self.head_dim = cfg, h, d // h
         self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
         self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
         self.relative_attention_bias = (
@@ -165,9 +165,8 @@ class BEATsSelfAttention(nn.Module):
             self.grep_linear = nn.Linear(d // h, 8)
 
     def forward(self, x, pos_bias=None, padding_mask=None):
-        cfg, H = self.cfg, self.heads
-        B, T, D = x.shape
-        hd = D // H
+        cfg, H, hd = self.cfg, self.heads, self.head_dim
+        B, T, _ = x.shape
         scaling = hd ** -0.5
         alpha = 32.0
         q = dense(self.q_proj, x) * (scaling / alpha)
@@ -193,8 +192,12 @@ class BEATsSelfAttention(nn.Module):
         if padding_mask is not None:
             attn = attn.masked_fill(padding_mask[:, None, None, :], -math.inf)
         probs = torch.softmax(attn, dim=-1)
-        out = torch.matmul(probs, vh.float()).transpose(1, 2).reshape(B, T, D)
-        return dense(self.out_proj, out), pos_bias
+        out = torch.matmul(probs, vh.float()).transpose(1, 2).reshape(B, T, H * hd)
+        return self.project_out(out), pos_bias
+
+    def project_out(self, out):
+        """The output projection (parallel/tp.py's is row-parallel)."""
+        return dense(self.out_proj, out)
 
 
 class BEATsLayer(nn.Module):
@@ -218,8 +221,12 @@ class BEATsLayer(nn.Module):
         x = layer_norm(self.self_attn_layer_norm, x * a + attn_out)
         h = dense(self.fc1, x)
         h = F.gelu(h) if self.cfg.activation_fn == "gelu" else F.relu(h)
-        x = layer_norm(self.final_layer_norm, x * a + dense(self.fc2, h))
+        x = layer_norm(self.final_layer_norm, x * a + self.ffn_out(h))
         return x, pos_bias
+
+    def ffn_out(self, h):
+        """The FFN's second product (parallel/tp.py's is row-parallel)."""
+        return dense(self.fc2, h)
 
 
 class BEATsTransformer(nn.Module):

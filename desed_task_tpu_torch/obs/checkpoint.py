@@ -7,7 +7,9 @@ count and Adam moments, the step, the fitted scaler statistics and the
 state of the step's torch.Generator. The JAX package folds the step into a
 fixed key, so its resume needs no RNG state; the port's step draws from a
 running generator, so a resumed run equals an uninterrupted one only if
-the generator's state comes back too.
+the generator's state comes back too. A data-parallel run's ranks draw
+from generators of their own: its checkpoint also holds every rank's
+state (`rank_generators`), and each rank restores its own.
 
 Keeps `last` and the top-1 `best` by objective (mode max), as the
 reference's ModelCheckpoint (train_pretrained.py:560-581); `manager.json`
@@ -29,10 +31,12 @@ def _host(tensors):
     return [t.detach().cpu() for t in tensors]
 
 
-def state_payload(state, generator: torch.Generator | None = None) -> dict:
-    """The checkpoint's contents: tensors on the host, plain containers."""
+def state_payload(state, generator: torch.Generator | None = None,
+                  rank_generators: list | None = None) -> dict:
+    """The checkpoint's contents: tensors on the host, plain containers.
+    rank_generators: each rank's generator state, in rank order."""
     scaler = state.scaler
-    return {
+    payload = {
         "step": int(state.step),
         "student": {k: v.detach().cpu() for k, v in state.student.state_dict().items()},
         "teacher": {k: v.detach().cpu() for k, v in state.teacher.state_dict().items()},
@@ -43,10 +47,15 @@ def state_payload(state, generator: torch.Generator | None = None) -> dict:
             "mean": scaler.mean, "mean_squared": scaler.mean_squared},
         "generator": None if generator is None else generator.get_state(),
     }
+    if rank_generators is not None:
+        payload["rank_generators"] = rank_generators
+    return payload
 
 
-def load_payload(payload: dict, state, generator: torch.Generator | None = None):
-    """Load a checkpoint's contents into `state` (and `generator`) in place."""
+def load_payload(payload: dict, state, generator: torch.Generator | None = None,
+                 rank: int | None = None):
+    """Load a checkpoint's contents into `state` (and `generator`) in place;
+    with `rank`, the generator takes that rank's saved state."""
     from ..ops.scaler import ScalerState
 
     state.step = int(payload["step"])
@@ -62,9 +71,15 @@ def load_payload(payload: dict, state, generator: torch.Generator | None = None)
     if payload["scaler"] is not None:
         state.scaler = ScalerState(**payload["scaler"])
     if generator is not None:
-        if payload["generator"] is None:
-            raise ValueError("the checkpoint holds no generator state")
-        generator.set_state(payload["generator"])
+        if rank is None:
+            saved = payload["generator"]
+        else:
+            ranks = payload.get("rank_generators") or []
+            saved = ranks[rank] if rank < len(ranks) else None
+        if saved is None:
+            raise ValueError(f"the checkpoint holds no generator state"
+                             f"{'' if rank is None else f' for rank {rank}'}")
+        generator.set_state(saved)
     return state
 
 
@@ -78,18 +93,19 @@ class CheckpointManager:
             self._scores = json.loads(self._meta_path.read_text()).get("scores", {})
 
     def save(self, state, metadata: dict | None = None, name: str = "last",
-             generator: torch.Generator | None = None):
-        """Save the whole state (and the generator's state) under `name`,
-        replacing an earlier one."""
+             generator: torch.Generator | None = None, rank_generators: list | None = None):
+        """Save the whole state (and the generator's state, and each rank's)
+        under `name`, replacing an earlier one."""
         path = self.directory / name
         tmp = path.with_name(f".{name}.tmp")
-        torch.save(state_payload(state, generator), tmp)
+        torch.save(state_payload(state, generator, rank_generators), tmp)
         os.replace(tmp, path)
         if metadata is not None:
             (self.directory / f"{name}.meta.json").write_text(json.dumps(metadata, default=float))
 
     def save_if_best(self, state, score: float, metadata: dict | None = None,
-                     generator: torch.Generator | None = None) -> bool:
+                     generator: torch.Generator | None = None,
+                     rank_generators: list | None = None) -> bool:
         """Keep the single best checkpoint by score. Returns True if saved."""
         best = self._scores.get("best")
         if best is None or score > best:
@@ -97,15 +113,17 @@ class CheckpointManager:
             self._meta_path.write_text(json.dumps({"scores": self._scores}))
             meta = dict(metadata or {})
             meta["score"] = float(score)
-            self.save(state, meta, name="best", generator=generator)
+            self.save(state, meta, name="best", generator=generator,
+                      rank_generators=rank_generators)
             return True
         return False
 
-    def restore(self, name: str, state, generator: torch.Generator | None = None):
+    def restore(self, name: str, state, generator: torch.Generator | None = None,
+                rank: int | None = None):
         """Load checkpoint `name` into `state` (a MeanTeacherState of the same
-        model) in place, and into `generator` when one is given; returns
-        the state."""
-        return load_payload(self.load(name), state, generator)
+        model) in place, and into `generator` when one is given (rank
+        `rank`'s saved state, where given); returns the state."""
+        return load_payload(self.load(name), state, generator, rank)
 
     def load(self, name: str) -> dict:
         """Checkpoint `name`'s contents (state_payload's dict, on the host)."""

@@ -17,6 +17,10 @@ on with a made-up figure. Off the card (device "cpu") the caller passes
 `device_watts`. The host's watts and the idle fraction keep the JAX
 package's brackets (50-150 W, 0.05-0.30), which are conventions of
 CodeCarbon's host accounting and of accelerator idle floors, not a TPU's.
+
+A data-parallel run bills every card of it: the device's watts count
+`n_devices` times (energy.py:55 and :129 of the JAX package); the run's
+first rank alone keeps the tracker, and reads the limit of its own card.
 """
 
 from __future__ import annotations
@@ -54,8 +58,10 @@ class EnergyTracker:
         host_watts_range: tuple = (50.0, 150.0),
         idle_fraction_range: tuple = (0.05, 0.30),
         device: str | torch.device = "cuda",
+        n_devices: int = 1,
     ):
         self.name = name
+        self.n_devices = n_devices
         self.device = torch.device(device)
         if device_watts is None and self.device.type != "cuda":
             raise ValueError("off the card, pass device_watts")
@@ -98,6 +104,7 @@ class EnergyTracker:
                 "name": self.name,
                 "card": self.card,
                 "power_limit_w": self.power_limit_w,
+                "n_devices": self.n_devices,
                 "elapsed_s": self._elapsed,
                 "busy_s": self._busy,
                 "device_watts": self.device_watts,
@@ -111,7 +118,8 @@ class EnergyTracker:
                 "note": ("model-based estimate: busy time at device_watts, idle wall time"
                          " at idle_fraction*device_watts, host_watts throughout; busy is"
                          " an upper bound on device activity; on the card device_watts is"
-                         " its power limit (nvidia-smi), an upper bound on its draw"),
+                         " its power limit (nvidia-smi), an upper bound on its draw;"
+                         " device energy counts n_devices cards"),
             }))
         return kwh
 
@@ -123,7 +131,7 @@ class EnergyTracker:
         if self._busy == 0.0:
             busy = elapsed  # no duty-cycle record: bill everything as busy
         idle = elapsed - busy
-        device_j = device_watts * (busy + idle_fraction * idle)
+        device_j = device_watts * self.n_devices * (busy + idle_fraction * idle)
         return (device_j + host_watts * elapsed) / 3600.0 / 1000.0
 
     @property

@@ -18,7 +18,16 @@ module where the JAX package's takes (params, stats), so `SEDValidator` and
 A `DeviceEvalCache` is predicted by one loop over its resident batches,
 with the class-wise median filter on the card and one fetch of the stacked
 scores at the end: no host synchronisation inside the loop (the JAX
-package's `lax.scan` in one dispatch). Event and score tables need no pandas
+package's `lax.scan` in one dispatch). A cache row-sharded over a mesh's
+data axis (DeviceEvalCache.upload(mesh=...)) runs each rank's own batches
+through the same loop, then gathers the scores on the host, in global row
+order, to the axis's first rank over the axis's gloo group (the scores go
+to the host anyway, and gloo's collectives on CUDA tensors are fewer than
+NCCL's), as the JAX package's one fetch of the sharded scan does
+(evaluate.py:123-151). Only that rank decodes and computes metrics:
+`predict_dataset` and `run_test` give None on the others, and
+`SEDValidator` hands every rank the first rank's objective and scalars.
+Event and score tables need no pandas
 (utils/table.py); only `run_test(save_dir=...)` imports matplotlib, for the
 PSD-ROC plots, and writes the rest without it.
 """
@@ -30,6 +39,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batcher import collate
 from ..data.device_cache import DeviceEvalCache
@@ -65,12 +75,14 @@ def _predict_cache_all(predict_fn, model, cache: DeviceEvalCache, scaler, median
 
     Returns (strong | None, post | None, weak) as numpy, cut to len(cache);
     post is None when the filter cannot run on the device (a callable
-    filter stays on the host), strong is None unless wanted or needed."""
+    filter stays on the host), strong is None unless wanted or needed. On
+    a sharded cache: the gathered scores on the data axis's first rank,
+    None on the others."""
     on_device_median = isinstance(median_filter, (list, tuple, np.ndarray))
     med = tuple(int(f) for f in median_filter) if on_device_median else None
     fetch_raw = want_raw or not on_device_median
     outs = []  # per batch: ([strong], [post], weak)
-    for start in range(0, cache.n_pad, cache.batch_size):
+    for start in range(0, cache.rows, cache.batch_size):
         audio, emb = cache.batch(start)
         strong, weak = predict_fn(model, audio, embeddings=emb, scaler=scaler)
         row = [strong] if fetch_raw else []
@@ -79,10 +91,20 @@ def _predict_cache_all(predict_fn, model, cache: DeviceEvalCache, scaler, median
         outs.append(row + [weak])
     # one device-to-host copy of everything
     parts = [torch.cat([o[k] for o in outs]).float() for k in range(len(outs[0]))]
-    flat = torch.cat([p.flatten() for p in parts]).cpu().numpy()
+    flat = torch.cat([p.flatten() for p in parts]).cpu()
+    shards = [flat]
+    if cache.mesh is not None:
+        group = cache.mesh.cpu_groups[cache.mesh_axis]
+        root = cache.mesh.root(cache.mesh_axis)
+        shards = ([torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+                  if dist.get_rank() == root else None)
+        dist.gather(flat, shards, dst=root, group=group)
+        if shards is None:
+            return None
     host, at = [], 0
-    for p in parts:
-        host.append(flat[at : at + p.numel()].reshape(p.shape)[: cache.n])
+    for p in parts:  # each part: the shards' rows in rank order, global row order
+        rows = [s[at : at + p.numel()].numpy().reshape(p.shape) for s in shards]
+        host.append(np.concatenate(rows)[: cache.n])
         at += p.numel()
     strong_np = host[0] if fetch_raw else None
     post_np = host[-2] if med is not None else None
@@ -127,7 +149,8 @@ def predict_dataset(
 
     `dataset` is a sequence of item dicts (each batch, the last one
     zero-padded to `batch_size`, goes to the model's device) or a
-    DeviceEvalCache (one loop over its resident batches, one fetch)."""
+    DeviceEvalCache (one loop over its resident batches, one fetch). None
+    on a rank of a sharded cache's mesh other than the one that gathers."""
     scores_raw_all, scores_post_all = {}, {}
     tables_all = {th: [] for th in thresholds}
     weak_probs, weak_targets = [], []
@@ -144,8 +167,11 @@ def predict_dataset(
                 tables_all[th].append(tables[th])
 
     if isinstance(dataset, DeviceEvalCache):
-        strong_np, post_np, weak_np = _predict_cache_all(
-            predict_fn, model, dataset, scaler, median_filter, want_raw=want_raw)
+        got = _predict_cache_all(predict_fn, model, dataset, scaler, median_filter,
+                                 want_raw=want_raw)
+        if got is None:
+            return None
+        strong_np, post_np, weak_np = got
         decode(post_np if strong_np is None else strong_np, dataset.filenames,
                None if post_np is not None else median_filter, post_np)
         weak_probs.append(weak_np)
@@ -186,10 +212,14 @@ def _assemble_predictions(scores_raw_all, scores_post_all, tables_all, weak_prob
 def _maestro_metrics(predict_fn, model, maestro_set, maestro_gt, classes, encoder,
                      batch_size, scaler):
     """MAESTRO's windowed clips overlap-added into file-level 1-s segment
-    scores: (segment scores, gt tuples, durations, flattened segments)."""
-    _, post, _, _, _ = predict_dataset(
+    scores: (segment scores, gt tuples, durations, flattened segments); None
+    where predict_dataset gives None."""
+    got = predict_dataset(
         predict_fn, model, maestro_set, encoder, batch_size, thresholds=(0.5,), scaler=scaler,
         want_raw=False, want_events=False, as_arrays=True)
+    if got is None:
+        return None
+    post = got[1]
     gt = merge_maestro_ground_truth(maestro_gt)
     durations = {fid: max(off for _, off, _ in evs) if evs else 1.0 for fid, evs in gt.items()}
     seg_scores = get_segment_scores_and_overlap_add(post, durations, classes, as_arrays=True)
@@ -249,27 +279,32 @@ class SEDValidator:
         self.trajectory_psds = trajectory_psds
 
     def _evaluate_one(self, state, model, tag: str):
-        """Full metric pass for one model (student or teacher)."""
+        """Full metric pass for one model (student or teacher); on a rank
+        whose sharded predictions went to another, (0.0, {})."""
         scalars = {}
         obj = 0.0
         run = lambda ds, **kw: predict_dataset(self.predict_fn, model, ds, self.encoder,
                                                self.batch_size, scaler=state.scaler, **kw)
 
+        weak = synth = maestro = None
         if self.weak_set is not None:
-            _, _, _, probs, targets = run(self.weak_set, thresholds=(0.5,), want_raw=False,
-                                          want_post=False, want_events=False)
+            weak = run(self.weak_set, thresholds=(0.5,), want_raw=False, want_post=False,
+                       want_events=False)
+        if weak is not None:
+            _, _, _, probs, targets = weak
             weak_f1 = multilabel_f1_macro(probs, targets)
             scalars[f"val/weak/{tag}/macro_F1"] = weak_f1
             obj += weak_f1
 
+        traj_ths = ()
+        if self.trajectory_psds and tag == "student":
+            n = self.trajectory_psds
+            traj_ths = tuple(np.arange(1 / (n * 2), 1, 1 / n))
         if self.synth_set is not None and self.synth_gt is not None:
-            traj_ths = ()
-            if self.trajectory_psds and tag == "student":
-                n = self.trajectory_psds
-                traj_ths = tuple(np.arange(1 / (n * 2), 1, 1 / n))
-            _, _, tables, _, _ = run(self.synth_set, thresholds=traj_ths + (0.5,),
-                                     median_filter=self.median_filter, want_raw=False,
-                                     want_post=False)
+            synth = run(self.synth_set, thresholds=traj_ths + (0.5,),
+                        median_filter=self.median_filter, want_raw=False, want_post=False)
+        if synth is not None:
+            tables = synth[2]
             inter_f1 = compute_per_intersection_macro_f1(tables[0.5], self.synth_gt,
                                                          self.synth_dur)
             scalars[f"val/synth/{tag}/intersection_f1_macro"] = inter_f1
@@ -289,11 +324,13 @@ class SEDValidator:
             else:
                 raise NotImplementedError(self.obj_metric_synth_type)
 
+        classes = self.maestro_classes or self.encoder.labels
         if self.maestro_set is not None and self.maestro_gt is not None:
-            classes = self.maestro_classes or self.encoder.labels
-            seg, gt, dur, pre = _maestro_metrics(self.predict_fn, model, self.maestro_set,
-                                                 self.maestro_gt, classes, self.encoder,
-                                                 self.batch_size, state.scaler)
+            maestro = _maestro_metrics(self.predict_fn, model, self.maestro_set,
+                                       self.maestro_gt, classes, self.encoder, self.batch_size,
+                                       state.scaler)
+        if maestro is not None:
+            seg, gt, dur, pre = maestro
             if self.obj_metric_maestro_type in ("fmo", "mpauc"):
                 res, _ = best_fscore(seg, gt, dur, 1.0, classes, precomputed=pre)
                 scalars[f"val/maestro/{tag}/segment_f1_best"] = res["macro_average"]
@@ -318,7 +355,21 @@ class SEDValidator:
             scalars["val/teacher/obj_metric"] = t_obj
             if self.use_teacher:
                 obj = t_obj
+        sharded = _sharded_mesh(self.weak_set, self.synth_set, self.maestro_set)
+        if sharded is not None:  # the gathering rank's metrics, to every rank
+            mesh, axis = sharded
+            got = [obj, scalars]
+            dist.broadcast_object_list(got, src=mesh.root(axis), group=mesh.cpu_groups[axis])
+            obj, scalars = got
         return obj, scalars
+
+
+def _sharded_mesh(*sets):
+    """(mesh, axis) of the first sharded DeviceEvalCache among `sets`, or None."""
+    for ds in sets:
+        if isinstance(ds, DeviceEvalCache) and ds.mesh is not None:
+            return ds.mesh, ds.mesh_axis
+    return None
 
 
 def run_test(
@@ -344,12 +395,22 @@ def run_test(
     `scores_postprocessed` comes back as ScoreCurve tuples; with save_dir,
     the per-threshold prediction files and, where matplotlib can be
     imported, the two PSD-ROC plots (else one printed line says that they
-    were not written, and why)."""
+    were not written, and why). None on a rank of a sharded test cache's
+    mesh other than the one that gathers (its scores went there), which
+    alone computes the metrics and writes the files."""
     model = state.teacher if use_teacher else state.student
     thresholds = list(np.arange(1 / (n_thresholds * 2), 1, 1 / n_thresholds)) + [0.5]
-    _, post, tables, _, _ = predict_dataset(
+    got = predict_dataset(
         predict_fn, model, test_set, encoder, batch_size, thresholds=thresholds,
         median_filter=median_filter, scaler=state.scaler, want_raw=False, as_arrays=True)
+    maestro = None
+    if maestro_set is not None and maestro_gt is not None:
+        m_classes = maestro_classes or encoder.labels
+        maestro = _maestro_metrics(predict_fn, model, maestro_set, maestro_gt, m_classes,
+                                   encoder, batch_size, state.scaler)
+    if got is None:
+        return None
+    _, post, tables, _, _ = got
     ops = [tables[th] for th in thresholds[:-1]]
     psds1, ev1 = compute_psds_from_operating_points(
         ops, test_gt, test_dur, dtc_threshold=0.7, gtc_threshold=0.7, alpha_ct=0, alpha_st=1)
@@ -395,10 +456,8 @@ def run_test(
         "scores_postprocessed": post,
         "prediction_dfs": tables,
     }
-    if maestro_set is not None and maestro_gt is not None:
-        m_classes = maestro_classes or encoder.labels
-        seg, gt, dur, pre = _maestro_metrics(predict_fn, model, maestro_set, maestro_gt,
-                                             m_classes, encoder, batch_size, state.scaler)
+    if maestro is not None:
+        seg, gt, dur, pre = maestro
         mauc, _ = auroc(seg, gt, dur, 1.0, None, m_classes, precomputed=pre)
         mpauc, _ = auroc(seg, gt, dur, 1.0, 0.1, m_classes, precomputed=pre)
         bf, _ = best_fscore(seg, gt, dur, 1.0, m_classes, precomputed=pre)

@@ -12,6 +12,16 @@ first metric, or all metrics in one copy on a logging step) keeps the host
 from running ahead without bound; it is the loop's only host
 synchronisation in a step, and it brackets each step's device work for the
 energy model's busy time.
+
+On a mesh (`mesh=`, as the JAX loop's loop.py:39, :57, :75-76), every rank
+runs the loop: each host batch, the same global batch on every rank, is cut
+to the rank's rows (parallel.shard_batch) before the step. The first rank
+alone logs and writes checkpoints (each holding every rank's generator
+state, gathered over the data axis's gloo group), and the others wait at a
+barrier until a checkpoint is written; every rank reads one on resume.
+Validation runs on every rank (the sharded eval gathers its scores to the
+first, and hands its objective to all), so every rank takes the same
+early-stopping decision.
 """
 
 from __future__ import annotations
@@ -21,11 +31,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..obs.checkpoint import CheckpointManager
 from ..obs.energy import EnergyTracker
 from ..obs.logging import MetricsLogger
 from ..obs.watchdog import StallWatchdog
+from ..parallel.mesh import shard_batch
 
 
 def fetch_metrics(metrics: dict) -> dict:
@@ -51,7 +63,7 @@ class TrainLoop:
         state,
         batcher,  # data.batcher.MultiSourceBatcher
         n_epochs: int,
-        logger: MetricsLogger,
+        logger: Optional[MetricsLogger],  # None: nothing logged (a rank other than the first)
         ckpt: Optional[CheckpointManager] = None,
         validate_fn: Optional[Callable] = None,  # (state, epoch) -> (obj, scalars)
         validation_interval: int = 10,
@@ -63,6 +75,7 @@ class TrainLoop:
         index_cache=None,  # data.device_cache.DeviceResidentData (uploaded)
         watchdog: Optional[StallWatchdog] = None,
         checkpoint_interval: Optional[int] = None,
+        mesh=None,  # parallel.Mesh: batches sharded over its "data" axis
     ):
         self.step_fn = step_fn
         self.state = state
@@ -87,6 +100,8 @@ class TrainLoop:
         # cadence (the reference's ModelCheckpoint fires on validation), or
         # every epoch without validation
         self.checkpoint_interval = checkpoint_interval
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else dist.get_rank()
         self.best_obj = -np.inf
         self.epochs_since_best = 0
         self.start_epoch = 0
@@ -114,20 +129,40 @@ class TrainLoop:
         for batch in self.batcher.epoch():
             group.append(batch)
             if len(group) == acc:
-                yield batch if acc == 1 else _stack(group)
+                batch = batch if acc == 1 else _stack(group)
+                yield (batch if self.mesh is None else
+                       shard_batch(batch, self.mesh, batch_axis=0 if acc == 1 else 1))
                 group = []
 
+    def _log(self, step: int, scalars: dict):
+        if self.logger is not None:
+            self.logger.log_scalars(step, scalars)
+
     def _save(self, name: str, meta: dict, obj=None):
-        if obj is None:
-            self.ckpt.save(self.state, meta, name=name, generator=self.rng)
-        else:
-            self.ckpt.save_if_best(self.state, obj, meta, generator=self.rng)
+        """Checkpoint `name` (or "best" by `obj`); on a mesh every rank
+        calls it, the first writes it with every rank's generator state."""
+        ranks = None
+        if self.mesh is not None:
+            group = self.mesh.cpu_groups["data"]
+            ranks = [None] * dist.get_world_size(group)
+            dist.all_gather_object(ranks, self.rng.get_state(), group=group)
+        if self.rank == 0:
+            if obj is None:
+                self.ckpt.save(self.state, meta, name=name, generator=self.rng,
+                               rank_generators=ranks)
+            else:
+                self.ckpt.save_if_best(self.state, obj, meta, generator=self.rng,
+                                       rank_generators=ranks)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.cpu_groups["data"])
 
     def resume(self, name: str = "last") -> bool:
         """Restore the state, the generator and the loop's counters from a
-        checkpoint, if there is one."""
+        checkpoint, if there is one (on a mesh: on every rank, each its own
+        generator state)."""
         if self.ckpt is not None and self.ckpt.exists(name):
-            self.ckpt.restore(name, self.state, generator=self.rng)
+            self.ckpt.restore(name, self.state, generator=self.rng,
+                              rank=None if self.mesh is None else self.rank)
             meta = self.ckpt.metadata(name)
             self.start_epoch = int(meta.get("epoch", -1)) + 1
             self.best_obj = float(meta.get("best_obj", -np.inf))
@@ -154,8 +189,7 @@ class TrainLoop:
                 step_count += 1
                 if step_count % self.log_every == 0:
                     host = fetch_metrics(metrics)
-                    self.logger.log_scalars(step_count,
-                                            {f"train/{k}": v for k, v in host.items()})
+                    self._log(step_count, {f"train/{k}": v for k, v in host.items()})
                 else:
                     # one scalar fetch a step bounds how far the host runs ahead
                     float(next(iter(metrics.values())))
@@ -169,9 +203,8 @@ class TrainLoop:
             if self.energy:
                 self.energy.record_busy(step_busy)
             steps = max(self.batcher.steps_per_epoch // self.accumulate_batches, 1)
-            self.logger.log_scalars(step_count, {"train/epoch": epoch,
-                                                 "train/epoch_seconds": dt,
-                                                 "train/steps_per_sec": steps / dt})
+            self._log(step_count, {"train/epoch": epoch, "train/epoch_seconds": dt,
+                                   "train/steps_per_sec": steps / dt})
 
             record = {"epoch": epoch, "steps": steps, "seconds": dt, "busy_s": step_busy,
                       "val_s": None}
@@ -184,7 +217,7 @@ class TrainLoop:
                 record["val_s"] = time.monotonic() - tv
                 scalars = dict(scalars)
                 scalars["val/obj_metric"] = obj
-                self.logger.log_scalars(step_count, scalars)
+                self._log(step_count, scalars)
                 if self.ckpt is not None:
                     self._save("best", {"epoch": epoch, "best_obj": float(obj)}, obj=obj)
                 if obj > self.best_obj:
@@ -204,10 +237,10 @@ class TrainLoop:
                 break
         if self.energy:
             kwh = self.energy.stop()
-            self.logger.log_scalars(step_count, {"train/energy_kwh_estimate": kwh})
+            self._log(step_count, {"train/energy_kwh_estimate": kwh})
         if wd is not None:
             wd.stop()
             if wd.stalls:
-                self.logger.log_scalars(step_count, {f"train/watchdog_{k}": float(v)
-                                                     for k, v in wd.stats().items()})
+                self._log(step_count, {f"train/watchdog_{k}": float(v)
+                                       for k, v in wd.stats().items()})
         return self.state

@@ -30,8 +30,22 @@ Gradient accumulation (`accumulate > 1`) runs the micro-batches in turn
 before one optimizer step. An in-graph `embedder` (a frozen BEATs, say,
 through tools/embeddings.frame_embedder) computes the frame embeddings
 from the batch audio when the batch carries none, under no_grad, before
-mixup, per micro-batch. Not ported yet (it raises NotImplementedError): the
-`axis_name` / sharded data-parallel step.
+mixup, per micro-batch.
+
+Data parallelism (`make_train_step_sharded`, mean_teacher.py:478-533):
+each rank of the mesh's data axis runs the step on its own block of every
+slot and holds a full replica of the state. After the micro-batches and
+before clip + Adam, three all-reduces keep the replicas bitwise equal, each
+one flattened (coalesced) tensor in a fixed order, as JAX's pmean at
+:411-416 and :437-438: the student's gradients, then both models' BatchNorm
+running statistics (the teacher's averaged ones are the ones it keeps),
+then, after the EMA, the losses. A rank's random draws take its rank: the
+host draws' seed gets it appended, and the caller seeds each rank's
+generator apart (parallel.rank_seed), as JAX folds the axis index into its
+key (:373-375). No DistributedDataParallel wrapper: DDP broadcasts the BN
+buffers from rank 0 where JAX averages them, needs `no_sync` around the
+micro-batches, and would leave the teacher outside it. Its overlap of the
+all-reduce with the backward is work for a later optimisation.
 """
 
 from __future__ import annotations
@@ -42,12 +56,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..device import resolve_device
 from ..ops.augment import add_noise, frame_shift, mixup
 from ..ops.frontend import MelConfig, amplitude_to_db, mel_spectrogram
 from ..ops.scaler import ScalerConfig, ScalerState, apply_scaler
+from ..parallel.mesh import all_reduce_mean
 from .losses import SELF_SUP_LOSSES, bce
 from .schedulers import ExponentialWarmup
 
@@ -253,11 +269,21 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
     no embeddings: on the concatenated batch audio, under no_grad, before
     mixup, which then mixes them with the features' draw (as
     mean_teacher.py:277-279). The embedder is frozen and outside the state:
-    no gradient, Adam moment, EMA entry or checkpoint entry."""
+    no gradient, Adam moment, EMA entry or checkpoint entry.
+
+    axis_name: the data axis's process group (`make_mesh(...).groups["data"]`)
+    when each rank runs the step on its shard of the batch
+    (make_train_step_sharded): gradients, both models' BN statistics and the
+    losses are mean-all-reduced over it (module docstring), and the host
+    draws' seed takes the rank when the group has more than one."""
     if accumulate < 1:
         raise ValueError(f"accumulate must be >= 1, got {accumulate}")
-    if axis_name is not None:
-        raise NotImplementedError("the sharded data-parallel step is not ported yet")
+    group = axis_name
+    if isinstance(group, str):
+        raise TypeError("axis_name takes the data axis's process group "
+                        "(parallel.make_mesh(...).groups['data']), not an axis name")
+    world = 1 if group is None else dist.get_world_size(group)
+    rank_key = [] if world == 1 else [dist.get_rank(group)]
     selfsup = SELF_SUP_LOSSES[cfg.self_sup_loss]
     sa, sb = cfg.role_range("strong")
     wa, wb = cfg.role_range("weak")
@@ -351,18 +377,25 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
         student.zero_grad(set_to_none=True)
         params = list(student.parameters())
         if accumulate == 1:
-            losses = micro_step(state, batch, generator, np.random.default_rng([seed, step]),
-                                weight, dev)
+            losses = micro_step(state, batch, generator,
+                                np.random.default_rng([seed, step, *rank_key]), weight, dev)
         else:
             sums = None
             for i in range(accumulate):
-                host = np.random.default_rng([seed, step, i])
+                host = np.random.default_rng([seed, step, i, *rank_key])
                 got = micro_step(state, _micro_batch(batch, i), generator, host, weight, dev)
                 sums = got if sums is None else {k: sums[k] + got[k] for k in sums}
             inv = 1.0 / accumulate
             losses = {k: v * inv for k, v in sums.items()}
             # .grad holds the averaged gradients, what the optimizer sees
             torch._foreach_mul_([p.grad for p in params], inv)
+        if group is not None:  # .grad holds the mean over the ranks
+            for p, g in zip(params, all_reduce_mean([p.grad for p in params], group)):
+                p.grad = g
+            stats = [b for m in (student, state.teacher) for b in m.buffers()
+                     if b.is_floating_point()]
+            with torch.no_grad():
+                torch._foreach_copy_(stats, all_reduce_mean(stats, group))
         grad_norm = optimizer.step(params, [p.grad for p in params], state.opt_state)
 
         # EMA teacher on the UPDATED student (float32, as mean_teacher.py:421-427);
@@ -374,8 +407,54 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
             torch._foreach_mul_(teacher, float(alpha))
             torch._foreach_add_(teacher, torch._foreach_mul(params, float(np.float32(1) - alpha)))
         state.step = step + 1
+        if group is not None:
+            losses = dict(zip(losses, all_reduce_mean(list(losses.values()), group)))
 
         return {**losses, "weight": weight, "lr": schedule(step), "grad_norm": grad_norm}
+
+    return train_step
+
+
+def make_train_step_sharded(cfg: MeanTeacherConfig, optimizer: ClipAdam,
+                            schedule: ExponentialWarmup, mesh, sample_batch: dict,
+                            mel_cfg: MelConfig = MelConfig(),
+                            scaler_cfg: ScalerConfig = ScalerConfig(), embedder=None,
+                            axis: str = "data", accumulate: int = 1):
+    """The data-parallel step over `mesh`'s `axis` (parallel.make_mesh):
+    train_step(state, shard, generator) -> metrics, where `shard` is this
+    rank's block of a global batch of `cfg`'s slots (parallel.shard_batch;
+    with accumulate > 1 the example axis 1 is the one sharded) and
+    `generator` this rank's own. Every slot size must be divisible by the
+    axis's size n; each rank runs make_train_step on slots of size / n with
+    the axis's group (module docstring). sample_batch: a batch of cfg's
+    slots (its slot names are checked).
+
+    As in the JAX package (mean_teacher.py:478-533): mixup pairs within each
+    rank's shard, and the losses are per-shard means, then averaged (equal
+    shards: the same value as one global mean). Where the JAX single_run
+    falls back to one device when a slot does not divide (single_run.py:359),
+    this raises: k processes would otherwise each train alone."""
+    n = mesh.shape[axis]
+    bad = {s.name: s.size for s in cfg.slots if s.size % n}
+    if bad:
+        raise ValueError(f"slot sizes {bad} are not divisible by the {n} ranks of the "
+                         f"{axis!r} axis (slots {[s.size for s in cfg.slots]})")
+    local = dataclasses.replace(cfg, slots=tuple(dataclasses.replace(s, size=s.size // n)
+                                                 for s in cfg.slots))
+    missing = [s.name for s in cfg.slots if s.name not in sample_batch]
+    if missing:
+        raise ValueError(f"sample_batch has no slot {missing}")
+    batch_axis = 0 if accumulate == 1 else 1
+    inner = make_train_step(local, optimizer, schedule, mel_cfg, scaler_cfg, embedder=embedder,
+                            axis_name=mesh.groups[axis], accumulate=accumulate)
+
+    def train_step(state: MeanTeacherState, batch: dict, generator: torch.Generator):
+        for s in local.slots:
+            got = batch[s.name]["audio"].shape[batch_axis]
+            if got != s.size:
+                raise ValueError(f"slot {s.name!r}: {got} clips where this rank's shard has "
+                                 f"{s.size}; pass shard_batch(global batch)")
+        return inner(state, batch, generator)
 
     return train_step
 

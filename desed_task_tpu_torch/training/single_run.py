@@ -15,16 +15,32 @@ with training.batch_size listing the present slots' sizes in that order
 
 Runs on one device, "cuda" unless the caller passes another; the tsv files
 are read without pandas (utils/table.py).
+
+On several ranks (torchrun --nproc_per_node=N, which sets WORLD_SIZE > 1,
+or a process group the caller has joined already), as the JAX single_run
+on a mesh (single_run.py:357-369, :458-470): the run joins the group
+(parallel.init_distributed), takes cuda:LOCAL_RANK unless the caller names
+a device, and trains with make_train_step_sharded over a data mesh of all
+ranks. Every rank draws the same global batches from the same seed and
+keeps its own rows (parallel.shard_batch), so the host work of reading and
+decoding a batch is repeated on each rank; the train store stays off, and
+validation and test run from eval caches row-sharded over the ranks. A slot
+size that the number of ranks does not divide raises (the JAX run falls
+back to one device there). The first rank alone logs, checkpoints, bills
+the energy of every card and writes the test's files; a group that the run
+joined, it leaves at the end.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batcher import MultiSourceBatcher
 from ..data.datasets import ConcatSet, StronglyAnnotatedSet, UnlabeledSet, WeakSet
@@ -55,6 +71,7 @@ from .mean_teacher import (
     make_optimizer,
     make_predict_step,
     make_train_step,
+    make_train_step_sharded,
 )
 
 
@@ -279,20 +296,33 @@ def single_run(
     device: str | torch.device | None = None,
     run_info: dict | None = None,
 ):
-    """Train (or test only) one system on `device` (default "cuda").
-    Returns (state, test_results). A `run_info` dict, where given, receives
-    the run's parts for inspection: loop, cache (None without the device
-    train store), batcher, train_step (the step on host batches), step_fn
-    (what the loop calls), predict_fn, encoder, and test_seconds (the test
-    battery's wall time, when it ran)."""
-    device = resolve_device(device)
+    """Train (or test only) one system on `device` (default "cuda", on
+    several ranks cuda:LOCAL_RANK). Returns (state, test_results);
+    test_results is None on every rank but the first of several. A
+    `run_info` dict, where given, receives the run's parts for inspection:
+    loop, cache (None without the device train store), batcher, train_step
+    (the step on host batches), step_fn (what the loop calls), predict_fn,
+    encoder, mesh (None on one rank), and test_seconds (the test battery's
+    wall time, when it ran)."""
+    from ..parallel import init_distributed, make_mesh, rank_seed, replicate
+
+    ranks = dist.is_initialized() or int(os.environ.get("WORLD_SIZE", 1)) > 1
+    if ranks and device is None:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    device = resolve_device(device)  # no card: raise before joining a group
+    joined = ranks and not dist.is_initialized()
+    mesh = None
+    if ranks:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        mesh = make_mesh({"data": init_distributed(backend)[1]})
+    rank = 0 if mesh is None else dist.get_rank()
+    root = rank == 0
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
     t = config["training"]
     seed = t.get("seed", 42)
     seed_everything(seed)
     data = config["data"]
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"single_run: {torch.cuda.device_count()} cards seen; the port uses the current "
-              f"one only (cuda:{torch.cuda.current_device()})", flush=True)
 
     encoder = build_encoder(config)
     model = build_model(config, fast=fast)
@@ -323,8 +353,13 @@ def single_run(
 
         scaler_state = fit_scaler(scal, batcher.epoch(steps=steps_per_epoch), feats_of)
     state = create_state(model, cfg, tx, device=device, scaler=scaler_state)
-    train_step = step_fn = make_train_step(cfg, tx, sched, mel_cfg=mel, scaler_cfg=scal,
-                                           accumulate=accumulate)
+    if mesh is None:
+        train_step = step_fn = make_train_step(cfg, tx, sched, mel_cfg=mel, scaler_cfg=scal,
+                                               accumulate=accumulate)
+    else:
+        replicate([state.student, state.teacher], mesh)
+        train_step = step_fn = make_train_step_sharded(
+            cfg, tx, sched, mesh, sample, mel_cfg=mel, scaler_cfg=scal, accumulate=accumulate)
 
     # device-resident train store (data/device_cache.py): when the corpus
     # fits and needs no per-epoch random crop, a step moves only its row
@@ -332,7 +367,7 @@ def single_run(
     # training.device_cache: false.
     cache = None
     cache_mode = t.get("device_cache", "auto")
-    if cache_mode in (True, "auto"):
+    if mesh is None and cache_mode in (True, "auto"):
         from ..data.device_cache import DeviceResidentData, fits_device_cache
 
         pad_samples = int(data["audio_max_len"] * data["fs"])
@@ -351,7 +386,8 @@ def single_run(
     first = sample[slots[0].name]
     emb_frames = first["embeddings"].shape[-1] if "embeddings" in first else None
     n_frames = first["audio"].shape[-1] // mel.hop_length + 1
-    print(macs_report(model, n_frames, mel.n_mels, emb_frames), flush=True)
+    if root:
+        print(macs_report(model, n_frames, mel.n_mels, emb_frames), flush=True)
 
     # validation sets
     emb_type = (config.get("net") or {}).get("embedding_type")
@@ -370,7 +406,8 @@ def single_run(
         maestro_val_set = StronglyAnnotatedSet(
             data["real_maestro_train_folder"], maestro_val_tsv, encoder,
             embeddings_hdf5_file=_emb_file(config, "maestro_real_train"), **eval_kw)
-    use_eval_cache = cache is not None and t.get("device_cache_eval", True)
+    use_eval_cache = (cache is not None or mesh is not None) and t.get("device_cache_eval",
+                                                                          True)
     if use_eval_cache:
         # the recurring validation passes (student and teacher, every N
         # epochs) also run from resident stores
@@ -378,7 +415,8 @@ def single_run(
 
         wrapped = build_eval_caches(
             {"weak_val": weak_val, "synth_val": synth_val, "maestro_val": maestro_val_set},
-            t.get("batch_size_val", 24), verbose=not fast_dev_run, device=device)
+            t.get("batch_size_val", 24), verbose=root and not fast_dev_run, mesh=mesh,
+            device=device)
         weak_val, synth_val = wrapped["weak_val"], wrapped["synth_val"]
         maestro_val_set = wrapped["maestro_val"]
 
@@ -391,27 +429,31 @@ def single_run(
         obj_metric_synth_type=t.get("obj_metric_synth_type", "intersection"),
         desed_classes=list(CLASSES_DESED.keys()), trajectory_psds=t.get("trajectory_psds", 0))
 
-    logger = MetricsLogger(log_dir)
-    logger.log_hparams(config)
+    logger = energy = None
+    if root:
+        logger = MetricsLogger(log_dir)
+        logger.log_hparams(config)
+        energy = EnergyTracker("train", device_watts=t.get("device_watts"), out_dir=log_dir,
+                               device=device, n_devices=1 if mesh is None else mesh.size)
     ckpt = CheckpointManager(Path(log_dir) / "checkpoints")
-    energy = EnergyTracker("train", device_watts=t.get("device_watts"), out_dir=log_dir,
-                           device=device)
     loop = TrainLoop(
         step_fn, state, batcher,
         n_epochs=2 if fast_dev_run else t["n_epochs"],
         logger=logger, ckpt=ckpt, validate_fn=validator,
         validation_interval=1 if fast_dev_run else t.get("validation_interval", 10),
         early_stop_patience=t.get("early_stop_patience"),
-        rng=torch.Generator(device=device).manual_seed(seed + 1),
+        rng=torch.Generator(device=device).manual_seed(
+            rank_seed(seed + 1, rank, 1 if mesh is None else mesh.size)),
         energy=energy, accumulate_batches=accumulate, index_cache=cache,
         # on when there is a card: counts and probes a stalled step
         watchdog=StallWatchdog(),
         log_every=t.get("log_every", 50),
         checkpoint_interval=t.get("checkpoint_interval"),
+        mesh=mesh,
     )
     if run_info is not None:
         run_info.update(loop=loop, cache=cache, batcher=batcher, train_step=train_step,
-                        step_fn=step_fn, predict_fn=predict_fn, encoder=encoder)
+                        step_fn=step_fn, predict_fn=predict_fn, encoder=encoder, mesh=mesh)
 
     test_results = None
     if test_from_checkpoint is not None:
@@ -424,9 +466,10 @@ def single_run(
         if ckpt.exists("best"):
             ckpt.restore("best", state)
 
-    if evaluation and data.get("eval_folder") and Path(data["eval_folder"]).exists():
-        # label-free eval: raw and postprocessed score files (the reference's
-        # on_test_epoch_end evaluation branch, :929-971)
+    if (root and evaluation and data.get("eval_folder")
+            and Path(data["eval_folder"]).exists()):
+        # label-free eval, the first rank alone: raw and postprocessed score
+        # files (the reference's on_test_epoch_end evaluation branch, :929-971)
         from ..inference.io import write_sed_scores
         from .evaluate import predict_dataset
 
@@ -461,7 +504,8 @@ def single_run(
 
             wrapped = build_eval_caches(
                 {"test": test_set, "maestro": maestro_test_kwargs.get("maestro_set")},
-                t.get("batch_size_val", 24), verbose=not fast_dev_run, device=device)
+                t.get("batch_size_val", 24), verbose=root and not fast_dev_run, mesh=mesh,
+                device=device)
             test_set = wrapped["test"]
             if maestro_test_kwargs:
                 maestro_test_kwargs["maestro_set"] = wrapped["maestro"]
@@ -472,14 +516,20 @@ def single_run(
             batch_size=t.get("batch_size_val", 24),
             n_thresholds=2 if fast_dev_run else t.get("n_test_thresholds", 50),
             median_filter=median, desed_classes=list(CLASSES_DESED.keys()),
-            save_dir=Path(log_dir) / "figures", **maestro_test_kwargs)
+            save_dir=Path(log_dir) / "figures" if root else None, **maestro_test_kwargs)
+        if not root:  # a test set left on the host was scored on every rank
+            test_results = None
         if run_info is not None:
             run_info["test_seconds"] = time.perf_counter() - t_test
-        logger.log_scalars(0, {
-            "test/student/psds1": test_results["psds1"],
-            "test/student/psds2": test_results["psds2"],
-            "test/student/intersection_f1_macro": test_results["intersection_f1_macro"],
-            "test/student/event_f1_macro": test_results["event_f1_macro"],
-        })
-    logger.close()
+        if root:
+            logger.log_scalars(0, {
+                "test/student/psds1": test_results["psds1"],
+                "test/student/psds2": test_results["psds2"],
+                "test/student/intersection_f1_macro": test_results["intersection_f1_macro"],
+                "test/student/event_f1_macro": test_results["event_f1_macro"],
+            })
+    if root:
+        logger.close()
+    if joined:
+        dist.destroy_process_group()
     return state, test_results

@@ -6,6 +6,9 @@ Every reference train entry point has the same contract
 --eval_from_checkpoint / --fast_dev_run, with --strong_real where AudioSet
 strong real data is optional. yaml is imported inside train_cli only. The
 run takes the card ("cuda"); a CPU run calls single_run(..., device="cpu").
+Under `torchrun --nproc_per_node=N -m desed_task_tpu_torch.recipes.<name>`
+the run is data-parallel over N cards, each rank on cuda:LOCAL_RANK
+(training/single_run.py); the first rank alone prints the results.
 
 `extract_cli` is the embedding extraction's contract (the identical
 recipes/dcase202{2,3,4}_task4_baseline/extract_embeddings.py): --conf_file,

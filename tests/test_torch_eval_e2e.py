@@ -318,11 +318,23 @@ def test_run_test_matches_jax(world, use_teacher, tmp_path):
 
 
 def test_eval_cache_refuses_meshes_and_keeps_odd_sets_on_the_host(world):
+    from desed_task_tpu_torch.data.device_cache import _to_int16
+    from desed_task_tpu_torch.parallel import Mesh
+
     items = world["items"]
-    with pytest.raises(NotImplementedError):
-        build_eval_caches({"x": items}, BATCH, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        DeviceEvalCache(items, BATCH, n_shards=2, device="cpu")
+    # data index 1 of a 2-rank data axis (upload reads the mesh's shape and index)
+    mesh = Mesh(shape={"data": 2}, index={"data": 1}, groups={}, cpu_groups={})
+    with pytest.raises(ValueError, match="n_shards=2"):  # n_pad 12: not 2 x whole batches
+        DeviceEvalCache(items, BATCH, device="cpu").upload(mesh=mesh)
+    sharded = DeviceEvalCache(items, BATCH, n_shards=2, device="cpu")
+    assert sharded.n_pad == 16
+    sharded.upload(mesh=mesh)
+    assert sharded.rows == 8 and sharded.stores["audio"].shape == (8, FS)
+    np.testing.assert_array_equal(sharded.stores["audio"][:2].numpy(),
+                                  np.stack([_to_int16(it["audio"]) for it in items[8:]]))
+    assert not sharded.stores["audio"][2:].any()
+    with pytest.raises(RuntimeError, match="sharded"):
+        next(sharded.batches())
     stereo = [dict(it, audio=np.stack([it["audio"]] * 2)) for it in items[:2]]
     out = build_eval_caches({"stereo": stereo, "none": None, "empty": [], "big": items}, BATCH,
                             max_bytes=1000, verbose=False, device="cpu")

@@ -80,14 +80,24 @@ def test_train_entry_point_without_cpu_raises_when_no_cuda(monkeypatch):
     assert next(state.student.parameters()).device.type == "cpu"
 
 
-def test_train_step_refuses_unported_options():
+def test_train_step_refuses_unported_options(tmp_path):
+    """Every option of the step is ported: the data axis's group builds (an
+    axis name where the group belongs is refused)."""
+    import torch.distributed as dist
+
     from desed_task_tpu_torch.recipes_config import mean_teacher_2021
     from desed_task_tpu_torch.training import make_optimizer, make_train_step
 
     cfg = mean_teacher_2021()
     tx, sched = make_optimizer(1e-3, 10)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="process group"):
         make_train_step(cfg, tx, sched, axis_name="data")
+    dist.init_process_group("gloo", init_method=(tmp_path / "rendezvous").as_uri(), rank=0,
+                            world_size=1)
+    try:
+        make_train_step(cfg, tx, sched, axis_name=dist.group.WORLD)  # ported: builds
+    finally:
+        dist.destroy_process_group()
     make_train_step(cfg, tx, sched, accumulate=2)  # ported: builds
     make_train_step(cfg, tx, sched, embedder=lambda audio: audio)  # ported: builds
 
@@ -146,6 +156,8 @@ def test_the_embedder_modules_are_scanned():
                  "recipes.dcase2022_extract_embeddings", "recipes.dcase2023_extract_embeddings",
                  "recipes.dcase2024_extract_embeddings"):
         assert f"desed_task_tpu_torch.{name}" in MODULES, name
+    for name in ("parallel.mesh", "parallel.launch", "parallel.tp", "parallel.dryrun"):
+        assert f"desed_task_tpu_torch.{name}" in MODULES, name
 
 
 def test_embedder_entry_points_without_cpu_raise_when_no_cuda(monkeypatch, tmp_path):
@@ -173,3 +185,16 @@ def test_embedder_entry_points_without_cpu_raise_when_no_cuda(monkeypatch, tmp_p
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert next(build_embedder("panns", device="cpu").parameters()).device.type == "cpu"
+
+
+def test_parallel_entry_points_without_cpu_raise_when_no_cuda(monkeypatch, tmp_path):
+    from desed_task_tpu_torch.parallel.dryrun import dryrun_multichip
+    from desed_task_tpu_torch.training.single_run import single_run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2, device="cuda")
+    # under torchrun, without a card: no group is joined and nothing runs on the CPU
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        single_run({"training": {}, "data": {}}, str(tmp_path / "run"))
