@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Start the PyTorch port on one NVIDIA GPU and hold it to its plain versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 3,4,6,7,8b,9,10,11,12,13,14,15]
+
+With no argument every phase runs (what the contract runs). `--phases`
+runs the build and the phases named (each with its lettered sub-phases),
+and the phases they take their context from (8b and 14 need 7, 9 needs 4);
+the kernels line then holds the rows that ran, and the last line is the
+same.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
@@ -201,7 +207,30 @@ Phases (any failure exits non-zero; nothing is caught):
      phase 11's corpus on both ranks: 4 finite losses, replicas equal,
      rank 0 alone writes and tests, the best checkpoint reloads bitwise.
      Two ranks on one card measure correctness and the collectives' cost,
-     not scaling.
+     not scaling;
+  15. the auxiliaries: (a) the quickstart (recipes/quickstart_synthetic)
+     on the card: its tone soundbank and QS_TRAIN training soundscapes (and
+     the other splits) from its seeds, one epoch through single_run (bf16,
+     its default) with every step's loss logged: each step's launches those
+     of phase 8b's step with the GRU kernels twice (QS_STEP: two GRU
+     layers), finite losses,
+     test metrics in [0, 1]; then QS_TRACED_STEPS more steps of its loop
+     under obs/profiling.trace and a StepTimer (one sync at its cadence):
+     the Chrome trace names, for each of rows 1-6, a hand-written kernel
+     launched inside its custom op or autograd node; the timer's stats;
+     (b) tools/hpo.run_study with HPO_TRIALS trials and 2 workers, both
+     pinned to the card (CUDA_VISIBLE_DEVICES=0), the objective
+     `hpo_objective` (single_run fast_dev_run, bf16, on (a)'s corpus):
+     both records written, every trial's objective run was on the card and
+     launched every kernel of a bf16 step (the workers claim trials
+     first-come, so one of them may run both),
+     each trial's parameters equal to the same seed's drawn on the CPU; the
+     study's seconds; (c) crnn_2024() serving (768x496 embeddings,
+     MEDIAN_2024, 50 thresholds) exported through tools/export.py at batch
+     64 and loaded: the graph calls the three custom ops (7 + 7 + 1), the
+     loaded program launches 7/7/1 a batch and its outputs on 64 seeded
+     clips are bitwise equal to the eager pipeline's; the same for the
+     bf16 pipeline (rows 1b, 2b, 5); exported and eager forward ms.
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
@@ -212,7 +241,9 @@ launches an eval batch per model pass} from phase 11, and "recipe_2023_bf16",
 "recipe_2022_ast_bf16" and "finetune" the same from phase 12, "e2e_beats" and
 "e2e_beats_bf16" (launches a step) and "serve_beats" (a batch) from phase 13,
 "sharded_step", "sharded_step_bf16" and "tp_e2e_beats" (rank 0's launches a
-step) and "sharded_eval" (a batch a model pass) from phase 14;
+step) and "sharded_eval" (a batch a model pass) from phase 14, "quickstart"
+(launches a step), "hpo" (both workers' runs) and "export" (a batch of the
+loaded fp32 and bf16 programs) from phase 15;
 row 7 in fp32 and, as `fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
 path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
@@ -3534,9 +3565,326 @@ def parallelism(card, report, ctx):
             "sharded_eval": per_batch[0], "tp_e2e_beats": tp[0]["launches"]}
 
 
-def main() -> int:
+# phase 15: the quickstart's corpus size (synth 32, synth_val and test 8,
+# weak and unlabeled 16 ten-second soundscapes) and its CRNN's GRU depth.
+# single_run trains in bf16 (fast=True, as JAX's), so a quickstart step
+# launches what phase 8b's does, but the GRU kernels twice: the 2024 CRNN
+# has one GRU layer, the quickstart's two
+QS_TRAIN = 32
+QS_STEP = {k: v * (2 if k.startswith("bigru") else 1) for k, v in STEP16_LAUNCHES.items()}
+QS_TRACED_STEPS = 3
+HPO_SEED = 21
+HPO_TRIALS = 2
+# the CPU op or autograd node inside which each row's kernels launch: the
+# forward custom ops and the backward Functions' nodes
+ROW_SPANS = {"conv_bn_stats": "desed_torch::conv_bn_stats",
+             "glu_drop_pool": "desed_torch::glu_drop_pool",
+             "bigru": "desed_torch::bigru",
+             "conv_bn_stats_bwd": "ConvBnStatsBackward",
+             "glu_drop_pool_bwd": "GluDropPoolBackward",
+             "bigru_bwd": "BiGRUBackward"}
+EXPORT_BATCH = {"conv_bn_stats": 7, "glu_drop_pool": 7, "bigru": 1}
+EXPORT16_BATCH = {"conv_bn_stats.bf16": 7, "glu_drop_pool.bf16": 7, "bigru": 1}
+
+
+def source_kernels() -> set:
+    """The names of the hand-written CUDA kernels (__global__ functions) of
+    the port's sources."""
+    import re
+
+    names = set()
+    for src in (ROOT / "desed_task_tpu_torch" / "csrc").glob("*.cu"):
+        bounds = r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+        for m in re.finditer(r"__global__\s+" + bounds + r"void\s+" + bounds + r"(\w+)\s*\(",
+                             src.read_text()):
+            names.add(m.group(1))
+    return names
+
+
+def trace_row_kernels(path: Path, hand_written: set) -> dict:
+    """From a Chrome trace of torch.profiler: for each row, the names of the
+    hand-written CUDA kernels launched inside its op or autograd node: a
+    host launch call (CUDA runtime or driver API) on the same thread within
+    the span, joined to its kernel by the correlation id, or a kernel whose
+    "External id" is the op's."""
+    import re
+
+    doc = json.loads(path.read_text())
+    events = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    kernels = {e["args"]["correlation"]: e["name"] for e in events
+               if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+    # the libraries link the CUDA runtime statically: their launches show
+    # as driver calls (cuLaunchKernel), torch's as runtime calls
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "aunch" in e["name"] and "correlation" in e.get("args", {})]
+
+    def base(name: str) -> str:
+        # demangled: "void (anonymous namespace)::glu_fwd_frag_kernel<4>(...)"
+        return next((w for w in re.findall(r"\w+", name) if w in hand_written), "")
+
+    # a kernel also carries the "External id" of the op innermost at its launch
+    by_external: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "External id" in e.get("args", {}):
+            by_external.setdefault(e["args"]["External id"], []).append(e["name"])
+    out = {row: set() for row in ROW_SPANS}
+    for row, span in ROW_SPANS.items():
+        for op in (e for e in events if span in e["name"] and e.get("cat") != "kernel"):
+            t0, t1 = op["ts"], op["ts"] + op.get("dur", 0)
+            names = list(by_external.get(op.get("args", {}).get("External id"), ()))
+            for ln in launches:
+                if ln["pid"] == op["pid"] and ln["tid"] == op["tid"] and t0 <= ln["ts"] <= t1:
+                    names.append(kernels.get(ln["args"]["correlation"], ""))
+            out[row] |= {base(n) for n in names} - {""}
+    if not all(out.values()):  # what the trace held instead, for the log
+        cats: dict = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        print(f"trace: events by category {cats}; launch calls "
+              f"{sorted({e['name'] for e in launches})}; hand-written kernels "
+              f"{sorted({base(n) for n in kernels.values()} & hand_written)}", flush=True)
+    return out
+
+
+def hpo_objective(config: dict) -> float:
+    """Phase 15b's objective, run in each HPO worker process: single_run
+    (fast_dev_run) on the card; the worker's launches are written beside
+    the study (HPO_SMOKE_DIR). Returns psds1 + intersection_f1_macro, the
+    optuna CLI's objective."""
+    import os
+
     import torch
 
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.training.single_run import single_run
+
+    out = Path(os.environ["HPO_SMOKE_DIR"])
+    tag = f"worker{os.environ['HPO_WORKER_INDEX']}_{os.getpid()}"
+    tag = f"{tag}_{len(list(out.glob(tag + '_*.json')))}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    _, results = single_run(config, str(out / tag), fast_dev_run=True)
+    (out / f"{tag}.json").write_text(json.dumps(dict(
+        launches=dict(_build.LAUNCHES), s=time.perf_counter() - t0,
+        card=torch.cuda.get_device_name(0), visible=os.environ.get("CUDA_VISIBLE_DEVICES"))))
+    return results["psds1"] + results["intersection_f1_macro"]
+
+
+def auxiliaries(card, report, step16_launches):
+    """Phase 15: the quickstart with a profiled span and the step timer,
+    a 2-worker HPO study on the one card, and the exported serving
+    pipeline (fp32 and bf16) against the eager one."""
+    import itertools
+    import os
+    import random
+
+    import torch
+
+    from desed_task_tpu_torch.inference.pipeline import InferencePipeline
+    from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
+    from desed_task_tpu_torch.obs.profiling import TRACE_FILE, StepTimer, trace
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig
+    from desed_task_tpu_torch.recipes import quickstart_synthetic as qs
+    from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024
+    from desed_task_tpu_torch.tools import hpo
+    from desed_task_tpu_torch.tools.export import export_pipeline, graph_ops, load_pipeline
+    from desed_task_tpu_torch.utils.classes_dict import CLASSES_DESED, CLASSES_MAESTRO_REAL
+
+    out = {}
+    by_path = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # (a) the quickstart: soundbank and soundscapes from its seeds, one
+        # epoch through single_run on the card, every step's loss logged
+        want_step = {k: v * QS_STEP[k] // STEP16_LAUNCHES[k] for k, v in step16_launches.items()}
+        info = StepLaunches()
+        t0 = time.perf_counter()
+        _, results = qs.main(["--workdir", str(root / "qs"), "--n_train", str(QS_TRAIN),
+                              "--epochs", "1"], training={"log_every": 1}, run_info=info)
+        qs_s = time.perf_counter() - t0
+        steps = list(info.steps)
+        print(f"quickstart: {QS_TRAIN} training soundscapes, 1 epoch in {qs_s:.3f} s "
+              f"(generation included); launches a step {steps}, expected {want_step}", flush=True)
+        require(len(steps) >= 1 and all(x == want_step for x in steps),
+                "quickstart: a train step's launches differ from phase 8b's")
+        with open(root / "qs" / "exp" / "metrics.csv") as f:
+            import csv
+
+            rows = list(csv.DictReader(f))
+        losses = [float(r["value"]) for r in rows if r["name"] == "train/loss"]
+        numbers = {k: v for k, v in results.items() if isinstance(v, float)}
+        print(f"quickstart: losses {losses}; test battery " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(numbers.items())), flush=True)
+        require(len(losses) == len(steps) and all(math.isfinite(v) for v in losses),
+                "quickstart: a loss is missing or not finite")
+        require(all(math.isfinite(v) and 0 <= v <= 1 for v in numbers.values()),
+                "quickstart: a test metric is not finite in [0, 1]")
+        # three more steps of its loop under the profiler, timed by StepTimer
+        loop = info["loop"]
+        batches = itertools.chain.from_iterable(loop._batches() for _ in itertools.count())
+        step_batches = [next(batches) for _ in range(QS_TRACED_STEPS)]
+        timer = StepTimer(sync_every=QS_TRACED_STEPS, device="cuda").start()
+        with trace(root / "trace"):
+            for b in step_batches:
+                loop.step_fn(loop.state, b, loop.rng)
+                timer.step()
+        tr_path = root / "trace" / TRACE_FILE
+        named = trace_row_kernels(tr_path, source_kernels())
+        print(f"quickstart trace ({tr_path.stat().st_size} bytes, {QS_TRACED_STEPS} steps): "
+              + "; ".join(f"{row}: {sorted(n)}" for row, n in named.items()), flush=True)
+        if not all(named.values()):
+            import shutil
+
+            (ROOT / "chiprun_out").mkdir(exist_ok=True)
+            shutil.copy(tr_path, ROOT / "chiprun_out" / "quickstart_trace.json")
+        require(all(named.values()), "the quickstart trace does not name every row's kernels")
+        print(f"[{card}] quickstart StepTimer (sync every {QS_TRACED_STEPS} steps, traced): "
+              f"{timer.stats}", flush=True)
+        require(len(timer.times) == 1, "StepTimer did not time its cadence")
+        out["quickstart"] = dict(s=qs_s, steps=len(steps), launches=steps[0], losses=losses,
+                                 metrics=numbers, trace_kernels={k: sorted(v) for k, v in
+                                                                 named.items()},
+                                 step_timer=timer.stats)
+        by_path["quickstart"] = steps[0]
+
+        # (b) HPO: 2 trials, 2 workers sharing the card, on (a)'s corpus
+        config = qs.make_config(root / "qs", 1)
+        config["training"]["log_every"] = 1
+        study = root / "hpo"
+        study.mkdir()
+        env = {"CUDA_VISIBLE_DEVICES": "0", "HPO_SMOKE_DIR": str(study),
+               "PYTHONPATH": os.pathsep.join(
+                   p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+        t0 = time.perf_counter()
+        best = hpo.run_study(config, None, HPO_TRIALS, str(study / "log"), mode="train",
+                             seed=HPO_SEED, n_workers=2, objective_spec="chip_smoke:hpo_objective",
+                             worker_envs=[env] * 2)
+        hpo_s = time.perf_counter() - t0
+        recs = [json.loads(line) for line in
+                (study / "log" / "study_train.jsonl").read_text().splitlines() if line]
+        workers = {p.stem: json.loads(p.read_text()) for p in study.glob("worker*.json")}
+        print(f"[{card}] hpo: {len(recs)} trials by 2 workers on one card in {hpo_s:.3f} s; "
+              f"best {best}; workers " + "; ".join(
+                  f"{k}: {v['s']:.3f} s on {v['card']} (CUDA_VISIBLE_DEVICES="
+                  f"{v['visible']}), launches {v['launches']}" for k, v in sorted(workers.items())),
+              flush=True)
+        require(sorted(r["trial"] for r in recs) == list(range(HPO_TRIALS)),
+                "hpo: a trial's record is missing")
+        # the workers claim trials first-come, so one may run both: every
+        # trial's objective run must have left its record on the card
+        require(len(workers) == HPO_TRIALS and {r["worker"] for r in recs} <= {"0", "1"},
+                "hpo: a trial's objective run left no record")
+        for r in recs:
+            s_cpu = hpo._RandomSuggest(random.Random(HPO_SEED + r["trial"]))
+            hpo.sample_params_train(config, s_cpu)
+            require(r["params"] == s_cpu.params, f"hpo: trial {r['trial']}'s parameters "
+                                                 "differ from the same seed's on the CPU")
+            require(math.isfinite(r["value"]), "hpo: a trial's value is not finite")
+        require(all(v["visible"] == "0" and all(v["launches"].get(k, 0) > 0
+                                                for k in STEP16_LAUNCHES)
+                    for v in workers.values()), "hpo: a trial did not launch every kernel")
+        out["hpo"] = dict(s=hpo_s, records=recs, workers=workers)
+        total = {}
+        for v in workers.values():
+            for k, n in v["launches"].items():
+                total[k] = total.get(k, 0) + n
+        by_path["hpo"] = total
+
+    # (c) the flagship serving pipeline exported with its kernels, fp32 and bf16
+    classes = list(CLASSES_DESED) + [c for c in CLASSES_MAESTRO_REAL if c not in CLASSES_DESED]
+    enc = ManyHotEncoder(classes, 10, 2048, 256, 4, 16000)
+    thresholds = tuple(np.arange(1 / 100, 1, 1 / 50))
+    rng = np.random.default_rng(15)
+    audio = torch.as_tensor(rng.standard_normal((BATCH, 160000)).astype(np.float32) * 0.1,
+                            device="cuda")
+    emb = torch.as_tensor(rng.standard_normal((BATCH, 768, 496)).astype(np.float32),
+                          device="cuda")
+    gen = torch.Generator().manual_seed(15)
+    model = randomize(crnn_2024(), gen)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    export_launches = {}
+    for tag, net, mel, want in (
+            ("fp32", model, MelConfig(), EXPORT_BATCH),
+            ("bf16", crnn_2024(compute_dtype=torch.bfloat16), MelConfig(compute_dtype="bfloat16"),
+             EXPORT16_BATCH)):
+        pipe = InferencePipeline(net, state, enc, mel_cfg=mel, median_filter=MEDIAN_2024,
+                                 thresholds=thresholds, batch_size=BATCH, device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            art = export_pipeline(pipe, Path(tmp) / tag, embeddings_shape=(768, 496))
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fwd, meta = load_pipeline(art)
+            load_s = time.perf_counter() - t0
+            size = (art / "forward.pt2").stat().st_size
+        with torch.inference_mode():
+            eager = pipe.forward(audio, emb)
+        _build.reset_launches()
+        loaded = fwd(audio, emb)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        same = all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(loaded, eager))
+        ms = time_ms(lambda: fwd(audio, emb))
+        with torch.inference_mode():
+            eager_ms = time_ms(lambda: pipe.forward(audio, emb))
+        print(f"export {tag}: crnn_2024 at batch {BATCH}, 768x496 embeddings, {len(thresholds)} "
+              f"thresholds: exported in {export_s:.3f} s ({size} bytes), loaded in "
+              f"{load_s:.3f} s; graph ops {meta['ops']}; launches a batch {launches}, expected "
+              f"{want}; outputs bitwise equal to the eager pipeline: {same}", flush=True)
+        print(f"[{card}] export {tag}: exported forward {ms:.3f} ms, eager forward "
+              f"{eager_ms:.3f} ms, batch {BATCH}", flush=True)
+        require(meta["ops"] == ["desed_torch::conv_bn_stats", "desed_torch::glu_drop_pool"] * 7
+                + ["desed_torch::bigru"], f"export {tag}: the graph does not call the kernels' ops")
+        require(launches == want, f"export {tag}: the loaded program's launches differ")
+        require(same, f"export {tag}: the loaded program differs from the eager pipeline")
+        require(meta["device_name"] == torch.cuda.get_device_name(0), "export: device name")
+        out[f"export_{tag}"] = dict(export_s=export_s, load_s=load_s, bytes=size, ms=ms,
+                                    eager_ms=eager_ms, launches=launches, bitwise=same)
+        export_launches.update(launches)
+    by_path["export"] = export_launches
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 15: {out['s']:.3f} s", flush=True)
+    report["auxiliaries"] = out
+    return by_path
+
+
+# the phases `--phases` can pick (each with its lettered sub-phases), and
+# those a phase takes its context from
+PHASES = ("3", "4", "6", "7", "8b", "9", "10", "11", "12", "13", "14", "15")
+NEEDS = {"8b": ("7",), "9": ("4",), "14": ("7",)}
+
+
+def chosen_phases(argv) -> list:
+    """The phases to run: every one by default; with --phases, those named
+    and the phases they take their context from, in the script's order."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run after the build (e.g. 15 or "
+                             "3,4,15; default: all); a phase's context phases run too")
+    names = [p.strip() for p in parser.parse_args(argv).phases.split(",") if p.strip()]
+    bad = [p for p in names if p not in PHASES]
+    if bad:
+        parser.error(f"unknown phases {bad}; choose from {list(PHASES)}")
+    todo, stack = set(), list(names)
+    while stack:
+        p = stack.pop()
+        if p not in todo:
+            todo.add(p)
+            stack.extend(NEEDS.get(p, ()))
+    return [p for p in PHASES if p in todo]
+
+
+def main(argv=None) -> int:
+    import torch
+
+    phases = chosen_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3549,7 +3897,10 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "phases": phases}
+    if len(phases) < len(PHASES):
+        print(f"phases: {phases} (of {list(PHASES)})", flush=True)
 
     from desed_task_tpu_torch.ops import _build
     from desed_task_tpu_torch.ops.frontend import MelConfig
@@ -3563,43 +3914,71 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
 
     gen = torch.Generator().manual_seed(0)
-    geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
-    rows = check_kernels(geoms, gen, report)
-    rows.update(check_kernels_bf16(geoms, gen, report, rows))
-    serve_launches, pipe, serve16_launches = serve(gen, report)
-    train_geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
-    rows.update(check_bwd_kernels(train_geoms, gen, report))
-    rows.update(check_bwd_kernels_bf16(train_geoms, gen, report, rows))
-    train_launches, train_ctx = train(gen, report)
-    train16_launches = train_bf16(train_ctx, report)
-    fe_launches, fe_rows = frontend(gen, pipe, report)
-    eval_launches, eval16_launches = evaluate(gen, card, report)
-    recipe_launches, recipe16_launches = recipe(card, report, train16_launches)
-    year_launches = recipes_2021_2023(card, report)
-    emb_launches = embedders(card, report)
-    par_launches = parallelism(card, report, train_ctx)
+    rows = {}
+    serve_launches = serve16_launches = train_launches = train16_launches = {}
+    fe_launches = eval_launches = eval16_launches = {}
+    recipe_launches = recipe16_launches = year_launches = emb_launches = par_launches = {}
+    aux_launches = {}
+    fe_rows = []
+    if "3" in phases:
+        geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
+        rows = check_kernels(geoms, gen, report)
+        rows.update(check_kernels_bf16(geoms, gen, report, rows))
+    if "4" in phases:
+        serve_launches, pipe, serve16_launches = serve(gen, report)
+    if "6" in phases:
+        train_geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
+        rows.update(check_bwd_kernels(train_geoms, gen, report))
+        rows.update(check_bwd_kernels_bf16(train_geoms, gen, report, rows))
+    if "7" in phases:
+        train_launches, train_ctx = train(gen, report)
+    if "8b" in phases:
+        train16_launches = train_bf16(train_ctx, report)
+    if "9" in phases:
+        fe_launches, fe_rows = frontend(gen, pipe, report)
+    if "10" in phases:
+        eval_launches, eval16_launches = evaluate(gen, card, report)
+    if "11" in phases:
+        # phase 8b requires its step's launches to be STEP16_LAUNCHES
+        recipe_launches, recipe16_launches = recipe(card, report,
+                                                    train16_launches or STEP16_LAUNCHES)
+    if "12" in phases:
+        year_launches = recipes_2021_2023(card, report)
+    if "13" in phases:
+        emb_launches = embedders(card, report)
+    if "14" in phases:
+        par_launches = parallelism(card, report, train_ctx)
+    if "15" in phases:
+        # phase 8b requires its step's launches to be STEP16_LAUNCHES
+        aux_launches = auxiliaries(card, report, train16_launches or STEP16_LAUNCHES)
     # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
-    rows["fused_log_mel"] = [r for r in fe_rows if r["B"] == BATCH and r["dtype"] == "float32"]
-    rows["fused_log_mel.bf16"] = [r for r in fe_rows
-                                  if r["B"] == BATCH and r["dtype"] == "bfloat16"]
+    if fe_rows:
+        rows["fused_log_mel"] = [r for r in fe_rows
+                                 if r["B"] == BATCH and r["dtype"] == "float32"]
+        rows["fused_log_mel.bf16"] = [r for r in fe_rows
+                                      if r["B"] == BATCH and r["dtype"] == "bfloat16"]
 
-    fw = report["forward"]
-    print(f"[{card}] device forward, batch {BATCH}: {fw['forward_ms']:.3f} ms "
-          f"(plain versions {fw['plain_forward_ms']:.3f} ms; front-end + scaler "
-          f"{fw['frontend_ms']:.3f} ms, CRNN {fw['model_ms']:.3f} ms)", flush=True)
-    fb = report["forward_bf16"]
-    print(f"[{card}] device forward bf16, batch {BATCH}: {fb['forward_ms']:.3f} ms "
-          f"(front-end + scaler {fb['frontend_ms']:.3f} ms, CRNN {fb['model_ms']:.3f} ms; "
-          f"fp32 {fw['forward_ms']:.3f} / {fw['frontend_ms']:.3f} / {fw['model_ms']:.3f} ms)",
-          flush=True)
-    tr = report["train"]
-    print(f"[{card}] train step, {TRAIN_BATCH} clips, fp32: {tr['step_ms']:.3f} ms "
-          f"({tr['clips_per_s']:.1f} clips/s; plain versions {tr['plain_step_ms']:.3f} ms; "
-          f"peak memory {tr['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
-    t16 = report["train_bf16"]
-    print(f"[{card}] train step, {TRAIN_BATCH} clips, bf16: {t16['step_ms']:.3f} ms "
-          f"({t16['clips_per_s']:.1f} clips/s; peak memory {t16['peak_bytes'] / 2**30:.2f} GiB; "
-          f"fp32 {tr['step_ms']:.3f} ms, {tr['clips_per_s']:.1f} clips/s)", flush=True)
+    if "4" in phases:
+        fw = report["forward"]
+        print(f"[{card}] device forward, batch {BATCH}: {fw['forward_ms']:.3f} ms "
+              f"(plain versions {fw['plain_forward_ms']:.3f} ms; front-end + scaler "
+              f"{fw['frontend_ms']:.3f} ms, CRNN {fw['model_ms']:.3f} ms)", flush=True)
+        fb = report["forward_bf16"]
+        print(f"[{card}] device forward bf16, batch {BATCH}: {fb['forward_ms']:.3f} ms "
+              f"(front-end + scaler {fb['frontend_ms']:.3f} ms, CRNN {fb['model_ms']:.3f} ms; "
+              f"fp32 {fw['forward_ms']:.3f} / {fw['frontend_ms']:.3f} / {fw['model_ms']:.3f} ms)",
+              flush=True)
+    if "7" in phases:
+        tr = report["train"]
+        print(f"[{card}] train step, {TRAIN_BATCH} clips, fp32: {tr['step_ms']:.3f} ms "
+              f"({tr['clips_per_s']:.1f} clips/s; plain versions {tr['plain_step_ms']:.3f} ms; "
+              f"peak memory {tr['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+    if "8b" in phases:
+        t16 = report["train_bf16"]
+        print(f"[{card}] train step, {TRAIN_BATCH} clips, bf16: {t16['step_ms']:.3f} ms "
+              f"({t16['clips_per_s']:.1f} clips/s; peak memory "
+              f"{t16['peak_bytes'] / 2**30:.2f} GiB; fp32 {tr['step_ms']:.3f} ms, "
+              f"{tr['clips_per_s']:.1f} clips/s)", flush=True)
     for r in fe_rows:
         b_ms, by = r["bound"]
         print(f"[{card}] fused_log_mel B={r['B']} {r['dtype']} (plan {r['plan']}, "
@@ -3641,7 +4020,8 @@ def main() -> int:
                    **{path: {k: v.get(name, 0) for k, v in counts.items()}
                       for path, counts in year_launches.items()},
                    **{path: counts.get(name, 0) for path, counts in emb_launches.items()},
-                   **{path: counts.get(name, 0) for path, counts in par_launches.items()}}
+                   **{path: counts.get(name, 0) for path, counts in par_launches.items()},
+                   **{path: counts.get(name, 0) for path, counts in aux_launches.items()}}
         main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")
@@ -3688,4 +4068,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

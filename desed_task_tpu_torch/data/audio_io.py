@@ -1,5 +1,6 @@
 """Host-side audio I/O (own copy of the pure-Python RIFF path of
-desed_task_tpu/data/audio_io.py; the native C++ loader is not ported).
+desed_task_tpu/data/audio_io.py, and its polyphase resampler; the native
+C++ loader is not ported).
 
 PCM 8/16/24/32-bit and IEEE float WAVE files are decoded to float32 scaled
 to [-1, 1) by the type's full scale, as torchaudio.load does.
@@ -7,6 +8,7 @@ to [-1, 1) by the type's full scale, as torchaudio.load does.
 
 from __future__ import annotations
 
+import math
 import random
 import struct
 
@@ -114,12 +116,28 @@ def pad_audio(audio: np.ndarray, target_len: int, fs: int, test: bool = False, r
     return audio.astype(np.float32), onset_s, offset_s, padded
 
 
+def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling on the last axis (scipy's resample_poly in
+    float64, up and down by the rates' reduced ratio) -> float32."""
+    if orig_sr == target_sr:
+        return np.asarray(audio, np.float32)
+    from scipy.signal import resample_poly
+
+    g = math.gcd(orig_sr, target_sr)
+    out = resample_poly(np.asarray(audio, np.float64), target_sr // g, orig_sr // g, axis=-1)
+    return out.astype(np.float32)
+
+
 def read_audio(path, multisrc: bool = False, random_channel: bool = False,
-               pad_to: int | None = None, test: bool = False):
-    """decode -> (mono) -> pad/crop. Returns (audio, onset_s, offset_s, padded)."""
+               pad_to: int | None = None, test: bool = False, target_fs: int | None = None):
+    """decode -> (mono) -> (resample to target_fs) -> pad/crop. Returns
+    (audio, onset_s, offset_s, padded)."""
     audio, fs = read_wav(path)
     if not multisrc:
         audio = to_mono(audio, random_channel)
+    if target_fs is not None and fs != target_fs:
+        audio = resample(audio, fs, target_fs)
+        fs = target_fs
     if pad_to is not None:
         audio, onset_s, offset_s, padded = pad_audio(audio, pad_to, fs, test=test)
     else:

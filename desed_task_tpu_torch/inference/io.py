@@ -14,13 +14,6 @@ from ..utils import table as tbl
 from .decode import ScoreCurve
 
 
-def _write_tsv(path: Path, names: list[str], cols: list) -> None:
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, delimiter="\t", lineterminator="\n")
-        w.writerow(names)
-        w.writerows(zip(*cols))
-
-
 def write_sed_scores(scores: dict, out_dir) -> int:
     """{clip_id: score table or ScoreCurve} -> one tsv per clip, columns
     onset, offset, then one per class."""
@@ -29,12 +22,8 @@ def write_sed_scores(scores: dict, out_dir) -> int:
     for clip_id, curve in scores.items():
         if isinstance(curve, ScoreCurve):
             ts, vals = curve.timestamps, curve.values
-            names = ["onset", "offset", *curve.classes]
-            cols = [ts[:-1], ts[1:], *vals.T]
-        else:
-            names = tbl.columns(curve)
-            cols = [tbl.column(curve, c) for c in names]
-        _write_tsv(out_dir / f"{clip_id}.tsv", names, cols)
+            curve = dict(zip(["onset", "offset", *curve.classes], [ts[:-1], ts[1:], *vals.T]))
+        tbl.write_tsv(out_dir / f"{clip_id}.tsv", curve)
     return len(scores)
 
 
@@ -58,8 +47,7 @@ def write_predictions(prediction_dfs: dict, out_dir, prefix: str = "predictions_
     written = []
     for th, table in prediction_dfs.items():
         path = out_dir / f"{prefix}_{th:.2f}.tsv"
-        names = tbl.columns(table)
-        _write_tsv(path, names, [tbl.column(table, c) for c in names])
+        tbl.write_tsv(path, table)
         written.append(path)
     return written
 

@@ -80,6 +80,11 @@ class InferencePipeline:
     def forward(self, audio: torch.Tensor, embeddings: torch.Tensor | None = None):
         """Device program: audio [B, N] -> (strong [B, C, T'], weak [B, C],
         activity [n_th, B, C, T'] bool)."""
+        return self._forward_impl(audio, embeddings)
+
+    def _forward_impl(self, audio, embeddings=None):
+        """The forward without its inference mode, which tools/export.py
+        traces (under no_grad)."""
         x = log_mel_spectrogram(audio, self.mel_cfg)
         x = apply_scaler(x, self.scaler_cfg, self.scaler_state)
         if embeddings is None and self.embedder is not None:

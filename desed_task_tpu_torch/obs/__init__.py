@@ -1,1 +1,2 @@
-"""Run records: metrics log, checkpoints, energy estimate, MACs, stall watchdog."""
+"""Run records: metrics log, checkpoints, energy estimate, MACs, stall
+watchdog, profiling (a Chrome trace, a step timer)."""

@@ -7,9 +7,10 @@ count and Adam moments, the step, the fitted scaler statistics and the
 state of the step's torch.Generator. The JAX package folds the step into a
 fixed key, so its resume needs no RNG state; the port's step draws from a
 running generator, so a resumed run equals an uninterrupted one only if
-the generator's state comes back too. A data-parallel run's ranks draw
-from generators of their own: its checkpoint also holds every rank's
-state (`rank_generators`), and each rank restores its own.
+the generator's state comes back too. A run on a mesh has a generator on
+every rank: its checkpoint also holds every rank's state
+(`rank_generators`, in global rank order over all the mesh's axes), and
+each rank restores its own by its global rank.
 
 Keeps `last` and the top-1 `best` by objective (mode max), as the
 reference's ModelCheckpoint (train_pretrained.py:560-581); `manager.json`
@@ -34,7 +35,7 @@ def _host(tensors):
 def state_payload(state, generator: torch.Generator | None = None,
                   rank_generators: list | None = None) -> dict:
     """The checkpoint's contents: tensors on the host, plain containers.
-    rank_generators: each rank's generator state, in rank order."""
+    rank_generators: every rank's generator state, in global rank order."""
     scaler = state.scaler
     payload = {
         "step": int(state.step),

@@ -16,6 +16,11 @@ the stream are passed as `ctypes.c_void_p`, never as 32-bit ints.
 
 `LAUNCHES` counts kernel launches per wrapper: each wrapper calls
 `count_launch` once where it launches its kernel, and nowhere else.
+
+The forward entries that serving and an exported program call are ops of
+the torch.library namespace `desed_torch` (`define_op`): the CUDA kernel
+for CUDA tensors, the plain version for CPU tensors, and a fake function
+through which torch.export traces them.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -108,10 +114,12 @@ def load(name: str) -> ctypes.CDLL:
 
 def function(name: str, fn: str, argtypes):
     """C entry `fn` of library `name`, its argument types declared once."""
-    f = getattr(load(name), fn)
-    if f.argtypes is None:
+    f = _FUNCS.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
+        _FUNCS[(name, fn)] = f
     return f
 
 
@@ -121,7 +129,26 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card (the raw handle, without building the
+    torch.cuda.Stream object that current_stream returns)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def op_library() -> torch.library.Library:
+    """A fragment of the torch.library namespace desed_torch, where the
+    kernels' forward entries are registered as ops."""
+    return torch.library.Library("desed_torch", "FRAGMENT")
+
+
+def define_op(lib: torch.library.Library, schema: str, cuda, cpu, fake) -> None:
+    """Define desed_torch::<schema> with its CUDA kernel launch, its plain
+    version for CPU tensors and its fake function (output shapes and dtypes,
+    for torch.export); no other device has an implementation."""
+    name = schema.split("(", 1)[0]
+    lib.define(schema)
+    lib.impl(name, cuda, "CUDA")
+    lib.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"desed_torch::{name}", fake, lib=lib)
 
 
 def require_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:

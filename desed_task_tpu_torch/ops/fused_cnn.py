@@ -23,8 +23,12 @@ The source notes in csrc/fused_cnn.cu give each kernel's bound on the H100
 and its design; `conv_fwd_plan`, `glu_fwd_plan`, `conv_bwd_plan` and
 `glu_bwd_plan` pick their tiles from the shape alone. Each wrapper takes its
 plain PyTorch version (`*_plain`, beside it) only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. Two `torch.autograd.Function`s tie
-each forward to its backward.
+tensors it launches the kernel or raises. The two forwards run as
+torch.library custom ops (desed_torch::conv_bn_stats, desed_torch::
+glu_drop_pool): they dispatch by device, and torch.export keeps each whole
+through its fake function (tools/export.py). Two `torch.autograd.Function`s
+tie each forward to its backward and call the ops in their forward, so
+serving, training and an exported program take one route.
 `fused_glu_block` keeps the contract of pallas_cnn.py:678-747, with the
 BatchNorm scale and bias math in torch, so autograd carries the gradients
 of the batch mean and variance back into conv_bn_stats_bwd as ds and dq.
@@ -215,11 +219,14 @@ def conv_bn_stats(x, w, bias):
     their products on the tensor cores, and take w as it is at every 2024
     block: `conv_fwd_plan(...).kernel`). Deterministic: lane partials per
     tile or per CTA, added in a fixed order (`conv_fwd_plan`). Launches
-    count under "conv_bn_stats" (fp32) or "conv_bn_stats.bf16".
+    count under "conv_bn_stats" (fp32) or "conv_bn_stats.bf16". Runs as
+    the custom op desed_torch::conv_bn_stats.
     """
+    return _CONV_BN_STATS_OP(x, w, bias)
+
+
+def _conv_bn_stats_cuda(x, w, bias):
     dtype = _io_dtype("conv_bn_stats", x, w, bias)
-    if x.device.type == "cpu":
-        return conv_bn_stats_plain(x, w, bias)
     bf = dtype == torch.bfloat16
     _build.require_cuda("conv_bn_stats", torch.bfloat16 if bf else torch.float32, x, w, bias)
     B, T, F, Ci = x.shape
@@ -232,17 +239,27 @@ def conv_bn_stats(x, w, bias):
     x, w = _aligned(x), _aligned(w)
     L = F * Co
     y = torch.empty((B, T, F, Co), device=x.device, dtype=dtype)
-    part = torch.empty((2, plan.n_parts, L), device=x.device, dtype=torch.float32)
+    part = torch.empty((2 * plan.n_parts * L,), device=x.device, dtype=torch.float32)
     s = torch.empty((L,), device=x.device, dtype=torch.float32)
     q = torch.empty((L,), device=x.device, dtype=torch.float32)
     entry = "conv_bn_stats_bf16" if bf else "conv_bn_stats"
-    fn = _build.function("fused_cnn", entry, [_build.P] * 8 + [_build.I] * 5 + [_build.P] * 2)
+    fn = _build.function("fused_cnn", entry, _CONV_FWD_ARGS)
+    part_s = part.data_ptr()  # the sums' partials, then the squares'
     err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
-             part[0].data_ptr(), part[1].data_ptr(), s.data_ptr(), q.data_ptr(),
+             part_s, part_s + 4 * plan.n_parts * L, s.data_ptr(), q.data_ptr(),
              B, T, F, Ci, Co, _c_ints(plan), _build.stream_ptr(x))
     _build.check(err, entry)
     _build.count_launch("conv_bn_stats.bf16" if bf else "conv_bn_stats")
     return y, s, q
+
+
+def _conv_bn_stats_fake(x, w, bias):
+    _io_dtype("conv_bn_stats", x, w, bias)
+    B, T, F, _ = x.shape
+    Co = w.shape[-1]
+    stats = (F * Co,)
+    return (x.new_empty((B, T, F, Co)), x.new_empty(stats, dtype=torch.float32),
+            x.new_empty(stats, dtype=torch.float32))
 
 
 def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0):
@@ -256,18 +273,20 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
     tiles through shared memory that hold Wg^T of a channel tile whole, Co
     up to about 700 (`glu_fwd_plan`).
     Launches count under "glu_drop_pool" (fp32) or "glu_drop_pool.bf16".
+    Runs as the custom op desed_torch::glu_drop_pool.
     """
+    pt, pf = pool
+    return _GLU_DROP_POOL_OP(y, scale_f, bias_f, wg, bg, bits, int(pt), int(pf), float(keep_prob))
+
+
+def _glu_drop_pool_cuda(y, scale_f, bias_f, wg, bg, bits, pt, pf, keep_prob):
     dtype = _io_dtype("glu_drop_pool", y, wg, bg)
-    if y.device.type == "cpu":
-        return glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bits,
-                                   pool=pool, keep_prob=keep_prob)
     bf = dtype == torch.bfloat16
     _build.require_cuda("glu_drop_pool", torch.bfloat16 if bf else torch.float32, y, wg, bg)
     _build.require_cuda_f32("glu_drop_pool", scale_f, bias_f)
     if scale_f.device != y.device:
         raise ValueError("glu_drop_pool: all tensors must be on one CUDA device")
     B, T, F, Co = y.shape
-    pt, pf = pool
     if scale_f.numel() != F * Co or bias_f.numel() != F * Co or tuple(wg.shape) != (Co, Co):
         raise ValueError("glu_drop_pool: scale_f/bias_f must be [F*Co], wg [Co, Co]")
     if bits is not None:
@@ -280,8 +299,7 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
     bits = None if bits is None else _aligned(bits)
     z = torch.empty((B, T // pt, F // pf, Co), device=y.device, dtype=dtype)
     entry = "glu_drop_pool_bf16" if bf else "glu_drop_pool"
-    fn = _build.function("fused_cnn", entry,
-                         [_build.P] * 7 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P])
+    fn = _build.function("fused_cnn", entry, _GLU_FWD_ARGS)
     err = fn(y.data_ptr(), scale_f.data_ptr(), bias_f.data_ptr(), wg.data_ptr(),
              bg.data_ptr(), None if bits is None else bits.data_ptr(), z.data_ptr(),
              B, T, F, Co, pt, pf, keep_threshold(keep_prob), 1.0 / keep_prob,
@@ -289,6 +307,35 @@ def glu_drop_pool(y, scale_f, bias_f, wg, bg, bits=None, *, pool, keep_prob=1.0)
     _build.check(err, entry)
     _build.count_launch("glu_drop_pool.bf16" if bf else "glu_drop_pool")
     return z
+
+
+def _glu_drop_pool_cpu(y, scale_f, bias_f, wg, bg, bits, pt, pf, keep_prob):
+    return glu_drop_pool_plain(y, scale_f, bias_f, wg, bg, bits, pool=(pt, pf),
+                               keep_prob=keep_prob)
+
+
+def _glu_drop_pool_fake(y, scale_f, bias_f, wg, bg, bits, pt, pf, keep_prob):
+    _io_dtype("glu_drop_pool", y, wg, bg)
+    B, T, F, Co = y.shape
+    return y.new_empty((B, T // pt, F // pf, Co))
+
+
+# The ops' registrations live as long as this library object. Defined with
+# the low-level API (a schema and a kernel per dispatch key): the decorator
+# API's Python wrappers cost several times its dispatch on every call.
+_LIB = _build.op_library()
+_build.define_op(_LIB, "conv_bn_stats(Tensor x, Tensor w, Tensor bias) "
+                 "-> (Tensor, Tensor, Tensor)",
+                 _conv_bn_stats_cuda, conv_bn_stats_plain, _conv_bn_stats_fake)
+_build.define_op(_LIB, "glu_drop_pool(Tensor y, Tensor scale_f, Tensor bias_f, Tensor wg, "
+                 "Tensor bg, Tensor? bits, int pt, int pf, float keep_prob) -> Tensor",
+                 _glu_drop_pool_cuda, _glu_drop_pool_cpu, _glu_drop_pool_fake)
+# the ops' overloads, called directly: each call skips the overload lookup
+_CONV_BN_STATS_OP = torch.ops.desed_torch.conv_bn_stats.default
+_GLU_DROP_POOL_OP = torch.ops.desed_torch.glu_drop_pool.default
+# the forward entries' C argument types
+_CONV_FWD_ARGS = [_build.P] * 8 + [_build.I] * 5 + [_build.P] * 2
+_GLU_FWD_ARGS = [_build.P] * 7 + [_build.I] * 7 + [_build.Fl, _build.P, _build.P]
 
 
 # --------------------------------------------------------------------------
@@ -352,8 +399,11 @@ class ConvBwdPlan:
         return [int(getattr(self, f.name)) for f in fields(self)]
 
 
+@functools.lru_cache(maxsize=None)
 def _c_ints(plan):
-    """The plan's fields as a C int array, for the kernels' entry points."""
+    """The plan's fields as a C int array, for the kernels' entry points;
+    one array a plan, kept (the plans are frozen and the kernels' entries
+    only read it)."""
     ints = plan.ints()
     return ctypes.cast((ctypes.c_int * len(ints))(*ints), ctypes.c_void_p)
 

@@ -210,9 +210,14 @@ def bigru_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
 
 def bigru(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
     """Both GRU directions in one recurrence kernel; contract of
-    pallas_gru.bigru_pallas (pallas_gru.py:224-266), see `bigru_plain`."""
-    if xg_f.device.type == "cpu":
-        return bigru_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b)
+    pallas_gru.bigru_pallas (pallas_gru.py:224-266), see `bigru_plain`.
+    The torch.library custom op desed_torch::bigru: the kernel for CUDA
+    tensors, `bigru_plain` for CPU tensors, opaque to torch.export (its
+    fake function gives the two [B, T, H] outputs)."""
+    return _BIGRU_OP(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b)
+
+
+def _bigru_cuda(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
     B, T, H3 = xg_f.shape
     H = H3 // 3
     for name, t, want in (("xg_b", xg_b, (B, T, H3)), ("w_hh_f", w_hh_f, (H3, H)),
@@ -222,11 +227,12 @@ def bigru(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
             raise ValueError(f"bigru: {name} {tuple(t.shape)}, expected {want}")
     xg_f, xg_b = xg_f.contiguous(), xg_b.contiguous()
     bhh = torch.stack([b_hh_f, b_hh_b]).contiguous()
-    out = torch.empty((2, B, T, H), device=xg_f.device, dtype=xg_f.dtype)
+    # two outputs of their own: a custom op's outputs may not alias
+    out = [torch.empty((B, T, H), device=xg_f.device, dtype=xg_f.dtype) for _ in range(2)]
     plan, lay = bigru_config(B, T, H)
     if plan == "cluster":
         wpack = pack_weights(w_hh_f, w_hh_b, lay, "fwd")
-        _build.require_cuda_f32("bigru", xg_f, xg_b, wpack, bhh, out)
+        _build.require_cuda_f32("bigru", xg_f, xg_b, wpack, bhh, *out)
         fn = _build.function("gru", "bigru_fwd_cluster",
                              [_build.P] * 6 + [_build.I] * 10 + [_build.P])
         err = fn(xg_f.data_ptr(), xg_b.data_ptr(), wpack.data_ptr(), bhh.data_ptr(),
@@ -237,7 +243,7 @@ def bigru(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
         # W_hh^T per direction, [2, H, 3H]: neighbouring threads read
         # neighbouring gate columns
         wt = torch.stack([w_hh_f.t(), w_hh_b.t()]).contiguous()
-        _build.require_cuda_f32("bigru", xg_f, xg_b, wt, bhh, out)
+        _build.require_cuda_f32("bigru", xg_f, xg_b, wt, bhh, *out)
         fn = _build.function("gru", "bigru_fwd",
                              [_build.P] * 6 + [_build.I] * 3 + [_build.P])
         err = fn(xg_f.data_ptr(), xg_b.data_ptr(), wt.data_ptr(), bhh.data_ptr(),
@@ -245,6 +251,18 @@ def bigru(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
     _check(err, "bigru", lay)
     _build.count_launch("bigru")
     return out[0], out[1]
+
+
+def _bigru_fake(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
+    B, T, H3 = xg_f.shape
+    return xg_f.new_empty((B, T, H3 // 3)), xg_f.new_empty((B, T, H3 // 3))
+
+
+_LIB = _build.op_library()  # the op's registrations live as long as this object
+_build.define_op(_LIB, "bigru(Tensor xg_f, Tensor xg_b, Tensor w_hh_f, Tensor b_hh_f, "
+                 "Tensor w_hh_b, Tensor b_hh_b) -> (Tensor, Tensor)",
+                 _bigru_cuda, bigru_plain, _bigru_fake)
+_BIGRU_OP = torch.ops.desed_torch.bigru.default  # the overload, called directly
 
 
 def bigru_bwd_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b, fwd, bwd, dfwd, dbwd):

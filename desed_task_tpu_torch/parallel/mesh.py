@@ -22,7 +22,9 @@ for the step's collectives, and one on gloo for what goes to the host
 anyway (the eval scores' gather, objects such as generator states); on a
 gloo process they are the same group. Every group's collectives fail after
 the timeout that init_distributed was given (300 s when the process joined
-some other way), as the default group's do.
+some other way), as the default group's do. `cpu_world` is a gloo group of
+every rank (on a gloo process, the default group), for objects gathered
+over the whole mesh, such as the checkpoint's generator states.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ class Mesh:
     index: dict  # axis -> this rank's coordinate on it
     groups: dict  # axis -> process group on the process's backend
     cpu_groups: dict  # axis -> process group on gloo
+    cpu_world: object = None  # gloo group of every rank; None: the default group (gloo)
 
     @property
     def size(self) -> int:
@@ -105,8 +108,9 @@ def make_mesh(shape: dict[str, int] | None = None) -> Mesh:
         groups[axis], _ = dist.new_subgroups_by_enumeration(lines, timeout=_timeout)
         cpu_groups[axis] = (groups[axis] if on_gloo else dist.new_subgroups_by_enumeration(
             lines, timeout=_timeout, backend="gloo")[0])
+    cpu_world = None if on_gloo else dist.new_group(backend="gloo", timeout=_timeout)
     return Mesh(shape=shape, index=dict(zip(shape, coord)), groups=groups,
-                cpu_groups=cpu_groups)
+                cpu_groups=cpu_groups, cpu_world=cpu_world)
 
 
 def _rows(leaf, n: int, r: int, batch_axis: int):

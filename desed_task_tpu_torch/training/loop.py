@@ -17,8 +17,9 @@ On a mesh (`mesh=`, as the JAX loop's loop.py:39, :57, :75-76), every rank
 runs the loop: each host batch, the same global batch on every rank, is cut
 to the rank's rows (parallel.shard_batch) before the step. The first rank
 alone logs and writes checkpoints (each holding every rank's generator
-state, gathered over the data axis's gloo group), and the others wait at a
-barrier until a checkpoint is written; every rank reads one on resume.
+state, gathered over the whole mesh in global rank order, whatever axes it
+has), and every rank waits at a barrier of the whole mesh until a
+checkpoint is written; every rank reads its own state back on resume.
 Validation runs on every rank (the sharded eval gathers its scores to the
 first, and hands its objective to all), so every rank takes the same
 early-stopping decision.
@@ -140,10 +141,12 @@ class TrainLoop:
 
     def _save(self, name: str, meta: dict, obj=None):
         """Checkpoint `name` (or "best" by `obj`); on a mesh every rank
-        calls it, the first writes it with every rank's generator state."""
+        calls it, the first writes it with every rank's generator state, in
+        global rank order (a model axis's ranks draw from generators of their
+        own too)."""
         ranks = None
         if self.mesh is not None:
-            group = self.mesh.cpu_groups["data"]
+            group = self.mesh.cpu_world
             ranks = [None] * dist.get_world_size(group)
             dist.all_gather_object(ranks, self.rng.get_state(), group=group)
         if self.rank == 0:
@@ -154,7 +157,7 @@ class TrainLoop:
                 self.ckpt.save_if_best(self.state, obj, meta, generator=self.rng,
                                        rank_generators=ranks)
         if self.mesh is not None:
-            dist.barrier(group=self.mesh.cpu_groups["data"])
+            dist.barrier(group=self.mesh.cpu_world)
 
     def resume(self, name: str = "last") -> bool:
         """Restore the state, the generator and the loop's counters from a

@@ -24,7 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..data.audio_io import read_wav, to_mono
+from ..data.audio_io import read_audio
 from ..device import fp32_math, resolve_device
 from ..metrics.separation import si_snr_improvement
 from ..models.tdcn import TDCNPP, init_tdcn
@@ -51,8 +51,8 @@ class _SegmentPool:
     """Host-side pool of fixed-length segments cropped from wav folders.
 
     Clips shorter than segment_len are tiled; longer ones yield random
-    crops. The clips are decoded once, at construction. Wavs must be at
-    `fs` (the port has no resampler)."""
+    crops. The clips are decoded once, at construction, and resampled to
+    `fs` where they are at another rate."""
 
     def __init__(self, folders: Sequence[str | Path], segment_len: int, fs: int = 16000,
                  limit: int | None = None):
@@ -63,10 +63,7 @@ class _SegmentPool:
             if limit is not None:
                 wavs = wavs[: max(limit - len(self.clips), 0)]
             for w in wavs:
-                audio, rate = read_wav(w)
-                if rate != fs:
-                    raise ValueError(f"{w} is at {rate} Hz, not {fs}")
-                audio = to_mono(audio)
+                audio, *_ = read_audio(w, target_fs=fs)
                 if audio.shape[-1] < segment_len:
                     audio = np.tile(audio, -(-segment_len // audio.shape[-1]))
                 self.clips.append(audio.astype(np.float32))

@@ -137,3 +137,22 @@ def dropna(table) -> dict:
     for col in t.values():
         keep &= ~_missing(col)
     return take(t, np.flatnonzero(keep))
+
+
+def _field(v) -> str:
+    return "" if is_missing(v) else str(v)
+
+
+def write_tsv(path, table) -> None:
+    """A column table -> a tab-separated file with a header row and no index
+    column, as DataFrame.to_csv(path, sep="\\t", index=False) writes it:
+    a float by the shortest repr of its own width (float32 or float64), a
+    missing field empty."""
+    import csv
+
+    names = columns(table)
+    cols = [column(table, c) for c in names]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(names)
+        w.writerows([_field(v) for v in row] for row in zip(*cols))

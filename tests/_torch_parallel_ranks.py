@@ -254,3 +254,34 @@ def unsharded_test_rank(rank, world, config, log_dir):
     return dict(save_dirs=[None if d is None else str(d) for d in save_dirs],
                 results=None if results is None else {k: v for k, v in results.items()
                                                       if isinstance(v, float)})
+
+
+def save_resume_rank(rank, world, log_dir):
+    """TrainLoop on a {"data": 2, "model": 2} mesh: every rank saves the
+    "last" checkpoint (rank 0 writes it), draws on, then resumes from it
+    with a fresh generator; the generator state each rank saved and got
+    back, and how many rank states the checkpoint holds."""
+    import types
+
+    from desed_task_tpu_torch.obs.checkpoint import CheckpointManager
+    from desed_task_tpu_torch.training.loop import TrainLoop
+
+    _one_thread()
+    mesh = make_mesh({"data": 2, "model": 2})
+    torch.manual_seed(0)
+    net = torch.nn.Linear(3, 2)
+    state = types.SimpleNamespace(step=3, student=net, teacher=torch.nn.Linear(3, 2),
+                                  opt_state={"count": 3, "mu": [], "nu": []}, scaler=None)
+    ckpt = CheckpointManager(log_dir)
+    gen = torch.Generator().manual_seed(1000 + rank)
+    torch.rand(5 + rank, generator=gen)
+    loop = TrainLoop(None, state, None, 1, None, ckpt=ckpt, rng=gen, mesh=mesh)
+    saved = gen.get_state()
+    loop._save("last", {"epoch": 0, "best_obj": 0.5})
+    torch.rand(7, generator=gen)
+    again = TrainLoop(None, state, None, 1, None, ckpt=ckpt,
+                      rng=torch.Generator().manual_seed(7), mesh=mesh)
+    resumed = again.resume("last")
+    return dict(saved=saved, restored=again.rng.get_state(), resumed=resumed,
+                start_epoch=again.start_epoch, index=mesh.index,
+                n_states=len(ckpt.load("last")["rank_generators"]))

@@ -105,3 +105,17 @@ def test_slot_not_divisible_by_the_ranks_raises(corpus, tmp_path):
     with pytest.raises(RuntimeError, match=r"ValueError: slot sizes \{'weak': 3\}"):
         spawn_ranks(ranks.recipe_rank, 2, args=(config, str(tmp_path / "odd")),
                     timeout_s=DEADLINE)
+
+
+def test_save_and_resume_on_a_mesh_with_a_model_axis(tmp_path):
+    """{"data": 2, "model": 2}: the checkpoint holds all four ranks' generator
+    states in global rank order, and every rank gets its own back."""
+    out = spawn_ranks(ranks.save_resume_rank, 4, args=(str(tmp_path / "ckpt"),),
+                      timeout_s=DEADLINE)
+    assert [o["index"] for o in out] == [{"data": d, "model": m}
+                                         for d in (0, 1) for m in (0, 1)]
+    for o in out:
+        assert o["resumed"] and o["start_epoch"] == 1 and o["n_states"] == 4
+        assert torch.equal(o["restored"], o["saved"])
+    assert all(not torch.equal(a["saved"], b["saved"])
+               for i, a in enumerate(out) for b in out[i + 1:])
