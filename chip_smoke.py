@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Start the PyTorch port on one NVIDIA GPU and hold it to its plain versions.
 
-    python3 chip_smoke.py [--phases 3,4,6,7,8b,9,10,11,12,13,14,15]
+    python3 chip_smoke.py [--phases 3,4,6,7,8b,9,10,11,12,13,14,15,16]
 
 With no argument every phase runs (what the contract runs). `--phases`
 runs the build and the phases named (each with its lettered sub-phases),
@@ -231,6 +231,26 @@ Phases (any failure exits non-zero; nothing is caught):
      loaded program launches 7/7/1 a batch and its outputs on 64 seeded
      clips are bitwise equal to the eager pipeline's; the same for the
      bf16 pipeline (rows 1b, 2b, 5); exported and eager forward ms.
+  16. the options no recipe uses, at the 2024 flagship's width: (a)
+     crnn_2024(n_in_channel=OPT_NC, cnn_integration=True): rows 1-4 at the
+     seven blocks with B * OPT_NC maps (128 serving, 120 training) within
+     TOL_KERNEL of their plain versions; the eval forward on [64, 2, 128,
+     626] features launching OPT_FWD (the conv kernels at 128 maps) within
+     TOL_SCORES of the same weights through the plain versions; bf16
+     (OPT_FWD16), on OPT_CPU_CLIPS clips nearer the same bf16 model on the
+     CPU than the fp32 forward (BF16_NEARER); one train-mode forward and
+     backward of 60 clips from one generator state, OPT_FWD + OPT_BWD,
+     gradients within TOL_GRAD of the plain model's; (b) crnn_2024 with
+     relu, leakyrelu or cg (batch), and glu + layer (OPT_ACTS): the
+     unfused chain and the BiGRU kernels, eval within TOL_SCORES and train
+     gradients within TOL_GRAD of the plain model, launching bigru (and
+     bigru_bwd) once and no conv kernel; (c) at B=64, T=156, H=192
+     BidirectionalGRU(fused_directions=False) within TOL_KERNEL of the
+     kernel, a 2-layer BidirectionalLSTM on the card within TOL_KERNEL of
+     its CPU run; (d) the native wav loader required; a serving run of
+     phase 4's wavs decoding each batch natively; decode_batch rows within
+     TOL_WAV of the Python reader; `_load_batch` seconds, native against
+     the Python reader. ms of each path beside the plain one.
 Then a `kernels` JSON line (rows 5 and 6 with their plan, cluster size C,
 batch rows BT and us per recurrence step; the bf16 modes of rows 1 and 2 as
 entries of their own, launches from the bf16 serving run, and of rows 3 and
@@ -243,7 +263,10 @@ launches an eval batch per model pass} from phase 11, and "recipe_2023_bf16",
 "sharded_step", "sharded_step_bf16" and "tp_e2e_beats" (rank 0's launches a
 step) and "sharded_eval" (a batch a model pass) from phase 14, "quickstart"
 (launches a step), "hpo" (both workers' runs) and "export" (a batch of the
-loaded fp32 and bf16 programs) from phase 15;
+loaded fp32 and bf16 programs) from phase 15, and phase 16's
+"options_cnn_integration", "options_cnn_integration_bf16" (a forward),
+"options_cnn_integration_train" (a forward and backward) and, for each of
+OPT_ACTS, "options_<act>_<norm>" and "options_<act>_<norm>_train";
 row 7 in fp32 and, as `fused_log_mel.bf16`, in bf16, each at B=64 with its plan, launched on no
 path), the nvidia-smi line, and the result
 line {"ok": true, "device": {...}} last.
@@ -628,11 +651,23 @@ def check_kernels_bf16(geoms, gen, report, rows32):
     return rows
 
 
+def write_clips(root: Path, rng) -> list:
+    """Phase 4's N_CLIPS seeded wavs (10 s of noise at 16 kHz, PCM16) in root."""
+    from desed_task_tpu_torch.data.audio_io import write_wav
+
+    wavs = []
+    for i in range(N_CLIPS):
+        p = root / f"clip_{i:04d}.wav"
+        write_wav(p, rng.standard_normal(160000).astype(np.float32) * 0.1, 16000)
+        wavs.append(p)
+    return wavs
+
+
 def serve(gen, report):
     """Phase 4: the serving path end to end, kernels against plain versions."""
     import torch
 
-    from desed_task_tpu_torch.data.audio_io import write_wav
+    from desed_task_tpu_torch.data import native
     from desed_task_tpu_torch.inference.pipeline import InferencePipeline
     from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
     from desed_task_tpu_torch.ops import _build
@@ -657,23 +692,23 @@ def serve(gen, report):
     pipe_plain = InferencePipeline(plain, None, enc, **kw)
 
     with tempfile.TemporaryDirectory() as tmp:
-        wavs = []
-        for i in range(N_CLIPS):
-            p = Path(tmp) / f"clip_{i:04d}.wav"
-            write_wav(p, rng.standard_normal(160000).astype(np.float32) * 0.1, 16000)
-            wavs.append(p)
+        wavs = write_clips(Path(tmp), rng)
         n_batches = -(-N_CLIPS // BATCH)
+        # built before the window, which then holds decode and serving only
+        require(native.available(), "serving: the native wav loader is not built")
         _build.reset_launches()
+        native.reset_counts()
         t0 = time.perf_counter()
         scores, weak, events = pipe.run(wavs, embeddings_lookup=lookup)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        decodes = dict(native.COUNTS)
         want = {"conv_bn_stats": 7 * n_batches, "glu_drop_pool": 7 * n_batches,
                 "bigru": n_batches}
         print(f"serving: {N_CLIPS} clips in {n_batches} batches of {BATCH}, "
               f"{run_s:.3f} s wall (decode included); launches {launches}, "
-              f"expected {want}", flush=True)
+              f"expected {want}; native wav decodes {decodes}", flush=True)
         require(launches == want, "the serving run did not go through every kernel")
         scores_p, weak_p, _ = pipe_plain.run(wavs, embeddings_lookup=lookup)
         require(dict(_build.LAUNCHES) == launches, "the plain forward launched a kernel")
@@ -692,7 +727,8 @@ def serve(gen, report):
           f"{n_events[thresholds[25]]}", flush=True)
     require(s_err <= TOL_SCORES and w_err <= TOL_SCORES, "serving scores disagree")
     report["serving"] = dict(clips=N_CLIPS, batches=n_batches, wall_s=run_s,
-                             launches=launches, strong_err=s_err, weak_err=w_err)
+                             launches=launches, strong_err=s_err, weak_err=w_err,
+                             native_decodes=decodes)
 
     # phase 5a: the device program per batch, and its stages
     from desed_task_tpu_torch.ops.frontend import log_mel_spectrogram
@@ -3853,9 +3889,332 @@ def auxiliaries(card, report, step16_launches):
     return by_path
 
 
+# phase 16: the options no recipe uses, at the 2024 flagship's width
+OPT_NC = 2  # cnn_integration's input channels: the kernels see B * OPT_NC maps
+OPT_ACTS = (("relu", "batch"), ("leakyrelu", "batch"), ("cg", "batch"), ("glu", "layer"))
+OPT_FWD = {"conv_bn_stats": 7, "glu_drop_pool": 7, "bigru": 1}
+OPT_FWD16 = {"conv_bn_stats.bf16": 7, "glu_drop_pool.bf16": 7, "bigru": 1}
+OPT_BWD = {"conv_bn_stats_bwd": 7, "glu_drop_pool_bwd": 7, "bigru_bwd": 1}
+OPT_CPU_CLIPS = 4  # clips of the bf16 cnn_integration forward on the CPU (8 maps)
+LSTM_HIDDEN, LSTM_OUT, LSTM_LAYERS = 384, 128, 2  # 192 units a direction
+TOL_WAV = 1e-7  # native rows against the Python reader (double-precision scale)
+
+
+def hold_conv_rows(geoms, B: int, gen) -> float:
+    """Rows 1 and 2 (forward) and 3 and 4 (backward) at the seven 2024
+    blocks with B maps against their plain versions; the max error of
+    max(1, max |plain|)."""
+    import torch
+
+    from desed_task_tpu_torch.ops import fused_cnn
+
+    dev, worst = torch.device("cuda"), 0.0
+    for i, (T, Fq, ci, co, pool) in enumerate(geoms):
+        x = torch.randn(B, T, Fq, ci, generator=gen).to(dev)
+        w = (torch.randn(3, 3, ci, co, generator=gen) / math.sqrt(9 * ci)).to(dev)
+        b = (torch.randn(co, generator=gen) * 0.1).to(dev)
+        y, s, q = fused_cnn.conv_bn_stats(x, w, b)
+        errs = [rel_err(u, v) for u, v in zip((y, s, q), fused_cnn.conv_bn_stats_plain(x, w, b))]
+        scale_f = (1.0 + 0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        bias_f = (0.1 * torch.randn(Fq * co, generator=gen)).to(dev)
+        wg = (torch.randn(co, co, generator=gen) / math.sqrt(co)).to(dev)
+        bg = (0.1 * torch.randn(co, generator=gen)).to(dev)
+        bits = torch.randint(0, 256, (B, T, Fq * co), generator=gen, dtype=torch.uint8).to(dev)
+        gz = torch.randn(B, T // pool[0], Fq // pool[1], co, generator=gen).to(dev)
+        args = (y, scale_f, bias_f, wg, bg, bits)
+        errs.append(rel_err(fused_cnn.glu_drop_pool(*args, pool=pool, keep_prob=0.5),
+                            fused_cnn.glu_drop_pool_plain(*args, pool=pool, keep_prob=0.5)))
+        errs += [rel_err(u, v) for u, v in zip(
+            fused_cnn.glu_drop_pool_bwd(*args, gz, pool=pool, keep_prob=0.5),
+            fused_cnn.glu_drop_pool_bwd_plain(*args, gz, pool=pool, keep_prob=0.5))]
+        dy = torch.randn(B, T, Fq, co, generator=gen).to(dev)
+        ds, dq = (torch.randn(Fq * co, generator=gen).to(dev) for _ in range(2))
+        errs += [rel_err(u, v) for u, v in zip(
+            fused_cnn.conv_bn_stats_bwd(x, w, y, dy, ds, dq, i > 0),
+            fused_cnn.conv_bn_stats_bwd_plain(x, w, y, dy, ds, dq, i > 0)) if v is not None]
+        worst = max(worst, *errs)
+        del x, y, bits, gz, dy
+    return worst
+
+
+def options(card, report):
+    """Phase 16: the options no recipe uses, at the 2024 flagship's width:
+    (a) cnn_integration, (b) the other activations and "layer"
+    normalization, (c) the unfused-direction GRU and the BiLSTM, (d) the
+    native wav loader."""
+    import copy
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from desed_task_tpu_torch.data import audio_io, native
+    from desed_task_tpu_torch.inference.pipeline import InferencePipeline
+    from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
+    from desed_task_tpu_torch.models.crnn import init_weights
+    from desed_task_tpu_torch.models.rnn import BidirectionalGRU, BidirectionalLSTM
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops.frontend import MelConfig
+    from desed_task_tpu_torch.recipes_config import MEDIAN_2024, crnn_2024
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(16)
+    r = np.random.default_rng(16)
+    dev = "cuda"
+    out, by_path = {}, {}
+    card_t = lambda a: torch.as_tensor(a, device=dev)
+    feats = card_t(r.standard_normal((BATCH, OPT_NC, 128, 626)).astype(np.float32))
+    emb = card_t(r.standard_normal((BATCH, 768, 496)).astype(np.float32))
+    tfeats = card_t(r.standard_normal((TRAIN_BATCH, OPT_NC, 128, 626)).astype(np.float32))
+    temb = card_t(r.standard_normal((TRAIN_BATCH, 768, 496)).astype(np.float32))
+    cs = card_t(r.standard_normal((TRAIN_BATCH, 27, 156)).astype(np.float32))
+    cw = card_t(r.standard_normal((TRAIN_BATCH, 27)).astype(np.float32))
+
+    def pair(**kw):
+        """A seeded model with the kernels and the same weights through the
+        plain versions, on the card."""
+        m = randomize(crnn_2024(**kw), gen)
+        p = crnn_2024(**kw, fused_blocks=False, rnn_kernel=False)
+        p.load_state_dict(m.state_dict())
+        return m.to(dev), p.to(dev)
+
+    def scores(m, x, e):
+        with torch.inference_mode():
+            _build.reset_launches()
+            s, w = m.eval()(x, embeddings=e)
+            torch.cuda.synchronize()
+        return s, w, dict(_build.LAUNCHES)
+
+    def loss(s, w):
+        """Seeded cotangents through means, at the scale of the recipe's
+        losses (so that the 1e-3 floor of TOL_GRAD sits under the
+        gradients, and the conv biases' exact 0 under BatchNorm stays
+        noise far below it)."""
+        return (s * cs).mean() + (w * cw).mean()
+
+    def grads(m, x, e):
+        """One train-mode forward and backward from one generator state."""
+        m.train().zero_grad(set_to_none=True)
+        _build.reset_launches()
+        s, w = m(x, embeddings=e, generator=torch.Generator(device=dev).manual_seed(5))
+        loss(s, w).backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.clone() for n, p in m.named_parameters()}, dict(_build.LAUNCHES)
+
+    def grad_err(g, gp):
+        errs = {n: float((g[n] - gp[n]).abs().max()) / max(float(gp[n].abs().max()), 1e-3)
+                for n in gp}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    def step_ms(m, x, e, iters):
+        def run():
+            m.zero_grad(set_to_none=True)
+            s, w = m(x, embeddings=e, generator=torch.Generator(device=dev).manual_seed(5))
+            loss(s, w).backward()
+        return time_ms(run, iters=iters, warmup=1)
+
+    # (a) cnn_integration: B * OPT_NC maps through rows 1-4, the BiGRU at B
+    geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
+    kerr = hold_conv_rows(geoms, BATCH * OPT_NC, gen)
+    kerr_t = hold_conv_rows(geoms, TRAIN_BATCH * OPT_NC, gen)
+    print(f"options (a): rows 1-4 at the seven 2024 blocks with {BATCH * OPT_NC} and "
+          f"{TRAIN_BATCH * OPT_NC} maps against their plain versions: max err "
+          f"{max(kerr, kerr_t):.3e} (tol {TOL_KERNEL})", flush=True)
+    require(max(kerr, kerr_t) <= TOL_KERNEL, "options (a): a kernel disagrees at B * nc maps")
+    kw = dict(n_in_channel=OPT_NC, cnn_integration=True)
+    model, plain = pair(**kw)
+    s, w, launches = scores(model, feats, emb)
+    sp, wp, plain_launches = scores(plain, feats, emb)
+    err = max(float((s - sp).abs().max()), float((w - wp).abs().max()))
+    print(f"options (a): crnn_2024(n_in_channel={OPT_NC}, cnn_integration=True) eval forward on "
+          f"{tuple(feats.shape)}: launches {launches} (expected {OPT_FWD}); scores against the "
+          f"plain model max err {err:.3e} (tol {TOL_SCORES})", flush=True)
+    require(launches == OPT_FWD and not plain_launches,
+            "options (a): the forward did not go through the kernels at B * nc maps")
+    require(err <= TOL_SCORES and bool(torch.isfinite(s).all() and torch.isfinite(w).all()),
+            "options (a): cnn_integration scores disagree with the plain model")
+    require(tuple(s.shape) == (BATCH, 27, 156), "options (a): strong scores' shape")
+    by_path["options_cnn_integration"] = launches
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(feats, embeddings=emb))
+        plain_fwd_ms = time_ms(lambda: plain(feats, embeddings=emb), iters=2, warmup=1)
+    # bf16: the card's bf16 forward nearer the same bf16 model on the CPU
+    # (the kernels' plain versions) than the card's fp32 forward
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    m16 = crnn_2024(**kw, compute_dtype=torch.bfloat16)
+    m16.load_state_dict(state)
+    cpu16 = copy.deepcopy(m16).eval()
+    m16 = m16.to(dev)
+    s16, w16, launches16 = scores(m16, feats, emb)
+    require(launches16 == OPT_FWD16, f"options (a): bf16 launches {launches16}")
+    n = OPT_CPU_CLIPS
+    with torch.inference_mode():
+        sc, wc = cpu16(feats[:n].cpu(), embeddings=emb[:n].cpu())
+    gap_cpu = max(float((s16[:n].cpu() - sc).abs().max()), float((w16[:n].cpu() - wc).abs().max()))
+    gap_fp32 = max(float((s16[:n] - s[:n]).abs().max()), float((w16[:n] - w[:n]).abs().max()))
+    share = gap_cpu / max(gap_fp32, 1e-30)
+    print(f"options (a) bf16: launches {launches16}; on {n} clips, scores max |diff| "
+          f"{gap_cpu:.3e} from the bf16 model on the CPU against {gap_fp32:.3e} from the fp32 "
+          f"forward (share {share:.3f}; limit below {BF16_NEARER:.1f})", flush=True)
+    require(gap_fp32 > 0 and share < BF16_NEARER,
+            "options (a): bf16 scores no nearer the plain bf16 model than the fp32 forward")
+    by_path["options_cnn_integration_bf16"] = launches16
+    with torch.inference_mode():
+        fwd16_ms = time_ms(lambda: m16(feats, embeddings=emb))
+    g, launches_t = grads(model, tfeats, temb)
+    gp, plain_t = grads(plain, tfeats, temb)
+    gerr, gworst = grad_err(g, gp)
+    want_t = {**OPT_FWD, **OPT_BWD}
+    print(f"options (a) train: {TRAIN_BATCH} clips x {OPT_NC} channels, one forward and "
+          f"backward from one generator state: launches {launches_t} (expected {want_t}); "
+          f"gradients against the plain model max err {gerr:.3e} at {gworst} "
+          f"(tol {TOL_GRAD})", flush=True)
+    require(launches_t == want_t and not plain_t, "options (a): train launches")
+    require(gerr <= TOL_GRAD, "options (a): cnn_integration gradients disagree")
+    by_path["options_cnn_integration_train"] = launches_t
+    train_ms = step_ms(model, tfeats, temb, 3)
+    plain_train_ms = step_ms(plain, tfeats, temb, 1)
+    out["cnn_integration"] = dict(
+        kernel_err=max(kerr, kerr_t), score_err=err, bf16_gap_cpu=gap_cpu,
+        bf16_gap_fp32=gap_fp32, grad_err=gerr, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+        fwd_bf16_ms=fwd16_ms, train_ms=train_ms, plain_train_ms=plain_train_ms)
+    print(f"[{card}] options (a) cnn_integration, nc={OPT_NC}: forward {fwd_ms:.3f} ms (plain "
+          f"{plain_fwd_ms:.3f}), bf16 {fwd16_ms:.3f} ms, batch {BATCH}; train forward + "
+          f"backward {train_ms:.3f} ms (plain {plain_train_ms:.3f}), {TRAIN_BATCH} clips",
+          flush=True)
+    del model, plain, m16, cpu16, g, gp
+
+    # (b) the other activations and "layer": the unfused chain, BiGRU kernels
+    feats1, tfeats1 = feats[:, 0], tfeats[:, 0]
+    for act, norm in OPT_ACTS:
+        tag = f"{act}_{norm}"
+        model, plain = pair(activation=act, normalization=norm)
+        s, w, launches = scores(model, feats1, emb)
+        sp, wp, plain_launches = scores(plain, feats1, emb)
+        err = max(float((s - sp).abs().max()), float((w - wp).abs().max()))
+        g, launches_t = grads(model, tfeats1, temb)
+        gp, plain_t = grads(plain, tfeats1, temb)
+        gerr, gworst = grad_err(g, gp)
+        print(f"options (b) {act} + {norm}: eval launches {launches}, train launches "
+              f"{launches_t}; scores max err {err:.3e} (tol {TOL_SCORES}), gradients max err "
+              f"{gerr:.3e} at {gworst} (tol {TOL_GRAD}) against the plain model", flush=True)
+        require(launches == {"bigru": 1} and not plain_launches,
+                f"options (b) {tag}: eval launches {launches}")
+        require(launches_t == {"bigru": 1, "bigru_bwd": 1} and not plain_t,
+                f"options (b) {tag}: train launches {launches_t}")
+        require(err <= TOL_SCORES and bool(torch.isfinite(s).all()),
+                f"options (b) {tag}: scores disagree with the plain model")
+        require(gerr <= TOL_GRAD, f"options (b) {tag}: gradients disagree")
+        by_path[f"options_{tag}"] = launches
+        by_path[f"options_{tag}_train"] = launches_t
+        model.eval(), plain.eval()
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: model(feats1, embeddings=emb), iters=5)
+            plain_fwd_ms = time_ms(lambda: plain(feats1, embeddings=emb), iters=2, warmup=1)
+        train_ms = step_ms(model.train(), tfeats1, temb, 2)
+        out[tag] = dict(score_err=err, grad_err=gerr, fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+                        train_ms=train_ms)
+        print(f"[{card}] options (b) {act} + {norm}: forward {fwd_ms:.3f} ms (plain "
+              f"{plain_fwd_ms:.3f}), batch {BATCH}; train forward + backward {train_ms:.3f} ms, "
+              f"{TRAIN_BATCH} clips", flush=True)
+        del model, plain, g, gp
+
+    # (c) the 2024 BiGRU shape: two one-direction scans against the kernel,
+    # and the BiLSTM on the card against its CPU run
+    T, H = geoms[-1][0], 192
+    x = card_t(r.standard_normal((BATCH, T, 128)).astype(np.float32))
+    gru = init_weights(BidirectionalGRU(128, H, 1), gen).to(dev).eval()
+    scans = BidirectionalGRU(128, H, 1, fused_directions=False).to(dev).eval()
+    scans.load_state_dict(gru.state_dict())
+    with torch.inference_mode():
+        _build.reset_launches()
+        a = gru(x)
+        launches = dict(_build.LAUNCHES)
+        b = scans(x)
+        require(dict(_build.LAUNCHES) == launches == {"bigru": 1},
+                f"options (c): launches {dict(_build.LAUNCHES)}")
+        gru_err = rel_err(b, a)
+        gru_ms = time_ms(lambda: gru(x))
+        scans_ms = time_ms(lambda: scans(x), iters=3, warmup=1)
+        lstm_cpu = init_weights(BidirectionalLSTM(128, LSTM_HIDDEN, LSTM_OUT, LSTM_LAYERS),
+                                gen).eval()
+        lstm = copy.deepcopy(lstm_cpu).to(dev)
+        t0 = time.perf_counter()
+        yc = lstm_cpu(x.cpu())
+        lstm_cpu_ms = (time.perf_counter() - t0) * 1e3
+        yd = lstm(x)
+        lstm_err = rel_err(yd.cpu(), yc)
+        lstm_ms = time_ms(lambda: lstm(x), iters=3, warmup=1)
+    print(f"options (c): B={BATCH} T={T} H={H}: fused_directions=False against the bigru "
+          f"kernel max err {gru_err:.3e}; BidirectionalLSTM({LSTM_HIDDEN} -> {LSTM_OUT}, "
+          f"{LSTM_LAYERS} layers) on the card against its CPU run max err {lstm_err:.3e} "
+          f"(tol {TOL_KERNEL})", flush=True)
+    require(gru_err <= TOL_KERNEL, "options (c): the two scans disagree with the kernel")
+    require(lstm_err <= TOL_KERNEL, "options (c): the card's BiLSTM disagrees with the CPU's")
+    out["rnn"] = dict(gru_err=gru_err, gru_ms=gru_ms, scans_ms=scans_ms, lstm_err=lstm_err,
+                      lstm_ms=lstm_ms, lstm_cpu_ms=lstm_cpu_ms)
+    print(f"[{card}] options (c): bigru kernel {gru_ms:.3f} ms, two scans {scans_ms:.3f} ms; "
+          f"BiLSTM {lstm_ms:.3f} ms on the card, {lstm_cpu_ms:.1f} ms on the CPU", flush=True)
+
+    # (d) the native wav loader on phase 4's clips
+    require(native.available(), "options (d): the native wav loader is not built")
+    rng = np.random.default_rng(0)  # phase 4's stream: the bank, then the clips
+    bank = rng.standard_normal((BATCH, 768, 496)).astype(np.float32)
+    classes = [f"c{i}" for i in range(27)]
+    enc = ManyHotEncoder(classes, 10, 2048, 256, 4, 16000)
+    pipe = InferencePipeline(randomize(crnn_2024(), gen), None, enc, median_filter=MEDIAN_2024,
+                             batch_size=BATCH, device=dev)
+
+    def python_rows(paths):
+        """The Python reader, per file on the pipeline's threads."""
+        def one(p):
+            a = audio_io.to_mono(audio_io.read_wav(p)[0])
+            return audio_io.pad_audio(a, pipe.pad_to, 16000, test=True)[0]
+        with ThreadPoolExecutor(max_workers=pipe.num_workers) as pool:
+            return np.stack(list(pool.map(one, paths)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(p) for p in write_clips(Path(tmp), rng)]
+        chunks = [paths[i : i + BATCH] for i in range(0, len(paths), BATCH)]
+        native.reset_counts()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        sc, _, _ = pipe.run(paths, embeddings_lookup=lambda stems: np.stack(
+            [bank[int(s.rsplit("_", 1)[1]) % BATCH] for s in stems]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        decodes = dict(native.COUNTS)
+        require(decodes == {"decode_batch": len(chunks)} and len(sc) == N_CLIPS,
+                f"options (d): the serving run's native batch decodes {decodes}")
+        times = {"native": [], "python": []}
+        wav_err = 0.0
+        for _ in range(2):  # native, Python, native, Python
+            for chunk in chunks:
+                t0 = time.perf_counter()
+                rows = pipe._load_batch(chunk)
+                times["native"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                ref = python_rows(chunk)
+                times["python"].append(time.perf_counter() - t0)
+                wav_err = max(wav_err, float(np.abs(rows - ref).max()))
+    load_s = {k: [sum(v[: len(chunks)]), sum(v[len(chunks):])] for k, v in times.items()}
+    print(f"options (d): the serving run of {N_CLIPS} wavs: native decodes {decodes}, launches "
+          f"{dict(_build.LAUNCHES)}, {run_s:.3f} s wall; decode_batch rows against the Python "
+          f"reader max err {wav_err:.3e} (tol {TOL_WAV})", flush=True)
+    require(wav_err <= TOL_WAV, "options (d): native rows disagree with the Python reader")
+    print(f"[{card}] options (d): _load_batch over {N_CLIPS} wavs in {len(chunks)} batches: "
+          f"native {load_s['native'][0]:.4f} / {load_s['native'][1]:.4f} s, Python "
+          f"{load_s['python'][0]:.4f} / {load_s['python'][1]:.4f} s (two passes)", flush=True)
+    out["native"] = dict(decodes=decodes, run_s=run_s, wav_err=wav_err, load_s=load_s)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 16: {out['s']:.3f} s", flush=True)
+    report["options"] = out
+    return by_path
+
+
 # the phases `--phases` can pick (each with its lettered sub-phases), and
 # those a phase takes its context from
-PHASES = ("3", "4", "6", "7", "8b", "9", "10", "11", "12", "13", "14", "15")
+PHASES = ("3", "4", "6", "7", "8b", "9", "10", "11", "12", "13", "14", "15", "16")
 NEEDS = {"8b": ("7",), "9": ("4",), "14": ("7",)}
 
 
@@ -3902,6 +4261,7 @@ def main(argv=None) -> int:
     if len(phases) < len(PHASES):
         print(f"phases: {phases} (of {list(PHASES)})", flush=True)
 
+    from desed_task_tpu_torch.data import native
     from desed_task_tpu_torch.ops import _build
     from desed_task_tpu_torch.ops.frontend import MelConfig
     from desed_task_tpu_torch.recipes_config import crnn_2024
@@ -3910,15 +4270,18 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     for name in libs:
         _build.load(name)
+    # the wav loader too, so that no timed phase holds its g++ build
+    require(native.available(), "the native wav loader is not built")
     report["build_s"] = time.perf_counter() - t0
-    print(f"build: {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
+    print(f"build: {sorted(libs)} and {native.library_path().name} in "
+          f"{report['build_s']:.1f} s", flush=True)
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
     serve_launches = serve16_launches = train_launches = train16_launches = {}
     fe_launches = eval_launches = eval16_launches = {}
     recipe_launches = recipe16_launches = year_launches = emb_launches = par_launches = {}
-    aux_launches = {}
+    aux_launches = opt_launches = {}
     fe_rows = []
     if "3" in phases:
         geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
@@ -3951,6 +4314,8 @@ def main(argv=None) -> int:
     if "15" in phases:
         # phase 8b requires its step's launches to be STEP16_LAUNCHES
         aux_launches = auxiliaries(card, report, train16_launches or STEP16_LAUNCHES)
+    if "16" in phases:
+        opt_launches = options(card, report)
     # the kernels line's row 7: calls at B=64, fp32 and (its own entry) bf16
     if fe_rows:
         rows["fused_log_mel"] = [r for r in fe_rows
@@ -4021,7 +4386,8 @@ def main(argv=None) -> int:
                       for path, counts in year_launches.items()},
                    **{path: counts.get(name, 0) for path, counts in emb_launches.items()},
                    **{path: counts.get(name, 0) for path, counts in par_launches.items()},
-                   **{path: counts.get(name, 0) for path, counts in aux_launches.items()}}
+                   **{path: counts.get(name, 0) for path, counts in aux_launches.items()},
+                   **{path: counts.get(name, 0) for path, counts in opt_launches.items()}}
         main_path = ("frontend" if name.startswith("fused_log_mel")
                      else "train_step_bf16" if name.endswith("_bwd.bf16")
                      else "serving_bf16" if name.endswith(".bf16") else "train_step")

@@ -1,6 +1,8 @@
-"""Host-side audio I/O (own copy of the pure-Python RIFF path of
-desed_task_tpu/data/audio_io.py, and its polyphase resampler; the native
-C++ loader is not ported).
+"""Host-side audio I/O (counterpart of desed_task_tpu/data/audio_io.py):
+the pure-Python RIFF reader, the polyphase resampler, and `read_audio`,
+which decodes through the native C++ loader (data/native.py) where JAX's
+does (a mean downmix: neither multisrc nor random_channel), falling back to
+the Python reader where the C++ parser rejects a file.
 
 PCM 8/16/24/32-bit and IEEE float WAVE files are decoded to float32 scaled
 to [-1, 1) by the type's full scale, as torchaudio.load does.
@@ -131,10 +133,21 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 def read_audio(path, multisrc: bool = False, random_channel: bool = False,
                pad_to: int | None = None, test: bool = False, target_fs: int | None = None):
     """decode -> (mono) -> (resample to target_fs) -> pad/crop. Returns
-    (audio, onset_s, offset_s, padded)."""
-    audio, fs = read_wav(path)
-    if not multisrc:
-        audio = to_mono(audio, random_channel)
+    (audio, onset_s, offset_s, padded). The native decoder's mean downmix
+    sums in double precision: within 1e-7 of the Python path's float32
+    mean (equal for mono files)."""
+    from . import native
+
+    audio = None
+    if not multisrc and not random_channel and native.available():
+        try:
+            audio, fs = native.decode(path)
+        except (ValueError, RuntimeError):
+            pass
+    if audio is None:
+        audio, fs = read_wav(path)
+        if not multisrc:
+            audio = to_mono(audio, random_channel)
     if target_fs is not None and fs != target_fs:
         audio = resample(audio, fs, target_fs)
         fs = target_fs

@@ -15,6 +15,8 @@ package's bit for bit); an epoch is min_i(len(dataset_i) // batch_size_i)
 steps; a smaller dataset reshuffles and wraps across epochs.
 
 `shard_index` / `num_shards` partition every slot's stream by stride.
+`shuffle=False` takes each slot in index order (arange before the shard
+slice), drawing nothing from the slot's generator.
 Prefetch runs a thread pool (decoding is numpy and I/O) feeding a bounded
 queue of ready batches.
 """
@@ -42,17 +44,19 @@ def collate(items: Sequence[Mapping[str, np.ndarray]]) -> dict:
 
 
 class SlotSampler:
-    """Infinite shuffled index stream over one dataset (optionally sharded)."""
+    """Infinite index stream over one dataset, shuffled unless `shuffle` is
+    False (optionally sharded)."""
 
-    def __init__(self, n: int, seed: int, shard_index=0, num_shards=1):
+    def __init__(self, n: int, seed: int, shard_index=0, num_shards=1, shuffle: bool = True):
         self.n = n
         self.rng = np.random.default_rng(seed)
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.shuffle = shuffle
         self._buf: list[int] = []
 
     def _refill(self):
-        idx = self.rng.permutation(self.n)
+        idx = self.rng.permutation(self.n) if self.shuffle else np.arange(self.n)
         self._buf.extend(idx[self.shard_index :: self.num_shards].tolist())
 
     def take(self, k: int) -> list[int]:
@@ -82,13 +86,14 @@ class MultiSourceBatcher:
         num_shards: int = 1,
         num_workers: int = 6,
         prefetch: int = 4,
+        shuffle: bool = True,
     ):
         if set(datasets) != set(batch_sizes):
             raise ValueError(f"slots {sorted(datasets)} but batch sizes for {sorted(batch_sizes)}")
         self.datasets = dict(datasets)
         self.batch_sizes = dict(batch_sizes)
         self.samplers = {
-            name: SlotSampler(len(ds), seed + i, shard_index, num_shards)
+            name: SlotSampler(len(ds), seed + i, shard_index, num_shards, shuffle)
             for i, (name, ds) in enumerate(self.datasets.items())
         }
         self.num_workers = num_workers

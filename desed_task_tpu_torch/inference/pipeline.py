@@ -1,6 +1,8 @@
 """SED inference pipeline (counterpart of desed_task_tpu/inference/pipeline.py).
 
-wav decode on host threads, overlapping the device; on the device the log-mel
+wav decode on the host, overlapping the device (a batch at a time through
+the native C++ loader, data/native.py, or per file on host threads where
+it rejects a file, as the JAX pipeline does); on the device the log-mel
 front-end, the scaler, the CRNN eval forward, the class-wise median filter
 and the full threshold sweep; only the boolean activity tensor and the
 scores cross to the host, where events are run-length extracted. Batches
@@ -20,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data import native
 from ..data.audio_io import read_audio
 from ..device import resolve_device
 from ..labels.encoder import ManyHotEncoder
@@ -96,6 +99,12 @@ class InferencePipeline:
         return strong, weak, activity
 
     def _load_batch(self, paths):
+        """Audio [len(paths), pad_to], left-cropped or zero-padded."""
+        if native.available():
+            try:
+                return native.decode_batch(paths, self.pad_to, test_mode=True)[0]
+            except (ValueError, RuntimeError):
+                pass
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             rows = list(pool.map(
                 lambda p: read_audio(p, pad_to=self.pad_to, test=True)[0], paths))

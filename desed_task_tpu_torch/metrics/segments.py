@@ -222,3 +222,15 @@ def fscore(
     )
     return out, {"threshold": threshold}
 
+
+def scores_to_table(frame_scores: np.ndarray, class_names: list[str], frame_to_time) -> dict:
+    """Frame score matrix [C, T] -> a column table (utils/table.py) with
+    each frame's onset and offset (float64, from frame_to_time) and a
+    column a class: the piecewise-constant curve of sed_scores_eval, the
+    counterpart of JAX's scores_to_dataframe (segments.py:224-238)."""
+    idx = np.arange(frame_scores.shape[1])
+    table = {"onset": np.asarray(frame_to_time(idx), np.float64),
+             "offset": np.asarray(frame_to_time(idx + 1), np.float64)}
+    for i, c in enumerate(class_names):
+        table[c] = frame_scores[i]
+    return table

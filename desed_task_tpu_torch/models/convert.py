@@ -8,9 +8,13 @@ state_dict for `models.crnn.CRNN`:
   * conv kernels [3, 3, Ci, Co] become torch's [Co, Ci, 3, 3];
   * BatchNorm / LayerNorm / GroupNorm `scale` is torch's `weight`, the
     batch_stats `mean` / `var` are `running_mean` / `running_var`;
-  * GRU weights are already in torch layout: l{k}_fwd/weight_ih becomes
-    weight_ih_l{k}, l{k}_bwd/... becomes ..._l{k}_reverse;
-  * glu{i}/Dense_0 and cg{i}/Dense_0 become glu{i}.linear / cg{i}.linear.
+  * GRU and LSTM weights are already in torch layout: l{k}_fwd/weight_ih
+    becomes weight_ih_l{k}, l{k}_bwd/... becomes ..._l{k}_reverse; a
+    one-direction layer's (GRULayer, BidirectionalLSTMCellMath) keep their
+    names;
+  * glu{i}/Dense_0 and cg{i}/Dense_0 become glu{i}.linear / cg{i}.linear,
+    a BidirectionalLSTM's Dense_0 its `linear`; GroupNorm layernorm{i}'s
+    scale and bias its weight and bias.
 
 Every leaf is used: a leaf no rule maps raises, and loading the result with
 `load_state_dict(strict=True)` raises for a missing or extra key.
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 _GRU_DIR = re.compile(r"l(\d+)_(fwd|bwd)")
+_RNN_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -71,8 +76,10 @@ def _convert_leaf(path: tuple[str, ...], value: np.ndarray, stats: bool):
     elif gru is not None:
         layer, reverse = gru
         name = None
-        if leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+        if leaf in _RNN_LEAVES:
             name = f"{leaf}_l{layer}" + ("_reverse" if reverse else "")
+    elif leaf in _RNN_LEAVES:  # a one-direction layer keeps its names
+        name = leaf
     elif leaf == "kernel" and value.ndim == 4:
         name, value = "weight", value.transpose(3, 2, 0, 1)
     elif leaf == "kernel" and value.ndim == 2:
@@ -159,7 +166,7 @@ _REF_PREFIX = (("cnn.cnn.", "cnn."), ("rnn.rnn.", "rnn."), ("shrink_emb.0.", "sh
                ("shrink_emb.1.", "shrink_emb_ln."), ("frame_embs_encoder.", "frame_embs_encoder."),
                ("cat_tf.", "cat_tf."))
 _REF_SKIP = re.compile(r"cnn\.cnn\.(dropout|pooling|relu)\d*\.|.*num_batches_tracked$")
-_REF_CNN = re.compile(r"cnn\.(conv|batchnorm|glu)\d+\.")
+_REF_CNN = re.compile(r"cnn\.(conv|batchnorm|layernorm|glu|cg)\d+\.")
 _REF_HEAD = re.compile(r"(dense|dense_softmax)\.(?:(\d+)\.)?(weight|bias)$")
 
 
@@ -170,15 +177,15 @@ def _tensor(t) -> torch.Tensor:
 
 def convert_crnn_state_dict(state_dict: Mapping) -> dict:
     """A reference DESED_task CRNN state_dict (cnn.cnn.conv{i}.*,
-    cnn.cnn.batchnorm{i}.*, cnn.cnn.glu{i}.linear.*, rnn.rnn.*_l{k}[_reverse],
+    cnn.cnn.batchnorm{i}.*, cnn.cnn.layernorm{i}.*, cnn.cnn.glu{i}.linear.*,
+    cnn.cnn.cg{i}.linear.*, rnn.rnn.*_l{k}[_reverse],
     dense[.{i}].*, dense_softmax[.{i}].*, cat_tf.*, shrink_emb.{0,1}.*,
     frame_embs_encoder.*) -> the port's CRNN state_dict, float32.
 
     Layouts already agree (torch on both sides): conv [Co, Ci, 3, 3],
     Linear [out, in], GRU weights by torch.nn.GRU's names. Dropout, pooling
-    and num_batches_tracked entries are dropped; a key no rule maps (the
-    reference's layernorm or context-gating blocks, which the port's CNN
-    does not have) raises KeyError."""
+    and num_batches_tracked entries are dropped; a key no rule maps raises
+    KeyError."""
     out = {}
     for key, val in state_dict.items():
         if _REF_SKIP.match(key):

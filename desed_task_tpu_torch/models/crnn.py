@@ -16,6 +16,18 @@ crnn.py:114-215, drawing every mask from the `generator` passed to
 `forward`; without embeddings, dropout runs only inside the dropstep branch
 (crnn.py:193-202), as there. Unlike the lazily shaped flax module, this one
 needs the number of mel bins (`n_mels`) to size the layers after the CNN.
+
+`cnn_integration` (crnn.py:107-112, :134-165): the input is [B, nc, n_mels,
+T] with nc = `n_in_channel`; the CNN runs on the B * nc single-channel
+maps, and its output regroups the channels with JAX's order
+(moveaxis(1, -1): feature c * nc + k for CNN channel c of input channel
+k), so `cat_tf`, `shrink_emb_dense` and the GRU input are nc times wider.
+Train-mode SpecAugment masks the 4-D input before the reshape, on its axes
+1 and 2 (the channel and mel axes), as the JAX model does.
+
+The JAX keys that only choose a TPU tiling or kernel (`fast_conv`,
+`fused_fpool`, `rnn_pallas`) are not taken: `fused_blocks` and `rnn_kernel`
+choose the port's kernels, and `packed_dropout` goes to the CNN.
 """
 
 from __future__ import annotations
@@ -30,8 +42,10 @@ from torch import nn
 
 from ..ops.augment import specaugment, time_mask
 from ..ops.dropout import dropout
-from .cnn import CNN, BatchNorm, Conv2d
-from .rnn import BidirectionalGRU
+from .cnn import CNN, BatchNorm, Conv2d, GroupNorm1
+from .rnn import BidirectionalGRU, BidirectionalLSTM, BidirectionalLSTMCellMath, GRULayer
+
+RECURRENT = (BidirectionalGRU, GRULayer, BidirectionalLSTM, BidirectionalLSTMCellMath)
 
 
 def _adaptive_avg_pool_matrix(in_len: int, out_len: int) -> np.ndarray:
@@ -95,12 +109,13 @@ class CRNN(nn.Module):
         fused_blocks: bool = True,
         rnn_kernel: bool = True,
         compute_dtype=None,
+        packed_dropout: bool = True,
     ):
         super().__init__()
         if rnn_type != "BGRU":
             raise NotImplementedError("Only BGRU supported for CRNN (as reference)")
-        if cnn_integration:
-            raise NotImplementedError("cnn_integration is not ported yet")
+        self.cnn_integration = cnn_integration
+        self.n_in_channel = n_in_channel
         self.attention = attention
         self.dropout = dropout
         self.freeze_bn = freeze_bn
@@ -111,12 +126,13 @@ class CRNN(nn.Module):
         self.aggregation_type = aggregation_type
         self.nclass = list(nclass) if isinstance(nclass, (list, tuple)) else [nclass]
         self.cnn = CNN(
-            n_in_channel=n_in_channel, activation=activation, conv_dropout=dropout,
-            kernel_size=kernel_size, padding=padding, stride=stride,
+            n_in_channel=1 if cnn_integration else n_in_channel, activation=activation,
+            conv_dropout=dropout, kernel_size=kernel_size, padding=padding, stride=stride,
             nb_filters=nb_filters, pooling=pooling, normalization=normalization,
             fused_blocks=fused_blocks, compute_dtype=compute_dtype,
+            packed_dropout=packed_dropout,
         )
-        nb_in = nb_filters[-1]
+        nb_in = nb_filters[-1] * (n_in_channel if cnn_integration else 1)
         cnn_out = self.cnn.out_freq(n_mels) * nb_in
         rnn_in = cnn_out
         if use_embeddings:
@@ -190,16 +206,23 @@ class CRNN(nn.Module):
 
     def forward(self, x, pad_mask=None, embeddings=None, classes_mask=None,
                 generator: torch.Generator | None = None):
-        """x [B, n_mels, T] -> (strong [B, C, T'], weak [B, C]). In train
-        mode (self.training) the random parts draw from `generator`, a
+        """x [B, n_mels, T] ([B, n_in_channel, n_mels, T] with
+        cnn_integration) -> (strong [B, C, T'], weak [B, C]). In train mode
+        (self.training) the random parts draw from `generator`, a
         torch.Generator on x's device."""
         train = self.training
         t_l, t_p, f_l, f_p = self.specaugm
         if train and (t_p > 0 or f_p > 0):
             x = specaugment(generator, x, t_l, t_p, f_l, f_p, shared=self.specaugm_shared)
+        if self.cnn_integration:
+            bs_in, nc_in = x.shape[0], x.shape[1]
+            x = x.reshape(bs_in * nc_in, *x.shape[2:])
         x = x.transpose(-1, -2)[..., None].contiguous()  # [B, T, n_mels, 1]
         x = self.cnn(x, train=train and not self.freeze_bn, generator=generator).float()
         bs, frames, freq, chan = x.shape
+        if self.cnn_integration:  # channel c of input k -> feature c * nc + k
+            x = x.reshape(bs_in, nc_in, frames, freq, chan).movedim(1, -1)
+            bs, chan = bs_in, chan * nc_in
         x = x.reshape(bs, frames, freq * chan)  # f-major (f, c) flatten
         p_step, len_step = self.dropstep
         dropstep = train and p_step > 0
@@ -231,8 +254,8 @@ def init_weights(model: nn.Module, generator: torch.Generator | None) -> nn.Modu
     with the JAX package's init schemes:
     flax lecun_normal conv and dense kernels (a normal truncated at +-2
     std, std = 1/sqrt(fan_in)/0.8796 so that the result has variance
-    1/fan_in) with zero biases, torch's uniform(+-1/sqrt(H)) GRU weights,
-    unit norm scales."""
+    1/fan_in) with zero biases, torch's uniform(+-1/sqrt(H)) GRU and LSTM
+    weights, unit norm scales."""
 
     def lecun_(p: torch.Tensor, fan_in: int):
         std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
@@ -248,11 +271,11 @@ def init_weights(model: nn.Module, generator: torch.Generator | None) -> nn.Modu
             elif isinstance(m, nn.Linear):
                 lecun_(m.weight, m.weight.shape[1])
                 m.bias.zero_()
-            elif isinstance(m, BidirectionalGRU):
+            elif isinstance(m, RECURRENT):  # its own weights; a Linear inside is lecun
                 bound = 1.0 / math.sqrt(m.hidden)
-                for p in m.parameters():
+                for p in m.parameters(recurse=False):
                     p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound - bound)
-            elif isinstance(m, (BatchNorm, nn.LayerNorm)):
+            elif isinstance(m, (BatchNorm, GroupNorm1, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 if isinstance(m, BatchNorm):

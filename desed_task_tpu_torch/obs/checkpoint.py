@@ -12,9 +12,11 @@ every rank: its checkpoint also holds every rank's state
 (`rank_generators`, in global rank order over all the mesh's axes), and
 each rank restores its own by its global rank.
 
-Keeps `last` and the top-1 `best` by objective (mode max), as the
-reference's ModelCheckpoint (train_pretrained.py:560-581); `manager.json`
-holds the best score, `<name>.meta.json` each checkpoint's metadata. A
+Keeps `last` and the top-1 `best` by objective, as the reference's
+ModelCheckpoint (train_pretrained.py:560-581): `mode="max"` keeps the
+largest score, any other mode the smallest (JAX checkpoint.py:46-47).
+JAX's `top_k` is not taken: JAX stores it and keeps the single best
+whatever it is. `manager.json` holds the best score, `<name>.meta.json` each checkpoint's metadata. A
 checkpoint is written to a temporary file and renamed, so a cut run leaves
 the previous one whole; it is read with `weights_only=True`.
 """
@@ -85,13 +87,17 @@ def load_payload(payload: dict, state, generator: torch.Generator | None = None,
 
 
 class CheckpointManager:
-    def __init__(self, directory):
+    def __init__(self, directory, mode: str = "max"):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
+        self.mode = mode
         self._scores: dict[str, float] = {}
         self._meta_path = self.directory / "manager.json"
         if self._meta_path.exists():
             self._scores = json.loads(self._meta_path.read_text()).get("scores", {})
+
+    def _is_better(self, a: float, b: float) -> bool:
+        return a > b if self.mode == "max" else a < b
 
     def save(self, state, metadata: dict | None = None, name: str = "last",
              generator: torch.Generator | None = None, rank_generators: list | None = None):
@@ -109,7 +115,7 @@ class CheckpointManager:
                      rank_generators: list | None = None) -> bool:
         """Keep the single best checkpoint by score. Returns True if saved."""
         best = self._scores.get("best")
-        if best is None or score > best:
+        if best is None or self._is_better(score, best):
             self._scores["best"] = float(score)
             self._meta_path.write_text(json.dumps({"scores": self._scores}))
             meta = dict(metadata or {})

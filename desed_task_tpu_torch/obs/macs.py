@@ -4,8 +4,10 @@ shapes (counterpart of desed_task_tpu/obs/macs.py).
 The JAX package reads XLA's cost analysis of the compiled forward. PyTorch
 has none, and torch.utils.flop_counter does not see the hand-written
 kernels, so the port counts analytically: the 3x3 convolutions, the GLU
-linears, the embedding aggregation and projection, the BiGRU(s) and the
-heads, at the shapes the forward takes. The count is the same whichever
+and context-gating linears (relu and leakyrelu have none), the embedding
+aggregation and projection, the BiGRU(s) and the heads, at the shapes the
+forward takes. Under `cnn_integration` the CNN runs once for each of the
+n_in_channel input maps, and the layers after it are that much wider. The count is the same whichever
 path (kernels or plain versions, fp32 or bf16) runs the model. Elementwise
 work (BatchNorm, gates, pooling, activations) is not counted; the
 reference's THOP count (local/utils.py:226-256; 930.902 MMACs for the
@@ -30,16 +32,18 @@ def forward_macs(model, n_frames: int, n_mels: int, emb_frames: int | None = Non
     length (frame-level embeddings only). Returns {"macs", "flops",
     "by_layer": {name: macs}}."""
     cnn = model.cnn
+    maps = model.n_in_channel if model.cnn_integration else 1  # CNN passes a clip
     by = {}
     t, f = n_frames, n_mels
     for i in range(cnn.n_blocks):
         conv = getattr(cnn, f"conv{i}")
         co, ci, kh, kw = conv.weight.shape
-        by[f"conv{i}"] = t * f * co * ci * kh * kw
-        by[f"glu{i}"] = t * f * co * co
+        by[f"conv{i}"] = maps * t * f * co * ci * kh * kw
+        if cnn.activation in ("glu", "cg"):
+            by[f"{cnn.activation}{i}"] = maps * t * f * co * co
         pt, pf = cnn.pooling[i]
         t, f = t // pt, f // pf
-    nb = co
+    nb = co * maps
     cnn_out = f * nb
     rnn_in = cnn_out
     if model.use_embeddings:

@@ -8,7 +8,11 @@ Each `csrc/<name>.cu` is compiled on its own, at first use, with
 into `desed_task_tpu_torch/_kernels_build/` (listed in .gitignore). The file
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and a stale library is never loaded. All missing libraries are built
-together, one nvcc process per source, started at once.
+together, one nvcc process per source, started at once; each goes to a
+temporary file renamed into place, so processes that build at once do not
+clash. `library_path` and `start_compile` / `finish_compile` take any
+compiler and flags: data/native.py builds the wav loader with g++ through
+them.
 
 Each library exposes a plain C interface whose entries return
 `cudaGetLastError()` as an int; `check` raises when it is not 0. Pointers and
@@ -30,6 +34,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -70,9 +75,32 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def library_path(src: Path, flags=NVCC_FLAGS) -> Path:
+    """<build>/<stem>-<hash of the source and the flags>.so"""
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{h[:16]}.so"
+
+
+def start_compile(compiler: str, flags, src: Path, out: Path, libs=()):
+    """Start `compiler flags -o <tmp> src libs`, <tmp> a file beside `out`
+    that `finish_compile` renames to it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}")
+    proc = subprocess.Popen([compiler, *flags, "-o", str(tmp), str(src), *libs],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, src, tmp, out
+
+
+def finish_compile(job) -> str | None:
+    """Wait for a `start_compile` job: None once its library is in place,
+    else the compiler's error."""
+    proc, src, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return f"{Path(proc.args[0]).name} {src.name} failed (rc {proc.returncode}):\n{log}"
+    os.replace(tmp, out)
+    return None
 
 
 def build_all() -> dict[str, Path]:
@@ -82,22 +110,9 @@ def build_all() -> dict[str, Path]:
     todo = [s for s in sources if not out[s.stem].is_file()]
     if not todo:
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = []
-    for src in todo:
-        tmp = out[src.stem].with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs.append((src, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    errors = []
-    for src, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc {src.name} failed (rc {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out[src.stem])
+    jobs = [start_compile(nvcc, NVCC_FLAGS, src, out[src.stem]) for src in todo]
+    errors = [e for e in map(finish_compile, jobs) if e is not None]
     if errors:
         raise RuntimeError("\n".join(errors))
     return out

@@ -182,30 +182,39 @@ def _check(err: int, what: str, lay: ClusterLayout | None = None) -> None:
     _build.check(err, what)
 
 
+def gru_scan(x_gates, h0, w_hh, b_hh, reverse: bool = False):
+    """The recurrence of one direction as a Python loop over time
+    (counterpart of desed_task_tpu/models/rnn.gru_scan).
+
+    x_gates [B, T, 3H] (x W_ih^T + b_ih, in the input's time order), h0
+    [B, H], w_hh [3H, H] (torch layout), b_hh [3H]; reverse runs from the
+    last step to the first. Returns the hidden states [B, T, H] in the
+    input's time order."""
+    H = h0.shape[-1]
+    T = x_gates.shape[1]
+    h = h0
+    ys = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        hg = h @ w_hh.t() + b_hh
+        x = x_gates[:, t]
+        r = torch.sigmoid(x[:, :H] + hg[:, :H])
+        z = torch.sigmoid(x[:, H : 2 * H] + hg[:, H : 2 * H])
+        n = torch.tanh(x[:, 2 * H :] + r * hg[:, 2 * H :])
+        h = (1.0 - z) * n + z * h
+        ys[t] = h
+    return torch.stack(ys, dim=1)
+
+
 def bigru_plain(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):
-    """Both directions as a Python loop over time.
+    """Both directions, each a `gru_scan` from zero state.
 
     xg_f/xg_b: [B, T, 3H] input gates (x W_ih^T + b_ih) in the ORIGINAL time
     order; w_hh_*: [3H, H] torch layout; b_hh_*: [3H].
     Returns (fwd [B, T, H], bwd [B, T, H]).
     """
-    B, T, H3 = xg_f.shape
-    H = H3 // 3
-    outs = []
-    for xg, w, b, steps in ((xg_f, w_hh_f, b_hh_f, range(T)),
-                            (xg_b, w_hh_b, b_hh_b, range(T - 1, -1, -1))):
-        h = xg.new_zeros((B, H))
-        ys = [None] * T
-        for t in steps:
-            hg = h @ w.t() + b
-            x = xg[:, t]
-            r = torch.sigmoid(x[:, :H] + hg[:, :H])
-            z = torch.sigmoid(x[:, H : 2 * H] + hg[:, H : 2 * H])
-            n = torch.tanh(x[:, 2 * H :] + r * hg[:, 2 * H :])
-            h = (1.0 - z) * n + z * h
-            ys[t] = h
-        outs.append(torch.stack(ys, dim=1))
-    return outs[0], outs[1]
+    h0 = xg_f.new_zeros((xg_f.shape[0], w_hh_f.shape[1]))
+    return (gru_scan(xg_f, h0, w_hh_f, b_hh_f),
+            gru_scan(xg_b, h0, w_hh_b, b_hh_b, reverse=True))
 
 
 def bigru(xg_f, xg_b, w_hh_f, b_hh_f, w_hh_b, b_hh_b):

@@ -243,8 +243,8 @@ def test_reference_state_dict_loader_matches_jax(net):
     with torch.no_grad():
         for u, w in zip(a(x, **kw), b(x, **kw)):
             assert torch.equal(u, w)
-    with pytest.raises(KeyError):
-        convert_crnn_state_dict({**ref, "cnn.cnn.cg0.linear.weight": torch.zeros(1)})
+    with pytest.raises(KeyError):  # a CNN module no rule maps
+        convert_crnn_state_dict({**ref, "cnn.cnn.instancenorm0.weight": torch.zeros(1)})
 
 
 def test_gru_state_dict_loader():
