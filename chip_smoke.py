@@ -215,9 +215,10 @@ Phases (any failure exits non-zero; nothing is caught):
      of phase 8b's step with the GRU kernels twice (QS_STEP: two GRU
      layers), finite losses,
      test metrics in [0, 1]; then QS_TRACED_STEPS more steps of its loop
-     under obs/profiling.trace and a StepTimer (one sync at its cadence):
-     the Chrome trace names, for each of rows 1-6, a hand-written kernel
-     launched inside its custom op or autograd node; the timer's stats;
+     under obs/profiling.trace: the Chrome trace names, for each of rows
+     1-6, a hand-written kernel launched inside its custom op or autograd
+     node, and holds the program's spans desed.step (one a step, their
+     milliseconds printed) and desed.frontend.mel;
      (b) tools/hpo.run_study with HPO_TRIALS trials and 2 workers, both
      pinned to the card (CUDA_VISIBLE_DEVICES=0), the objective
      `hpo_objective` (single_run fast_dev_run, bf16, on (a)'s corpus):
@@ -3637,6 +3638,20 @@ def source_kernels() -> set:
     return names
 
 
+def program_spans(path: Path) -> dict:
+    """From a Chrome trace of torch.profiler: the program's spans
+    (obs/profiling.span, user annotations named "desed.*") by name, each
+    with the list of its durations in microseconds."""
+    from desed_task_tpu_torch.obs.profiling import SPAN_PREFIX
+
+    out: dict = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e["name"].startswith(SPAN_PREFIX)):
+            out.setdefault(e["name"], []).append(e["dur"])
+    return out
+
+
 def trace_row_kernels(path: Path, hand_written: set) -> dict:
     """From a Chrome trace of torch.profiler: for each row, the names of the
     hand-written CUDA kernels launched inside its op or autograd node: a
@@ -3709,7 +3724,7 @@ def hpo_objective(config: dict) -> float:
 
 
 def auxiliaries(card, report, step16_launches):
-    """Phase 15: the quickstart with a profiled span and the step timer,
+    """Phase 15: the quickstart with a profiled span and the program's spans,
     a 2-worker HPO study on the one card, and the exported serving
     pipeline (fp32 and bf16) against the eager one."""
     import itertools
@@ -3720,7 +3735,7 @@ def auxiliaries(card, report, step16_launches):
 
     from desed_task_tpu_torch.inference.pipeline import InferencePipeline
     from desed_task_tpu_torch.labels.encoder import ManyHotEncoder
-    from desed_task_tpu_torch.obs.profiling import TRACE_FILE, StepTimer, trace
+    from desed_task_tpu_torch.obs.profiling import SPAN_PREFIX, TRACE_FILE, trace
     from desed_task_tpu_torch.ops import _build
     from desed_task_tpu_torch.ops.frontend import MelConfig
     from desed_task_tpu_torch.recipes import quickstart_synthetic as qs
@@ -3759,15 +3774,13 @@ def auxiliaries(card, report, step16_launches):
                 "quickstart: a loss is missing or not finite")
         require(all(math.isfinite(v) and 0 <= v <= 1 for v in numbers.values()),
                 "quickstart: a test metric is not finite in [0, 1]")
-        # three more steps of its loop under the profiler, timed by StepTimer
+        # three more steps of its loop under the profiler
         loop = info["loop"]
         batches = itertools.chain.from_iterable(loop._batches() for _ in itertools.count())
         step_batches = [next(batches) for _ in range(QS_TRACED_STEPS)]
-        timer = StepTimer(sync_every=QS_TRACED_STEPS, device="cuda").start()
         with trace(root / "trace"):
             for b in step_batches:
                 loop.step_fn(loop.state, b, loop.rng)
-                timer.step()
         tr_path = root / "trace" / TRACE_FILE
         named = trace_row_kernels(tr_path, source_kernels())
         print(f"quickstart trace ({tr_path.stat().st_size} bytes, {QS_TRACED_STEPS} steps): "
@@ -3778,13 +3791,17 @@ def auxiliaries(card, report, step16_launches):
             (ROOT / "chiprun_out").mkdir(exist_ok=True)
             shutil.copy(tr_path, ROOT / "chiprun_out" / "quickstart_trace.json")
         require(all(named.values()), "the quickstart trace does not name every row's kernels")
-        print(f"[{card}] quickstart StepTimer (sync every {QS_TRACED_STEPS} steps, traced): "
-              f"{timer.stats}", flush=True)
-        require(len(timer.times) == 1, "StepTimer did not time its cadence")
+        spans = program_spans(tr_path)
+        step_ms = [d / 1e3 for d in spans.get(SPAN_PREFIX + "step", [])]
+        print(f"[{card}] quickstart program spans ({QS_TRACED_STEPS} steps, traced): "
+              f"{ {k: len(v) for k, v in sorted(spans.items())} }; desed.step ms {step_ms}",
+              flush=True)
+        require(len(step_ms) == QS_TRACED_STEPS and spans.get(SPAN_PREFIX + "frontend.mel"),
+                "the quickstart trace lacks the program's desed.step or desed.frontend.mel")
         out["quickstart"] = dict(s=qs_s, steps=len(steps), launches=steps[0], losses=losses,
                                  metrics=numbers, trace_kernels={k: sorted(v) for k, v in
                                                                  named.items()},
-                                 step_timer=timer.stats)
+                                 step_span_ms=step_ms)
         by_path["quickstart"] = steps[0]
 
         # (b) HPO: 2 trials, 2 workers sharing the card, on (a)'s corpus

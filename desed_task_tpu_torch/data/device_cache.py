@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.profiling import span
 
 AUDIO_SCALE = 32768.0
 
@@ -212,21 +213,22 @@ class DeviceResidentData:
         masks = {s: torch.as_tensor(self.masks[s], device=self.device) for s in names}
 
         def build(stores, flat_idx):
-            axis = flat_idx.dim() - 1
-            audio = stores["audio"][flat_idx].float() / AUDIO_SCALE
-            labels = stores["labels"][flat_idx]
-            emb = stores["embeddings"][flat_idx] if "embeddings" in stores else None
-            batch, o = {}, 0
-            for s, b in zip(names, sizes):
-                batch[s] = {
-                    "audio": audio.narrow(axis, o, b),
-                    "labels": labels.narrow(axis, o, b),
-                    "class_mask": masks[s].expand(*flat_idx.shape[:-1], b, -1),
-                }
-                if emb is not None:
-                    batch[s]["embeddings"] = emb.narrow(axis, o, b)
-                o += b
-            return batch
+            with span("store.gather"):
+                axis = flat_idx.dim() - 1
+                audio = stores["audio"][flat_idx].float() / AUDIO_SCALE
+                labels = stores["labels"][flat_idx]
+                emb = stores["embeddings"][flat_idx] if "embeddings" in stores else None
+                batch, o = {}, 0
+                for s, b in zip(names, sizes):
+                    batch[s] = {
+                        "audio": audio.narrow(axis, o, b),
+                        "labels": labels.narrow(axis, o, b),
+                        "class_mask": masks[s].expand(*flat_idx.shape[:-1], b, -1),
+                    }
+                    if emb is not None:
+                        batch[s]["embeddings"] = emb.narrow(axis, o, b)
+                    o += b
+                return batch
 
         return build
 
@@ -234,10 +236,11 @@ class DeviceResidentData:
         """A step's row indices on the device. On the card through pinned
         memory and a copy that does not wait, so that issuing a step waits
         on nothing."""
-        idx = torch.from_numpy(np.ascontiguousarray(flat_idx, np.int64))
-        if self.device.type != "cuda":
-            return idx.to(self.device)
-        return idx.pin_memory().to(self.device, non_blocking=True)
+        with span("store.gather"):
+            idx = torch.from_numpy(np.ascontiguousarray(flat_idx, np.int64))
+            if self.device.type != "cuda":
+                return idx.to(self.device)
+            return idx.pin_memory().to(self.device, non_blocking=True)
 
 
 class DeviceEvalCache:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..obs.profiling import span
 from ..ops.augment import specaugment, time_mask
 from ..ops.dropout import dropout
 from .cnn import CNN, BatchNorm, Conv2d, GroupNorm1
@@ -212,41 +213,47 @@ class CRNN(nn.Module):
         torch.Generator on x's device."""
         train = self.training
         t_l, t_p, f_l, f_p = self.specaugm
-        if train and (t_p > 0 or f_p > 0):
-            x = specaugment(generator, x, t_l, t_p, f_l, f_p, shared=self.specaugm_shared)
-        if self.cnn_integration:
-            bs_in, nc_in = x.shape[0], x.shape[1]
-            x = x.reshape(bs_in * nc_in, *x.shape[2:])
-        x = x.transpose(-1, -2)[..., None].contiguous()  # [B, T, n_mels, 1]
-        x = self.cnn(x, train=train and not self.freeze_bn, generator=generator).float()
-        bs, frames, freq, chan = x.shape
-        if self.cnn_integration:  # channel c of input k -> feature c * nc + k
-            x = x.reshape(bs_in, nc_in, frames, freq, chan).movedim(1, -1)
-            bs, chan = bs_in, chan * nc_in
-        x = x.reshape(bs, frames, freq * chan)  # f-major (f, c) flatten
+        with span("crnn.cnn"):
+            if train and (t_p > 0 or f_p > 0):
+                x = specaugment(generator, x, t_l, t_p, f_l, f_p, shared=self.specaugm_shared)
+            if self.cnn_integration:
+                bs_in, nc_in = x.shape[0], x.shape[1]
+                x = x.reshape(bs_in * nc_in, *x.shape[2:])
+            x = x.transpose(-1, -2)[..., None].contiguous()  # [B, T, n_mels, 1]
+            x = self.cnn(x, train=train and not self.freeze_bn, generator=generator).float()
+            bs, frames, freq, chan = x.shape
+            if self.cnn_integration:  # channel c of input k -> feature c * nc + k
+                x = x.reshape(bs_in, nc_in, frames, freq, chan).movedim(1, -1)
+                bs, chan = bs_in, chan * nc_in
+            x = x.reshape(bs, frames, freq * chan)  # f-major (f, c) flatten
         p_step, len_step = self.dropstep
         dropstep = train and p_step > 0
         if self.use_embeddings:
-            emb = self._aggregate_embeddings(embeddings, frames)
-            if dropstep:
+            with span("crnn.embed"):
+                emb = self._aggregate_embeddings(embeddings, frames)
+                if dropstep:
+                    x = time_mask(generator, x, len_step, p_step, axis=1)
+                    emb = time_mask(generator, emb, len_step, p_step, axis=1)
+                x = self.cat_tf(dropout(torch.cat([x, emb], dim=-1), self.dropout, generator,
+                                        train))
+        with span("crnn.rnn"):
+            if not self.use_embeddings and dropstep:
                 x = time_mask(generator, x, len_step, p_step, axis=1)
-                emb = time_mask(generator, emb, len_step, p_step, axis=1)
-            x = self.cat_tf(dropout(torch.cat([x, emb], dim=-1), self.dropout, generator, train))
-        elif dropstep:
-            x = time_mask(generator, x, len_step, p_step, axis=1)
-            x = dropout(x, self.dropout, generator, train)
-        x = dropout(self.rnn(x, train=train, generator=generator), self.dropout, generator, train)
-        strongs, weaks = [], []
-        offset = 0
-        for sfx, c in zip(self._suffixes, self.nclass):
-            cm = None if classes_mask is None else classes_mask[:, offset : offset + c]
-            offset += c
-            s, w = self._head(x, pad_mask, cm, sfx)
-            strongs.append(s)
-            weaks.append(w)
-        if len(strongs) == 1:
-            return strongs[0], weaks[0]
-        return torch.cat(strongs, dim=1), torch.cat(weaks, dim=1)
+                x = dropout(x, self.dropout, generator, train)
+            x = dropout(self.rnn(x, train=train, generator=generator), self.dropout, generator,
+                        train)
+        with span("crnn.heads"):
+            strongs, weaks = [], []
+            offset = 0
+            for sfx, c in zip(self._suffixes, self.nclass):
+                cm = None if classes_mask is None else classes_mask[:, offset : offset + c]
+                offset += c
+                s, w = self._head(x, pad_mask, cm, sfx)
+                strongs.append(s)
+                weaks.append(w)
+            if len(strongs) == 1:
+                return strongs[0], weaks[0]
+            return torch.cat(strongs, dim=1), torch.cat(weaks, dim=1)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator | None) -> nn.Module:

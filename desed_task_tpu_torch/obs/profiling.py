@@ -4,28 +4,64 @@
   activity always and CUDA activity when the card is in use. On exit it
   writes a Chrome trace (`trace.json`, viewable in Perfetto or
   chrome://tracing) under `log_dir`; its CUDA events name each kernel.
-- `StepTimer`: per-step wall-clock stats at a sync cadence. On the card it
-  records a CUDA event a step and waits on one only every `sync_every`
-  steps: the JAX timer's single host fetch a cadence, and no other host
-  synchronisation. On the CPU it reads time.perf_counter.
+- `span(name)`: a named host span of the program, "desed.<name>", recorded
+  by whichever torch.profiler is running, on the same clock as the
+  kernels it launches. With no profiler running it is one shared no-op
+  context: no tensor, no device work, no synchronisation, and a check
+  that costs a fraction of a microsecond.
+
+The spans, from the outside in (each in the module that does the work):
+
+    desed.step                  mean_teacher.make_train_step's optimizer step
+      desed.step.augment        frame shift, noise, the mixup gate and draws, mixup
+      desed.step.teacher        the teacher's forward (no grad)
+      desed.step.student        the student's forward
+      desed.step.loss           the supervised and consistency losses
+      desed.step.backward       total.backward()
+        desed.cnn.bwd           the conv blocks' backward kernels (autograd thread)
+        desed.rnn.bwd           the BiGRU's backward kernel (autograd thread)
+      desed.step.optimizer      clip by global norm + Adam
+      desed.step.ema            the teacher's EMA update
+    desed.frontend.mel          framing, DFT and the mel product (any caller)
+    desed.frontend.db           amplitude to dB
+    desed.frontend.scaler       the feature scaler
+    desed.crnn.cnn              SpecAugment and the conv blocks (any caller)
+    desed.crnn.embed            the embeddings' aggregation and fusion (cat_tf)
+    desed.crnn.rnn              the recurrent layers and their dropout
+    desed.crnn.heads            the strong and weak heads
+    desed.store.gather          the device store's row gather (train batches)
+    desed.eval                  one forward pass over a device-resident eval set
+      desed.eval.median         the class-wise median filter
+      desed.eval.copy           the stacked scores' one copy to the host
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
+SPAN_PREFIX = "desed."
+_OFF = contextlib.nullcontext()
+_profiler_on = torch._C._autograd._profiler_enabled  # this thread's profiler state
+
+
+def span(name: str):
+    """`with span("step.optimizer"):` records "desed.step.optimizer" when a
+    torch.profiler is running on this thread (the autograd engine's threads
+    inherit it), else does nothing."""
+    if _profiler_on():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _OFF
 
 
 @contextlib.contextmanager
 def trace(log_dir):
     """Profile the block; writes `<log_dir>/trace.json`. The card's activity
-    is traced too when CUDA is available."""
+    is traced too when CUDA is available. The program's spans (`span`)
+    appear as user annotations on the host threads that entered them."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
@@ -37,59 +73,3 @@ def trace(log_dir):
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(out / TRACE_FILE))
-
-
-class StepTimer:
-    """start(); step() once a train step; stats: mean, median and last of
-    the per-step time over each `sync_every` steps."""
-
-    def __init__(self, sync_every: int = 50, device: str | torch.device | None = None):
-        self.sync_every = sync_every
-        self.cuda = torch.device(device or "cpu").type == "cuda"
-        self.times: list[float] = []
-        self._t0 = None
-        self._steps = 0
-
-    def _mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def start(self):
-        self._t0 = self._mark()
-        self._steps = 0
-        return self
-
-    def step(self, sync_value=None):
-        """Call once per train step. On the CPU `sync_value` (a scalar) is
-        read at the cadence, as the JAX timer reads it; on the card the
-        cadence's event is waited on instead."""
-        self._steps += 1
-        if self._steps % self.sync_every:
-            return
-        now = self._mark()
-        if self.cuda:
-            now.synchronize()
-            dt = self._t0.elapsed_time(now) / 1000.0
-        else:
-            if sync_value is None:
-                return
-            float(sync_value)
-            now = time.perf_counter()
-            dt = now - self._t0
-        self.times.append(dt / self._steps)
-        self._t0 = now
-        self._steps = 0
-
-    @property
-    def stats(self) -> dict:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "step_time_mean_s": float(arr.mean()),
-            "step_time_p50_s": float(np.median(arr)),
-            "step_time_last_s": float(arr[-1]),
-        }

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class MelConfig:
@@ -327,22 +329,24 @@ def mel_spectrogram(audio: torch.Tensor, cfg: MelConfig,
                     backend: str | None = None) -> torch.Tensor:
     """[B, N] -> mel spectrogram [B, n_mels, n_frames] (power=cfg.power); the
     mel product is fp32 in either compute dtype (frontend.py:327)."""
-    spec = spectrogram(audio, cfg, backend)  # [..., n_freqs, T]
-    _, fb = _constants(cfg, audio.device, torch.float32)
-    with fp32_products(audio.device):
-        return torch.matmul(spec.transpose(-1, -2), fb).transpose(-1, -2)
+    with span("frontend.mel"):
+        spec = spectrogram(audio, cfg, backend)  # [..., n_freqs, T]
+        _, fb = _constants(cfg, audio.device, torch.float32)
+        with fp32_products(audio.device):
+            return torch.matmul(spec.transpose(-1, -2), fb).transpose(-1, -2)
 
 
 def amplitude_to_db(mel: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """torchaudio AmplitudeToDB(stype='amplitude', amin=1e-5) + clamp [-50, 80]."""
     if mel.device.type == "cpu":
         settle_cpu_vector_math()
-    multiplier = 10.0 if cfg.power == 2.0 else 20.0
-    db = multiplier * torch.log10(torch.clamp(mel, min=cfg.amin))
-    db = db - multiplier * math.log10(max(cfg.amin, 1.0))
-    if cfg.db_clamp_min is not None or cfg.db_clamp_max is not None:
-        db = torch.clamp(db, cfg.db_clamp_min, cfg.db_clamp_max)
-    return db
+    with span("frontend.db"):
+        multiplier = 10.0 if cfg.power == 2.0 else 20.0
+        db = multiplier * torch.log10(torch.clamp(mel, min=cfg.amin))
+        db = db - multiplier * math.log10(max(cfg.amin, 1.0))
+        if cfg.db_clamp_min is not None or cfg.db_clamp_max is not None:
+            db = torch.clamp(db, cfg.db_clamp_min, cfg.db_clamp_max)
+        return db
 
 
 def log_mel_spectrogram(audio: torch.Tensor, cfg: MelConfig,

@@ -60,6 +60,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from ..obs.profiling import span
 from . import _build
 from .dropout import keep_threshold, random_bytes
 
@@ -1282,8 +1283,9 @@ class ConvBnStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds, dq):
         x, w, y = ctx.saved_tensors
-        dx, dw, dbias = conv_bn_stats_bwd(x, w, y, dy.contiguous(), ds.contiguous(),
-                                          dq.contiguous(), ctx.needs_input_grad[0])
+        with span("cnn.bwd"):
+            dx, dw, dbias = conv_bn_stats_bwd(x, w, y, dy.contiguous(), ds.contiguous(),
+                                              dq.contiguous(), ctx.needs_input_grad[0])
         return dx, dw, dbias
 
 
@@ -1302,9 +1304,10 @@ class GluDropPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, scale_f, bias_f, wg, bg, bits = ctx.saved_tensors
-        dy, dsc, dbi, dwg, dbg = glu_drop_pool_bwd(
-            y, scale_f, bias_f, wg, bg, bits, g.contiguous(), pool=ctx.pool,
-            keep_prob=ctx.keep_prob)
+        with span("cnn.bwd"):
+            dy, dsc, dbi, dwg, dbg = glu_drop_pool_bwd(
+                y, scale_f, bias_f, wg, bg, bits, g.contiguous(), pool=ctx.pool,
+                keep_prob=ctx.keep_prob)
         return dy, dsc, dbi, dwg, dbg, None, None, None
 
 

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..obs.profiling import span
 from . import _build
 
 # CTAs per cluster. 6 measured fastest at H=192 on the H100 (PERF.md): 32
@@ -387,4 +388,5 @@ class BiGRU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dfwd, dbwd):
-        return bigru_bwd(*ctx.saved_tensors, dfwd, dbwd)
+        with span("rnn.bwd"):
+            return bigru_bwd(*ctx.saved_tensors, dfwd, dbwd)

@@ -15,6 +15,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from ..obs.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class ScalerConfig:
@@ -55,32 +57,33 @@ def apply_scaler(
     x: torch.Tensor, cfg: ScalerConfig, state: ScalerState | None = None
 ) -> torch.Tensor:
     """Normalize features [B, n_mels, T]."""
-    if cfg.statistic in ("none", None) or cfg.normtype in ("none", None):
-        return x
-    dims = tuple(cfg.dims)
-    if cfg.statistic == "dataset":
-        if state is None or state.mean is None:
-            raise ValueError("dataset scaler must be fitted (ScalerState)")
-        mean = state.mean.to(x.device, x.dtype)
+    with span("frontend.scaler"):
+        if cfg.statistic in ("none", None) or cfg.normtype in ("none", None):
+            return x
+        dims = tuple(cfg.dims)
+        if cfg.statistic == "dataset":
+            if state is None or state.mean is None:
+                raise ValueError("dataset scaler must be fitted (ScalerState)")
+            mean = state.mean.to(x.device, x.dtype)
+            if cfg.normtype == "mean":
+                return x - mean
+            if cfg.normtype == "standard":
+                mean_sq = state.mean_squared.to(x.device, x.dtype)
+                std = torch.sqrt(mean_sq - mean**2)
+                return (x - mean) / (std + cfg.eps)
+            raise NotImplementedError(
+                "statistic=dataset supports normtype mean|standard (as reference)"
+            )
         if cfg.normtype == "mean":
-            return x - mean
+            return x - x.mean(dim=dims, keepdim=True)
         if cfg.normtype == "standard":
-            mean_sq = state.mean_squared.to(x.device, x.dtype)
-            std = torch.sqrt(mean_sq - mean**2)
-            return (x - mean) / (std + cfg.eps)
-        raise NotImplementedError(
-            "statistic=dataset supports normtype mean|standard (as reference)"
-        )
-    if cfg.normtype == "mean":
-        return x - x.mean(dim=dims, keepdim=True)
-    if cfg.normtype == "standard":
-        mu = x.mean(dim=dims, keepdim=True)
-        # torch.std's unbiased (ddof=1) estimator, as the reference
-        cnt = math.prod(x.shape[d] for d in dims)
-        var = ((x - mu) ** 2).sum(dim=dims, keepdim=True) / max(cnt - 1, 1)
-        return (x - mu) / (torch.sqrt(var) + cfg.eps)
-    if cfg.normtype == "minmax":
-        lo = x.amin(dim=dims, keepdim=True)
-        hi = x.amax(dim=dims, keepdim=True)
-        return (x - lo) / (hi - lo + cfg.eps) * 2.0 - 1.0
-    raise ValueError(f"unknown normtype {cfg.normtype!r}")
+            mu = x.mean(dim=dims, keepdim=True)
+            # torch.std's unbiased (ddof=1) estimator, as the reference
+            cnt = math.prod(x.shape[d] for d in dims)
+            var = ((x - mu) ** 2).sum(dim=dims, keepdim=True) / max(cnt - 1, 1)
+            return (x - mu) / (torch.sqrt(var) + cfg.eps)
+        if cfg.normtype == "minmax":
+            lo = x.amin(dim=dims, keepdim=True)
+            hi = x.amax(dim=dims, keepdim=True)
+            return (x - lo) / (hi - lo + cfg.eps) * 2.0 - 1.0
+        raise ValueError(f"unknown normtype {cfg.normtype!r}")

@@ -51,6 +51,7 @@ from ..metrics.event_based import event_based_metrics
 from ..metrics.psds import compute_per_intersection_macro_f1, compute_psds_from_operating_points
 from ..metrics.scores import compute_psds_from_scores
 from ..metrics.segments import auroc, best_fscore, segment_scores_and_labels
+from ..obs.profiling import span
 from ..ops.median import classwise_median_filter
 from ..utils import table as tbl
 
@@ -81,34 +82,36 @@ def _predict_cache_all(predict_fn, model, cache: DeviceEvalCache, scaler, median
     on_device_median = isinstance(median_filter, (list, tuple, np.ndarray))
     med = tuple(int(f) for f in median_filter) if on_device_median else None
     fetch_raw = want_raw or not on_device_median
-    outs = []  # per batch: ([strong], [post], weak)
-    for start in range(0, cache.rows, cache.batch_size):
-        audio, emb = cache.batch(start)
-        strong, weak = predict_fn(model, audio, embeddings=emb, scaler=scaler)
-        row = [strong] if fetch_raw else []
-        if med is not None:
-            row.append(classwise_median_filter(strong, med, class_axis=-2))
-        outs.append(row + [weak])
-    # one device-to-host copy of everything
-    parts = [torch.cat([o[k] for o in outs]).float() for k in range(len(outs[0]))]
-    flat = torch.cat([p.flatten() for p in parts]).cpu()
-    shards = [flat]
-    if cache.mesh is not None:
-        group = cache.mesh.cpu_groups[cache.mesh_axis]
-        root = cache.mesh.root(cache.mesh_axis)
-        shards = ([torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
-                  if dist.get_rank() == root else None)
-        dist.gather(flat, shards, dst=root, group=group)
-        if shards is None:
-            return None
-    host, at = [], 0
-    for p in parts:  # each part: the shards' rows in rank order, global row order
-        rows = [s[at : at + p.numel()].numpy().reshape(p.shape) for s in shards]
-        host.append(np.concatenate(rows)[: cache.n])
-        at += p.numel()
-    strong_np = host[0] if fetch_raw else None
-    post_np = host[-2] if med is not None else None
-    return strong_np, post_np, host[-1]
+    with span("eval"):
+        outs = []  # per batch: ([strong], [post], weak)
+        for start in range(0, cache.rows, cache.batch_size):
+            audio, emb = cache.batch(start)
+            strong, weak = predict_fn(model, audio, embeddings=emb, scaler=scaler)
+            row = [strong] if fetch_raw else []
+            if med is not None:
+                with span("eval.median"):
+                    row.append(classwise_median_filter(strong, med, class_axis=-2))
+            outs.append(row + [weak])
+        with span("eval.copy"):  # one device-to-host copy of everything
+            parts = [torch.cat([o[k] for o in outs]).float() for k in range(len(outs[0]))]
+            flat = torch.cat([p.flatten() for p in parts]).cpu()
+        shards = [flat]
+        if cache.mesh is not None:
+            group = cache.mesh.cpu_groups[cache.mesh_axis]
+            root = cache.mesh.root(cache.mesh_axis)
+            shards = ([torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+                      if dist.get_rank() == root else None)
+            dist.gather(flat, shards, dst=root, group=group)
+            if shards is None:
+                return None
+        host, at = [], 0
+        for p in parts:  # each part: the shards' rows in rank order, global row order
+            rows = [s[at : at + p.numel()].numpy().reshape(p.shape) for s in shards]
+            host.append(np.concatenate(rows)[: cache.n])
+            at += p.numel()
+        strong_np = host[0] if fetch_raw else None
+        post_np = host[-2] if med is not None else None
+        return strong_np, post_np, host[-1]
 
 
 def iterate_batches(dataset, batch_size: int):

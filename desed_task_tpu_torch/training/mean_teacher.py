@@ -60,6 +60,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..device import resolve_device
+from ..obs.profiling import span
 from ..ops.augment import add_noise, frame_shift, mixup
 from ..ops.frontend import MelConfig, amplitude_to_db, mel_spectrogram
 from ..ops.scaler import ScalerConfig, ScalerState, apply_scaler
@@ -172,30 +173,31 @@ class ClipAdam:
     def step(self, params, grads, state: dict) -> torch.Tensor:
         """Update `params` in place from `grads`; returns the global norm of
         the gradients before clipping."""
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        if self.max_grad_norm:
-            scale = torch.where(g_norm < self.max_grad_norm, torch.ones_like(g_norm),
-                                self.max_grad_norm / g_norm)
-            grads = torch._foreach_mul(grads, scale)
-        mu, nu = state["mu"], state["nu"]
-        count = state["count"]
-        lr = float(self.schedule(count))
-        one = np.float32(1)
-        bc1 = float(one - np.float32(self.b1) ** np.float32(count + 1))
-        bc2 = float(one - np.float32(self.b2) ** np.float32(count + 1))
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
-        torch._foreach_mul_(nu, self.b2)
-        g2 = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(g2, 1.0 - self.b2)
-        torch._foreach_add_(nu, g2)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-        torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        torch._foreach_mul_(update, -lr)
-        torch._foreach_add_(params, update)
-        state["count"] = count + 1
-        return g_norm
+        with span("step.optimizer"):
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if self.max_grad_norm:
+                scale = torch.where(g_norm < self.max_grad_norm, torch.ones_like(g_norm),
+                                    self.max_grad_norm / g_norm)
+                grads = torch._foreach_mul(grads, scale)
+            mu, nu = state["mu"], state["nu"]
+            count = state["count"]
+            lr = float(self.schedule(count))
+            one = np.float32(1)
+            bc1 = float(one - np.float32(self.b1) ** np.float32(count + 1))
+            bc2 = float(one - np.float32(self.b2) ** np.float32(count + 1))
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
+            torch._foreach_mul_(nu, self.b2)
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1.0 - self.b2)
+            torch._foreach_add_(nu, g2)
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+            torch._foreach_add_(denom, self.eps)
+            update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            torch._foreach_mul_(update, -lr)
+            torch._foreach_add_(params, update)
+            state["count"] = count + 1
+            return g_norm
 
 
 def make_optimizer(lr: float, rampup_steps: int, max_grad_norm: float = 5.0,
@@ -304,55 +306,59 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
             with torch.no_grad():
                 emb = embedder(audio)
         features = mel_spectrogram(audio, mel_cfg)  # linear mel (power=1)
-        if cfg.frame_shift_std > 0:
-            features, labels = frame_shift(generator, features, labels, cfg.net_pooling,
-                                           cfg.frame_shift_std, label_axis=-1)
-        if cfg.add_noise_snrs is not None:
-            features = add_noise(generator, features, cfg.add_noise_snrs)
+        with span("step.augment"):
+            if cfg.frame_shift_std > 0:
+                features, labels = frame_shift(generator, features, labels, cfg.net_pooling,
+                                               cfg.frame_shift_std, label_axis=-1)
+            if cfg.add_noise_snrs is not None:
+                features = add_noise(generator, features, cfg.add_noise_snrs)
 
-        labels_weak_pre = (labels[wa:wb].sum(-1) > 0).float()
-        if cfg.mixup is not None and cfg.mixup_groups:
-            do_mix = host.random() < cfg.mixup_prob  # one gate per step
-            features, labels = features.clone(), labels.clone()
-            emb = None if emb is None else emb.clone()
-            for group in cfg.mixup_groups:
-                a = min(cfg.slot_range(n)[0] for n in group)
-                b = max(cfg.slot_range(n)[1] for n in group)
-                c = float(host.beta(0.2, 0.2))
-                if not do_mix:
-                    continue
-                perm = torch.randperm(b - a, generator=generator, device=dev)
-                features[a:b], labels[a:b], _ = mixup(
-                    generator, features[a:b], labels[a:b], mixup_label_type=cfg.mixup,
-                    perm=perm, c=c)
-                if emb is not None:
-                    emb[a:b] = c * emb[a:b] + (1.0 - c) * emb[a:b][perm]
-                if not cfg.weak_labels_post_mixup and (a, b) == (wa, wb):
-                    lw = labels_weak_pre[perm]
-                    if cfg.mixup == "soft":
-                        labels_weak_pre = torch.clamp(c * labels_weak_pre + (1 - c) * lw, 0, 1)
-                    else:
-                        labels_weak_pre = torch.clamp(labels_weak_pre + lw, 0, 1)
-
-        if cfg.weak_labels_post_mixup:
-            labels_weak = (labels[wa:wb].sum(-1) > 0).float()
-        else:
-            labels_weak = labels_weak_pre
-        labels = labels.masked_fill(~cmask[:, :, None], 0.0)
-        labels_weak = labels_weak.masked_fill(~cmask[wa:wb], 0.0)
+            labels_weak_pre = (labels[wa:wb].sum(-1) > 0).float()
+            if cfg.mixup is not None and cfg.mixup_groups:
+                do_mix = host.random() < cfg.mixup_prob  # one gate per step
+                features, labels = features.clone(), labels.clone()
+                emb = None if emb is None else emb.clone()
+                for group in cfg.mixup_groups:
+                    a = min(cfg.slot_range(n)[0] for n in group)
+                    b = max(cfg.slot_range(n)[1] for n in group)
+                    c = float(host.beta(0.2, 0.2))
+                    if not do_mix:
+                        continue
+                    perm = torch.randperm(b - a, generator=generator, device=dev)
+                    features[a:b], labels[a:b], _ = mixup(
+                        generator, features[a:b], labels[a:b], mixup_label_type=cfg.mixup,
+                        perm=perm, c=c)
+                    if emb is not None:
+                        emb[a:b] = c * emb[a:b] + (1.0 - c) * emb[a:b][perm]
+                    if not cfg.weak_labels_post_mixup and (a, b) == (wa, wb):
+                        lw = labels_weak_pre[perm]
+                        if cfg.mixup == "soft":
+                            labels_weak_pre = torch.clamp(c * labels_weak_pre + (1 - c) * lw, 0, 1)
+                        else:
+                            labels_weak_pre = torch.clamp(labels_weak_pre + lw, 0, 1)
+            if cfg.weak_labels_post_mixup:
+                labels_weak = (labels[wa:wb].sum(-1) > 0).float()
+            else:
+                labels_weak = labels_weak_pre
+            labels = labels.masked_fill(~cmask[:, :, None], 0.0)
+            labels_weak = labels_weak.masked_fill(~cmask[wa:wb], 0.0)
         x = amplitude_to_db(features, mel_cfg)
 
-        with torch.no_grad():  # teacher: train mode, its own BN buffers update
+        # teacher: train mode, its own BN buffers update
+        with torch.no_grad(), span("step.teacher"):
             t_strong, t_weak = detect(state.teacher, x, emb, cmask, state.scaler, generator)
 
-        s_strong, s_weak = detect(state.student, x, emb, cmask, state.scaler, generator)
-        loss_strong = bce(s_strong[sa:sb], labels[sa:sb])
-        loss_weak = bce(s_weak[wa:wb], labels_weak)
-        strong_self = selfsup(s_strong[ca:cb], t_strong[ca:cb])
-        weak_self = selfsup(s_weak[ca:cb], t_weak[ca:cb])
-        tot_self = (strong_self + weak_self) * weight
-        total = loss_strong + loss_weak + tot_self
-        total.backward()
+        with span("step.student"):
+            s_strong, s_weak = detect(state.student, x, emb, cmask, state.scaler, generator)
+        with span("step.loss"):
+            loss_strong = bce(s_strong[sa:sb], labels[sa:sb])
+            loss_weak = bce(s_weak[wa:wb], labels_weak)
+            strong_self = selfsup(s_strong[ca:cb], t_strong[ca:cb])
+            weak_self = selfsup(s_weak[ca:cb], t_weak[ca:cb])
+            tot_self = (strong_self + weak_self) * weight
+            total = loss_strong + loss_weak + tot_self
+        with span("step.backward"):
+            total.backward()
         return {
             "loss": total.detach(),
             "loss_strong": loss_strong.detach(),
@@ -363,54 +369,56 @@ def make_train_step(cfg: MeanTeacherConfig, optimizer: ClipAdam, schedule: Expon
         }
 
     def train_step(state: MeanTeacherState, batch: dict, generator: torch.Generator):
-        dev = next(state.student.parameters()).device
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, state on {dev}")
-        step = state.step
-        seed = generator.initial_seed()
+        with span("step"):
+            dev = next(state.student.parameters()).device
+            if generator.device.type != dev.type:
+                raise ValueError(f"generator on {generator.device}, state on {dev}")
+            step = state.step
+            seed = generator.initial_seed()
 
-        weight = cfg.const_max * schedule.scaling_factor(step)
-        if cfg.decay_steps is not None and step >= cfg.decay_steps:
-            weight = torch.tensor(cfg.const_max, dtype=torch.float32)
+            weight = cfg.const_max * schedule.scaling_factor(step)
+            if cfg.decay_steps is not None and step >= cfg.decay_steps:
+                weight = torch.tensor(cfg.const_max, dtype=torch.float32)
 
-        student = state.student
-        student.zero_grad(set_to_none=True)
-        params = list(student.parameters())
-        if accumulate == 1:
-            losses = micro_step(state, batch, generator,
-                                np.random.default_rng([seed, step, *rank_key]), weight, dev)
-        else:
-            sums = None
-            for i in range(accumulate):
-                host = np.random.default_rng([seed, step, i, *rank_key])
-                got = micro_step(state, _micro_batch(batch, i), generator, host, weight, dev)
-                sums = got if sums is None else {k: sums[k] + got[k] for k in sums}
-            inv = 1.0 / accumulate
-            losses = {k: v * inv for k, v in sums.items()}
-            # .grad holds the averaged gradients, what the optimizer sees
-            torch._foreach_mul_([p.grad for p in params], inv)
-        if group is not None:  # .grad holds the mean over the ranks
-            for p, g in zip(params, all_reduce_mean([p.grad for p in params], group)):
-                p.grad = g
-            stats = [b for m in (student, state.teacher) for b in m.buffers()
-                     if b.is_floating_point()]
-            with torch.no_grad():
-                torch._foreach_copy_(stats, all_reduce_mean(stats, group))
-        grad_norm = optimizer.step(params, [p.grad for p in params], state.opt_state)
+            student = state.student
+            student.zero_grad(set_to_none=True)
+            params = list(student.parameters())
+            if accumulate == 1:
+                losses = micro_step(state, batch, generator,
+                                    np.random.default_rng([seed, step, *rank_key]), weight, dev)
+            else:
+                sums = None
+                for i in range(accumulate):
+                    host = np.random.default_rng([seed, step, i, *rank_key])
+                    got = micro_step(state, _micro_batch(batch, i), generator, host, weight, dev)
+                    sums = got if sums is None else {k: sums[k] + got[k] for k in sums}
+                inv = 1.0 / accumulate
+                losses = {k: v * inv for k, v in sums.items()}
+                # .grad holds the averaged gradients, what the optimizer sees
+                torch._foreach_mul_([p.grad for p in params], inv)
+            if group is not None:  # .grad holds the mean over the ranks
+                for p, g in zip(params, all_reduce_mean([p.grad for p in params], group)):
+                    p.grad = g
+                stats = [b for m in (student, state.teacher) for b in m.buffers()
+                         if b.is_floating_point()]
+                with torch.no_grad():
+                    torch._foreach_copy_(stats, all_reduce_mean(stats, group))
+            grad_norm = optimizer.step(params, [p.grad for p in params], state.opt_state)
 
-        # EMA teacher on the UPDATED student (float32, as mean_teacher.py:421-427);
-        # BN buffers are not EMA'd
-        alpha = min(np.float32(1) - np.float32(1) / (np.float32(step + 1) + np.float32(1)),
-                    np.float32(cfg.ema_factor))
-        with torch.no_grad():
-            teacher = list(state.teacher.parameters())
-            torch._foreach_mul_(teacher, float(alpha))
-            torch._foreach_add_(teacher, torch._foreach_mul(params, float(np.float32(1) - alpha)))
-        state.step = step + 1
-        if group is not None:
-            losses = dict(zip(losses, all_reduce_mean(list(losses.values()), group)))
+            # EMA teacher on the UPDATED student (float32, as mean_teacher.py:421-427);
+            # BN buffers are not EMA'd
+            alpha = min(np.float32(1) - np.float32(1) / (np.float32(step + 1) + np.float32(1)),
+                        np.float32(cfg.ema_factor))
+            with torch.no_grad(), span("step.ema"):
+                teacher = list(state.teacher.parameters())
+                torch._foreach_mul_(teacher, float(alpha))
+                torch._foreach_add_(teacher,
+                                    torch._foreach_mul(params, float(np.float32(1) - alpha)))
+            state.step = step + 1
+            if group is not None:
+                losses = dict(zip(losses, all_reduce_mean(list(losses.values()), group)))
 
-        return {**losses, "weight": weight, "lr": schedule(step), "grad_norm": grad_norm}
+            return {**losses, "weight": weight, "lr": schedule(step), "grad_norm": grad_norm}
 
     return train_step
 

@@ -31,6 +31,7 @@ COUNTERPARTS = {
     ("metrics/segments.py", "scores_to_dataframe"): "scores_to_table (a column table)",
     ("models/cnn.py", "fast_conv3x3"): "a TPU tiling of the same conv (a layout workaround)",
     ("obs/macs.py", "compiled_flops"): "forward_macs (analytic)",
+    ("obs/profiling.py", "StepTimer"): "the desed.step spans under obs/profiling.trace",
     ("ops/dropout.py", "PackedDropout"): "packed_keep_mask",
     ("ops/pallas_cnn.py", "BlockDims"): "the kernels' plans in ops/fused_cnn.py",
     ("ops/pallas_gru.py", "bigru_pallas"): "ops/gru.bigru",
