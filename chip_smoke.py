@@ -88,12 +88,24 @@ Phases (any failure exits non-zero; nothing is caught):
   9. front-end: the fused log-mel entry point `fused_log_mel` on 64 ten-
      second clips (one launch), then at B=64 and B=60, fp32 and bf16: the
      kernel against its plain version and against the GEMM front-end
-     (`log_mel_spectrogram`, same compute dtype), bitwise-equal reruns, one
-     launch per call, the plan that `fused_log_mel_plan` picks (the wgmma
-     kernel, plan 3, required in bf16); the serving scores from
-     `fused_log_mel` features against `pipe.forward`; timings of the kernel,
-     its plain version and the GEMM front-end (the yardstick: no single
-     PyTorch call computes this function);
+     (`gemm_mel_spectrogram` and `amplitude_to_db`, same compute dtype),
+     bitwise-equal reruns, one launch per call, the plan that
+     `fused_log_mel_plan` picks (the wgmma kernel, plan 3, required in
+     bf16); the serving scores from `fused_log_mel` features against
+     `pipe.forward`; timings of the kernel, its plain version and the GEMM
+     front-end (the yardstick: no single PyTorch call computes this
+     function); then the linear-mel kernel that `mel_spectrogram` takes in
+     bf16 (the train and eval paths' front end) at B=64, 60, 96 and 24: one
+     launch per call, within TOL_LINEAR_REL of each clip's max and
+     TOL_LINEAR_DB of the GEMM path and of its plain version, bitwise-equal
+     reruns, its ms per call, its kernel's device ms and the GEMM path's ms;
+     the phases that hold the CRNN's launches leave the front end's out
+     (`kernel_launches`) and record them apart (`note_front_end`: phases 4,
+     7, 8b, 9, 10, 11, 12, 14 and 15's quickstart and export), each bf16
+     train step and serving batch required to launch the linear-mel kernel
+     once; the
+     kernels line's `mel_linear_wg_kernel` entry gives its launches on each
+     of those paths beside the GEMM path's;
   10. the eval path (training/evaluate.py): crnn_2024() student and teacher
      from a seed, EVAL_CLIPS seeded ten-second clips with 768x496 embeddings
      in a DeviceEvalCache of batches of EVAL_BATCH, seeded DESED ground
@@ -231,7 +243,9 @@ Phases (any failure exits non-zero; nothing is caught):
      64 and loaded: the graph calls the three custom ops (7 + 7 + 1), the
      loaded program launches 7/7/1 a batch and its outputs on 64 seeded
      clips are bitwise equal to the eager pipeline's; the same for the
-     bf16 pipeline (rows 1b, 2b, 5); exported and eager forward ms.
+     bf16 pipeline (rows 1b, 2b, 5), whose graph calls the front end's
+     op (desed_torch::mel_linear) first and launches it once a batch;
+     exported and eager forward ms.
   16. the options no recipe uses, at the 2024 flagship's width: (a)
      crnn_2024(n_in_channel=OPT_NC, cnn_integration=True): rows 1-4 at the
      seven blocks with B * OPT_NC maps (128 serving, 120 training) within
@@ -298,6 +312,7 @@ TOL_KERNEL = 1e-4  # max |kernel - plain| / max(1, max |plain|), fp32 sums
 TOL_SCORES = 1e-4  # max |kernel forward - plain forward| on sigmoid scores
 TRAIN_BATCH = 60  # mean_teacher_2024(): slots [12, 6, 6, 12, 24]
 EVAL_BATCH = 24  # batch_size_val of the 2024 recipe (confs/pretrained.yaml:12)
+TRAIN_2023_BATCH = 96  # the 2023 recipe's step (its confs/default.yaml: 24 + 24 + 48)
 EVAL_CLIPS = 4 * EVAL_BATCH
 # train step, kernels against plain versions: losses relative; each gradient
 # max |kernel - plain| / max(max |plain|, 1e-3) (the conv biases' exact
@@ -350,6 +365,13 @@ N_CPU_CLIPS = 8
 BF16_CPU_SLOTS = (2, 1, 1, 2, 4)
 # the fused log-mel's kernels by plan (csrc/fused_mel.cu fused_log_mel_plan)
 MEL_KERNELS = {1: "fused_log_mel_kernel", 3: "fused_log_mel_wg_kernel"}
+# the front end's launch counts (ops/frontend.py mel_spectrogram): the
+# linear-mel kernel (bf16 recipes' config on the card), and the GEMM path
+FRONT_END_LAUNCHES = ("mel_spectrogram.fused", "mel_spectrogram.gemm")
+# the linear-mel kernel against the GEMM path: the linear mel within
+# TOL_LINEAR_REL of each clip's largest, the log-mel within TOL_LINEAR_DB
+# (fp32 sums in another order; tests/test_torch_kernels_cuda.py)
+TOL_LINEAR_REL, TOL_LINEAR_DB = 1e-5, 1e-3
 
 
 def card_line() -> str:
@@ -380,6 +402,92 @@ def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS
              ) -> tuple[float, str]:
     tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def kernel_launches() -> dict:
+    """The launches counted so far (`_build.LAUNCHES`) but the front end's
+    (FRONT_END_LAUNCHES): the phases hold the CRNN's kernels by these, and
+    the front end's launches apart (phases 8b, 9 and 10)."""
+    from desed_task_tpu_torch.ops import _build
+
+    return {k: v for k, v in _build.LAUNCHES.items() if k not in FRONT_END_LAUNCHES}
+
+
+def front_end_launches() -> dict:
+    """The front end's launches counted so far."""
+    from desed_task_tpu_torch.ops import _build
+
+    return {k: v for k, v in _build.LAUNCHES.items() if k in FRONT_END_LAUNCHES}
+
+
+# path -> its front end's launches (a dict of FRONT_END_LAUNCHES counts, or
+# one such dict a unit: train_step, eval_batch), for the kernels line's
+# mel_linear_wg_kernel entry (main)
+FRONT_BY_PATH = {}
+
+
+def note_front_end(path: str, counts: dict | None = None, want: dict | None = None) -> dict:
+    """Records a path's front-end launches (`counts`, else those counted so
+    far) for the kernels line; with `want`, requires them."""
+    counts = front_end_launches() if counts is None else counts
+    FRONT_BY_PATH[path] = counts
+    if want is not None:
+        require(counts == want, f"{path}: the front end launched {counts}, expected {want}")
+    return counts
+
+
+def front_counts(counts: dict, key: str):
+    """One FRONT_END_LAUNCHES count of a FRONT_BY_PATH record, a unit at a
+    time where it has units."""
+    if any(isinstance(v, dict) for v in counts.values()):
+        return {unit: front_counts(v, key) for unit, v in counts.items()}
+    return counts.get(key, 0)
+
+
+def linear_entry(card: str, linear_rows: list) -> dict:
+    """The kernels line's mel_linear_wg_kernel entry: phase 9's rows (its
+    numbers at the 2024 train batch), and its launches on each path that
+    recorded its front end (note_front_end), beside the GEMM path's."""
+    r = next(x for x in linear_rows if x["B"] == TRAIN_BATCH)
+    by_path = {p: front_counts(c, "mel_spectrogram.fused") for p, c in FRONT_BY_PATH.items()}
+    entry = dict(
+        name="mel_linear_wg_kernel", route="cuda",
+        source="desed_task_tpu_torch/csrc/fused_mel.cu",
+        replaces="desed_task_tpu/ops/frontend.py:322 (mel_spectrogram, matmul backend, bf16)",
+        launches=by_path.get("train_step_bf16", 0), B=r["B"],
+        max_rel_err=max(x["rel_err"] for x in linear_rows),
+        max_db_err=max(x["db_err"] for x in linear_rows), ms=r["ms"], device_ms=r["device_ms"],
+        plain_ms=None, bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["gemm_ms"],
+        library="gemm_mel_spectrogram, the GEMM path", launches_by_path=by_path,
+        gemm_launches_by_path={p: front_counts(c, "mel_spectrogram.gemm")
+                               for p, c in FRONT_BY_PATH.items()},
+        rows=linear_rows)
+    print(f"[{card}] mel_linear_wg_kernel: {r['ms']:.3f} ms per call at B={r['B']} (device "
+          f"{r['device_ms']:.3f} ms), bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), GEMM "
+          f"path {r['gemm_ms']:.3f} ms; launches by path {by_path}; the GEMM path's "
+          f"{entry['gemm_launches_by_path']}", flush=True)
+    return entry
+
+
+def per_unit(counts: dict, n: int) -> dict:
+    """Launch counts over n units (a step, a batch): whole where they divide."""
+    return {k: v // n if v % n == 0 else v / n for k, v in counts.items()}
+
+
+def kernel_device_ms(fn, name: str, iters: int = 10) -> float:
+    """Device ms per call of the CUDA kernels whose name holds `name` that
+    fn launches (torch.profiler over `iters` calls after a warm one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
+    return us / 1e3 / iters
 
 
 def require(ok: bool, what: str) -> None:
@@ -703,7 +811,7 @@ def serve(gen, report):
         scores, weak, events = pipe.run(wavs, embeddings_lookup=lookup)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = kernel_launches()
         decodes = dict(native.COUNTS)
         want = {"conv_bn_stats": 7 * n_batches, "glu_drop_pool": 7 * n_batches,
                 "bigru": n_batches}
@@ -711,8 +819,10 @@ def serve(gen, report):
               f"{run_s:.3f} s wall (decode included); launches {launches}, "
               f"expected {want}; native wav decodes {decodes}", flush=True)
         require(launches == want, "the serving run did not go through every kernel")
+        note_front_end("serving", per_unit(front_end_launches(), n_batches),
+                       {"mel_spectrogram.gemm": 1})
         scores_p, weak_p, _ = pipe_plain.run(wavs, embeddings_lookup=lookup)
-        require(dict(_build.LAUNCHES) == launches, "the plain forward launched a kernel")
+        require(kernel_launches() == launches, "the plain forward launched a kernel")
         bf16 = serve_bf16(model, pipe, enc, thresholds, wavs, lookup, report)
 
     require(len(scores) == N_CLIPS and len(weak) == N_CLIPS, "clips missing from the run")
@@ -785,12 +895,14 @@ def serve_bf16(model32, pipe32, enc, thresholds, wavs, lookup, report):
     scores, weak, _ = pipe.run(wavs, embeddings_lookup=lookup)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     want = {"conv_bn_stats.bf16": 7 * n_batches, "glu_drop_pool.bf16": 7 * n_batches,
             "bigru": n_batches}
     print(f"serving bf16: {len(wavs)} clips in {n_batches} batches of {BATCH}, {run_s:.3f} s "
           f"wall; launches {launches}, expected {want}", flush=True)
     require(launches == want, "the bf16 serving run did not go through every bf16 kernel")
+    note_front_end("serving_bf16", per_unit(front_end_launches(), n_batches),
+                   {"mel_spectrogram.fused": 1})
     require(len(scores) == len(wavs) and all(
         bool(np.isfinite(scores[k]).all() and np.isfinite(weak[k]).all()) for k in scores),
         "bf16 serving: clips missing or non-finite scores")
@@ -817,7 +929,7 @@ def serve_bf16(model32, pipe32, enc, thresholds, wavs, lookup, report):
         _build.reset_launches()
         z_cpu = cpu_model.cnn(x.cpu(), train=False).float()
         out_cpu = cpu_model(feats.cpu(), embeddings=emb.cpu())
-        require(dict(_build.LAUNCHES) == {}, "the CPU forward launched a kernel")
+        require(kernel_launches() == {}, "the CPU forward launched a kernel")
         s32, w32, _ = pipe32.forward(audio, emb)
     med = lambda s: classwise_median_filter(s, pipe.median, class_axis=-2, time_axis=-1)
     card = (med(out_card[0]).float().cpu(), out_card[1].float().cpu())
@@ -1264,17 +1376,19 @@ def train(gen, report):
     state = fresh(True)
     _build.reset_launches()
     metrics, grads = run(state)
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     want = STEP_LAUNCHES
-    print(f"train step: launches {launches}, expected {want}", flush=True)
+    print(f"train step: launches {launches}, expected {want}; front end "
+          f"{front_end_launches()}", flush=True)
     require(launches == want, "the train step did not go through every kernel")
+    note_front_end("train_step", want={"mel_spectrogram.gemm": 1})
     print("train step metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()),
           flush=True)
     require(all(math.isfinite(v) for v in metrics.values()), "non-finite train metrics")
 
     plain = fresh(False)
     p_metrics, p_grads = run(plain)
-    require(dict(_build.LAUNCHES) == launches, "the plain step launched a kernel")
+    require(kernel_launches() == launches, "the plain step launched a kernel")
     loss_err = max(abs(metrics[k] - p_metrics[k]) / max(abs(p_metrics[k]), 1e-6)
                    for k in metrics)
     names = [n for n, _ in state.student.named_parameters()]
@@ -1348,10 +1462,12 @@ def train_bf16(ctx, report):
     state = fresh(cfg, "cuda")
     _build.reset_launches()
     metrics, grads = run(state, step, batch, "cuda")
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     want = STEP16_LAUNCHES
-    print(f"train step bf16: launches {launches}, expected {want}", flush=True)
+    print(f"train step bf16: launches {launches}, expected {want}; front end "
+          f"{front_end_launches()}", flush=True)
     require(launches == want, "the bf16 train step did not go through every bf16 kernel")
+    note_front_end("train_step_bf16", want={"mel_spectrogram.fused": 1})
     print("train step bf16 metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()),
           flush=True)
     require(all(math.isfinite(v) for v in metrics.values()), "non-finite bf16 train metrics")
@@ -1385,7 +1501,7 @@ def train_bf16(ctx, report):
     _, g_cpu = run(fresh(small, "cpu", **quiet), step_small, part_cpu, "cpu")
     _, g_32 = run(fresh(small, "cpu", bf16=False, **quiet),
                   make_train_step(small, tx, sched), part_cpu, "cpu")
-    require(dict(_build.LAUNCHES) == {}, "the CPU steps launched a kernel")
+    require(kernel_launches() == {}, "the CPU steps launched a kernel")
     cpu_s = time.perf_counter() - t0
     shares = {}
     for n in g_cpu:
@@ -1413,21 +1529,26 @@ def train_bf16(ctx, report):
 
 def frontend(gen, pipe, report):
     """Phase 9: the fused log-mel entry point, its kernel against its plain
-    version and against the GEMM front-end, and its timings."""
+    version and against the GEMM front-end, and its timings; then the
+    linear-mel kernel that the train and eval paths take in bf16 against the
+    GEMM path and its plain version, and its timings beside them."""
     import torch
 
-    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.ops import _build, fused_mel
     from desed_task_tpu_torch.ops.fused_mel import fused_log_mel, fused_log_mel_plain
-    from desed_task_tpu_torch.ops.frontend import MelConfig, log_mel_spectrogram
+    from desed_task_tpu_torch.ops.frontend import (MelConfig, amplitude_to_db, center_pad,
+                                                   gemm_mel_spectrogram, mel_spectrogram)
     from desed_task_tpu_torch.ops.median import classwise_median_filter
     from desed_task_tpu_torch.ops.scaler import apply_scaler
 
     clips = {B: (torch.randn(B, 160000, generator=gen) * 0.1).to("cuda")
-             for B in (BATCH, TRAIN_BATCH)}
+             for B in (BATCH, TRAIN_BATCH, TRAIN_2023_BATCH, EVAL_BATCH)}
+    # the GEMM front-end's log-mel (row 7b's yardstick)
+    log_mel_gemm = lambda audio, cfg: amplitude_to_db(gemm_mel_spectrogram(audio, cfg), cfg)
     _build.reset_launches()
     out = fused_log_mel(clips[BATCH], MelConfig())
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = kernel_launches()
     print(f"front-end: fused_log_mel on {BATCH} clips: launches {launches}", flush=True)
     require(launches == {"fused_log_mel": 1}, "the front-end did not go through its kernel")
     require(tuple(out.shape) == (BATCH, 128, 626) and bool(torch.isfinite(out).all()),
@@ -1435,7 +1556,7 @@ def frontend(gen, pipe, report):
 
     plan_fn = _build.function("fused_mel", "fused_log_mel_plan", [_build.I] * 4)
     rows = []
-    for B, audio in clips.items():
+    for B, audio in ((B, clips[B]) for B in (BATCH, TRAIN_BATCH)):
         for dtype in ("float32", "bfloat16"):
             cfg = MelConfig(compute_dtype=dtype)
             bf16 = dtype == "bfloat16"
@@ -1447,11 +1568,11 @@ def frontend(gen, pipe, report):
             _build.reset_launches()
             got = fused_log_mel(audio, cfg)
             again = fused_log_mel(audio, cfg)
-            require(dict(_build.LAUNCHES) == {name: 2},
+            require(kernel_launches() == {name: 2},
                     "fused_log_mel did not launch once per call")
             plain = fused_log_mel_plain(audio, cfg)
-            gemm = log_mel_spectrogram(audio, cfg)
-            require(dict(_build.LAUNCHES) == {name: 2},
+            gemm = log_mel_gemm(audio, cfg)
+            require(kernel_launches() == {name: 2},
                     "a plain front-end launched a kernel")
             err, abs_err = rel_err(got, plain), float((got - plain).abs().max())
             gemm_db = float((got - gemm).abs().max())
@@ -1476,9 +1597,62 @@ def frontend(gen, pipe, report):
                 gemm_db=gemm_db,
                 ms=time_ms(lambda: fused_log_mel(audio, cfg)),
                 plain_ms=time_ms(lambda: fused_log_mel_plain(audio, cfg), iters=3),
-                yardstick_ms=time_ms(lambda: log_mel_spectrogram(audio, cfg)),
+                yardstick_ms=time_ms(lambda: log_mel_gemm(audio, cfg)),
                 bound=bound_ms(n_bytes, flops, peak), gflop=flops / 1e9))
             del got, again, plain, gemm
+
+    # the linear-mel kernel (mel_linear_wg_kernel) that mel_spectrogram takes
+    # on the card for the recipes' bf16 front end, at the serving, 2024 and
+    # 2023 train and eval batches: against the GEMM path and its plain
+    # version, reruns, launches, ms per call (CUDA events around
+    # mel_spectrogram: the reflection pad and the kernel) beside the GEMM
+    # path's, and the kernel's device ms (torch.profiler). Its bound is the
+    # longest of three times: the DFT at the bf16 tensor-core rate; the
+    # magnitude (re^2 + im^2, sqrt) and the banded mel product (two FMAs a
+    # frequency) at the fp32 rate; the bytes of the audio, the bf16 basis,
+    # the band table (16 a frequency) and the fp32 mel
+    cfg = MelConfig(compute_dtype="bfloat16")
+    items, band = fused_mel._linear_constants(cfg, torch.device("cuda"))
+    linear_rows = []
+    for B, audio in clips.items():
+        _build.reset_launches()
+        got = mel_spectrogram(audio, cfg)
+        again = mel_spectrogram(audio, cfg)
+        require(not kernel_launches(), "mel_spectrogram in bf16 launched another kernel")
+        note_front_end("frontend", per_unit(front_end_launches(), 2),
+                       {"mel_spectrogram.fused": 1})
+        T = got.shape[2]
+        gemm = gemm_mel_spectrogram(audio, cfg)
+        plain = fused_mel.mel_linear_plain(center_pad(audio, cfg), items, band, T, cfg.n_fft,
+                                           cfg.hop_length, cfg.n_mels).transpose(1, 2)
+        require(front_end_launches() == {"mel_spectrogram.fused": 2},
+                "the GEMM path or the plain version launched a kernel")
+        peak_clip = gemm.abs().amax(dim=(1, 2))
+        rel = float(((got - gemm).abs().amax(dim=(1, 2)) / peak_clip).max())
+        rel_plain = float(((got - plain).abs().amax(dim=(1, 2)) / peak_clip).max())
+        db = float((amplitude_to_db(got, cfg) - amplitude_to_db(gemm, cfg)).abs().max())
+        same = torch.equal(got, again)
+        print(f"linear mel     B={B} bfloat16 (mel_linear_wg_kernel): against the GEMM path "
+              f"{rel:.3e} of the clip's max (tol {TOL_LINEAR_REL}), {db:.3e} dB (tol "
+              f"{TOL_LINEAR_DB}); against its plain version {rel_plain:.3e}; rerun bitwise "
+              f"equal: {same}", flush=True)
+        require(rel <= TOL_LINEAR_REL and db <= TOL_LINEAR_DB and rel_plain <= TOL_LINEAR_REL,
+                "the linear-mel kernel disagrees with the GEMM path")
+        require(same, "the linear-mel kernel is not bitwise repeatable")
+        nf = cfg.n_freqs
+        dft, fp32_ops = 2 * B * T * cfg.n_fft * 2 * nf, 4 * B * T * nf + 4 * B * T * nf
+        n_bytes = 4 * audio.numel() + 2 * cfg.n_fft * 2 * nf + 16 * nf + 4 * got.numel()
+        bound = max((n_bytes / PEAK_BYTES * 1e3, "bytes"),
+                    (dft / PEAK_BF16_FLOPS * 1e3, "operations"),
+                    (fp32_ops / PEAK_FP32_FLOPS * 1e3, "operations"))
+        linear_rows.append(dict(
+            B=B, rel_err=rel, db_err=db, plain_rel_err=rel_plain,
+            ms=time_ms(lambda: mel_spectrogram(audio, cfg)),
+            device_ms=kernel_device_ms(lambda: mel_spectrogram(audio, cfg),
+                                       "mel_linear_wg_kernel"),
+            gemm_ms=time_ms(lambda: gemm_mel_spectrogram(audio, cfg)),
+            bound=bound, gflop=(dft + fp32_ops) / 1e9))
+        del got, again, gemm, plain
 
     # the serving scores from fused features against pipe.forward
     audio = clips[BATCH]
@@ -1493,8 +1667,9 @@ def frontend(gen, pipe, report):
     print(f"front-end: serving scores from fused_log_mel features against pipe.forward: "
           f"max err {s_err:.3e} (tol {TOL_SCORES})", flush=True)
     require(s_err <= TOL_SCORES, "scores from the fused front-end disagree")
-    report["frontend"] = dict(launches=launches, rows=rows, score_err=s_err)
-    return launches, rows
+    report["frontend"] = dict(launches=launches, rows=rows, linear_rows=linear_rows,
+                              score_err=s_err)
+    return launches, rows, linear_rows
 
 
 def eval_items(enc, rng):
@@ -1571,7 +1746,10 @@ def evaluate(gen, card, report):
         t1 = time.perf_counter()
         r = run_test(pred, st, cache, enc, gt, dur, **test_kw)
         t2 = time.perf_counter()
-        return v, r, dict(_build.LAUNCHES), t1 - t0, t2 - t1
+        front.append(front_end_launches())
+        return v, r, kernel_launches(), t1 - t0, t2 - t1
+
+    front = []  # the front end's launches of each run
 
     (obj, scalars), res, launches, val_s, test_s = run(state)
     # the validator: weak and synth sets, student and teacher (4 passes);
@@ -1641,6 +1819,11 @@ def evaluate(gen, card, report):
               "bigru": n_batches}
     print(f"eval bf16: run_test launches {launches16}, expected {want16}", flush=True)
     require(launches16 == want16, "the bf16 eval did not go through every bf16 kernel")
+    print(f"eval front end: launches of the fp32, plain and bf16 runs {front}", flush=True)
+    require(front == [{"mel_spectrogram.gemm": passes}] * 2 + [{"mel_spectrogram.fused": n_batches}],
+            "the eval front end: the GEMM path in fp32, the linear-mel kernel in bf16")
+    note_front_end("eval", per_unit(front[0], passes))
+    note_front_end("eval_bf16", per_unit(front[2], n_batches))
     post16 = np.stack([res16["scores_postprocessed"][k].values for k in names])
     require(bool(np.isfinite(post16).all()) and all(
         math.isfinite(v) and 0 <= v <= 1 for k, v in res16.items() if k in numbers),
@@ -1944,7 +2127,7 @@ def recipe(card, report, step16_launches):
         state, res = single_run(config, str(root / "run_a"), fast_dev_run=True, fast=True,
                                 run_info=info)
         run_a_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches, front_a = kernel_launches(), front_end_launches()
         cache, loop, batcher = info["cache"], info["loop"], info["batcher"]
         require(cache is not None, "recipe: the device train store did not switch on")
         steps = sum(h["steps"] for h in loop.history)
@@ -2033,7 +2216,7 @@ def recipe(card, report, step16_launches):
         _, syncs = syncs_in(sync_loop.run)
         n_sync_steps = sync_loop.history[0]["steps"]
         per_step = {k: v // n_sync_steps if v % n_sync_steps == 0 else v / n_sync_steps
-                    for k, v in _build.LAUNCHES.items()}
+                    for k, v in kernel_launches().items()}
         _, control = syncs_in(lambda: torch.ones(1, device="cuda").item())
         print(f"recipe bf16: launches per train step {per_step} (phase 8b: {step16_launches}); "
               f"blocking host synchronisations in {n_sync_steps} steps of the loop: "
@@ -2042,6 +2225,10 @@ def recipe(card, report, step16_launches):
         require(len(control) == 1, "the synchronisation watch does not see a .item()")
         require(per_step == step16_launches, "recipe: launches per step differ from phase 8b")
         require(len(syncs) == n_sync_steps, "recipe: not one host synchronisation a step")
+        front_step = per_unit(front_end_launches(), n_sync_steps)
+        print(f"recipe bf16: the front end's launches a train step {front_step}", flush=True)
+        require(front_step == {"mel_spectrogram.fused": 1},
+                "recipe: the bf16 train step's front end did not launch the linear-mel kernel")
         # run (a)'s launches less its steps' (at the per-step counts just
         # read) are its eval batches' (per model pass)
         per_eval16 = {}
@@ -2052,6 +2239,12 @@ def recipe(card, report, step16_launches):
         print(f"recipe bf16: launches per eval batch per model pass {per_eval16}", flush=True)
         require(per_eval16 == expect_eval16,
                 "recipe: the bf16 eval batches' launches differ from 7/7/1")
+        front_eval16 = per_unit({k: v - steps * front_step.get(k, 0) for k, v in front_a.items()
+                                 if v != steps * front_step.get(k, 0)}, evals)
+        print(f"recipe bf16: the front end's launches in run (a) {front_a}, an eval batch "
+              f"{front_eval16}", flush=True)
+        require("mel_spectrogram.gemm" not in front_a, "recipe: the bf16 run took the GEMM path")
+        note_front_end("recipe_bf16", {"train_step": front_step, "eval_batch": front_eval16})
 
         # the label-free eval dump from run (a)'s checkpoint (--eval_from_checkpoint)
         _, none = single_run(config, str(root / "run_eval"), fast_dev_run=True, fast=True,
@@ -2069,7 +2262,9 @@ def recipe(card, report, step16_launches):
         state_b, res_b = single_run(config, str(root / "run_b"), fast_dev_run=True, fast=False,
                                     test_from_checkpoint=str(ckpt_dir), run_info=info_b)
         run_b_s = time.perf_counter() - t0
-        launches_b = dict(_build.LAUNCHES)
+        launches_b = kernel_launches()
+        note_front_end("recipe", {"eval_batch": per_unit(front_end_launches(), test_batches),
+                                  "train_step": {}})
         expect_eval = {"conv_bn_stats": 7, "glu_drop_pool": 7, "bigru": 1}
         want_b = {k: v * test_batches for k, v in expect_eval.items()}
         per_eval = {k: v // test_batches for k, v in launches_b.items()}
@@ -2125,7 +2320,7 @@ def recipe(card, report, step16_launches):
         _build.reset_launches()
         state_c, res_c = single_run(config_c, str(root / "run_c"), fast_dev_run=True, fast=True,
                                     run_info=info_c)
-        launches_c = dict(_build.LAUNCHES)
+        launches_c = kernel_launches()
         loop_c = info_c["loop"]
         print(f"recipe bf16 host path: launches {launches_c}", flush=True)
         require(info_c["cache"] is None, "recipe: run (c) built the train store")
@@ -2142,8 +2337,10 @@ def recipe(card, report, step16_launches):
         _build.reset_launches()
         host_loop.run()
         host_steps = sum(h["steps"] for h in host_loop.history)
-        require(dict(_build.LAUNCHES) == {k: host_steps * v for k, v in per_step.items()},
+        require(kernel_launches() == {k: host_steps * v for k, v in per_step.items()},
                 "recipe: the host-batch loop did not launch the kernels a step")
+        require(front_end_launches() == {"mel_spectrogram.fused": host_steps},
+                "recipe: the host-batch loop's front end did not launch its kernel a step")
         with open(root / "host" / "metrics.csv") as f:
             host_losses = [float(r["value"]) for r in csv.DictReader(f)
                            if r["name"] == "train/loss"]
@@ -2321,11 +2518,11 @@ class StepLaunches(dict):
     """A run_info for an entry point that reads the kernel launches of each
     train step of the run itself: as the run hands over its TrainLoop, the
     loop's step function is wrapped to count around each call (`steps`, a
-    dict of launches a step)."""
+    dict of launches a step; `front`, the front end's)."""
 
     def __init__(self):
         super().__init__()
-        self.steps = []
+        self.steps, self.front = [], []
 
     def update(self, *args, **kw):
         super().update(*args, **kw)
@@ -2337,10 +2534,12 @@ class StepLaunches(dict):
         inner = loop.step_fn
 
         def step(*a):
-            before = dict(_build.LAUNCHES)
+            before, front = kernel_launches(), front_end_launches()
             out = inner(*a)
-            self.steps.append({k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+            self.steps.append({k: v - before.get(k, 0) for k, v in kernel_launches().items()
                                if v != before.get(k, 0)})
+            self.front.append({k: v - front.get(k, 0) for k, v in front_end_launches().items()
+                               if v != front.get(k, 0)})
             return out
 
         step.counts_launches = True
@@ -2419,11 +2618,23 @@ def recipes_2021_2023(card, report):
             return ([float(r["value"]) for r in rows if r["name"] == "train/epoch_seconds"],
                     [float(r["value"]) for r in rows if r["name"] == "train/loss"])
 
-        def path_launches(tag, info, launches, evals, step, ev):
-            """A path's launches a train step, read around each step of its
+        def path_launches(path, tag, info, launches, evals, step, ev, front_step=None):
+            """Path `path`'s launches a train step, read around each step of its
             run (StepLaunches), and a model pass of an eval batch: the rest
             of the run's launches over its `evals` eval batches. Each is
-            held to the model's count."""
+            held to the model's count. The front end's likewise, recorded
+            for the kernels line (each step's held to `front_step` if
+            given)."""
+            front = front_end_launches()
+            f_step = info.front[0] if info.front else {}
+            f_eval = per_unit({k: v - len(info.front) * f_step.get(k, 0) for k, v in front.items()
+                               if v != len(info.front) * f_step.get(k, 0)}, evals)
+            print(f"{tag}: the front end's launches {front}: a step {info.front}, an eval "
+                  f"batch {f_eval}", flush=True)
+            if front_step is not None:
+                require(all(x == front_step for x in info.front),
+                        f"{tag}: a train step's front end did not launch {front_step}")
+            note_front_end(path, {"train_step": f_step, "eval_batch": f_eval})
             per_step = info.steps[0] if info.steps else {}
             rest = {k: launches.get(k, 0) - len(info.steps) * per_step.get(k, 0)
                     for k in set(launches) | set(per_step)}
@@ -2457,8 +2668,8 @@ def recipes_2021_2023(card, report):
         # an epoch: one step; validation: weak (3 clips) and synth_val (24)
         # for student and teacher; the test battery: 24 clips, student
         by_path = {"recipe_2023_bf16": path_launches(
-            "recipe 2023 bf16 (a)", info_a, dict(_build.LAUNCHES), 2 * 4 + 1, YEAR_STEP16,
-            YEAR_EVAL16)}
+            "recipe_2023_bf16", "recipe 2023 bf16 (a)", info_a, kernel_launches(), 2 * 4 + 1,
+            YEAR_STEP16, YEAR_EVAL16, front_step={"mel_spectrogram.fused": 1})}
         ep_a, losses_a = epochs(root / "run_a")
         out["run_a"] = dict(s=run_a_s, epoch_s=ep_a, metrics=check_scores("recipe 2023 (a)",
                                                                           res_a))
@@ -2476,8 +2687,8 @@ def recipes_2021_2023(card, report):
                                                    run_info=info_b)
         run_b_s = time.perf_counter() - t0
         by_path["recipe_2022_ast_bf16"] = path_launches(
-            "recipe 2022 AST bf16 (b)", info_b, dict(_build.LAUNCHES), 2 * 4 + 1, AST_STEP16,
-            AST_EVAL16)
+            "recipe_2022_ast_bf16", "recipe 2022 AST bf16 (b)", info_b, kernel_launches(),
+            2 * 4 + 1, AST_STEP16, AST_EVAL16)
         ep_b, _ = epochs(root / "run_b")
         out["run_b"] = dict(s=run_b_s, epoch_s=ep_b, metrics=check_scores("recipe 2022 AST (b)",
                                                                           res_b))
@@ -2497,11 +2708,11 @@ def recipes_2021_2023(card, report):
         n_params = sum(p.numel() for p in model_c.parameters())
         print(f"mixit (c): TDCNPP() {n_params} parameters, losses {mixit['train/mixit_loss']}, "
               f"SI-SNRi {mixit['val/si_snri_db']} dB, epochs {mixit['train/epoch_seconds']} s; "
-              f"launches {dict(_build.LAUNCHES)} (none: no Pallas kernel in the TDCN)",
+              f"launches {kernel_launches()} (none: no Pallas kernel in the TDCN)",
               flush=True)
         require(best.is_file() and all(math.isfinite(v) for vs in mixit.values() for v in vs),
                 "(c): no best checkpoint or non-finite MixIT metrics")
-        require(not _build.LAUNCHES, "(c): a CRNN kernel launched")
+        require(not kernel_launches(), "(c): a CRNN kernel launched")
         out["run_c"] = dict(s=run_c_s, **mixit, params=n_params)
 
         # the separator on the card against its CPU forward (TF32 off)
@@ -2551,7 +2762,7 @@ def recipes_2021_2023(card, report):
         print(f"separation (d): {n_sep} clips, {written} source files in {run_d_s:.2f} s "
               f"({run_d_s / n_sep * 1e3:.1f} ms a clip; one clip's forward alone "
               f"{sep_ms:.2f} ms)", flush=True)
-        require(written == N_SRC * n_sep and not _build.LAUNCHES, "(d): sources not written")
+        require(written == N_SRC * n_sep and not kernel_launches(), "(d): sources not written")
         out["run_d"] = dict(s=run_d_s, clips=n_sep)
 
         # (e) the separation-ensemble fine-tune from (a)'s checkpoint, fp32
@@ -2563,8 +2774,9 @@ def recipes_2021_2023(card, report):
             ["--conf_file", str(conf_e), "--sed_checkpoint", str(root / "run_a" / "checkpoints"),
              "--log_dir", str(root / "run_e"), "--fast_dev_run"], run_info=info)
         run_e_s = time.perf_counter() - t0
-        by_path["finetune"] = path_launches("fine-tune fp32 (e)", info, dict(_build.LAUNCHES),
-                                            2 * 4 + 1, FINETUNE_STEP, FINETUNE_EVAL)
+        by_path["finetune"] = path_launches("finetune", "fine-tune fp32 (e)", info,
+                                            kernel_launches(), 2 * 4 + 1, FINETUNE_STEP,
+                                            FINETUNE_EVAL)
         ep_e, _ = epochs(root / "run_e")
         out["run_e"] = dict(s=run_e_s, epoch_s=ep_e, q=float(torch.sigmoid(
             state_e.teacher.q_logit)), metrics=check_scores("fine-tune (e)", res_e))
@@ -2605,12 +2817,12 @@ def recipes_2021_2023(card, report):
         del st_raw, g_raw
         _build.reset_launches()
         st_k, step_k, m_k, g_k = run(True)
-        per_step = dict(_build.LAUNCHES)
+        per_step = kernel_launches()
         print(f"fine-tune step (96 clips x {N_SRC} sources): launches {per_step}, expected "
               f"{FINETUNE_STEP}", flush=True)
         require(per_step == FINETUNE_STEP, "the fine-tune step's launches differ")
         st_p, step_p, m_p, g_p = run(False)
-        require(dict(_build.LAUNCHES) == per_step, "the plain fine-tune step launched a kernel")
+        require(kernel_launches() == per_step, "the plain fine-tune step launched a kernel")
         loss_err = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-6) for k in m_k)
         grad_errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
                      for n, a, b in zip(names, g_k, g_p)}
@@ -3027,7 +3239,7 @@ def embedders(card, report):
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
             metrics, grads = run(state)
-            launches = dict(_build.LAUNCHES)
+            launches = kernel_launches()
             peak = torch.cuda.max_memory_allocated()
             _, grads2 = run(fresh())
             same = all(torch.equal(a, b) for a, b in zip(grads, grads2))
@@ -3088,7 +3300,7 @@ def embedders(card, report):
         t0 = time.perf_counter()
         scores, weak_s, _ = pipe.run(wavs)
         serve_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = kernel_launches()
         per_batch = {k: v // n_batches for k, v in launches.items()}
         scores_p, _, _ = pipe_plain.run(wavs)
         s_err = max(float(np.abs(scores[k] - scores_p[k]).max()) for k in scores)
@@ -3264,12 +3476,13 @@ def _rank_step(rank, world, spec):
         step = make_train_step_sharded(cfg, tx, sched, mesh, batch, mel_cfg=MelConfig(
             compute_dtype="bfloat16" if bf16 else "float32"))
         gen = torch.Generator(device="cuda").manual_seed(rank_seed(7, rank, world))
-        launches, digests, losses = [], [], []
+        launches, front, digests, losses = [], [], [], []
         for _ in range(2):
             _build.reset_launches()
             metrics = step(state, shard, gen)
             torch.cuda.synchronize()
-            launches.append(dict(_build.LAUNCHES))
+            launches.append(kernel_launches())
+            front.append(front_end_launches())
             digests.append(state_digest(state))
             losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
@@ -3278,7 +3491,7 @@ def _rank_step(rank, world, spec):
             metrics = step(state, shard, gen)
             float(metrics["loss"])  # the loop's one fetch a step
         torch.cuda.synchronize()
-        out[mode] = dict(launches=launches, digests=digests, losses=losses,
+        out[mode] = dict(launches=launches, front=front, digests=digests, losses=losses,
                          step_ms=(time.perf_counter() - t0) / 5 * 1e3)
         if not bf16:
             n_params = sum(p.numel() for p in state.student.parameters())
@@ -3314,7 +3527,7 @@ def _rank_step(rank, world, spec):
         torch.cuda.synchronize()
         got.append(({k: float(v) for k, v in metrics.items()},
                     [p.grad.clone() for p in state.student.parameters()],
-                    dict(_build.LAUNCHES)))
+                    kernel_launches()))
         del state
     out["errs"] = step_errors(got[0][0], got[0][1], got[1][0], got[1][1])
     out["plain_launches"] = got[1][2]
@@ -3344,13 +3557,13 @@ def _rank_eval(rank, world, spec):
     predict = make_predict_step()
     _build.reset_launches()
     scores = _predict_cache_all(predict, model, cache, None, MEDIAN_2024, want_raw=True)
-    launches = dict(_build.LAUNCHES)
+    launches, front = kernel_launches(), front_end_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
         _predict_cache_all(predict, model, cache, None, MEDIAN_2024, want_raw=True)
     torch.cuda.synchronize()
-    return dict(scores=scores, launches=launches, batches=cache.rows // EVAL_BATCH,
+    return dict(scores=scores, launches=launches, front=front, batches=cache.rows // EVAL_BATCH,
                 pass_ms=(time.perf_counter() - t0) / 3 * 1e3)
 
 
@@ -3399,7 +3612,7 @@ def _rank_tp(rank, world, spec):
         torch.cuda.synchronize()
         runs.append(({k: float(v) for k, v in metrics.items()},
                      [p.grad.clone() for p in state.student.parameters()],
-                     dict(_build.LAUNCHES), state_digest(state)))
+                     kernel_launches(), state_digest(state)))
         gen = torch.Generator(device="cuda").manual_seed(11)
         step_ms = time_ms(lambda: step(state, batch, gen), iters=2, warmup=1)
         del state
@@ -3440,7 +3653,8 @@ def _rank_recipe(rank, world, spec):
         state, res = single_run(config, str(log), fast_dev_run=True, fast=True,
                                 device="cuda:0", run_info=info)
         run_s = time.perf_counter() - t0
-    out = dict(digest=state_digest(state), run_s=run_s, launches=dict(_build.LAUNCHES),
+    out = dict(digest=state_digest(state), run_s=run_s, launches=kernel_launches(),
+               front=front_end_launches(),
                steps=sum(h["steps"] for h in info["loop"].history),
                results=None if res is None else {k: v for k, v in res.items()
                                                  if isinstance(v, float)})
@@ -3516,6 +3730,12 @@ def parallelism(card, report, ctx):
               f"(student, teacher, BN statistics, Adam moments) bitwise equal after each step: "
               f"{same}; losses {losses}", flush=True)
         require(all(x == want for x in launches), f"parallel (b) {mode}: launches differ")
+        front = [x for r in st for x in r[mode]["front"]]
+        want_front = {"mel_spectrogram.fused" if mode == "bf16" else "mel_spectrogram.gemm": 1}
+        print(f"parallel (b) {mode}: the front end's launches a step on each rank {front}",
+              flush=True)
+        require(all(x == want_front for x in front), f"parallel (b) {mode}: front end launches")
+        note_front_end("sharded_step_bf16" if mode == "bf16" else "sharded_step", front[0])
         require(same, f"parallel (b) {mode}: the replicas differ")
         require(all(math.isfinite(v) for r in losses for v in r), f"parallel (b) {mode}: loss")
     loss_err, grad_err = st[0]["errs"]
@@ -3552,6 +3772,7 @@ def parallelism(card, report, ctx):
           f"received no scores: {ev[1]['scores'] is None}", flush=True)
     require(same, "parallel (c): the gathered scores differ from the single-card cache's")
     require(exact and ev[1]["scores"] is None, "parallel (c): launches or the gather differ")
+    note_front_end("sharded_eval", per_unit(ev[0]["front"], ev[0]["batches"]))
     print(f"[{card}] parallel (c): a model pass over the sharded cache {ev[0]['pass_ms']:.3f} ms "
           f"(with the gather)", flush=True)
     out["eval"] = dict(bitwise=same, launches_per_batch=per_batch[0], pass_ms=ev[0]["pass_ms"])
@@ -3591,6 +3812,10 @@ def parallelism(card, report, ctx):
             "parallel (e): the test results are not rank 0's alone")
     require(r0["files"] == ["best", "best.meta.json", "last", "last.meta.json", "manager.json"],
             "parallel (e): checkpoint files")
+    print(f"parallel (e): the front end's launches a rank {[r['front'] for r in rc]}", flush=True)
+    require(all("mel_spectrogram.gemm" not in r["front"] for r in rc),
+            "parallel (e): the bf16 run took the GEMM path")
+    note_front_end("parallel_recipe_bf16", r0["front"])
     print(f"[{card}] parallel (e): single_run {[round(r['run_s'], 3) for r in rc]} s a rank; "
           f"ranks {ranks_s:.1f} s from spawn to join; phase 14 "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3718,7 +3943,7 @@ def hpo_objective(config: dict) -> float:
     t0 = time.perf_counter()
     _, results = single_run(config, str(out / tag), fast_dev_run=True)
     (out / f"{tag}.json").write_text(json.dumps(dict(
-        launches=dict(_build.LAUNCHES), s=time.perf_counter() - t0,
+        launches=kernel_launches(), s=time.perf_counter() - t0,
         card=torch.cuda.get_device_name(0), visible=os.environ.get("CUDA_VISIBLE_DEVICES"))))
     return results["psds1"] + results["intersection_f1_macro"]
 
@@ -3762,6 +3987,8 @@ def auxiliaries(card, report, step16_launches):
               f"(generation included); launches a step {steps}, expected {want_step}", flush=True)
         require(len(steps) >= 1 and all(x == want_step for x in steps),
                 "quickstart: a train step's launches differ from phase 8b's")
+        print(f"quickstart: the front end's launches a step {info.front}", flush=True)
+        note_front_end("quickstart", {"train_step": info.front[0]})
         with open(root / "qs" / "exp" / "metrics.csv") as f:
             import csv
 
@@ -3879,7 +4106,7 @@ def auxiliaries(card, report, step16_launches):
         _build.reset_launches()
         loaded = fwd(audio, emb)
         torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
+        launches, front = kernel_launches(), front_end_launches()
         same = all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
                    for a, b in zip(loaded, eager))
         ms = time_ms(lambda: fwd(audio, emb))
@@ -3891,9 +4118,14 @@ def auxiliaries(card, report, step16_launches):
               f"{want}; outputs bitwise equal to the eager pipeline: {same}", flush=True)
         print(f"[{card}] export {tag}: exported forward {ms:.3f} ms, eager forward "
               f"{eager_ms:.3f} ms, batch {BATCH}", flush=True)
-        require(meta["ops"] == ["desed_torch::conv_bn_stats", "desed_torch::glu_drop_pool"] * 7
+        # in bf16 the front end is the linear-mel kernel's op; in fp32 the
+        # GEMM path's torch ops, which count no launch in a loaded program
+        bf16 = tag == "bf16"
+        require(meta["ops"] == ["desed_torch::mel_linear"] * bf16
+                + ["desed_torch::conv_bn_stats", "desed_torch::glu_drop_pool"] * 7
                 + ["desed_torch::bigru"], f"export {tag}: the graph does not call the kernels' ops")
         require(launches == want, f"export {tag}: the loaded program's launches differ")
+        note_front_end(f"export_{tag}", front, {"mel_spectrogram.fused": 1} if bf16 else {})
         require(same, f"export {tag}: the loaded program differs from the eager pipeline")
         require(meta["device_name"] == torch.cuda.get_device_name(0), "export: device name")
         out[f"export_{tag}"] = dict(export_s=export_s, load_s=load_s, bytes=size, ms=ms,
@@ -3999,7 +4231,7 @@ def options(card, report):
             _build.reset_launches()
             s, w = m.eval()(x, embeddings=e)
             torch.cuda.synchronize()
-        return s, w, dict(_build.LAUNCHES)
+        return s, w, kernel_launches()
 
     def loss(s, w):
         """Seeded cotangents through means, at the scale of the recipe's
@@ -4015,7 +4247,7 @@ def options(card, report):
         s, w = m(x, embeddings=e, generator=torch.Generator(device=dev).manual_seed(5))
         loss(s, w).backward()
         torch.cuda.synchronize()
-        return {n: p.grad.clone() for n, p in m.named_parameters()}, dict(_build.LAUNCHES)
+        return {n: p.grad.clone() for n, p in m.named_parameters()}, kernel_launches()
 
     def grad_err(g, gp):
         errs = {n: float((g[n] - gp[n]).abs().max()) / max(float(gp[n].abs().max()), 1e-3)
@@ -4146,10 +4378,10 @@ def options(card, report):
     with torch.inference_mode():
         _build.reset_launches()
         a = gru(x)
-        launches = dict(_build.LAUNCHES)
+        launches = kernel_launches()
         b = scans(x)
-        require(dict(_build.LAUNCHES) == launches == {"bigru": 1},
-                f"options (c): launches {dict(_build.LAUNCHES)}")
+        require(kernel_launches() == launches == {"bigru": 1},
+                f"options (c): launches {kernel_launches()}")
         gru_err = rel_err(b, a)
         gru_ms = time_ms(lambda: gru(x))
         scans_ms = time_ms(lambda: scans(x), iters=3, warmup=1)
@@ -4216,7 +4448,7 @@ def options(card, report):
                 wav_err = max(wav_err, float(np.abs(rows - ref).max()))
     load_s = {k: [sum(v[: len(chunks)]), sum(v[len(chunks):])] for k, v in times.items()}
     print(f"options (d): the serving run of {N_CLIPS} wavs: native decodes {decodes}, launches "
-          f"{dict(_build.LAUNCHES)}, {run_s:.3f} s wall; decode_batch rows against the Python "
+          f"{kernel_launches()}, {run_s:.3f} s wall; decode_batch rows against the Python "
           f"reader max err {wav_err:.3e} (tol {TOL_WAV})", flush=True)
     require(wav_err <= TOL_WAV, "options (d): native rows disagree with the Python reader")
     print(f"[{card}] options (d): _load_batch over {N_CLIPS} wavs in {len(chunks)} batches: "
@@ -4299,7 +4531,7 @@ def main(argv=None) -> int:
     fe_launches = eval_launches = eval16_launches = {}
     recipe_launches = recipe16_launches = year_launches = emb_launches = par_launches = {}
     aux_launches = opt_launches = {}
-    fe_rows = []
+    fe_rows = linear_rows = []
     if "3" in phases:
         geoms = block_geometries(crnn_2024(), MelConfig(), 160000)
         rows = check_kernels(geoms, gen, report)
@@ -4315,7 +4547,7 @@ def main(argv=None) -> int:
     if "8b" in phases:
         train16_launches = train_bf16(train_ctx, report)
     if "9" in phases:
-        fe_launches, fe_rows = frontend(gen, pipe, report)
+        fe_launches, fe_rows, linear_rows = frontend(gen, pipe, report)
     if "10" in phases:
         eval_launches, eval16_launches = evaluate(gen, card, report)
     if "11" in phases:
@@ -4368,6 +4600,12 @@ def main(argv=None) -> int:
               f"({r['gflop']:.1f} GFLOP), bound {b_ms:.3f} ms ({by}), plain "
               f"{r['plain_ms']:.3f} ms, GEMM front-end (yardstick) {r['yardstick_ms']:.3f} ms",
               flush=True)
+    for r in linear_rows:
+        b_ms, by = r["bound"]
+        print(f"[{card}] linear mel B={r['B']} bfloat16 (mel_linear_wg_kernel, the train and "
+              f"eval paths' front end): {r['ms']:.3f} ms per call, device {r['device_ms']:.3f} ms "
+              f"({r['gflop']:.1f} GFLOP), bound {b_ms:.3f} ms ({by}), GEMM path "
+              f"{r['gemm_ms']:.3f} ms", flush=True)
     cnn_cu, gru_cu = "desed_task_tpu_torch/csrc/fused_cnn.cu", "desed_task_tpu_torch/csrc/gru.cu"
     sources = {
         "conv_bn_stats": (cnn_cu, "desed_task_tpu/ops/pallas_cnn.py:147"),
@@ -4438,6 +4676,8 @@ def main(argv=None) -> int:
         print(f"[{card}] {name}: {entry['ms']:.3f} ms {per}, bound {b_ms:.3f} ms "
               f"({entry['bound_by']}), plain {entry['plain_ms']:.3f} ms, "
               f"library {lib_s}{gru_s}", flush=True)
+    if linear_rows:
+        kernels.append(linear_entry(card, linear_rows))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -53,6 +53,13 @@
 //   n_mels and frame count for which some TT in {64, 32, 16, 8} fits 227 KB
 //   of shared memory.
 // fused_log_mel_wg_kernel: see its own note below.
+//
+// A third kernel, mel_linear_wg_kernel, replaces no TPU kernel: it is the
+// GEMM front-end's bf16 chain (ops/frontend.py mel_spectrogram: the DFT
+// GEMM of bf16-rounded frames and basis, the fp32 magnitude, the fp32 mel
+// GEMM) in one launch on fused_log_mel_wg_kernel's mainloop, with an fp32
+// epilogue that writes the linear mel. The train and eval paths take it on
+// the card (ops/fused_mel.py `linear_mel_takes`); see its note below.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -348,6 +355,9 @@ constexpr int WG_STAGES = 4;          // ring stages
 constexpr int WG_SPLIT = 2;           // blocks per cluster, each a share of the tiles
 constexpr int WG_THREADS = 288;       // two consumer warpgroups, one producer warp
 constexpr int WG_MS = WG_MELS + 4;    // row stride of the mel sums (float2 rows)
+constexpr int WG_WARPS = 8;           // consumer warps, 16 frames each
+constexpr int WG_MAG_F = 32;          // linear mode: frequencies a warp stages at once
+constexpr int WG_MAG_LD = 20;         // linear mode: row stride of the staged magnitudes
 constexpr int ERR_NO_CLUSTER = 10001; // no cluster of this shape can be resident
 constexpr int ERR_TENSOR_MAP = 10002; // the tensor map could not be encoded
 static_assert(WG_ITEM == WG_MELS * WG_TK * 2, "basis and filterbank items differ in size");
@@ -355,16 +365,18 @@ static_assert(WG_TT % (64 * WG_SPLIT) == 0, "each block writes whole 64-frame ha
 
 // Shared memory, in bytes from a 1024-byte aligned base (TMA's 128-byte
 // swizzle repeats every 1024 bytes): the ring, the span, the fp32 mel sums
-// [WG_TT][WG_MS], then the full and empty barriers.
+// [WG_TT][WG_MS], in the linear mode each consumer warp's staged magnitudes
+// [WG_MAG_F][WG_MAG_LD], then the full and empty barriers.
 struct WgLayout {
   int span_ld, span_rows;
-  size_t span_off, sums_off, bar_off, bytes;
-  __host__ __device__ WgLayout(int n_fft, int hop) {
+  size_t span_off, sums_off, mags_off, bar_off, bytes;
+  __host__ __device__ WgLayout(int n_fft, int hop, bool linear = false) {
     span_ld = hop + 8;
     span_rows = WG_TT - 1 + (round_up(n_fft, WG_TK) + hop - 1) / hop;
     span_off = (size_t)WG_STAGES * WG_ITEM;
     sums_off = (span_off + (size_t)span_rows * span_ld * 2 + 15) / 16 * 16;
-    bar_off = sums_off + (size_t)WG_TT * WG_MS * 4;
+    mags_off = sums_off + (size_t)WG_TT * WG_MS * 4;
+    bar_off = mags_off + (linear ? (size_t)WG_WARPS * WG_MAG_F * WG_MAG_LD * 4 : 0);
     bytes = bar_off + 2 * WG_STAGES * 8 + 1024;  // + room to align the base
   }
 };
@@ -569,24 +581,70 @@ __device__ __forceinline__ void stage_span(__nv_bfloat16* span, int span_ld, int
   }
 }
 
-__global__ void __launch_bounds__(WG_THREADS, 1) fused_log_mel_wg_kernel(
-    const __grid_constant__ CUtensorMap items,  // [n_tiles * (n_chunks + 1) * 128][64] bf16
-    const float* __restrict__ x,                 // [B, n_pad]
-    float* __restrict__ out,                     // [B, n_mels, T]
-    int n_pad, int T, int n_tt, int n_fft, int hop, int n_chunks, int n_tiles, int n_mels,
-    float amin, float shift, float lo, float hi) {
+// --------------------------------------------------------------------------
+// The linear mel in fp32 on the same mainloop: mel_linear_wg_kernel
+// --------------------------------------------------------------------------
+//
+// The GEMM front-end's numerics in bf16 (ops/frontend.py): the DFT of the
+// bf16-rounded frames and basis summed in fp32 (the wgmma mainloop above),
+// then per frame
+//   mag[f] = sqrt(re^2 + im^2), fp32, products and sum rounded apart (no
+//            FMA contraction), not rounded to bf16
+//   mel[m] = sum over f of mag[f] * fb[f, m], fp32 FMAs in ascending f,
+//            with the fp32 filterbank
+// written as the linear mel (no log). The chain stays compute-bound as row
+// 7b's: the epilogue adds 2 FMAs a frequency a frame to the DFT's 4096.
+//   - The filterbank is banded: row f is zero but for fb[f][m0] = w0 and
+//     fb[f][m0 + 1] = w1, with m0 nondecreasing in f (triangular filters
+//     whose edges ascend: each frequency lies in at most two neighbours).
+//     The wrapper passes one float4 {w0, w1, m0's bits, 0} a laid-out
+//     frequency (ops/fused_mel.py `band_table`), and the mel product costs
+//     2 FMAs a frequency instead of n_mels. The ring carries only the basis
+//     items: each tile's filterbank item in the sequence is skipped.
+//   - At a tile's end each consumer warp stages its 16 frames' magnitudes,
+//     half a tile (WG_MAG_F = 32 frequencies) at a time, as rows of
+//     WG_MAG_LD floats [frequency][frame] in its own shared memory (the
+//     quad's four column pairs land 8 banks apart: no conflicts). Lane l
+//     then walks the staged frequencies in order for frame l % 16 and the
+//     mels of parity l / 16: of a frequency's two mels m0, m0 + 1, the one
+//     of its parity. Its running sum is one mel's chain of FMAs, kept in a
+//     register across the block's tiles and stored into the block's sums
+//     once, when the lane's mel changes (m0 is nondecreasing, so a mel is
+//     one run of frequencies for a lane). No two lanes store one entry; no
+//     atomics.
+//   - The two blocks' sums are added as in row 7b (block 0's + block 1's),
+//     and mel_out writes out[b][t][m], m fastest: the memory layout of the
+//     GEMM front-end's product, whose [B, n_mels, T] view the wrapper
+//     returns.
+
+// out[b, t0 + t, m] = acc[t][m] for the block's 64 frames below T, m fastest
+// (coalesced writes), by threads tid of nthreads.
+__device__ __forceinline__ void mel_out(const float* acc, int t0, int T, int b, int n_mels,
+                                        float* __restrict__ out, int tid, int nthreads) {
+  for (int i = tid; i < 64 * n_mels; i += nthreads) {
+    const int t = i / n_mels, m = i - t * n_mels;
+    if (t0 + t < T) out[((size_t)b * T + t0 + t) * n_mels + m] = acc[t * WG_MS + m];
+  }
+}
+
+// The body of both tensor-core kernels; LINEAR picks the epilogue.
+template <bool LINEAR>
+__device__ __forceinline__ void wg_body(const CUtensorMap* items, const float* __restrict__ x,
+                                        const float4* __restrict__ band, float* __restrict__ out,
+                                        int n_pad, int T, int n_tt, int n_fft, int hop,
+                                        int n_chunks, int n_tiles, int n_mels, float amin,
+                                        float shift, float lo, float hi) {
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   unsigned char* sm = smem_wg + ((1024 - (smem_u32(smem_wg) & 1023)) & 1023);
-  const WgLayout L(n_fft, hop);
+  const WgLayout L(n_fft, hop, LINEAR);
   const unsigned ring = smem_u32(sm);
   const unsigned full0 = ring + (unsigned)L.bar_off, empty0 = full0 + 8 * WG_STAGES;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = (int)cluster_rank();
   const int u = blockIdx.x / WG_SPLIT;  // the cluster's frame tile: clip u / n_tt
   const int b = u / n_tt, t0 = (u - b * n_tt) * WG_TT;
-  // this block's frequency tiles and ring items
+  // this block's frequency tiles
   const int tile_lo = n_tiles * rank / WG_SPLIT, tile_hi = n_tiles * (rank + 1) / WG_SPLIT;
-  const int item_lo = tile_lo * (n_chunks + 1), item_hi = tile_hi * (n_chunks + 1);
   float* sums = reinterpret_cast<float*>(sm + L.sums_off);  // [WG_TT][WG_MS]
 
   if (tid == 0) {
@@ -600,19 +658,22 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_log_mel_wg_kernel(
 
   if (warp == 2 * 4) {  // the producer warp
     if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&items))
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(items))
                    : "memory");
       int stage = 0;
       unsigned phase = 0;
-      for (int i = item_lo; i < item_hi; ++i) {
-        mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        mbar_expect_tx(full0 + 8 * stage, WG_ITEM);
-        tma_item(ring + stage * WG_ITEM, &items, full0 + 8 * stage, i * WG_N);
-        if (++stage == WG_STAGES) {
-          stage = 0;
-          phase ^= 1;
+      // per tile its basis items, then (row 7b) its filterbank item
+      for (int tile = tile_lo; tile < tile_hi; ++tile)
+        for (int ch = 0; ch < n_chunks + (LINEAR ? 0 : 1); ++ch) {
+          const int i = tile * (n_chunks + 1) + ch;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full0 + 8 * stage, WG_ITEM);
+          tma_item(ring + stage * WG_ITEM, items, full0 + 8 * stage, i * WG_N);
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
-      }
     }
     cluster_sync();  // the sums of both blocks are in
     cluster_sync();  // and read by the other block
@@ -634,6 +695,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_log_mel_wg_kernel(
   const int kq0 = koff / hop, ke0 = koff - kq0 * hop;
   // this thread's rows of the sums: accumulator rows g and g + 8
   float* srow = sums + ((warp >> 2) * 64 + wi * 16 + g) * WG_MS + 2 * c;
+  // linear mode: this lane's running sum of mel `cur` (none yet: -1)
+  int cur = -1;
+  float run = 0.f;
 
   float acc[64];
 #pragma unroll
@@ -642,63 +706,151 @@ __global__ void __launch_bounds__(WG_THREADS, 1) fused_log_mel_wg_kernel(
   WgRing rg{ring, full0, empty0, wi == 0 && lane == 0, 0, -1, 0};
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
     int kq = kq0, ke = ke0;
-    for (int ch = 0; ch < n_chunks; ch += 2) {
-      wg_dft_item(acc, a0, kq, ke, ch == 0, rg, arow, L.span_ld, hop);
-      if (ch + 1 < n_chunks) wg_dft_item(acc, a1, kq, ke, false, rg, arow, L.span_ld, hop);
-    }
-    // the tile's filterbank item; its re and im complete
-    mbar_wait(rg.full0 + 8 * rg.stage, rg.phase);
-    wgmma_wait<0>();
-    fence_regs(acc);
-    rg.release(rg.prev);
-    // bf16 magnitudes as A fragments: k-step s takes accumulator columns
-    // 16s..16s+15 (chunks j = 2s, 2s + 1 of 8), im[f] at register i + 32
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int i = 4 * (2 * s + h) + 2 * p;
-          float m2[2];
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const float r = acc[i + q], im = acc[i + q + 32];
-            m2[q] = sqrtf(__fadd_rn(__fmul_rn(r, r), __fmul_rn(im, im)));
-          }
-          ma[s][2 * h + p] = pack_bf16(m2[0], m2[1]);
-        }
-    // the tile's mel products into acc, then into this thread's sums
-    wgmma_fence();
-    const uint64_t d = wg_desc(ring + rg.stage * WG_ITEM);
-#pragma unroll
-    for (int s = 0; s < 4; ++s) wgmma_rs(acc, ma[s], d + 2 * s, s == 0 ? 0 : 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    rg.release(rg.stage);
-    rg.advance();
-    rg.prev = -1;  // released
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float2* p = reinterpret_cast<float2*>(srow + 8 * h * WG_MS + 8 * j);
-        const float2 v = *p;
-        *p = make_float2(v.x + acc[4 * j + 2 * h], v.y + acc[4 * j + 2 * h + 1]);
+    if constexpr (LINEAR) {
+      // whole pairs, then an odd item on a0: with a pair's second item
+      // conditional (row 7b's loop, below), ptxas serializes this kernel's
+      // wgmmas one at a time (C7513), 1.2x its device time
+      int ch = 0;
+      for (; ch + 1 < n_chunks; ch += 2) {
+        wg_dft_item(acc, a0, kq, ke, ch == 0, rg, arow, L.span_ld, hop);
+        wg_dft_item(acc, a1, kq, ke, false, rg, arow, L.span_ld, hop);
       }
+      if (ch < n_chunks) wg_dft_item(acc, a0, kq, ke, ch == 0, rg, arow, L.span_ld, hop);
+    } else {
+      for (int ch = 0; ch < n_chunks; ch += 2) {
+        wg_dft_item(acc, a0, kq, ke, ch == 0, rg, arow, L.span_ld, hop);
+        if (ch + 1 < n_chunks) wg_dft_item(acc, a1, kq, ke, false, rg, arow, L.span_ld, hop);
+      }
+    }
+    if constexpr (LINEAR) {
+      // the tile's re and im complete; its last basis item released
+      wgmma_wait<0>();
+      fence_regs(acc);
+      rg.release(rg.prev);
+      rg.prev = -1;
+      // fp32 magnitudes (re at register i, im at i + 32); re^2 + im^2 is
+      // >= 0 or NaN, so this is torch.sqrt(clamp(., min=0)) of it
+      float mg[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mg[i] = sqrtf(__fadd_rn(__fmul_rn(acc[i], acc[i]), __fmul_rn(acc[i + 32], acc[i + 32])));
+      // this warp's staging rows; this lane's frame (a row of the sums) and
+      // mel parity
+      float* mags = reinterpret_cast<float*>(sm + L.mags_off) + warp * WG_MAG_F * WG_MAG_LD;
+      const int mt = lane & 15, mp = lane >> 4;
+      float* mrow = sums + ((warp >> 2) * 64 + wi * 16 + mt) * WG_MS;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // accumulator columns 32hh .. 32hh + 31, staged [frequency][frame]
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+              mags[(8 * jj + 2 * c + v) * WG_MAG_LD + g + 8 * h] =
+                  mg[4 * (4 * hh + jj) + 2 * h + v];
+        __syncwarp();
+        const float4* e = band + tile * WG_TF + WG_MAG_F * hh;
+#pragma unroll 8
+        for (int k = 0; k < WG_MAG_F; ++k) {
+          const float4 w = __ldg(e + k);
+          const int m0 = __float_as_int(w.z), odd = (m0 ^ mp) & 1;
+          if (m0 + odd != cur) {
+            if (cur >= 0) mrow[cur] = run;
+            cur = m0 + odd;
+            run = 0.f;
+          }
+          run = fmaf(mags[k * WG_MAG_LD + mt], odd ? w.y : w.x, run);
+        }
+        __syncwarp();  // the staged rows are rewritten by the next half
+      }
+    } else {
+      // the tile's filterbank item; its re and im complete
+      mbar_wait(rg.full0 + 8 * rg.stage, rg.phase);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      rg.release(rg.prev);
+      // bf16 magnitudes as A fragments: k-step s takes accumulator columns
+      // 16s..16s+15 (chunks j = 2s, 2s + 1 of 8), im[f] at register i + 32
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int i = 4 * (2 * s + h) + 2 * p;
+            float m2[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const float r = acc[i + q], im = acc[i + q + 32];
+              m2[q] = sqrtf(__fadd_rn(__fmul_rn(r, r), __fmul_rn(im, im)));
+            }
+            ma[s][2 * h + p] = pack_bf16(m2[0], m2[1]);
+          }
+      // the tile's mel products into acc, then into this thread's sums
+      wgmma_fence();
+      const uint64_t d = wg_desc(ring + rg.stage * WG_ITEM);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) wgmma_rs(acc, ma[s], d + 2 * s, s == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      rg.release(rg.stage);
+      rg.advance();
+      rg.prev = -1;  // released
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* p = reinterpret_cast<float2*>(srow + 8 * h * WG_MS + 8 * j);
+          const float2 v = *p;
+          *p = make_float2(v.x + acc[4 * j + 2 * h], v.y + acc[4 * j + 2 * h + 1]);
+        }
+    }
+  }
+  if constexpr (LINEAR) {
+    if (cur >= 0) sums[((warp >> 2) * 64 + wi * 16 + (lane & 15)) * WG_MS + cur] = run;
   }
 
-  // frames 64 * rank .. + 63: block 0's sums + block 1's, then the log-dB
+  // frames 64 * rank .. + 63: block 0's sums + block 1's, then the output
   cluster_sync();
   float* mine = sums + 64 * rank * WG_MS;
   const float* other = cg::this_cluster().map_shared_rank(mine, rank ^ 1);
   for (int i = tid; i < 64 * WG_MS; i += 2 * 128) mine[i] = rank == 0 ? mine[i] + other[i]
                                                                        : other[i] + mine[i];
   named_sync(1, 2 * 128);
-  log_db_out(mine, WG_MS, 64, t0 + 64 * rank, T, b, n_mels, amin, shift, lo, hi, out, tid,
-             2 * 128);
+  if constexpr (LINEAR)
+    mel_out(mine, t0 + 64 * rank, T, b, n_mels, out, tid, 2 * 128);
+  else
+    log_db_out(mine, WG_MS, 64, t0 + 64 * rank, T, b, n_mels, amin, shift, lo, hi, out, tid,
+               2 * 128);
   cluster_sync();  // the other block has read this block's sums
+}
+
+// row 7b: the log-mel [B, n_mels, T], magnitudes and filterbank in bf16
+// (band is not read)
+__global__ void __launch_bounds__(WG_THREADS, 1) fused_log_mel_wg_kernel(
+    const __grid_constant__ CUtensorMap items,  // [n_tiles * (n_chunks + 1) * 128][64] bf16
+    const float* __restrict__ x,                 // [B, n_pad]
+    const float4* __restrict__ band,             // unused
+    float* __restrict__ out,                     // [B, n_mels, T]
+    int n_pad, int T, int n_tt, int n_fft, int hop, int n_chunks, int n_tiles, int n_mels,
+    float amin, float shift, float lo, float hi) {
+  wg_body<false>(&items, x, band, out, n_pad, T, n_tt, n_fft, hop, n_chunks, n_tiles, n_mels,
+                 amin, shift, lo, hi);
+}
+
+// the linear mel [B, T, n_mels] of the GEMM front-end's numerics
+__global__ void __launch_bounds__(WG_THREADS, 1) mel_linear_wg_kernel(
+    const __grid_constant__ CUtensorMap items,  // as above; the filterbank items unread
+    const float* __restrict__ x,                 // [B, n_pad]
+    const float4* __restrict__ band,             // [n_tiles * WG_TF] {w0, w1, m0, 0}
+    float* __restrict__ out,                     // [B, T, n_mels]
+    int n_pad, int T, int n_tt, int n_fft, int hop, int n_chunks, int n_tiles, int n_mels,
+    float amin, float shift, float lo, float hi) {
+  wg_body<true>(&items, x, band, out, n_pad, T, n_tt, n_fft, hop, n_chunks, n_tiles, n_mels,
+                amin, shift, lo, hi);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -756,17 +908,18 @@ int items_map(CUtensorMap* map, const void* items, int rows) {
   return 0;
 }
 
-int launch_wg(const float* x, const void* items, float* out, int B, int n_pad, int T, int n_fft,
-              int hop, int n_freqs, int n_mels, float amin, float shift, float lo, float hi,
-              cudaStream_t stream) {
+template <bool LINEAR>
+int launch_wg(const float* x, const void* items, const float4* band, float* out, int B, int n_pad,
+              int T, int n_fft, int hop, int n_freqs, int n_mels, float amin, float shift,
+              float lo, float hi, cudaStream_t stream) {
   const int n_chunks = round_up(n_fft, WG_TK) / WG_TK;
   const int n_tiles = (n_freqs + WG_TF - 1) / WG_TF;
   const int n_tt = (T + WG_TT - 1) / WG_TT;
   CUtensorMap map;
   const int merr = items_map(&map, items, n_tiles * (n_chunks + 1) * WG_N);
   if (merr != 0) return merr;
-  const int smem = (int)WgLayout(n_fft, hop).bytes;
-  auto kern = fused_log_mel_wg_kernel;
+  const int smem = (int)WgLayout(n_fft, hop, LINEAR).bytes;
+  auto kern = LINEAR ? mel_linear_wg_kernel : fused_log_mel_wg_kernel;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -785,8 +938,8 @@ int launch_wg(const float* x, const void* items, float* out, int B, int n_pad, i
   err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return ERR_NO_CLUSTER;
-  err = cudaLaunchKernelEx(&cfg, kern, map, x, out, n_pad, T, n_tt, n_fft, hop, n_chunks, n_tiles,
-                           n_mels, amin, shift, lo, hi);
+  err = cudaLaunchKernelEx(&cfg, kern, map, x, band, out, n_pad, T, n_tt, n_fft, hop, n_chunks,
+                           n_tiles, n_mels, amin, shift, lo, hi);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -797,6 +950,13 @@ int plan(int n_fft, int hop, int n_mels, int bf16) {
   if (bf16 && hop % 8 == 0 && n_mels <= WG_MELS && WgLayout(n_fft, hop).bytes <= MAX_SMEM)
     return 3;
   return rows_that_fit(n_fft, hop, n_mels, bf16 ? 2 : 4) ? 1 : 0;
+}
+
+// Whether mel_linear_wg_kernel takes these shapes: a banded filterbank
+// needs two mels at least.
+bool linear_plan(int n_fft, int hop, int n_mels) {
+  return hop % 8 == 0 && n_mels >= 2 && n_mels <= WG_MELS &&
+         WgLayout(n_fft, hop, true).bytes <= MAX_SMEM;
 }
 
 template <typename E, bool VEC>
@@ -846,8 +1006,8 @@ int fused_log_mel(const float* x, const void* kbasis, const void* kfb, float* ou
   if (p == 0 || tf != (p == 3 ? WG_TF : TF) || bk != (p == 3 ? WG_TK : BK))
     return (int)cudaErrorInvalidValue;
   if (p == 3)
-    return launch_wg(x, kbasis, out, B, n_pad, T, n_fft, hop, n_freqs, n_mels, amin, shift, lo,
-                     hi, stream);
+    return launch_wg<false>(x, kbasis, nullptr, out, B, n_pad, T, n_fft, hop, n_freqs, n_mels,
+                            amin, shift, lo, hi, stream);
   const bool vec = hop % 4 == 0;
   if (bf16)
     return vec ? launch<__nv_bfloat16, true>(x, kbasis, kfb, out, B, n_pad, T, n_fft, hop,
@@ -858,6 +1018,25 @@ int fused_log_mel(const float* x, const void* kbasis, const void* kfb, float* ou
                                    n_mels, amin, shift, lo, hi, stream)
              : launch<float, false>(x, kbasis, kfb, out, B, n_pad, T, n_fft, hop, n_freqs,
                                     n_mels, amin, shift, lo, hi, stream);
+}
+
+// Whether mel_linear_wg_kernel takes these shapes (1) or not (0).
+int fused_mel_linear_plan(int n_fft, int hop, int n_mels) {
+  return linear_plan(n_fft, hop, n_mels) ? 1 : 0;
+}
+
+// The GEMM front-end's linear mel in bf16 (mel_linear_wg_kernel): x [B,
+// n_pad] fp32; items the plan-3 ring items of fused_log_mel (their
+// filterbank items unread); band [n_tiles * tf] float4 {w0, w1, m0's int
+// bits, 0} per laid-out frequency, zero weights past n_freqs; out [B, T,
+// n_mels] fp32. tf and bk are checked as fused_log_mel checks them.
+int fused_mel_linear(const float* x, const void* items, const void* band, float* out, int B,
+                     int n_pad, int T, int n_fft, int hop, int n_freqs, int n_mels, int tf,
+                     int bk, cudaStream_t stream) {
+  if (!linear_plan(n_fft, hop, n_mels) || tf != WG_TF || bk != WG_TK)
+    return (int)cudaErrorInvalidValue;
+  return launch_wg<true>(x, items, static_cast<const float4*>(band), out, B, n_pad, T, n_fft, hop,
+                         n_freqs, n_mels, 0.f, 0.f, 0.f, 0.f, stream);
 }
 
 }  // extern "C"

@@ -16,12 +16,22 @@ in the JAX module (frontend.py:267-360):
   * "chunked": hop-sized chunk DFTs shared by the overlapping frames, the
     periodic window applied as a 3-tap frequency-domain stencil.
 The JAX package runs all of them outside any Pallas kernel, so here they are
-plain torch ops. With `compute_dtype="bfloat16"` the DFT products take
-bf16-rounded inputs and sum in fp32, like JAX's `preferred_element_type=
-float32`: written as fp32 products of rounded values, since a bf16 matmul on
-the CPU rounds its output too. The default is fp32 throughout: a caller on
-the card keeps `torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's
-default), which `InferencePipeline` sets.
+plain torch ops (`gemm_mel_spectrogram` for the linear mel). With
+`compute_dtype="bfloat16"` the DFT products take bf16-rounded inputs and sum
+in fp32, like JAX's `preferred_element_type=float32`: written as fp32
+products of rounded values, since a bf16 matmul on the CPU rounds its output
+too. The default is fp32 throughout: a caller on the card keeps
+`torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's default), which
+`InferencePipeline` sets.
+
+On the card, "matmul" in bf16 with power 1, center and reflect padding (the
+recipes' front end) runs as one hand-written kernel instead: `mel_spectrogram`
+hands every input that `fused_mel.linear_mel_takes` accepts to
+`fused_mel.linear_mel`, which frames, runs the DFT on the tensor cores and
+takes the same fp32 magnitude and fp32 mel product (only the order of the
+fp32 sums differs). The CPU, fp32, power 2 (the PANNs front end), "fft" and
+"chunked" keep the torch ops. Launches count as "mel_spectrogram.fused" and,
+for the GEMM path on a CUDA tensor, "mel_spectrogram.gemm".
 
 Filterbank and basis constants are built on the host in float64 numpy and
 cast once per (config, device, dtype).
@@ -39,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.profiling import span
+from . import _build
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,13 +338,29 @@ def _spectrogram(audio: torch.Tensor, cfg: MelConfig, backend: str | None) -> to
 
 def mel_spectrogram(audio: torch.Tensor, cfg: MelConfig,
                     backend: str | None = None) -> torch.Tensor:
-    """[B, N] -> mel spectrogram [B, n_mels, n_frames] (power=cfg.power); the
-    mel product is fp32 in either compute dtype (frontend.py:327)."""
+    """[B, N] -> mel spectrogram [B, n_mels, n_frames] (power=cfg.power): in
+    the fused kernel where `fused_mel.linear_mel_takes` accepts the input
+    (module docstring), else by `gemm_mel_spectrogram`."""
+    from . import fused_mel  # which imports this module
+
     with span("frontend.mel"):
-        spec = spectrogram(audio, cfg, backend)  # [..., n_freqs, T]
-        _, fb = _constants(cfg, audio.device, torch.float32)
-        with fp32_products(audio.device):
-            return torch.matmul(spec.transpose(-1, -2), fb).transpose(-1, -2)
+        if fused_mel.linear_mel_takes(audio.device, cfg, backend, audio.dim(),
+                                      audio.requires_grad):
+            return fused_mel.linear_mel(audio, cfg)
+        if audio.device.type == "cuda":
+            _build.count_launch("mel_spectrogram.gemm")
+        return gemm_mel_spectrogram(audio, cfg, backend)
+
+
+def gemm_mel_spectrogram(audio: torch.Tensor, cfg: MelConfig,
+                         backend: str | None = None) -> torch.Tensor:
+    """[B, N] -> mel spectrogram [B, n_mels, n_frames] by torch ops: the
+    spectrogram of `backend`, then the mel product, fp32 in either compute
+    dtype (frontend.py:327)."""
+    spec = spectrogram(audio, cfg, backend)  # [..., n_freqs, T]
+    _, fb = _constants(cfg, audio.device, torch.float32)
+    with fp32_products(audio.device):
+        return torch.matmul(spec.transpose(-1, -2), fb).transpose(-1, -2)
 
 
 def amplitude_to_db(mel: torch.Tensor, cfg: MelConfig) -> torch.Tensor:

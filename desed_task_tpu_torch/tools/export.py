@@ -8,8 +8,9 @@ the full threshold sweep) is exported once with `torch.export` at a static
 batch, the weights baked into the program, and saved as `forward.pt2`
 beside `meta.json`. The CRNN's kernels are the torch.library custom ops
 desed_torch::conv_bn_stats, desed_torch::glu_drop_pool and
-desed_torch::bigru (ops/fused_cnn.py, ops/gru.py): torch.export keeps each
-as one node of the graph, so the loaded program launches the same CUDA
+desed_torch::bigru (ops/fused_cnn.py, ops/gru.py), and a bf16 front end on
+the card is desed_torch::mel_linear (ops/fused_mel.py): torch.export keeps
+each as one node of the graph, so the loaded program launches the same CUDA
 kernels in the same order as the eager pipeline on the card, and their
 plain versions on the CPU. It never swaps a kernel for a plain version.
 
@@ -49,7 +50,7 @@ class _Forward(torch.nn.Module):
 
 def _register_ops() -> None:
     """Importing the kernels' modules registers their custom ops."""
-    from ..ops import fused_cnn, gru  # noqa: F401
+    from ..ops import fused_cnn, fused_mel, gru  # noqa: F401
 
 
 def graph_ops(program) -> list[str]:

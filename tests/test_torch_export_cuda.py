@@ -3,11 +3,12 @@ with nvcc, sm_90a; skips elsewhere):
 
     python -m pytest tests/test_torch_export_cuda.py -m cuda --noconftest
 
-`torch.library.opcheck` of desed_torch::conv_bn_stats, glu_drop_pool and
-bigru on CUDA tensors (the kernels against their fake functions: shapes,
-dtypes, schema, AOT dispatch), and a narrow CRNN pipeline exported, saved,
-loaded and run on the card: the program launches one kernel a block and
-one BiGRU a batch, and its outputs are bitwise the eager pipeline's.
+`torch.library.opcheck` of desed_torch::conv_bn_stats, glu_drop_pool,
+bigru and mel_linear on CUDA tensors (the kernels against their fake
+functions: shapes, dtypes, schema, AOT dispatch), and a narrow CRNN pipeline
+exported, saved, loaded and run on the card: the program launches one kernel
+a block, one BiGRU a batch and, in bf16, the front end's kernel, and its
+outputs are bitwise the eager pipeline's.
 """
 
 import tempfile
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from desed_task_tpu_torch.ops import _build, fused_cnn, gru  # noqa: F401  (registers the ops)
+from desed_task_tpu_torch.ops import _build, fused_cnn, fused_mel, gru  # noqa: F401  (registers the ops)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +66,17 @@ def test_opcheck_bigru_on_the_card(dev, H):
     torch.library.opcheck(torch.ops.desed_torch.bigru.default, args)
 
 
+def test_mel_linear_opcheck(dev):
+    from desed_task_tpu_torch.ops.frontend import MelConfig, center_pad
+
+    cfg = MelConfig(n_fft=1024, win_length=1024, n_mels=64, compute_dtype="bfloat16")
+    items, band = fused_mel._linear_constants(cfg, dev)
+    x = center_pad(_randn(2, 8000, gen=torch.Generator().manual_seed(4), dev=dev) * 0.1, cfg)
+    torch.library.opcheck(torch.ops.desed_torch.mel_linear.default,
+                          (x, items, band, cfg.num_frames(8000), cfg.n_fft, cfg.hop_length,
+                           cfg.n_mels))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_exported_pipeline_on_the_card(dev, dtype):
     from desed_task_tpu_torch.inference.pipeline import InferencePipeline
@@ -93,6 +105,8 @@ def test_exported_pipeline_on_the_card(dev, dtype):
     out = fwd(audio)
     torch.cuda.synchronize()
     sfx = ".bf16" if dtype == "bfloat16" else ""
+    # in bf16 the program calls the front end's kernel (desed_torch::mel_linear)
+    front = {"mel_spectrogram.fused": 1} if dtype == "bfloat16" else {}
     assert dict(_build.LAUNCHES) == {f"conv_bn_stats{sfx}": 2, f"glu_drop_pool{sfx}": 2,
-                                     "bigru": 1}
+                                     "bigru": 1, **front}
     assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, eager))

@@ -1,5 +1,8 @@
 """The port's fused log-mel (its plain version, on the CPU) against the JAX
-Pallas kernel in interpret mode, on the same audio."""
+Pallas kernel in interpret mode, on the same audio; the front end's
+linear-mel kernel on the CPU: which inputs `mel_spectrogram` hands it, its
+band table of the filterbank, and its epilogue emulated lane by lane against
+the GEMM path."""
 
 import re
 from pathlib import Path
@@ -170,6 +173,7 @@ def test_wg_constants_match_the_source():
     src = CU.read_text()
     want = dict(WG_TT=fm.WG_TT, WG_TK=fm.WG_TK, WG_TF=fm.WG_TF, WG_MELS=fm.WG_MELS,
                 WG_STAGES=fm.WG_STAGES, WG_SPLIT=fm.WG_SPLIT)
+    want.update(WG_MAG_F=WG_MAG_F, WG_MAG_LD=WG_MAG_LD)  # the linear emulation's
     for name, value in want.items():
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == value, name
@@ -177,6 +181,9 @@ def test_wg_constants_match_the_source():
 
 
 WG_MS = fm.WG_MELS + 4  # row stride of the kernel's fp32 mel sums
+# mel_linear_wg_kernel: frequencies a warp stages at once, and the row
+# stride of its staged magnitudes
+WG_MAG_F, WG_MAG_LD = 32, 20
 SMEM_LIMIT = 232448  # 227 KB, the shared memory one H100 block may use
 
 
@@ -345,7 +352,13 @@ def _bf16(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
 
 
-def _emulate_wg(audio, cfg, lane_bits=(3, 4)):
+def _fma32(a, b, c):
+    """fmaf in float32: the exact product plus c, rounded once (through
+    float64, which holds the product exactly)."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def _emulate_wg(audio, cfg, lane_bits=(3, 4), linear=False, mag_bf16=False):
     """fused_log_mel_wg_kernel, block by block, in numpy: the span staging,
     each lane's ldmatrix address (the incremental kq/ke walk), the ring items
     of the block's frequency tiles through _tma_stage and _wgmma_b, the DFT
@@ -354,7 +367,12 @@ def _emulate_wg(audio, cfg, lane_bits=(3, 4)):
     the sums (its srow address), the cluster's sum of its two blocks' sums
     by frame half, and log_db_out. `lane_bits` names the two bits of the
     lane id as the kernel's A addresses read them (a mutation test swaps
-    them)."""
+    them).
+
+    linear: mel_linear_wg_kernel's epilogue instead (`_linear_tile`): the
+    fp32 magnitudes staged and walked through the band table, the running
+    sums stored once a mel, the same cross-cluster sum, then the linear mel
+    [B, n_mels, T]. mag_bf16 rounds its magnitudes to bf16 (a mutation)."""
     x = tfe.center_pad(torch.from_numpy(audio), cfg).numpy()
     B, n_pad = x.shape
     T, hop = cfg.num_frames(audio.shape[1]), cfg.hop_length
@@ -381,9 +399,11 @@ def _emulate_wg(audio, cfg, lane_bits=(3, 4)):
     j, h, v = reg >> 2, (reg >> 1) & 1, reg & 1
     sidx = ((64 * wgi + 16 * wi + ln // 4) * WG_MS + 2 * (ln % 4)) + 8 * h * WG_MS + 8 * j + v
     row, col = np.broadcast_arrays(*_d_coords(LANES, REGS))
+    band = fm._laid_out_band(cfg).numpy() if linear else None
     sums = {}
     for k in range(len(bs)):  # block k: rank ranks[k] of the cluster on tile k // WG_SPLIT
         b, t0 = bs[k], t0s[k]
+        walk = _LinearWalk() if linear else None
         gi = t0 * hop + i
         span = np.zeros(span_rows * span_ld, np.float32)
         span[(i // hop) * span_ld + i % hop] = _bf16(np.where(gi < n_pad, x[b, np.minimum(gi, n_pad - 1)], 0))
@@ -406,12 +426,17 @@ def _emulate_wg(audio, cfg, lane_bits=(3, 4)):
                         kq, ke = np.where(ke >= hop, kq + 1, kq), np.where(ke >= hop, ke - hop, ke)
             acc = d[:, row, col]  # [warpgroup][warp][lane][register]
             re, im = acc[..., :32], acc[..., 32:]
+            if linear:
+                walk.tile(re * re + im * im, band[tl * fm.WG_TF: (tl + 1) * fm.WG_TF], s, mag_bf16)
+                continue
             mag = _bf16(np.sqrt(re * re + im * im))
             tile = np.empty_like(acc)
             for wg in range(2):
                 ma = _repack(mag[wg])
                 tile[wg] = sum(_a_matrix(ma[q]) @ bops[tl][n_chunks][q] for q in range(4))[row, col]
             np.add.at(s, sidx, tile)
+        if linear:
+            walk.flush(s)
         sums[k] = s.reshape(fm.WG_TT, WG_MS)
     for k in range(len(bs)):  # frames 64 r .. of the tile: block 0's sums + block 1's
         r, c0 = ranks[k], k - ranks[k]
@@ -420,9 +445,67 @@ def _emulate_wg(audio, cfg, lane_bits=(3, 4)):
         n = min(64, T - t0)
         if n <= 0:
             continue
+        if linear:  # mel_out: the linear mel, no log
+            out[bs[k], :, t0: t0 + n] = total[:n, : cfg.n_mels].T
+            continue
         vals = np.maximum(total[:n, : cfg.n_mels], cfg.amin)
         out[bs[k], :, t0: t0 + n] = (20.0 * (np.log(vals) * np.float32(fm.LOG10E)) - shift).T
     return out
+
+
+class _LinearWalk:
+    """mel_linear_wg_kernel's epilogue for one block, in numpy: per tile the
+    fp32 magnitudes (registers i < 32 of each thread), staged half a tile at
+    a time into each warp's rows by the kernel's store address (each slot
+    written once), then each lane (frame l % 16, mel parity l // 16) walking
+    the 32 staged frequencies through the band table in order: its running
+    sum an fmaf chain, stored into the block's sums (row WG_MS) when its mel
+    changes, and at the block's end (`flush`)."""
+
+    def __init__(self):
+        shape = (2, 4, 32)  # [warpgroup][warp][lane]
+        self.cur = np.full(shape, -1)
+        self.run = np.zeros(shape, np.float32)
+        lane = np.arange(32)
+        self.mt, self.mp = lane & 15, lane >> 4
+        wg, wi = np.arange(2)[:, None, None], np.arange(4)[None, :, None]
+        self.srow = (64 * wg + 16 * wi + self.mt) * WG_MS  # this lane's row of the sums
+        # the kernel's staging store: thread (g, c) puts register 4 (4hh + jj) + 2h + v
+        # at row 8jj + 2c + v, column g + 8h of its warp's [WG_MAG_F][WG_MAG_LD] rows
+        ln, reg = np.arange(32)[:, None], np.arange(16)[None, :]
+        jj, h, v = reg >> 2, (reg >> 1) & 1, reg & 1
+        self.slot = (8 * jj + 2 * (ln % 4) + v) * WG_MAG_LD + ln // 4 + 8 * h
+
+    def _store(self, s, where):
+        idx = (self.srow + self.cur)[where]
+        assert (self.cur[where] >= 0).all()
+        s[idx] = self.run[where]
+
+    def tile(self, mag2, band, s, mag_bf16):
+        mag = np.sqrt(mag2.astype(np.float32))  # [wg][warp][lane][32]: re^2 + im^2 in fp32
+        if mag_bf16:
+            mag = _bf16(mag)
+        for hh in range(2):
+            staged = np.full((2, 4, WG_MAG_F * WG_MAG_LD), np.nan, np.float32)
+            hits = np.zeros(WG_MAG_F * WG_MAG_LD, int)
+            np.add.at(hits, self.slot.ravel(), 1)
+            assert hits.max() == 1 and (hits[:WG_MAG_F * WG_MAG_LD].reshape(
+                WG_MAG_F, WG_MAG_LD)[:, :16] == 1).all()
+            staged[:, :, self.slot] = mag[:, :, :, 16 * hh: 16 * hh + 16]
+            for kk in range(WG_MAG_F):
+                w0, w1, bits, _ = band[WG_MAG_F * hh + kk]
+                m0 = int(np.float32(bits).view(np.int32))
+                odd = (m0 ^ self.mp) & 1
+                mel = np.broadcast_to(m0 + odd, self.cur.shape)
+                change = mel != self.cur
+                self._store(s, change & (self.cur >= 0))
+                self.run = np.where(change, np.float32(0), self.run)
+                self.cur = mel.copy()
+                m = staged[:, :, kk * WG_MAG_LD + self.mt]
+                self.run = _fma32(m, np.where(odd == 1, w1, w0).astype(np.float32), self.run)
+
+    def flush(self, s):
+        self._store(s, self.cur >= 0)
 
 
 WG_CASES = {  # (config, B, N): one tile of the 2024 config; n_fft 400 / hop 160 at
@@ -454,3 +537,217 @@ def test_wg_emulation_fails_a_swapped_lane_bit():
     want = fused_log_mel_plain(torch.from_numpy(audio), cfg).numpy()
     got = _emulate_wg(audio, cfg, lane_bits=(4, 3))
     assert np.abs(got - want).max() > 1.0
+
+
+# ---------------------------------------------------------------------------
+# The front end's linear-mel kernel (mel_linear_wg_kernel): which inputs
+# mel_spectrogram hands it, the band table, the epilogue emulated
+# ---------------------------------------------------------------------------
+
+# the emulated linear mel against the GEMM path: fp32 sums in another order
+TOL_LINEAR_REL = 1e-5
+
+RECIPE_BF16 = tfe.MelConfig(compute_dtype="bfloat16")  # the 2023 and 2024 recipes' front end
+CUDA = torch.device("cuda")  # a device can be named without a card
+
+
+def _panns_mel():
+    from desed_task_tpu_torch.models.panns import PANNS_MEL
+
+    return PANNS_MEL
+
+
+DISPATCH = {  # name: (config, backend, device, ndim, requires_grad, takes the kernel)
+    "recipe_bf16": (RECIPE_BF16, None, CUDA, 2, False, True),
+    "recipe_bf16_one_clip": (RECIPE_BF16, None, CUDA, 1, False, True),
+    "recipe_bf16_matmul_named": (RECIPE_BF16, "matmul", CUDA, 2, False, True),
+    "slaney_bf16": (tfe.MelConfig(compute_dtype="bfloat16", mel_scale="slaney",
+                                  mel_norm="slaney"), None, CUDA, 2, False, True),
+    "fp32": (tfe.MelConfig(), None, CUDA, 2, False, False),
+    "panns": (None, None, CUDA, 2, False, False),
+    "center_false": (tfe.MelConfig(compute_dtype="bfloat16", center=False), None, CUDA, 2,
+                     False, False),
+    "constant_pad": (tfe.MelConfig(compute_dtype="bfloat16", pad_mode="constant"), None, CUDA, 2,
+                     False, False),
+    "fft": (RECIPE_BF16, "fft", CUDA, 2, False, False),
+    "chunked": (RECIPE_BF16, "chunked", CUDA, 2, False, False),
+    "cpu": (RECIPE_BF16, None, torch.device("cpu"), 2, False, False),
+    "hop_300": (tfe.MelConfig(compute_dtype="bfloat16", hop_length=300), None, CUDA, 2, False,
+                False),
+    "mels_160": (tfe.MelConfig(compute_dtype="bfloat16", n_mels=160), None, CUDA, 2, False, False),
+    "hop_512_smem": (tfe.MelConfig(compute_dtype="bfloat16", hop_length=512), None, CUDA, 2,
+                     False, False),
+    "three_dims": (RECIPE_BF16, None, CUDA, 3, False, False),
+    "needs_grad": (RECIPE_BF16, None, CUDA, 2, True, False),
+}
+
+
+# the shapes fused_mel.cu's plan refuses (hop % 8, more than 128 mels, a span
+# beyond shared memory); tests/test_torch_kernels_cuda.py holds the plan
+# itself to them on the card
+SHAPE_REFUSED = {"hop_300", "mels_160", "hop_512_smem"}
+
+
+@pytest.mark.parametrize("name", sorted(DISPATCH))
+def test_linear_mel_dispatch(name, monkeypatch):
+    """The predicate with the C shape plan stood in for (it needs the built
+    library): it asks the plan for the config's shapes, and takes its no."""
+    cfg, backend, device, ndim, grad, takes = DISPATCH[name]
+    cfg = cfg or _panns_mel()
+    asked = []
+
+    def plan(n_fft, hop, n_mels):
+        asked.append((n_fft, hop, n_mels))
+        return name not in SHAPE_REFUSED
+
+    fm.linear_mel_plan.cache_clear()
+    monkeypatch.setattr(fm, "_shape_plan", plan)
+    try:
+        assert fm.linear_mel_takes(device, cfg, backend, ndim, grad) is takes
+    finally:
+        fm.linear_mel_plan.cache_clear()
+    if takes or name in SHAPE_REFUSED:
+        assert asked == [(cfg.n_fft, cfg.hop_length, cfg.n_mels)]
+
+
+@pytest.fixture
+def three_filter_bank(monkeypatch):
+    """frontend.mel_filterbank with one frequency in three filters, the
+    caches of what is built from it cleared before and after."""
+    real = tfe.mel_filterbank
+
+    def bank(cfg):
+        fb = real(cfg)
+        f = int(np.flatnonzero(fb[:, 10])[0])
+        fb[f] = 0.0
+        fb[f, 10:13] = 0.5
+        return fb
+
+    def clear():
+        for fn in (tfe._constants, fm._laid_out_band, fm.linear_mel_plan):
+            fn.cache_clear()
+
+    clear()
+    monkeypatch.setattr(tfe, "mel_filterbank", bank)
+    monkeypatch.setattr(fm, "mel_filterbank", bank)
+    yield
+    monkeypatch.undo()
+    clear()
+
+
+def test_linear_mel_dispatch_refuses_a_frequency_in_three_filters(three_filter_bank):
+    fb = tfe._constants(RECIPE_BF16, torch.device("cpu"), torch.float32)[1]
+    assert int(fb.ne(0).sum(1).max()) == 3
+    assert fm.band_table(fb) is None
+    assert not fm.linear_mel_takes(CUDA, RECIPE_BF16)
+
+
+def _bank(n_freqs, n_mels, rows):
+    fb = torch.zeros((n_freqs, n_mels))
+    for f, m, w in rows:
+        fb[f, m] = w
+    return fb
+
+
+@pytest.mark.parametrize("name", ["recipe_bf16", "slaney_bf16", "panns", "nfft400"])
+def test_band_table_holds_the_fp32_filterbank(name):
+    """Expanded, the band table is the fp32 filterbank exactly; m0 ascends and
+    m0 + 1 names a mel."""
+    cfg = (DISPATCH[name][0] if name in DISPATCH else
+           tfe.MelConfig(n_fft=400, win_length=400, hop_length=160, n_mels=40)) or _panns_mel()
+    fb = tfe._constants(cfg, torch.device("cpu"), torch.float32)[1]
+    table = fm.band_table(fb)
+    assert table is not None and table.shape == (cfg.n_freqs, 4) and table.dtype == torch.float32
+    m0 = table[:, 2].contiguous().view(torch.int32)
+    assert bool((m0[1:] >= m0[:-1]).all()) and int(m0.min()) >= 0
+    assert int(m0.max()) + 1 < cfg.n_mels and not table[:, 3].any()
+    assert torch.equal(fm.band_dense(table, cfg.n_mels), fb)
+
+
+def test_band_table_of_the_laid_out_frequencies():
+    """The kernel's table: the fp32 rows of the frequencies plan 3 lays out
+    (the first to the last nonzero row: the DC row left out), padded with
+    zero weights to whole tiles, the last m0 kept."""
+    fb = tfe._constants(RECIPE_BF16, torch.device("cpu"), torch.float32)[1]
+    band = fm._laid_out_band(RECIPE_BF16)
+    n = RECIPE_BF16.n_freqs - 1
+    assert band.shape == (-(-n // fm.WG_TF) * fm.WG_TF, 4)
+    assert torch.equal(fm.band_dense(band[:n], RECIPE_BF16.n_mels), fb[1:])
+    assert not band[n:, :2].any() and torch.equal(band[n:, 2], band[n - 1:n, 2].expand(len(band) - n))
+
+
+@pytest.mark.parametrize("name,rows", [
+    ("three filters", [(0, 0, 1.0), (0, 1, 0.5), (0, 2, 0.5)]),
+    ("two apart", [(0, 0, 1.0), (0, 2, 0.5)]),
+    ("descending", [(0, 3, 1.0), (0, 4, 1.0), (1, 0, 1.0), (1, 1, 1.0)]),
+])
+def test_band_table_refuses_what_is_not_banded(name, rows):
+    assert fm.band_table(_bank(4, 6, rows)) is None
+    assert fm.band_table(torch.ones((4, 1))) is None  # one mel
+
+
+def test_band_table_pairs_a_lone_filter_with_a_neighbour():
+    """Rows with one nonzero: paired with the mel below where m0 then still
+    ascends, else with the one above; empty rows keep the last m0."""
+    fb = _bank(5, 4, [(0, 0, 0.25), (1, 0, 0.5), (1, 1, 0.5), (2, 1, 1.0), (4, 3, 0.75)])
+    table = fm.band_table(fb)
+    assert table[:, 2].contiguous().view(torch.int32).tolist() == [0, 0, 0, 0, 2]
+    assert torch.equal(fm.band_dense(table, 4), fb)
+
+
+@pytest.mark.parametrize("name", ["recipe_bf16", "fp32", "panns"])
+def test_mel_spectrogram_on_the_cpu_is_the_gemm_path(name):
+    """On the CPU every config keeps the GEMM path, bitwise, and counts no
+    launch."""
+    from desed_task_tpu_torch.ops import _build
+
+    cfg = DISPATCH[name][0] or _panns_mel()
+    audio = torch.from_numpy(_audio(50, 2, 16000))
+    before = dict(_build.LAUNCHES)
+    got = tfe.mel_spectrogram(audio, cfg)
+    assert torch.equal(got, tfe.gemm_mel_spectrogram(audio, cfg))
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case", sorted(WG_CASES))
+def test_mel_linear_plain_matches_the_gemm_path(case):
+    """The op's plain version, from the ring items and the band table, is the
+    GEMM path's linear mel up to the order of its fp32 sums."""
+    kw, B, N = WG_CASES[case]
+    cfg = tfe.MelConfig(**kw, compute_dtype="bfloat16")
+    audio = torch.from_numpy(_audio(B + 60, B, N))
+    items, band = fm._linear_constants(cfg, torch.device("cpu"))
+    got = fm.mel_linear_plain(tfe.center_pad(audio, cfg), items, band, cfg.num_frames(N),
+                              cfg.n_fft, cfg.hop_length, cfg.n_mels).transpose(1, 2)
+    want = tfe.mel_spectrogram(audio, cfg)
+    assert _linear_gap(got.numpy(), want.numpy()) <= TOL_LINEAR_REL
+
+
+def _linear_gap(got, want):
+    """The worst clip's max |got - want| over its max |want|."""
+    return float((np.abs(got - want).max(axis=(1, 2)) / np.abs(want).max(axis=(1, 2))).max())
+
+
+@pytest.mark.parametrize("case", sorted(WG_CASES))
+def test_wg_linear_emulation_matches_the_gemm_path(case):
+    """mel_linear_wg_kernel emulated lane by lane (the shared mainloop, then
+    its epilogue) against mel_spectrogram's GEMM path on the CPU: within
+    fp32 reordering."""
+    kw, B, N = WG_CASES[case]
+    cfg = tfe.MelConfig(**kw, compute_dtype="bfloat16")
+    assert fm._laid_out_band(cfg) is not None
+    audio = _audio(B + 40, B, N)
+    got = _emulate_wg(audio, cfg, linear=True)
+    want = tfe.mel_spectrogram(torch.from_numpy(audio), cfg).numpy()
+    assert not np.isnan(got).any()
+    assert _linear_gap(got, want) <= TOL_LINEAR_REL
+
+
+def test_wg_linear_emulation_fails_bf16_magnitudes():
+    """Row 7b's rounding of the magnitudes to bf16, in the linear epilogue,
+    lies outside the bound: the test tells the two apart."""
+    kw, B, N = WG_CASES["nfft400"]
+    cfg = tfe.MelConfig(**kw, compute_dtype="bfloat16")
+    audio = _audio(B + 40, B, N)
+    want = tfe.mel_spectrogram(torch.from_numpy(audio), cfg).numpy()
+    assert _linear_gap(_emulate_wg(audio, cfg, linear=True, mag_bf16=True), want) > 10 * TOL_LINEAR_REL

@@ -22,8 +22,14 @@ BWD_FRAG_GEOMS) and the bf16 block's autograd path; for the fused
 log-mel B=1, 2, 3 and 64, 1-s to 10-s clips, n_fft 400 to 2048, 40 to 160
 mels, hops that do not divide n_fft, ragged frame tiles, both compute dtypes,
 the plan each shape takes (the wgmma kernel in bf16 wherever it fits) and
-bitwise reruns; the eval path's cache loop on a narrow CRNN (launches per
-batch and pass, fp32 and bf16, scores equal to the host-dataset branch's).
+bitwise reruns; the front end's linear-mel kernel (the recipes' bf16
+MelConfig) against the GEMM path at B = 1, 24, 60 and 96 on 10-s clips and
+on a clip whose frames are not a multiple of 128, and at n_fft 400 (an odd
+number of DFT items a tile), its plain version, bitwise
+reruns, row 7b outside its bound, and the launches of a recipe-front-end
+train step and eval batch; the eval path's cache loop on a narrow CRNN
+(launches per batch and pass, fp32 and bf16, scores equal to the
+host-dataset branch's).
 """
 
 import numpy as np
@@ -31,7 +37,8 @@ import pytest
 import torch
 
 from desed_task_tpu_torch.ops import fused_cnn, fused_mel, gru
-from desed_task_tpu_torch.ops.frontend import MelConfig
+from desed_task_tpu_torch.ops.frontend import (MelConfig, amplitude_to_db, gemm_mel_spectrogram,
+                                               mel_spectrogram)
 
 pytestmark = pytest.mark.cuda
 
@@ -450,6 +457,129 @@ def test_fused_log_mel_raises_on_inputs_the_kernel_does_not_take(dev):
         fused_mel.fused_log_mel(audio, MelConfig(power=2.0))
     with pytest.raises(ValueError):
         fused_mel.fused_log_mel(audio, MelConfig(center=False))
+
+
+# the front end's linear-mel kernel against the GEMM path it replaces: the
+# same products and roundings, fp32 sums in another order. The linear mel
+# within TOL_LINEAR_REL of each clip's largest, the log-mel within
+# TOL_LINEAR_DB; row 7b, which rounds magnitudes and filterbank to bf16,
+# lies outside the second
+TOL_LINEAR_REL, TOL_LINEAR_DB = 1e-5, 1e-3
+# (B, N): 10-s clips (626 frames) at the batches of the cells, and 157 frames
+LINEAR_CASES = [(1, 160000), (24, 160000), (60, 160000), (96, 160000), (3, 40000)]
+
+
+def _linear_gaps(got, want, cfg):
+    """(the worst clip's max |got - want| over its max |want|, max dB gap)."""
+    rel = (got - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2))
+    db = (amplitude_to_db(got, cfg) - amplitude_to_db(want, cfg)).abs().max()
+    return float(rel.max()), float(db)
+
+
+@pytest.mark.parametrize("B,N", LINEAR_CASES)
+def test_linear_mel_kernel_matches_the_gemm_path(dev, B, N):
+    _check_linear_mel(dev, MelConfig(compute_dtype="bfloat16"), B, N)
+
+
+def test_linear_mel_kernel_odd_chunk_count(dev):
+    """n_fft 400: seven 64-sample items a tile, so the DFT loop ends on an
+    item outside its pairs; 40 mels, 251 frames."""
+    cfg = MelConfig(n_fft=400, win_length=400, hop_length=160, n_mels=40,
+                    compute_dtype="bfloat16")
+    _check_linear_mel(dev, cfg, 2, 40000)
+
+
+def _check_linear_mel(dev, cfg, B, N):
+    """mel_spectrogram in one launch of the kernel against the GEMM path and
+    the op's plain version, then a bitwise rerun."""
+    from desed_task_tpu_torch.ops import _build
+
+    g = torch.Generator().manual_seed(40 + B)
+    audio = _rand(g, B, N, scale=0.1).to(dev)
+    _build.reset_launches()
+    got = mel_spectrogram(audio, cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"mel_spectrogram.fused": 1}
+    want = gemm_mel_spectrogram(audio, cfg)
+    assert got.shape == want.shape == (B, cfg.n_mels, cfg.num_frames(N))
+    assert got.stride() == want.stride()
+    rel, db = _linear_gaps(got, want, cfg)
+    assert rel <= TOL_LINEAR_REL and db <= TOL_LINEAR_DB, (rel, db)
+    items, band = fused_mel._linear_constants(cfg, audio.device)
+    plain = fused_mel.mel_linear_plain(fused_mel.center_pad(audio, cfg), items, band, got.shape[2],
+                                       cfg.n_fft, cfg.hop_length, cfg.n_mels).transpose(1, 2)
+    rel_plain, _ = _linear_gaps(got, plain, cfg)
+    assert rel_plain <= TOL_LINEAR_REL, rel_plain
+    assert torch.equal(got, mel_spectrogram(audio, cfg))
+
+
+def test_row_7b_lies_outside_the_linear_mel_bound(dev):
+    """The bound tells the two bf16 front ends apart: row 7b's log-mel, with
+    magnitudes and filterbank in bf16, is further from the GEMM path than
+    TOL_LINEAR_DB, the linear-mel kernel within it."""
+    cfg = MelConfig(compute_dtype="bfloat16")
+    g = torch.Generator().manual_seed(47)
+    audio = _rand(g, 4, 160000, scale=0.1).to(dev)
+    want = amplitude_to_db(gemm_mel_spectrogram(audio, cfg), cfg)
+    gap_7b = float((fused_mel.fused_log_mel(audio, cfg) - want).abs().max())
+    gap = float((amplitude_to_db(mel_spectrogram(audio, cfg), cfg) - want).abs().max())
+    assert gap <= TOL_LINEAR_DB < gap_7b, (gap, gap_7b)
+
+
+def test_linear_mel_plans(dev):
+    """The C plan that `linear_mel_plan` asks: the recipes' shapes and the
+    test shapes fit; a hop that is not a multiple of 8, more than 128 mels,
+    one mel, and spans beyond one block's shared memory (hops of 320 and 512
+    at n_fft 2048) do not; tests/test_torch_fused_mel.py's dispatch cases
+    name the last three kinds."""
+    plan = fused_mel._shape_plan
+    for shape in [(2048, 256, 128), (1024, 256, 64), (512, 256, 32), (400, 160, 40),
+                  (4096, 256, 128)]:
+        assert plan(*shape), shape
+    for shape in [(2048, 320, 128), (2048, 512, 128), (2048, 256, 160), (2048, 300, 128),
+                  (2048, 256, 1)]:
+        assert not plan(*shape), shape
+    assert fused_mel.linear_mel_plan(MelConfig(compute_dtype="bfloat16"))
+
+
+def test_recipe_front_end_launches(dev):
+    """A bf16 train step and an eval batch with the recipes' front end (the
+    2023 and 2024 MelConfig in bf16) launch mel_spectrogram.fused once each
+    and the GEMM path never; the fp32 front end takes the GEMM path."""
+    from desed_task_tpu_torch.models.crnn import CRNN, init_weights
+    from desed_task_tpu_torch.ops import _build
+    from desed_task_tpu_torch.training.mean_teacher import (
+        MeanTeacherConfig, SlotSpec, create_state, make_optimizer, make_predict_step,
+        make_train_step)
+
+    net = dict(nclass=3, n_RNN_cell=8, n_layers_RNN=1, kernel_size=[3, 3], padding=[1, 1],
+               stride=[1, 1], nb_filters=[8, 16], pooling=[[2, 2], [2, 2]], dropout=0.0,
+               n_mels=128, compute_dtype=torch.bfloat16)
+    cfg = MeanTeacherConfig(slots=(SlotSpec("strong", 2, "strong"), SlotSpec("weak", 2, "weak"),
+                                   SlotSpec("unlabeled", 2, "unlabeled")),
+                            mixup=None, consistency_start_slot=1, rampup_steps=10, decay_steps=1)
+    opt, sched = make_optimizer(1e-3, 10)
+    state = create_state(init_weights(CRNN(**net), torch.Generator().manual_seed(23)), cfg, opt)
+    r = np.random.default_rng(23)
+    n = 256 * 127  # 128 frames, 32 after the pools
+    batch = {name: {"audio": (r.standard_normal((2, n)) * 0.1).astype(np.float32),
+                    "labels": (r.random((2, 3, 32)) > 0.6).astype(np.float32)}
+             for name in ("strong", "weak", "unlabeled")}
+    mel = MelConfig(compute_dtype="bfloat16")
+    step = make_train_step(cfg, opt, sched, mel_cfg=mel)
+    _build.reset_launches()
+    metrics = step(state, batch, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mel_spectrogram.fused"] == 1
+    assert "mel_spectrogram.gemm" not in _build.LAUNCHES
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    audio = torch.as_tensor(batch["weak"]["audio"], device=dev)
+    for dtype, key in (("bfloat16", "mel_spectrogram.fused"), ("float32", "mel_spectrogram.gemm")):
+        _build.reset_launches()
+        strong, weak = make_predict_step(MelConfig(compute_dtype=dtype))(state.student, audio)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if k.startswith("mel_")} == {key: 1}
+        assert bool(torch.isfinite(strong).all() and torch.isfinite(weak).all())
 
 
 # bf16 modes of rows 1 and 2: (B, T, F, Ci, Co, pool)
@@ -888,9 +1018,15 @@ def _eval_world(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_eval_cache_loop_on_the_card(dev, dtype):
     """predict_dataset over a DeviceEvalCache on the card: 3/3/1 launches per
-    batch (the .bf16 modes in bf16), the same scores as the host-dataset
+    batch (the .bf16 modes in bf16) and one of the front end's (the plain
+    model's pass launches that one alone), the same scores as the host-dataset
     branch, fp32 within TOL of the plain model's; then SEDValidator (weak
-    and synth, student and teacher: 4 passes) and run_test (1 pass)."""
+    and synth, student and teacher: 4 passes) and run_test (1 pass).
+
+    The plain model is plain in the CRNN only: `mel_spectrogram` has no
+    route to the GEMM path on the card, so in bf16 both passes share the
+    front end's kernel. A test that needs a plain front end on the card calls
+    `gemm_mel_spectrogram` itself."""
     from desed_task_tpu_torch.data.device_cache import DeviceEvalCache
     from desed_task_tpu_torch.ops import _build
     from desed_task_tpu_torch.training.evaluate import SEDValidator, predict_dataset, run_test
@@ -900,7 +1036,9 @@ def test_eval_cache_loop_on_the_card(dev, dtype):
     cache.upload()
     assert cache.stores["audio"].is_cuda and cache.n_pad == 12
     suffix = "" if dtype == "float32" else ".bf16"
-    per_pass = {f"conv_bn_stats{suffix}": 9, f"glu_drop_pool{suffix}": 9, "bigru": 3}
+    # the front end: the linear-mel kernel in bf16, the GEMM path in fp32
+    front = {"mel_spectrogram.gemm" if dtype == "float32" else "mel_spectrogram.fused": 3}
+    per_pass = {f"conv_bn_stats{suffix}": 9, f"glu_drop_pool{suffix}": 9, "bigru": 3, **front}
     kw = dict(median_filter=[3, 5, 1, 7], as_arrays=True, thresholds=(0.5,))
     _build.reset_launches()
     c = predict_dataset(w["predict"], w["model"], cache, w["enc"], 4, **kw)
@@ -909,7 +1047,7 @@ def test_eval_cache_loop_on_the_card(dev, dtype):
     h = predict_dataset(w["predict"], w["model"], w["items"], w["enc"], 4, **kw)
     _build.reset_launches()
     p = predict_dataset(w["predict"], w["plain"], cache, w["enc"], 4, **kw)
-    assert _build.LAUNCHES == {}
+    assert _build.LAUNCHES == front
     for k in (0, 1):
         for name in c[k]:
             np.testing.assert_array_equal(c[k][name].values, h[k][name].values)
